@@ -1,0 +1,119 @@
+"""Kernel 1: reprojection residual + closed-form Jacobians (CUDA).
+
+Replaces the TPU kernel `evaluate_pallas` -> `_kernel` ->
+`proj_math.proj_forward` (`80bbf6f^:ba_tpu/ops/reprojection_pallas.py`,
+`pallas_call` at :83; math at `80bbf6f^:ba_tpu/ops/proj_math.py:95`), whose
+live counterpart in `ba_tpu` is the vmap(jacfwd) of
+`core/residuals/reprojection.py:101-170`.
+
+Design (csrc/reprojection.cu): one thread per projection row gathers its
+pose, landmark and camera entries from the index arrays (those tables are a
+few KB and stay in L2, so the Pallas version's 43-feature transposed copy
+is not built), evaluates the transfer chain and the FOV/linear projection
+with the exact `atan`, and writes r, j_meas, j_ref, j_lm and err_sq.  A
+compile-time flag drops the Jacobians for trial costs.  Float and double.
+
+Bound on an H100: it reads ~20 B of indices and z per row (the gathered
+tables stay in L2) and writes 116 B (f32) per row, ~1.3 MB at Nr = 9,696 —
+0.40 us at 3.35 TB/s; ~1,055 flops per row (with Jacobians) take 0.16 us
+at 67 TFLOP/s f32.  Launch overhead dominates; the design keeps it at one
+launch per evaluation.
+
+Scope: lm_size == 1, no calibration, rig intrinsics, linear and FOV
+models.  A rig with another model raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P] * 14 + [_I, _I, _I] + [_P] * 5 + [_P]
+
+
+def _fn(dtype):
+    lib = build.load("reprojection")
+    name = {torch.float32: "ba_reprojection_f32",
+            torch.float64: "ba_reprojection_f64"}[dtype]
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_models(model):
+    """Linear (0) and FOV (1) only.  The check reads the (static) model
+    table from the device once and marks the tensor as checked."""
+    if getattr(model, "_ba_models_checked", False):
+        return
+    bad = ((model != 0) & (model != 1)).any().item()
+    if bad:
+        raise NotImplementedError(
+            "reprojection kernel covers the linear and FOV camera models "
+            "(ROADMAP.md queue 2, K1 variants)")
+    model._ba_models_checked = True
+
+
+def reprojection(problem, with_jacobians: bool):
+    """(r, j_meas, j_ref, j_lm, err_sq) of every projection row, from the
+    CUDA kernel.  j_* are None without Jacobians."""
+    pr, poses, lms, rig = problem.proj, problem.poses, problem.lms, \
+        problem.rig
+    dtype = pr.z.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"reprojection kernel: unsupported dtype {dtype}")
+    floats = (pr.z, poses.q, poses.t, lms.x, rig.params, rig.tvs_q,
+              rig.tvs_t)
+    ints = (pr.pose, pr.lm, pr.cam, lms.ref_pose, lms.ref_cam, rig.model)
+    for t in floats + ints + (pr.valid,):
+        if not t.is_cuda or t.device != pr.z.device:
+            raise ValueError("reprojection kernel: every tensor must be "
+                             "on the problem's CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("reprojection kernel: tensors must be "
+                             "contiguous")
+    if any(t.dtype != dtype for t in floats):
+        raise TypeError("reprojection kernel: mixed float dtypes")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError("reprojection kernel: index tables must be int32")
+    if pr.valid.dtype != torch.bool:
+        raise TypeError("reprojection kernel: valid must be bool")
+    if rig.params.shape[1] < 5:
+        raise ValueError("reprojection kernel: params need >= 5 entries")
+    _check_models(rig.model)
+
+    Nr = pr.z.shape[0]
+    r = torch.empty((Nr, 2), dtype=dtype, device=pr.z.device)
+    err_sq = torch.empty((Nr,), dtype=dtype, device=pr.z.device)
+    if with_jacobians:
+        j_meas = torch.empty((Nr, 2, 6), dtype=dtype, device=pr.z.device)
+        j_ref = torch.empty_like(j_meas)
+        j_lm = torch.empty((Nr, 2, 1), dtype=dtype, device=pr.z.device)
+        jp = (j_meas.data_ptr(), j_ref.data_ptr(), j_lm.data_ptr())
+    else:
+        j_meas = j_ref = j_lm = None
+        jp = (None, None, None)
+    stream = torch.cuda.current_stream(pr.z.device).cuda_stream
+    rc = _fn(dtype)(
+        pr.z.data_ptr(), pr.pose.data_ptr(), pr.lm.data_ptr(),
+        pr.cam.data_ptr(), pr.valid.data_ptr(),
+        poses.q.data_ptr(), poses.t.data_ptr(), lms.x.data_ptr(),
+        lms.ref_pose.data_ptr(), lms.ref_cam.data_ptr(),
+        rig.params.data_ptr(), rig.model.data_ptr(), rig.tvs_q.data_ptr(),
+        rig.tvs_t.data_ptr(),
+        rig.params.shape[1], Nr, int(with_jacobians),
+        r.data_ptr(), *jp, err_sq.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"reprojection kernel launch failed: CUDA error "
+                           f"{rc}")
+    reprojection.launches += 1
+    return r, j_meas, j_ref, j_lm, err_sq
+
+
+reprojection.launches = 0

@@ -1,0 +1,422 @@
+"""Normal-equation assembly + Schur complement, banded path.
+
+Port of the banded path of `ba_tpu/solver/assemble.py`: per-residual block
+outer products are summed onto a (P*B, D, D) band grid of pose blocks
+(B = `config.band_width`), densified by a pad/reshape trick, and reduced by
+the Schur complement of the block-diagonal landmark Hessian.  The seven
+block sums of a build go through `seg_sum_blocks`: the deterministic CUDA
+kernel (kernels/csrc/segsum.cu) for tensors on the card, the plain version
+below on the CPU.
+
+The general path (`band_width == 0`, per-family `_pair_system` scatters)
+is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core import lie, robust
+from ..core.problem import BAConfig, Problem
+from ..core.residuals import prior, reprojection
+from ..kernels import segsum
+from ..utils.linalg import block_diag_inv
+
+
+class Contribution(NamedTuple):
+    """Additive partial sums of the normal equations."""
+
+    U: torch.Tensor          # (N, N)
+    rhs_p: torch.Tensor      # (N,)
+    W: torch.Tensor          # (N, L*lm)
+    V: torch.Tensor          # (L, lm, lm)
+    rhs_l: torch.Tensor      # (L*lm,)
+    cost: torch.Tensor       # scalar
+
+
+class Assembly(NamedTuple):
+    S: torch.Tensor          # (N, N) reduced camera system (masked diag set)
+    rhs_sc: torch.Tensor     # (N,) Schur-reduced rhs
+    U: torch.Tensor          # (N, N) pose-pose Hessian
+    rhs_p: torch.Tensor      # (N,)
+    W: torch.Tensor          # (N, L*lm)
+    V: torch.Tensor          # (L, lm, lm)
+    vinv: torch.Tensor       # (L, lm, lm)
+    rhs_l: torch.Tensor      # (L*lm,)
+    col_mask: torch.Tensor   # (N,) bool — optimized dims
+    cost: torch.Tensor       # scalar — total weighted squared error
+    proj_w: torch.Tensor     # (Nr,) effective projection weights
+
+
+def dims(problem: Problem, config: BAConfig):
+    D = config.pose_dim
+    K = config.calib_dim
+    P = problem.poses.q.shape[0]
+    L = problem.lms.x.shape[0]
+    lm = max(config.lm_size, 1)
+    return D, K, P, L, lm, P * D + K
+
+
+def col_mask(problem: Problem, config: BAConfig, width=None):
+    """Optimized-dim mask; `width` selects a compact pose width."""
+    D = width or config.pose_dim
+    m = (problem.poses.mask[:, :D]
+         & problem.poses.active[:, None]).reshape(-1)
+    if config.calib_dim:
+        cm = torch.ones((config.calib_dim,), dtype=torch.bool,
+                        device=m.device)
+        if (config.do_tvs and config.tvs_translation_staging
+                and not config.tvs_translation_active):
+            cm[config.tvs_offset: config.tvs_offset + 3] = False
+        m = torch.cat([m, cm])
+    return m
+
+
+def _scatter_blocks(dst, blocks, row0, col0):
+    """dst[(row0_n + i, col0_n + j)] += blocks[n, i, j] for unique block
+    positions.  Blocks that reach past `dst` are dropped, as JAX drops
+    out-of-range scatters (the W-block padding rows carry the landmark id
+    n_lms): they are zeroed and sent to block (0, 0)."""
+    br, bc = blocks.shape[-2], blocks.shape[-1]
+    row0 = row0.long()
+    col0 = col0.long()
+    keep = ((row0 >= 0) & (row0 + br <= dst.shape[0])
+            & (col0 >= 0) & (col0 + bc <= dst.shape[1]))
+    blocks = torch.where(keep[:, None, None], blocks, 0.0)
+    r_idx = torch.where(keep, row0, 0)[:, None, None] + torch.arange(
+        br, device=dst.device)[None, :, None]
+    c_idx = torch.where(keep, col0, 0)[:, None, None] + torch.arange(
+        bc, device=dst.device)[None, None, :]
+    return dst.index_put((r_idx, c_idx), blocks, accumulate=True)
+
+
+def seg_sum_blocks(vals, ids, nseg: int):
+    """Segment sum of (n, *block) values into (nseg, *block); out-of-range
+    ids (< 0 or >= nseg) drop their rows.  CUDA tensors go through the
+    hand-written kernel, CPU tensors through `_seg_sum_plain`."""
+    shape = vals.shape
+    v2 = vals.reshape(shape[0], -1).contiguous()
+    if v2.is_cuda:
+        out = segsum.seg_sum(v2, ids, nseg)
+    else:
+        out = _seg_sum_plain(v2, ids, nseg)
+    return out.reshape((nseg,) + shape[1:])
+
+
+def _seg_sum_plain(v2, ids, nseg: int):
+    """The plain version of kernel 2: the same stable-sort CSR, then a
+    padded gather of each segment's rows and a sum over them."""
+    perm, offsets = segsum.segment_csr(ids, nseg)
+    n, k = v2.shape
+    if n == 0 or nseg == 0:
+        return v2.new_zeros((nseg, k))
+    counts = offsets[1:] - offsets[:-1]
+    width = int(counts.max())                  # host read: plain path only
+    slot = offsets[:-1, None] + torch.arange(width, device=v2.device)
+    inside = slot < offsets[1:, None]
+    rows = perm[torch.clamp(slot, max=n - 1)]
+    return torch.where(inside[..., None], v2[rows], 0.0).sum(dim=1)
+
+
+def band_to_dense(band):
+    """(P, B, D, D) block band (band[p, d] = block (p, p+d)) -> dense
+    symmetric (P*D, P*D) with no scatter: each block-row's strip is padded
+    by D so it lands on the block diagonals after a flat reshape."""
+    P, B, D, _ = band.shape
+    Wd = P * D
+    pd = (torch.arange(P, device=band.device)[:, None]
+          + torch.arange(B, device=band.device)[None, :])
+    band = band * (pd < P)[:, :, None, None].to(band.dtype)
+
+    def strips(b):
+        Bb = b.shape[1]
+        R = b.permute(0, 2, 1, 3).reshape(P, D, Bb * D)
+        R = F.pad(R, (0, Wd - Bb * D))
+        R = F.pad(R.reshape(P, D * Wd), (0, D))
+        return R.reshape(-1)[: Wd * Wd].reshape(Wd, Wd)
+
+    upper = strips(band)
+    # diagonal blocks appear in both `upper` and its transpose
+    return upper + upper.T - strips(band[:, :1])
+
+
+def _empty_contrib(N, L, lm, dtype, device) -> Contribution:
+    kw = dict(dtype=dtype, device=device)
+    return Contribution(U=torch.zeros((N, N), **kw),
+                        rhs_p=torch.zeros((N,), **kw),
+                        W=torch.zeros((N, L * lm), **kw),
+                        V=torch.zeros((L, lm, lm), **kw),
+                        rhs_l=torch.zeros((L * lm,), **kw),
+                        cost=torch.zeros((), **kw))
+
+
+def _add(a: Contribution, b: Contribution) -> Contribution:
+    return Contribution(*(x + y for x, y in zip(a, b)))
+
+
+class ProjBlocks(NamedTuple):
+    """Weighted, column-masked per-residual projection blocks."""
+
+    j_m: torch.Tensor        # (Nr, 2, 6)
+    j_r: torch.Tensor        # (Nr, 2, 6)
+    j_l: torch.Tensor        # (Nr, 2, lm)
+    r: torch.Tensor          # (Nr, 2) weighted residuals
+    pose: torch.Tensor       # (Nr,) int64
+    ref: torch.Tensor        # (Nr,) int64
+    lm: torch.Tensor         # (Nr,) int64
+    w: torch.Tensor          # (Nr,) effective weights
+    cost: torch.Tensor       # scalar
+
+
+def _outer(a, b):
+    return torch.einsum("nik,nil->nkl", a, b)
+
+
+def _jtr(j, r):
+    return torch.einsum("nik,ni->nk", j, r)
+
+
+def proj_blocks(problem: Problem, config: BAConfig, colm6) -> ProjBlocks:
+    """Evaluate + weight + column-mask the projection family."""
+    D_full, K, P, L, lm, _ = dims(problem, config)
+    pe = reprojection.evaluate(problem, config, with_jacobians=True)
+    pr = problem.proj
+    base_w = torch.where(pr.valid, pr.weight, 0.0)
+    err_sq_w = base_w * pe.err_sq
+    if config.use_robust_norm_for_proj_residuals:
+        w_rob = robust.huber_weights(err_sq_w, pr.valid, pr.cond,
+                                     config.outlier_threshold)
+    else:
+        w_rob = torch.ones_like(base_w)
+    w = base_w * w_rob
+    sw = torch.sqrt(w)[:, None, None]
+
+    lm_ok = problem.lms.active[pr.lm]
+    if config.lm_size == 0:
+        j_lm = pr.z.new_zeros((pr.z.shape[0], 2, 1))
+    else:
+        j_lm = torch.where(lm_ok[:, None, None], pe.j_lm, 0.0)
+
+    pose_m = pr.pose.long()
+    ref_pose = problem.lms.ref_pose[pr.lm].long()
+    cm_p = colm6[: P * 6].reshape(P, 6)
+    return ProjBlocks(
+        j_m=pe.j_meas * sw * cm_p[pose_m][:, None, :],
+        j_r=pe.j_ref * sw * cm_p[ref_pose][:, None, :],
+        j_l=j_lm * sw,
+        r=pe.r * sw[:, :, 0],
+        pose=pose_m, ref=ref_pose, lm=pr.lm.long(),
+        w=w, cost=torch.sum(w * pe.err_sq))
+
+
+def finish(contrib: Contribution, cmask, proj_w) -> Assembly:
+    """Schur-complement the landmark blocks and apply the dim mask."""
+    N = contrib.U.shape[0]
+    L, lm, _ = contrib.V.shape
+    vinv = block_diag_inv(contrib.V)
+    W3 = contrib.W.reshape(N, L, lm)
+    WVi = torch.einsum("nlk,lkj->nlj", W3, vinv).reshape(N, L * lm)
+    S = contrib.U - WVi @ contrib.W.T
+    rhs_sc = contrib.rhs_p - WVi @ contrib.rhs_l
+
+    S = S + torch.diag(torch.where(cmask, 0.0, 1e6).to(S.dtype))
+    rhs_sc = torch.where(cmask, rhs_sc, 0.0)
+    return Assembly(S=S, rhs_sc=rhs_sc, U=contrib.U, rhs_p=contrib.rhs_p,
+                    W=contrib.W, V=contrib.V, vinv=vinv,
+                    rhs_l=contrib.rhs_l, col_mask=cmask, cost=contrib.cost,
+                    proj_w=proj_w)
+
+
+# ---------------------------------------------------------------------------
+# Marginalization prior
+# ---------------------------------------------------------------------------
+
+
+def pose_tangent(poses, marg, pose_dim: int):
+    """delta = x (-) lin, right tangent, flattened (P*pose_dim,)."""
+    dt = poses.t - marg.lin_t
+    dw = lie.so3_log(lie.quat_mul(lie.quat_conj(marg.lin_q), poses.q))
+    parts = [dt, dw]
+    if pose_dim >= 9:
+        parts.append(poses.v - marg.lin_v)
+    if pose_dim >= 15:
+        parts.append(poses.b - marg.lin_b)
+    return torch.cat(parts, dim=-1).reshape(-1)
+
+
+def marg_contribution(problem: Problem, config: BAConfig, colm):
+    """Contribution of the marginalization prior (zero when inactive):
+    U += H, rhs += H delta + g, cost += d^T H d + 2 g^T d."""
+    D, K, P, L, lm, N = dims(problem, config)
+    out = _empty_contrib(N, L, lm, problem.poses.t.dtype,
+                         problem.poses.t.device)
+    m = problem.marg
+    n = P * D
+    if m.H.shape[0] != n:       # prior disabled at build time
+        return out
+    on = m.active.to(m.H.dtype)
+    delta = pose_tangent(problem.poses, m, D)
+    H = m.H * on
+    grad = H @ delta + m.g * on
+    U = out.U.clone()
+    U[:n, :n] += H * colm[:n, None] * colm[None, :n]
+    rhs = out.rhs_p.clone()
+    rhs[:n] += grad * colm[:n]
+    cost = delta @ H @ delta + 2.0 * (m.g * on) @ delta
+    return out._replace(U=U, rhs_p=rhs, cost=cost)
+
+
+def marg_cost(problem: Problem, config: BAConfig):
+    m = problem.marg
+    P = problem.poses.q.shape[0]
+    if m.H.shape[0] != P * config.pose_dim:
+        return problem.poses.t.new_zeros(())
+    on = m.active.to(m.H.dtype)
+    delta = pose_tangent(problem.poses, m, config.pose_dim)
+    return on * (delta @ m.H @ delta + 2.0 * m.g @ delta)
+
+
+def band_width_of(problem: Problem) -> int:
+    """Host-side: block half-bandwidth + 1 of the Schur-reduced pose
+    Hessian — the max over two-pose residual spans and landmark
+    co-observation spans."""
+    idx = problem.pidx
+    b = 0
+    for a_t, b_t in ((idx.pair_a, idx.pair_b), (idx.bpair_a, idx.bpair_b),
+                     (idx.ipair_a, idx.ipair_b)):
+        d = b_t.cpu().numpy().astype(np.int64) - a_t.cpu().numpy()
+        if d.size:
+            b = max(b, int(d.max()))
+    wp = idx.wb_pose.cpu().numpy().astype(np.int64)
+    wl = idx.wb_lm.cpu().numpy().astype(np.int64)
+    if wp.size:
+        n_lm = int(wl.max()) + 1
+        mx = np.full(n_lm, -1, np.int64)
+        mn = np.full(n_lm, np.iinfo(np.int64).max, np.int64)
+        np.maximum.at(mx, wl, wp)
+        np.minimum.at(mn, wl, wp)
+        span = mx - mn
+        b = max(b, int(span[mx >= 0].max(initial=0)))
+    return b + 1
+
+
+def _band_pair_blocks(j1, j2, idx1, idx2, B):
+    """Cross-term blocks + band-grid ids for one two-pose family: the (a, b)
+    block oriented a->b at segment a*B + (b-a), plus its transpose masked
+    to the same-pose case."""
+    a = torch.minimum(idx1, idx2)
+    d = (idx1 - idx2).abs()
+    blk = _outer(j1, j2)
+    blk = torch.where((idx1 > idx2)[:, None, None], blk.transpose(1, 2), blk)
+    blk_t = blk.transpose(1, 2) * (d == 0)[:, None, None].to(blk.dtype)
+    ids = a * B + torch.clamp(d, max=B - 1)
+    return torch.cat([blk, blk_t], dim=0), torch.cat([ids, ids])
+
+
+def assemble(problem: Problem, config: BAConfig, imu_eval=None) -> Assembly:
+    """Build the Schur-reduced normal equations at the current state on
+    the banded grid (`config.band_width`, no calibration block)."""
+    D, K, P, L, lm, N = dims(problem, config)
+    if not (config.band_width and config.band_width <= P and K == 0):
+        raise NotImplementedError(
+            "general assembly path (band_width == 0 or a calibration "
+            "block) is not ported yet (ROADMAP.md queue 1)")
+    cmask = col_mask(problem, config)
+    dtype = problem.poses.t.dtype
+    colm = cmask.to(dtype)
+    colm6 = col_mask(problem, config, 6).to(dtype)
+    return _assemble_banded(problem, config, imu_eval, cmask, colm, colm6)
+
+
+def _assemble_banded(problem: Problem, config: BAConfig, imu_eval, cmask,
+                     colm, colm6) -> Assembly:
+    """Banded-grid assembly: seven segment sums, one densification."""
+    D, K, P, L, lm, N = dims(problem, config)
+    pb = proj_blocks(problem, config, colm6)
+    cm_p = colm6[: P * 6].reshape(P, 6)
+
+    ue = prior.evaluate_unary(problem, config, with_jacobians=True)
+    u_pose = problem.unary.pose.long()
+    ju = ue.j1 * cm_p[u_pose][:, None, :]
+    be = prior.evaluate_binary(problem, config, with_jacobians=True)
+    b1 = problem.binary.pose1.long()
+    b2 = problem.binary.pose2.long()
+    jb1 = be.j1 * cm_p[b1][:, None, :]
+    jb2 = be.j2 * cm_p[b2][:, None, :]
+
+    B = config.band_width
+
+    self6 = torch.cat([_outer(pb.j_m, pb.j_m), _outer(pb.j_r, pb.j_r),
+                       _outer(ju, ju), _outer(jb1, jb1), _outer(jb2, jb2)])
+    self_ids = torch.cat([pb.pose, pb.ref, u_pose, b1, b2]) * B
+    cross_p, ids_p = _band_pair_blocks(pb.j_m, pb.j_r, pb.pose, pb.ref, B)
+    cross_b, ids_b = _band_pair_blocks(jb1, jb2, b1, b2, B)
+    grid6 = seg_sum_blocks(torch.cat([self6, cross_p, cross_b]),
+                           torch.cat([self_ids, ids_p, ids_b]), P * B)
+    grid = F.pad(grid6, (0, D - 6, 0, D - 6))
+
+    rhs6 = seg_sum_blocks(
+        torch.cat([_jtr(pb.j_m, pb.r), _jtr(pb.j_r, pb.r), _jtr(ju, ue.r),
+                   _jtr(jb1, be.r), _jtr(jb2, be.r)]),
+        torch.cat([pb.pose, pb.ref, u_pose, b1, b2]), P)
+    rhs = F.pad(rhs6, (0, D - 6))
+    cost = pb.cost + torch.sum(ue.err_sq) + torch.sum(be.err_sq)
+
+    if imu_eval is not None:
+        i1 = problem.imu.pose1.long()
+        i2 = problem.imu.pose2.long()
+        cm_pD = colm[: P * D].reshape(P, D)
+        ji1 = imu_eval.j1 * cm_pD[i1][:, None, :]
+        ji2 = imu_eval.j2 * cm_pD[i2][:, None, :]
+        selfD = torch.cat([_outer(ji1, ji1), _outer(ji2, ji2)])
+        crossD, idsD = _band_pair_blocks(ji1, ji2, i1, i2, B)
+        grid = grid + seg_sum_blocks(
+            torch.cat([selfD, crossD]),
+            torch.cat([torch.cat([i1, i2]) * B, idsD]), P * B)
+        rhs = rhs + seg_sum_blocks(
+            torch.cat([_jtr(ji1, imu_eval.r), _jtr(ji2, imu_eval.r)]),
+            torch.cat([i1, i2]), P)
+        cost = cost + torch.sum(imu_eval.err_sq)
+
+    U = band_to_dense(grid.reshape(P, B, D, D))
+    rhs_p = rhs.reshape(-1)
+
+    # landmark system + dense W (single block scatter)
+    j_lm_w = pb.j_l
+    V = seg_sum_blocks(_outer(j_lm_w, j_lm_w), pb.lm, L)
+    rhs_l = seg_sum_blocks(torch.einsum("nil,ni->nl", j_lm_w, pb.r),
+                           pb.lm, L).reshape(-1)
+    wb_blocks = torch.cat([_outer(pb.j_m, j_lm_w), _outer(pb.j_r, j_lm_w)])
+    wb_ids = torch.cat([problem.proj.wb_meas, problem.proj.wb_ref])
+    idx = problem.pidx
+    Wb = seg_sum_blocks(wb_blocks, wb_ids, idx.wb_pose.shape[0])
+    W = torch.zeros((N, L * lm), dtype=U.dtype, device=U.device)
+    W = _scatter_blocks(W, Wb, idx.wb_pose.long() * D, idx.wb_lm.long() * lm)
+
+    contrib = Contribution(U=U, rhs_p=rhs_p, W=W, V=V, rhs_l=rhs_l,
+                           cost=cost)
+    contrib = _add(contrib, marg_contribution(problem, config, colm))
+    return finish(contrib, cmask, pb.w)
+
+
+def evaluate_cost(problem: Problem, config: BAConfig, imu_eval=None,
+                  proj_w=None):
+    """Total weighted squared error without Jacobians; `proj_w` carries
+    the robust weights frozen at build time so a trial compares like
+    against like."""
+    pe = reprojection.evaluate(problem, config, with_jacobians=False)
+    pr = problem.proj
+    if proj_w is None:
+        proj_w = torch.where(pr.valid, pr.weight, 0.0)
+    cost = torch.sum(proj_w * pe.err_sq)
+    ue = prior.evaluate_unary(problem, config, with_jacobians=False)
+    cost = cost + torch.sum(ue.err_sq)
+    be = prior.evaluate_binary(problem, config, with_jacobians=False)
+    cost = cost + torch.sum(be.err_sq)
+    if imu_eval is not None:
+        cost = cost + torch.sum(imu_eval.err_sq)
+    return cost + marg_cost(problem, config)
