@@ -6,8 +6,9 @@ adds kernels/ with the hand-written CUDA kernels of the main path:
 
   kernels/csrc/reprojection.cu  reprojection residual + closed-form
                                 Jacobians (the retired Pallas kernel)
-  kernels/csrc/segsum.cu        deterministic segmented block sum (the
-                                band-grid normal-equation accumulation)
+  kernels/csrc/segsum.cu        grouped deterministic segmented block sum
+                                (the seven normal-equation sums of a
+                                banded build, in one launch)
 
 Every kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; a CUDA tensor goes through the kernel or

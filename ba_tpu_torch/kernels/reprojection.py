@@ -6,18 +6,23 @@ Replaces the TPU kernel `evaluate_pallas` -> `_kernel` ->
 live counterpart in `ba_tpu` is the vmap(jacfwd) of
 `core/residuals/reprojection.py:101-170`.
 
-Design (csrc/reprojection.cu): one thread per projection row gathers its
-pose, landmark and camera entries from the index arrays (those tables are a
-few KB and stay in L2, so the Pallas version's 43-feature transposed copy
-is not built), evaluates the transfer chain and the FOV/linear projection
-with the exact `atan`, and writes r, j_meas, j_ref, j_lm and err_sq.  A
-compile-time flag drops the Jacobians for trial costs.  Float and double.
+Design (csrc/reprojection.cu): a block takes 32 rows, one per lane, and
+gathers their pose, landmark and camera entries from the index arrays
+(those tables are a few KB and stay in L2, so the Pallas version's
+43-feature transposed copy is not built).  With Jacobians, four warps
+split each row's work by role (residual and inverse depth, translations,
+meas rotation, ref rotation), each recomputing the shared transfer chain
+and the FOV/linear projection with the exact `atan`; that shortens the
+longest thread's chain and fills the card (303 blocks at the flagship).
+The block's r, j_meas, j_ref, j_lm and err_sq are staged in shared memory
+and written as contiguous 16-byte stores.  A compile-time flag drops the
+Jacobians (and three of the warps) for trial costs.  Float and double.
 
 Bound on an H100: it reads ~20 B of indices and z per row (the gathered
 tables stay in L2) and writes 116 B (f32) per row, ~1.3 MB at Nr = 9,696 —
 0.40 us at 3.35 TB/s; ~1,055 flops per row (with Jacobians) take 0.16 us
-at 67 TFLOP/s f32.  Launch overhead dominates; the design keeps it at one
-launch per evaluation.
+at 67 TFLOP/s f32.  Launch latency and the dependent chain of a row
+dominate; the design keeps one launch per evaluation.
 
 Scope: lm_size == 1, no calibration, rig intrinsics, linear and FOV
 models.  A rig with another model raises.
@@ -33,7 +38,7 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 14 + [_I, _I, _I] + [_P] * 5 + [_P]
+_ARGTYPES = [_P] * 14 + [_I] * 4 + [_P] * 5 + [_P]
 
 
 def _fn(dtype):
@@ -99,6 +104,10 @@ def reprojection(problem, with_jacobians: bool):
     else:
         j_meas = j_ref = j_lm = None
         jp = (None, None, None)
+    for t in (r, err_sq) + ((j_meas, j_ref, j_lm) if with_jacobians else ()):
+        if t.data_ptr() % 16:
+            raise ValueError("reprojection kernel: outputs must be 16-byte "
+                             "aligned")
     stream = torch.cuda.current_stream(pr.z.device).cuda_stream
     rc = _fn(dtype)(
         pr.z.data_ptr(), pr.pose.data_ptr(), pr.lm.data_ptr(),
@@ -107,7 +116,7 @@ def reprojection(problem, with_jacobians: bool):
         lms.ref_pose.data_ptr(), lms.ref_cam.data_ptr(),
         rig.params.data_ptr(), rig.model.data_ptr(), rig.tvs_q.data_ptr(),
         rig.tvs_t.data_ptr(),
-        rig.params.shape[1], Nr, int(with_jacobians),
+        rig.params.shape[1], rig.params.shape[0], Nr, int(with_jacobians),
         r.data_ptr(), *jp, err_sq.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"reprojection kernel launch failed: CUDA error "

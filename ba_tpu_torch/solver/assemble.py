@@ -4,9 +4,10 @@ Port of the banded path of `ba_tpu/solver/assemble.py`: per-residual block
 outer products are summed onto a (P*B, D, D) band grid of pose blocks
 (B = `config.band_width`), densified by a pad/reshape trick, and reduced by
 the Schur complement of the block-diagonal landmark Hessian.  The seven
-block sums of a build go through `seg_sum_blocks`: the deterministic CUDA
-kernel (kernels/csrc/segsum.cu) for tensors on the card, the plain version
-below on the CPU.
+block sums of a build go through `seg_sum_groups` on the segment plans of
+an `AssemblyPlan`, built once per solve from the problem's static index
+tables: one launch of the grouped CUDA kernel (kernels/csrc/segsum.cu) for
+tensors on the card, the plain walk of the same plans on the CPU.
 
 The general path (`band_width == 0`, per-family `_pair_system` scatters)
 is not ported yet and raises.
@@ -97,7 +98,8 @@ def _scatter_blocks(dst, blocks, row0, col0):
 def seg_sum_blocks(vals, ids, nseg: int):
     """Segment sum of (n, *block) values into (nseg, *block); out-of-range
     ids (< 0 or >= nseg) drop their rows.  CUDA tensors go through the
-    hand-written kernel, CPU tensors through `_seg_sum_plain`."""
+    hand-written kernel (a one-group plan built per call), CPU tensors
+    through `_seg_sum_plain`."""
     shape = vals.shape
     v2 = vals.reshape(shape[0], -1).contiguous()
     if v2.is_cuda:
@@ -105,6 +107,19 @@ def seg_sum_blocks(vals, ids, nseg: int):
     else:
         out = _seg_sum_plain(v2, ids, nseg)
     return out.reshape((nseg,) + shape[1:])
+
+
+def seg_sum_groups(groups):
+    """[(vals (n, *block), SegPlan)] -> [(nseg, *block)]: CUDA tensors in
+    one launch of the grouped kernel, CPU tensors through the plain walk
+    of the same plans."""
+    flat = [(v.reshape(v.shape[0], -1).contiguous(), p) for v, p in groups]
+    if flat[0][0].is_cuda:
+        outs = segsum.seg_sum_grouped(flat)
+    else:
+        outs = [segsum.plan_walk(v, p) for v, p in flat]
+    return [o.reshape((p.nseg,) + v.shape[1:])
+            for o, (v, p) in zip(outs, groups)]
 
 
 def _seg_sum_plain(v2, ids, nseg: int):
@@ -304,37 +319,106 @@ def band_width_of(problem: Problem) -> int:
     return b + 1
 
 
-def _band_pair_blocks(j1, j2, idx1, idx2, B):
-    """Cross-term blocks + band-grid ids for one two-pose family: the (a, b)
-    block oriented a->b at segment a*B + (b-a), plus its transpose masked
-    to the same-pose case."""
-    a = torch.minimum(idx1, idx2)
-    d = (idx1 - idx2).abs()
+def _band_pair_blocks(j1, j2, idx1, idx2):
+    """Cross-term blocks of one two-pose family: the (a, b) block oriented
+    a->b, plus its transpose masked to the same-pose case (band-grid ids
+    in `_band_pair_ids`)."""
     blk = _outer(j1, j2)
     blk = torch.where((idx1 > idx2)[:, None, None], blk.transpose(1, 2), blk)
-    blk_t = blk.transpose(1, 2) * (d == 0)[:, None, None].to(blk.dtype)
-    ids = a * B + torch.clamp(d, max=B - 1)
-    return torch.cat([blk, blk_t], dim=0), torch.cat([ids, ids])
+    blk_t = blk.transpose(1, 2) * (idx1 == idx2)[:, None, None].to(blk.dtype)
+    return torch.cat([blk, blk_t], dim=0)
 
 
-def assemble(problem: Problem, config: BAConfig, imu_eval=None) -> Assembly:
-    """Build the Schur-reduced normal equations at the current state on
-    the banded grid (`config.band_width`, no calibration block)."""
+def _band_pair_ids(idx1, idx2, B):
+    """Band-grid ids of `_band_pair_blocks`' rows: segment a*B + (b-a)."""
+    d = (idx1 - idx2).abs()
+    ids = torch.minimum(idx1, idx2) * B + torch.clamp(d, max=B - 1)
+    return torch.cat([ids, ids])
+
+
+class AssemblyPlan(NamedTuple):
+    """The segment plans of the seven sums of a banded build, built once
+    per solve (`assembly_plan`): every id they are made from is static
+    across the iterations of a solve."""
+
+    band_width: int
+    grid: segsum.SegPlan       # (P*B) band grid of 6x6 pose blocks
+    rhs: segsum.SegPlan        # (P) pose rhs
+    imu_grid: segsum.SegPlan   # (P*B) band grid of DxD IMU blocks
+    imu_rhs: segsum.SegPlan    # (P) IMU rhs
+    V: segsum.SegPlan          # (L) landmark blocks
+    rhs_l: segsum.SegPlan      # (L) landmark rhs: V's ids, its own counters
+    wb: segsum.SegPlan         # (Nw) W blocks
+
+
+def sum_ids(problem: Problem, config: BAConfig):
+    """{AssemblyPlan field: (ids, nseg)} of the seven sums of a banded
+    build; the rows follow the order `_assemble_banded` stacks values in."""
+    P, L = problem.poses.q.shape[0], problem.lms.x.shape[0]
+    B = config.band_width
+    pose = problem.proj.pose.long()
+    ref = problem.lms.ref_pose[problem.proj.lm].long()
+    b1 = problem.binary.pose1.long()
+    b2 = problem.binary.pose2.long()
+    i1 = problem.imu.pose1.long()
+    i2 = problem.imu.pose2.long()
+    lm = problem.proj.lm.long()
+    pose_rows = torch.cat([pose, ref, problem.unary.pose.long(), b1, b2])
+    imu_rows = torch.cat([i1, i2])
+    return dict(
+        grid=(torch.cat([pose_rows * B, _band_pair_ids(pose, ref, B),
+                         _band_pair_ids(b1, b2, B)]), P * B),
+        rhs=(pose_rows, P),
+        imu_grid=(torch.cat([imu_rows * B, _band_pair_ids(i1, i2, B)]),
+                  P * B),
+        imu_rhs=(imu_rows, P),
+        V=(lm, L),
+        rhs_l=(lm, L),
+        wb=(torch.cat([problem.proj.wb_meas, problem.proj.wb_ref]),
+            problem.pidx.wb_pose.shape[0]))
+
+
+def _check_banded(problem: Problem, config: BAConfig):
     D, K, P, L, lm, N = dims(problem, config)
     if not (config.band_width and config.band_width <= P and K == 0):
         raise NotImplementedError(
             "general assembly path (band_width == 0 or a calibration "
             "block) is not ported yet (ROADMAP.md queue 1)")
+
+
+def assembly_plan(problem: Problem, config: BAConfig) -> AssemblyPlan:
+    """The segment plans of a banded build of `problem`, on its device,
+    with no host read.  Build it once per solve and pass it to every
+    `assemble` of that solve."""
+    _check_banded(problem, config)
+    return AssemblyPlan(config.band_width, **{
+        name: segsum.build_plan(ids, nseg)
+        for name, (ids, nseg) in sum_ids(problem, config).items()})
+
+
+def assemble(problem: Problem, config: BAConfig, imu_eval=None,
+             plan: AssemblyPlan | None = None) -> Assembly:
+    """Build the Schur-reduced normal equations at the current state on
+    the banded grid (`config.band_width`, no calibration block).  `plan`
+    is the solve's `assembly_plan`; without one, the build makes its own."""
+    _check_banded(problem, config)
+    if plan is None:
+        plan = assembly_plan(problem, config)
+    elif plan.band_width != config.band_width:
+        raise ValueError(f"assembly plan for band width {plan.band_width}, "
+                         f"config has {config.band_width}")
     cmask = col_mask(problem, config)
     dtype = problem.poses.t.dtype
     colm = cmask.to(dtype)
     colm6 = col_mask(problem, config, 6).to(dtype)
-    return _assemble_banded(problem, config, imu_eval, cmask, colm, colm6)
+    return _assemble_banded(problem, config, imu_eval, cmask, colm, colm6,
+                            plan)
 
 
 def _assemble_banded(problem: Problem, config: BAConfig, imu_eval, cmask,
-                     colm, colm6) -> Assembly:
-    """Banded-grid assembly: seven segment sums, one densification."""
+                     colm, colm6, plan: AssemblyPlan) -> Assembly:
+    """Banded-grid assembly: the values of the seven segment sums, one
+    grouped sum over `plan`, then one densification."""
     D, K, P, L, lm, N = dims(problem, config)
     pb = proj_blocks(problem, config, colm6)
     cm_p = colm6[: P * 6].reshape(P, 6)
@@ -348,23 +432,15 @@ def _assemble_banded(problem: Problem, config: BAConfig, imu_eval, cmask,
     jb1 = be.j1 * cm_p[b1][:, None, :]
     jb2 = be.j2 * cm_p[b2][:, None, :]
 
-    B = config.band_width
-
-    self6 = torch.cat([_outer(pb.j_m, pb.j_m), _outer(pb.j_r, pb.j_r),
-                       _outer(ju, ju), _outer(jb1, jb1), _outer(jb2, jb2)])
-    self_ids = torch.cat([pb.pose, pb.ref, u_pose, b1, b2]) * B
-    cross_p, ids_p = _band_pair_blocks(pb.j_m, pb.j_r, pb.pose, pb.ref, B)
-    cross_b, ids_b = _band_pair_blocks(jb1, jb2, b1, b2, B)
-    grid6 = seg_sum_blocks(torch.cat([self6, cross_p, cross_b]),
-                           torch.cat([self_ids, ids_p, ids_b]), P * B)
-    grid = F.pad(grid6, (0, D - 6, 0, D - 6))
-
-    rhs6 = seg_sum_blocks(
-        torch.cat([_jtr(pb.j_m, pb.r), _jtr(pb.j_r, pb.r), _jtr(ju, ue.r),
-                   _jtr(jb1, be.r), _jtr(jb2, be.r)]),
-        torch.cat([pb.pose, pb.ref, u_pose, b1, b2]), P)
-    rhs = F.pad(rhs6, (0, D - 6))
+    grid_vals = torch.cat([
+        _outer(pb.j_m, pb.j_m), _outer(pb.j_r, pb.j_r), _outer(ju, ju),
+        _outer(jb1, jb1), _outer(jb2, jb2),
+        _band_pair_blocks(pb.j_m, pb.j_r, pb.pose, pb.ref),
+        _band_pair_blocks(jb1, jb2, b1, b2)])
+    rhs_vals = torch.cat([_jtr(pb.j_m, pb.r), _jtr(pb.j_r, pb.r),
+                          _jtr(ju, ue.r), _jtr(jb1, be.r), _jtr(jb2, be.r)])
     cost = pb.cost + torch.sum(ue.err_sq) + torch.sum(be.err_sq)
+    groups = [(grid_vals, plan.grid), (rhs_vals, plan.rhs)]
 
     if imu_eval is not None:
         i1 = problem.imu.pose1.long()
@@ -372,30 +448,36 @@ def _assemble_banded(problem: Problem, config: BAConfig, imu_eval, cmask,
         cm_pD = colm[: P * D].reshape(P, D)
         ji1 = imu_eval.j1 * cm_pD[i1][:, None, :]
         ji2 = imu_eval.j2 * cm_pD[i2][:, None, :]
-        selfD = torch.cat([_outer(ji1, ji1), _outer(ji2, ji2)])
-        crossD, idsD = _band_pair_blocks(ji1, ji2, i1, i2, B)
-        grid = grid + seg_sum_blocks(
-            torch.cat([selfD, crossD]),
-            torch.cat([torch.cat([i1, i2]) * B, idsD]), P * B)
-        rhs = rhs + seg_sum_blocks(
-            torch.cat([_jtr(ji1, imu_eval.r), _jtr(ji2, imu_eval.r)]),
-            torch.cat([i1, i2]), P)
+        groups += [
+            (torch.cat([_outer(ji1, ji1), _outer(ji2, ji2),
+                        _band_pair_blocks(ji1, ji2, i1, i2)]),
+             plan.imu_grid),
+            (torch.cat([_jtr(ji1, imu_eval.r), _jtr(ji2, imu_eval.r)]),
+             plan.imu_rhs)]
         cost = cost + torch.sum(imu_eval.err_sq)
 
-    U = band_to_dense(grid.reshape(P, B, D, D))
+    j_lm_w = pb.j_l
+    groups += [
+        (_outer(j_lm_w, j_lm_w), plan.V),
+        (torch.einsum("nil,ni->nl", j_lm_w, pb.r), plan.rhs_l),
+        (torch.cat([_outer(pb.j_m, j_lm_w), _outer(pb.j_r, j_lm_w)]),
+         plan.wb)]
+    sums = seg_sum_groups(groups)
+
+    grid = F.pad(sums[0], (0, D - 6, 0, D - 6))
+    rhs = F.pad(sums[1], (0, D - 6))
+    if imu_eval is not None:
+        grid = grid + sums[2]
+        rhs = rhs + sums[3]
+    V, rhs_l, Wb = sums[-3:]
+    U = band_to_dense(grid.reshape(P, config.band_width, D, D))
     rhs_p = rhs.reshape(-1)
 
-    # landmark system + dense W (single block scatter)
-    j_lm_w = pb.j_l
-    V = seg_sum_blocks(_outer(j_lm_w, j_lm_w), pb.lm, L)
-    rhs_l = seg_sum_blocks(torch.einsum("nil,ni->nl", j_lm_w, pb.r),
-                           pb.lm, L).reshape(-1)
-    wb_blocks = torch.cat([_outer(pb.j_m, j_lm_w), _outer(pb.j_r, j_lm_w)])
-    wb_ids = torch.cat([problem.proj.wb_meas, problem.proj.wb_ref])
+    # dense W (single block scatter)
     idx = problem.pidx
-    Wb = seg_sum_blocks(wb_blocks, wb_ids, idx.wb_pose.shape[0])
     W = torch.zeros((N, L * lm), dtype=U.dtype, device=U.device)
     W = _scatter_blocks(W, Wb, idx.wb_pose.long() * D, idx.wb_lm.long() * lm)
+    rhs_l = rhs_l.reshape(-1)
 
     contrib = Contribution(U=U, rhs_p=rhs_p, W=W, V=V, rhs_l=rhs_l,
                            cost=cost)

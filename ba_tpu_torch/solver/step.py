@@ -10,7 +10,9 @@ solve's status) read one scalar from the device each, counted by
 The dogleg boundary blend uses the textbook root
 beta = (-b + sqrt(b^2 - 4 a c)) / (2 a), as the JAX package does.
 
-Ported: the dense-Cholesky reduced solve on the banded assembly.  The
+Ported: the dense-Cholesky reduced solve on the banded assembly.  A solve
+builds the segment plans of its builds once, before the loop
+(`assemble.assembly_plan`), and hands them to every iteration.  The
 CG/banded solvers, the verbose and staged-Tvs host loop of `solve` and the
 calibration epilogue raise NotImplementedError.
 """
@@ -29,7 +31,8 @@ from ..core.problem import (BAConfig, Problem, finalize_landmarks,
 from ..core.residuals import imu as imu_mod
 from ..utils.sync import item
 from ..utils.tree import tree_where
-from .assemble import Assembly, assemble, band_width_of, evaluate_cost
+from .assemble import (Assembly, AssemblyPlan, assemble, assembly_plan,
+                       band_width_of, evaluate_cost)
 from .linear import GnStep, solve_reduced
 
 
@@ -118,8 +121,8 @@ def _commit_imu_cov(problem: Problem, config: BAConfig, imu_c9) -> Problem:
     return dataclasses.replace(problem, imu=imu)
 
 
-def _build_and_solve(problem: Problem, config: BAConfig,
-                     use_imu: bool) -> BuildOut:
+def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
+                     plan: Optional[AssemblyPlan] = None) -> BuildOut:
     """Dense-Cholesky reduced solve of the banded assembly."""
     if (config.use_cg_solver or config.use_banded_solver
             or config.schur_on_band):
@@ -127,7 +130,7 @@ def _build_and_solve(problem: Problem, config: BAConfig,
             "CG and banded reduced solvers are not ported yet "
             "(ROADMAP.md queue 2, K6-K10)")
     imu_eval = _imu_eval(problem, config, use_imu, True)
-    asm = assemble(problem, config, imu_eval=imu_eval)
+    asm = assemble(problem, config, imu_eval=imu_eval, plan=plan)
     return BuildOut(step=solve_reduced(asm), cost=asm.cost,
                     proj_w=asm.proj_w, rhs_p=asm.rhs_p, rhs_l=asm.rhs_l,
                     cauchy_alpha=_cauchy_factor(asm),
@@ -175,10 +178,12 @@ def apply_robust_reweighting(problem: Problem, config: BAConfig,
 
 def gn_iteration(problem: Problem, config: BAConfig, use_imu: bool,
                  gn_damping: float = 1.0,
-                 error_increase_allowed: bool = False) -> IterResult:
-    """One damped Gauss-Newton outer iteration with rollback."""
+                 error_increase_allowed: bool = False,
+                 plan: Optional[AssemblyPlan] = None) -> IterResult:
+    """One damped Gauss-Newton outer iteration with rollback; `plan` is
+    the solve's `assembly_plan` (built here when absent)."""
     problem = apply_robust_reweighting(problem, config, use_imu)
-    built = _build_and_solve(problem, config, use_imu)
+    built = _build_and_solve(problem, config, use_imu, plan)
     problem = _commit_imu_cov(problem, config, built.imu_c9)
     step = built.step
     candidate = apply_update(problem, config, step.delta_p, step.delta_l,
@@ -236,10 +241,12 @@ def dogleg_search(problem: Problem, config: BAConfig, use_imu: bool,
 
 
 def dogleg_iteration(problem: Problem, config: BAConfig, use_imu: bool,
-                     trust_radius) -> IterResult:
-    """One dogleg outer iteration: bounded inner trust-region search."""
+                     trust_radius,
+                     plan: Optional[AssemblyPlan] = None) -> IterResult:
+    """One dogleg outer iteration: bounded inner trust-region search;
+    `plan` as in `gn_iteration`."""
     problem = apply_robust_reweighting(problem, config, use_imu)
-    built = _build_and_solve(problem, config, use_imu)
+    built = _build_and_solve(problem, config, use_imu, plan)
     problem = _commit_imu_cov(problem, config, built.imu_c9)
     gn = built.step
     pre_cost = built.cost
@@ -271,13 +278,15 @@ def solve_fixed(problem: Problem, config: BAConfig, use_imu: bool,
     trust = torch.full((), config.trust_region_size,
                        dtype=problem.poses.t.dtype,
                        device=problem.poses.t.device)
+    plan = assembly_plan(problem, config)
     costs, dns = [], []
     for _ in range(n_iters):
         if config.use_dogleg:
-            res = dogleg_iteration(problem, config, use_imu, trust)
+            res = dogleg_iteration(problem, config, use_imu, trust, plan)
             trust = res.trust_radius
         else:
-            res = gn_iteration(problem, config, use_imu, gn_damping, False)
+            res = gn_iteration(problem, config, use_imu, gn_damping, False,
+                               plan)
         problem = res.problem
         costs.append(res.post_cost)
         dns.append(res.delta_norm)
@@ -321,6 +330,7 @@ def solve_adaptive(problem: Problem, config: BAConfig, use_imu: bool,
 
     dtype, device = problem.poses.t.dtype, problem.poses.t.device
     problem = prepare_landmarks(problem, config)
+    plan = assembly_plan(problem, config)
     trust = torch.full((), config.trust_region_size, dtype=dtype,
                        device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
@@ -329,11 +339,11 @@ def solve_adaptive(problem: Problem, config: BAConfig, use_imu: bool,
     norms = (zero, zero, torch.zeros((), dtype=torch.int32, device=device))
     while it < max_iter and status == _RUNNING:
         if config.use_dogleg:
-            res = dogleg_iteration(problem, config, use_imu, trust)
+            res = dogleg_iteration(problem, config, use_imu, trust, plan)
             trust = res.trust_radius
         else:
             res = gn_iteration(problem, config, use_imu, gn_damping,
-                               error_increase_allowed)
+                               error_increase_allowed, plan)
         if it == 0:
             init_c = res.pre_cost
         problem = res.problem

@@ -11,18 +11,25 @@ Phases, each of which exits non-zero when a check fails:
      simulate(128 poses, 512 landmarks, seed 0), build_problem(perturb 0.01,
      seed 1), band width from the problem, cast to f32, prepare_landmarks;
   3. kernel 1 (reprojection) against its plain version, f64 and f32, with
-     and without Jacobians, at the flagship rows;
-  4. kernel 2 (segmented block sum) against its plain version on the seven
-     sums of one flagship build, plus out-of-range ids; two launches must
-     give bit-identical output;
+     and without Jacobians, at the flagship rows and at a row count that is
+     not a multiple of the kernel's 32-row blocks;
+  4. kernel 2 (grouped segmented block sum) against its plain version on
+     the seven sums of one flagship build, all in one launch over the
+     build's segment plans, plus out-of-range ids and a segment of 2,100
+     rows through one-group plans; two launches must give bit-identical
+     output;
   5. the port on the card against the port on the CPU (whose plain path the
      CPU tests hold against ba_tpu) on a small f64 problem;
   6. GN `solve_fixed(..., 25)` and 7. the default dogleg `solve`, at the
      flagship size in f32: the cost and the ATE against the simulator's
      ground truth fall, everything is finite, and both kernels' launch
-     counters moved by exactly the expected counts;
-  8. timings from CUDA events (kernels, their plain versions, index_add_
-     as kernel 2's library yardstick, kf/s of both drivers, host syncs).
+     counters moved by exactly the expected counts (kernel 2: one per
+     build); host syncs per iteration, and those of the one-off plan;
+  8. timings from CUDA events: each kernel per call (host launch cost
+     included) and on the device (CUDA-graph replay), beside the launch
+     floor (a one-element add, replayed the same way), its bound and its
+     plain version; index_add_, kernel 2's library yardstick, both ways;
+     the segment plans' one-off build; kf/s of both drivers.
 
 The last lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or when
@@ -182,14 +189,25 @@ def flagship():
             sim)
 
 
+def cut_rows(p, n):
+    """The problem with its first n projection rows."""
+    proj = dataclasses.replace(p.proj, **{
+        f.name: getattr(p.proj, f.name)[:n].contiguous()
+        for f in dataclasses.fields(p.proj)})
+    return dataclasses.replace(p, proj=proj)
+
+
 def phase_k1(p64, p32, cfg):
-    """Kernel 1 against the plain version; returns the f32 max abs error."""
+    """Kernel 1 against the plain version, at the flagship rows and at a
+    ragged last block; returns the f32 max abs error."""
     import torch
 
     from ba_tpu_torch.core.residuals import reprojection as rp
 
     worst = 0.0
-    for p in (p64, p32):
+    nr = p32.proj.z.shape[0] - 5
+    check(nr % 32, "the ragged case must not fill its last block")
+    for p in (p64, p32, cut_rows(p64, nr), cut_rows(p32, nr)):
         dt = str(p.proj.z.dtype).replace("torch.", "")
         for jac in (True, False):
             got = rp.evaluate(p, cfg, jac)
@@ -202,66 +220,109 @@ def phase_k1(p64, p32, cfg):
                       f"> {TOL_K1[dt]:g}")
                 if dt == "float32":
                     worst = max(worst, err)
-                say(f"kernel 1 {dt} jac={int(jac)} {name:7s} max abs err "
+                say(f"kernel 1 {dt} Nr={p.proj.z.shape[0]} jac={int(jac)} "
+                    f"{name:7s} max abs err "
                     f"{err:.3e} rel {rel:.3e} (tol {TOL_K1[dt]:g})")
     say("PHASE kernel1 ok")
     return worst
 
 
-def capture_segsum_calls(p, cfg):
-    """The (vals, ids, nseg) of the seven segment sums of one build."""
+def capture_build_sums(p, cfg):
+    """The grouped segment sum of one build: [(name, vals (n, k), plan,
+    ids, nseg)] in launch order, from the build's `AssemblyPlan`."""
     from ba_tpu_torch.solver import assemble as asm
     from ba_tpu_torch.solver import step
 
+    plan = asm.assembly_plan(p, cfg)
+    ids = asm.sum_ids(p, cfg)
+    names = {id(sp): name for name, sp in plan._asdict().items()
+             if name != "band_width"}
     calls = []
-    orig = asm.seg_sum_blocks
+    orig = asm.seg_sum_groups
 
-    def record(vals, ids, nseg):
-        calls.append((vals.reshape(vals.shape[0], -1).clone(), ids.clone(),
-                      nseg))
-        return orig(vals, ids, nseg)
+    def record(groups):
+        calls.append([(v.reshape(v.shape[0], -1).clone(), sp)
+                      for v, sp in groups])
+        return orig(groups)
 
-    asm.seg_sum_blocks = record
+    asm.seg_sum_groups = record
     try:
-        asm.assemble(p, cfg, imu_eval=step._imu_eval(p, cfg, True, True))
+        asm.assemble(p, cfg, imu_eval=step._imu_eval(p, cfg, True, True),
+                     plan=plan)
     finally:
-        asm.seg_sum_blocks = orig
-    check(len(calls) == 7, f"a build made {len(calls)} segment sums, not 7")
-    return calls
+        asm.seg_sum_groups = orig
+    check(len(calls) == 1 and len(calls[0]) == 7,
+          f"a build made {len(calls)} grouped sums "
+          f"({[len(c) for c in calls]} groups), not one of 7")
+    return [(names[id(sp)], v, sp, *ids[names[id(sp)]])
+            for v, sp in calls[0]]
 
 
-def phase_k2(calls):
-    """Kernel 2 against the plain version + determinism; returns the f32
-    max abs error."""
+def _k2_check(dt, what, got, again, vals, ids, nseg):
+    """One sum of kernel 2 against `_seg_sum_plain` in f64 and against a
+    second launch; returns the max abs error."""
+    import torch
+
+    from ba_tpu_torch.solver.assemble import _seg_sum_plain
+
+    want = _seg_sum_plain(vals.double(), ids, nseg)
+    err, rel = rel_err(got, want)
+    same = bool(torch.equal(got, again))
+    say(f"kernel 2 {dt} {what} n={vals.shape[0]} k={vals.shape[1]} "
+        f"nseg={nseg}: max abs err {err:.3e} rel {rel:.3e} "
+        f"(tol {TOL_K2[dt]:g}); bit-identical relaunch {same}")
+    check(rel <= TOL_K2[dt], f"kernel 2 {what}: rel err {rel:.3g}")
+    check(same, f"kernel 2 {what}: two launches differ")
+    return err
+
+
+def phase_k2(sums):
+    """Kernel 2 against the plain version + determinism: the seven sums of
+    a build in one grouped launch (f32 and f64), out-of-range ids and a
+    2,100-row segment through one-group plans.  Returns the f32 max abs
+    error."""
+    import numpy as np
     import torch
 
     from ba_tpu_torch.kernels import segsum
-    from ba_tpu_torch.solver.assemble import _seg_sum_plain
 
     worst = 0.0
-    cases = [(v, i, n, "") for v, i, n in calls]
-    # out-of-range ids drop their rows (the flagship build has none)
-    v, i, n = calls[0]
-    bad = i.clone()
-    bad[::5] = -1
-    bad[1::7] = n + 3
-    cases.append((v, bad, n, " out-of-range ids"))
-    cases.append((v.double(), bad, n, " out-of-range ids"))
-    for vals, ids, nseg, what in cases:
-        dt = str(vals.dtype).replace("torch.", "")
-        a = segsum.seg_sum(vals, ids, nseg)
-        b = segsum.seg_sum(vals, ids, nseg)
-        want = _seg_sum_plain(vals, ids, nseg)
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        groups = [(v.to(dtype), sp) for _, v, sp, _, _ in sums]
+        a = segsum.seg_sum_grouped(groups)
+        b = segsum.seg_sum_grouped(groups)
         torch.cuda.synchronize()
-        err, rel = rel_err(a, want)
-        same = torch.equal(a, b)
-        say(f"kernel 2 {dt} n={vals.shape[0]} k={vals.shape[1]} "
-            f"nseg={nseg}{what}: max abs err {err:.3e} rel {rel:.3e} "
-            f"(tol {TOL_K2[dt]:g}); bit-identical relaunch {same}")
-        check(rel <= TOL_K2[dt], f"kernel 2{what}: rel err {rel:.3g}")
-        check(same, f"kernel 2{what}: two launches differ")
-        if dt == "float32":
-            worst = max(worst, err)
+        for (name, v, _, ids, nseg), x, y in zip(sums, a, b):
+            err = _k2_check(dt, f"grouped launch, {name}", x, y, v, ids,
+                            nseg)
+            if dt == "float32":
+                worst = max(worst, err)
+
+    # out-of-range ids drop their rows (the flagship build has none)
+    _, v, _, ids, nseg = sums[0]
+    bad = ids.clone()
+    bad[::5] = -1
+    bad[1::7] = nseg + 3
+    # one segment of ~2,140 rows: ~67 chunks, combined by the last to finish
+    rng = np.random.default_rng(0)
+    long_ids = rng.integers(0, 700, 30000)
+    long_ids[rng.choice(30000, 2100, replace=False)] = 350
+    long_ids = torch.as_tensor(long_ids, device=v.device)
+    long_v = torch.as_tensor(rng.standard_normal((30000, 9)),
+                             dtype=torch.float32, device=v.device)
+    check(int((long_ids == 350).sum()) >= 2000, "long segment too short")
+    for vals, ids_, nseg_, what in ((v, bad, nseg, "out-of-range ids"),
+                                    (long_v, long_ids, 700,
+                                     "2,100-row segment")):
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).replace("torch.", "")
+            x = segsum.seg_sum(vals.to(dtype), ids_, nseg_)
+            y = segsum.seg_sum(vals.to(dtype), ids_, nseg_)
+            torch.cuda.synchronize()
+            err = _k2_check(dt, what, x, y, vals, ids_, nseg_)
+            if dt == "float32":
+                worst = max(worst, err)
     say("PHASE kernel2 ok")
     return worst
 
@@ -313,7 +374,7 @@ def _counters_zero():
     from ba_tpu_torch.utils.sync import item
 
     reprojection.reprojection.launches = 0
-    segsum.seg_sum.launches = 0
+    segsum.seg_sum_grouped.launches = 0
     item.count = 0
 
 
@@ -321,8 +382,8 @@ def _counters():
     from ba_tpu_torch.kernels import reprojection, segsum
     from ba_tpu_torch.utils.sync import item
 
-    return (reprojection.reprojection.launches, segsum.seg_sum.launches,
-            item.count)
+    return (reprojection.reprojection.launches,
+            segsum.seg_sum_grouped.launches, item.count)
 
 
 def _sync_count(run):
@@ -354,7 +415,26 @@ def _finite(p):
                for t in (p.poses.q, p.poses.t, p.poses.v, p.lms.x))
 
 
-def phase_gn(p32, cfg, sim, smi):
+def plan_syncs(p32, cfg, smi):
+    """Host syncs of building the segment plans of a solve (once per
+    solve): the first build in the process, then a later one, which is
+    what each solve of the drivers below pays."""
+    import torch
+
+    from ba_tpu_torch.solver.assemble import assembly_plan
+
+    def run():
+        out = assembly_plan(p32, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    first, again = _sync_count(run)[1], _sync_count(run)[1]
+    say(f"[{smi}] segment plans of a solve: {first} host syncs at the "
+        f"process's first build, {again} at a later one")
+    return again
+
+
+def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
     import torch
 
     from ba_tpu_torch.solver import step
@@ -393,17 +473,18 @@ def phase_gn(p32, cfg, sim, smi):
     check(ok0 and ok1, "GN: reduced factorization failed")
     check(k1 == 2 * N_ITERS, f"GN: {k1} reprojection launches, "
           f"expected {2 * N_ITERS} (one build + one trial per iteration)")
-    check(k2 == 7 * N_ITERS, f"GN: {k2} segsum launches, expected "
-          f"{7 * N_ITERS} (seven per build)")
+    check(k2 == N_ITERS, f"GN: {k2} segsum launches, expected "
+          f"{N_ITERS} (one per build)")
     kf = N_POSES * N_ITERS / secs
     say(f"[{smi}] GN solve_fixed({N_ITERS}): {secs * 1e3:.1f} ms, "
-        f"{kf:.1f} kf/s; host syncs {syncs} "
-        f"({syncs / N_ITERS:.2f} per iteration; counted reads {reads})")
+        f"{kf:.1f} kf/s; host syncs {syncs}: the plan's {n_plan_syncs} "
+        f"once, then {(syncs - n_plan_syncs) / N_ITERS:.2f} per iteration "
+        f"(counted reads {reads})")
     say("PHASE gn ok")
     return dict(k1=k1, k2=k2, kf_s=kf, syncs=syncs, iters=N_ITERS)
 
 
-def phase_dogleg(p32, cfg, sim, smi):
+def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     import torch
 
     from ba_tpu_torch.solver import step
@@ -441,24 +522,31 @@ def phase_dogleg(p32, cfg, sim, smi):
     check(k1 == s.iterations + trials + 1,
           f"dogleg: {k1} reprojection launches, expected "
           f"{s.iterations + trials + 1}")
-    check(k2 == 7 * s.iterations, f"dogleg: {k2} segsum launches, "
-          f"expected {7 * s.iterations}")
+    check(k2 == s.iterations, f"dogleg: {k2} segsum launches, "
+          f"expected {s.iterations} (one per build)")
     kf = N_POSES * s.iterations / secs
     say(f"[{smi}] dogleg solve: {secs * 1e3:.1f} ms, {kf:.1f} kf/s; host "
-        f"syncs {syncs} ({syncs / s.iterations:.2f} per iteration; counted "
-        f"reads {reads})")
+        f"syncs {syncs}: the plan's {n_plan_syncs} once, then "
+        f"{(syncs - n_plan_syncs) / s.iterations:.2f} per iteration "
+        f"(counted reads {reads})")
     say("PHASE dogleg ok")
     return dict(k1=k1, k2=k2, kf_s=kf, syncs=syncs, iters=s.iterations)
 
 
-def phase_timing(p32, cfg, calls, smi):
-    """Per-kernel times at the main-path shapes, beside their bounds."""
+def phase_timing(p32, cfg, sums, smi):
+    """Per-kernel times at the main-path shapes, beside the launch floor,
+    their bounds, their plain versions and the library yardstick."""
     import torch
 
     from ba_tpu_torch.core.residuals import reprojection as rp
     from ba_tpu_torch.kernels import reprojection as k1
     from ba_tpu_torch.kernels import segsum
-    from ba_tpu_torch.solver.assemble import _seg_sum_plain
+    from ba_tpu_torch.solver.assemble import _seg_sum_plain, assembly_plan
+
+    one = torch.zeros((1,), device=p32.poses.t.device)
+    floor_ms = graph_ms(lambda: one.add_(1), 50)
+    say(f"[{smi}] launch floor (a one-element add, CUDA-graph replay): "
+        f"{floor_ms:.4f} ms")
 
     pr, poses, lms, rig = p32.proj, p32.poses, p32.lms, p32.rig
     outs = k1.reprojection(p32, True)
@@ -474,26 +562,31 @@ def phase_timing(p32, cfg, calls, smi):
         ms=event_ms(lambda: k1.reprojection(p32, True), 200),
         device_ms=graph_ms(lambda: k1.reprojection(p32, True), 50),
         resid_ms=event_ms(lambda: k1.reprojection(p32, False), 200),
+        resid_device_ms=graph_ms(lambda: k1.reprojection(p32, False), 50),
         plain_ms=event_ms(lambda: rp.evaluate_plain(p32, cfg, True), 10))
     say(f"[{smi}] kernel 1 reprojection, Nr={pr.z.shape[0]} f32: "
         f"{t['ms']:.4f} ms per call ({t['device_ms']:.4f} ms on the device, "
-        f"residual only {t['resid_ms']:.4f} ms), plain {t['plain_ms']:.3f} "
-        f"ms, bound {k1_bound:.5f} ms ({k1_by}: {k1_bytes} B, "
-        f"{k1_flops} flop)")
+        f"{t['device_ms'] / floor_ms:.2f}x the launch floor "
+        f"{floor_ms:.4f} ms, {k1_bound / t['device_ms']:.1%} of the bound; "
+        f"residual only {t['resid_ms']:.4f} ms, {t['resid_device_ms']:.4f} "
+        f"ms on the device), plain {t['plain_ms']:.3f} ms, bound "
+        f"{k1_bound:.5f} ms ({k1_by}: {k1_bytes} B, {k1_flops} flop)")
     rec1 = dict(ms=t["ms"], device_ms=t["device_ms"],
+                resid_device_ms=t["resid_device_ms"], floor_ms=floor_ms,
                 plain_ms=t["plain_ms"], bound_ms=k1_bound, bound_by=k1_by,
                 library_ms=None)
 
     k2_bytes = k2_ops = 0
-    for vals, ids, nseg in calls:
+    for _, vals, _, ids, nseg in sums:
         k2_bytes += nbytes(vals, ids) + nseg * vals.shape[1] * \
             vals.element_size()
         k2_ops += int(((ids >= 0) & (ids < nseg)).sum()) * vals.shape[1]
-    check(all(bool(((i >= 0) & (i < n)).all()) for _, i, n in calls),
+    check(all(bool(((i >= 0) & (i < n)).all()) for *_, i, n in sums),
           "flagship segment ids out of range (index_add_ yardstick)")
+    groups = [(v, sp) for _, v, sp, _, _ in sums]
 
     def seven(fn):
-        return lambda: [fn(v, i, n) for v, i, n in calls]
+        return lambda: [fn(v, i, n) for _, v, _, i, n in sums]
 
     def library(v, i, n):
         return torch.zeros((n, v.shape[1]), dtype=v.dtype,
@@ -502,34 +595,28 @@ def phase_timing(p32, cfg, calls, smi):
     k2_bound = max(k2_bytes / HBM_BPS, k2_ops / F32_FLOPS) * 1e3
     k2_by = "bytes" if k2_bytes / HBM_BPS >= k2_ops / F32_FLOPS \
         else "operations"
-    # the kernel alone, its sort and offsets prepared beforehand
-    csr = [(v, *segsum.segment_csr(i, n), n,
-            torch.empty((n, v.shape[1]), dtype=v.dtype, device=v.device))
-           for v, i, n in calls]
-
-    def kernel_only():
-        stream = torch.cuda.current_stream().cuda_stream
-        for v, perm, off, n, out in csr:
-            segsum._fn(v.dtype)(v.data_ptr(), perm.data_ptr(),
-                                off.data_ptr(), n, v.shape[1],
-                                out.data_ptr(), stream)
-
-    t2 = dict(ms=event_ms(seven(segsum.seg_sum), 100),
-              device_ms=graph_ms(seven(segsum.seg_sum), 20),
-              kernel_only_ms=graph_ms(kernel_only, 20),
+    t2 = dict(ms=event_ms(lambda: segsum.seg_sum_grouped(groups), 100),
+              device_ms=graph_ms(lambda: segsum.seg_sum_grouped(groups), 20),
+              plan_ms=event_ms(lambda: assembly_plan(p32, cfg), 10),
               plain_ms=event_ms(seven(_seg_sum_plain), 10),
-              library_ms=event_ms(seven(library), 100))
+              library_ms=event_ms(seven(library), 100),
+              library_device_ms=graph_ms(seven(library), 20))
     shapes = ", ".join(f"{v.shape[0]}x{v.shape[1]}->{n}"
-                       for v, _, n in calls)
-    say(f"[{smi}] kernel 2 segsum, the seven sums of one build ({shapes}) "
-        f"f32: {t2['ms']:.4f} ms per build ({t2['device_ms']:.4f} ms on the "
-        f"device, of which the kernels alone {t2['kernel_only_ms']:.4f} ms "
-        f"and the rest the sort), plain {t2['plain_ms']:.3f} ms, index_add_ "
-        f"{t2['library_ms']:.4f} ms, bound {k2_bound:.5f} ms ({k2_by}: "
-        f"{k2_bytes} B, {k2_ops} adds)")
+                       for _, v, _, _, n in sums)
+    say(f"[{smi}] kernel 2 segsum, the seven sums of one build in one "
+        f"launch ({shapes}) f32: {t2['ms']:.4f} ms per build "
+        f"({t2['device_ms']:.4f} ms on the device, "
+        f"{k2_bound / t2['device_ms']:.2%} of the bound); index_add_ "
+        f"{t2['library_ms']:.4f} ms per build ({t2['library_device_ms']:.4f} "
+        f"ms on the device); plain {t2['plain_ms']:.3f} ms; the plans' "
+        f"one-off build {t2['plan_ms']:.4f} ms; bound {k2_bound:.5f} ms "
+        f"({k2_by}: {k2_bytes} B, {k2_ops} adds); launch floor "
+        f"{floor_ms:.4f} ms")
     rec2 = dict(ms=t2["ms"], device_ms=t2["device_ms"],
-                kernel_only_ms=t2["kernel_only_ms"], plain_ms=t2["plain_ms"], bound_ms=k2_bound, bound_by=k2_by,
-                library_ms=t2["library_ms"])
+                plan_ms=t2["plan_ms"], plain_ms=t2["plain_ms"],
+                bound_ms=k2_bound, bound_by=k2_by,
+                library_ms=t2["library_ms"],
+                library_device_ms=t2["library_device_ms"])
     say("PHASE timing ok")
     return rec1, rec2
 
@@ -555,12 +642,13 @@ def main():
     p64, p32, cfg, sim = flagship()
     err1 = phase_k1(p64, p32, cfg)
     del p64
-    calls = capture_segsum_calls(p32, cfg)
-    err2 = phase_k2(calls)
+    sums = capture_build_sums(p32, cfg)
+    err2 = phase_k2(sums)
     phase_small_reference()
-    gn = phase_gn(p32, cfg, sim, smi)
-    dl = phase_dogleg(p32, cfg, sim, smi)
-    rec1, rec2 = phase_timing(p32, cfg, calls, smi)
+    n_plan_syncs = plan_syncs(p32, cfg, smi)
+    gn = phase_gn(p32, cfg, sim, smi, n_plan_syncs)
+    dl = phase_dogleg(p32, cfg, sim, smi, n_plan_syncs)
+    rec1, rec2 = phase_timing(p32, cfg, sums, smi)
 
     kernels = [
         dict(name="reprojection", route="cuda",

@@ -46,6 +46,7 @@ def stage_times(p, cfg):
     from ba_tpu_torch.solver.linear import solve_reduced
 
     sums = collections.defaultdict(float)
+    plan = asm.assembly_plan(p, cfg)          # once per solve, as there
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -64,7 +65,7 @@ def stage_times(p, cfg):
         timed("reprojection blocks (kernel 1)",
               lambda: asm.proj_blocks(p, cfg, colm6))
         a = timed("assemble (whole, incl. the above blocks)",
-                  lambda: asm.assemble(p, cfg, imu_eval=ie))
+                  lambda: asm.assemble(p, cfg, imu_eval=ie, plan=plan))
         s = timed("solve_reduced (Cholesky + back-substitution)",
                   lambda: solve_reduced(a))
         cand = timed("apply_update", lambda: step.apply_update(
@@ -72,7 +73,7 @@ def stage_times(p, cfg):
         timed("trial cost (imu with cached c9 + kernel 1 + priors)",
               lambda: step._cost(cand, cfg, True, a.proj_w, ie.c9))
         timed("gn_iteration (whole)",
-              lambda: step.gn_iteration(p, cfg, True))
+              lambda: step.gn_iteration(p, cfg, True, plan=plan))
     return {k: v / N_STAGE_ITERS for k, v in sums.items()}
 
 
@@ -82,7 +83,9 @@ def sync_sites(p, cfg):
     import torch
 
     from ba_tpu_torch.solver import step
+    from ba_tpu_torch.solver.assemble import assembly_plan
 
+    plan = assembly_plan(p, cfg)
     sites = collections.Counter()
     root = str(chip_smoke.ROOT)
 
@@ -101,7 +104,7 @@ def sync_sites(p, cfg):
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            step.gn_iteration(p, cfg, True)
+            step.gn_iteration(p, cfg, True, plan=plan)
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -113,15 +116,17 @@ def profile(p, cfg):
     from torch.profiler import ProfilerActivity
 
     from ba_tpu_torch.solver import step
+    from ba_tpu_torch.solver.assemble import assembly_plan
 
-    step.gn_iteration(p, cfg, True)
+    plan = assembly_plan(p, cfg)
+    step.gn_iteration(p, cfg, True, plan=plan)
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         q = p
         for _ in range(N_PROFILE_ITERS):
-            q = step.gn_iteration(q, cfg, True).problem
+            q = step.gn_iteration(q, cfg, True, plan=plan).problem
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(dir=chip_smoke.ROOT) as tmp:

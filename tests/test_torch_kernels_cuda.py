@@ -7,7 +7,9 @@ machine need not have).  Tolerances, relative to max(1, max |plain|): f64
 1e-10 (the closed form vs autodiff differ only in roundoff), f32 1e-4 (a
 few ulps of f32 through ~10^3 operations); the segment sum is compared to
 an f64 sum of the same f32 values at 1e-5 and must be bit-identical between
-launches.
+launches.  Kernel 1 also runs at a row count that is not a multiple of its
+32-row blocks; kernel 2 also runs as one grouped launch of seven sums of
+flagship shapes, with one segment of 927 rows and one of 2,100.
 """
 
 import dataclasses
@@ -79,3 +81,94 @@ def test_segsum_kernel_matches_plain_and_is_deterministic(dtype):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert _rel(a, want) <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+def _cut_rows(p, n):
+    """The problem with its first n projection rows."""
+    proj = dataclasses.replace(p.proj, **{
+        f.name: getattr(p.proj, f.name)[:n].contiguous()
+        for f in dataclasses.fields(p.proj)})
+    return dataclasses.replace(p, proj=proj)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("with_jacobians", [True, False])
+def test_reprojection_kernel_ragged_last_block(cuda_problem, dtype, tol,
+                                               with_jacobians):
+    from ba_tpu_torch.core.residuals import reprojection as rp
+    from ba_tpu_torch.utils.tree import tree_map
+
+    p, cfg = cuda_problem
+    nr = p.proj.z.shape[0]
+    p = _cut_rows(p, nr - 1 if (nr - 1) % 32 else nr - 5)
+    assert p.proj.z.shape[0] % 32
+    p = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, p)
+    got = rp.evaluate(p, cfg, with_jacobians)
+    want = rp.evaluate_plain(p, cfg, with_jacobians)
+    torch.cuda.synchronize()
+    for name in want._fields:
+        assert _rel(getattr(got, name), getattr(want, name)) <= tol, name
+
+
+def _skewed_ids(rng, n, nseg, long_rows, oob=False):
+    """n ids over nseg segments, uniform but for one segment of
+    `long_rows` rows; with `oob`, a tenth of the rows out of range."""
+    ids = rng.integers(0, nseg, n)
+    ids[rng.choice(n, long_rows, replace=False)] = nseg // 3
+    if oob:
+        bad = rng.choice(n, n // 10, replace=False)
+        ids[bad[::2]] = -1
+        ids[bad[1::2]] = nseg + 7
+    return torch.as_tensor(ids, device="cuda")
+
+
+# (rows, k, segments) of the seven sums of the flagship build
+FLAGSHIP_SUMS = [(38789, 36, 3072), (19395, 6, 128), (508, 81, 3072),
+                 (254, 9, 128), (9696, 1, 497), (9696, 1, 497),
+                 (19392, 6, 10188)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segsum_grouped_launch_matches_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import segsum
+    from ba_tpu_torch.solver.assemble import _seg_sum_plain
+
+    rng = np.random.default_rng(1)
+    cases = []
+    for n, k, nseg in FLAGSHIP_SUMS:
+        ids = _skewed_ids(rng, n, nseg, min(927, n // 2))
+        vals = torch.as_tensor(rng.standard_normal((n, k)), dtype=dtype,
+                               device="cuda")
+        cases.append((vals, ids, nseg))
+    groups = [(v, segsum.build_plan(i, n)) for v, i, n in cases]
+    before = segsum.seg_sum_grouped.launches
+    a = segsum.seg_sum_grouped(groups)
+    b = segsum.seg_sum_grouped(groups)
+    assert segsum.seg_sum_grouped.launches == before + 2
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for (v, i, n), x, y in zip(cases, a, b):
+        assert torch.equal(x, y)
+        assert _rel(x, _seg_sum_plain(v.double(), i, n)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segsum_long_segment_and_out_of_range_ids(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import segsum
+    from ba_tpu_torch.solver.assemble import _seg_sum_plain
+
+    rng = np.random.default_rng(2)
+    ids = _skewed_ids(rng, 30000, 700, 2100, oob=True)
+    vals = torch.as_tensor(rng.standard_normal((30000, 9)), dtype=dtype,
+                           device="cuda")
+    a = segsum.seg_sum(vals, ids, 700)
+    b = segsum.seg_sum(vals, ids, 700)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert _rel(a, _seg_sum_plain(vals.double(), ids, 700)) <= (
+        1e-5 if dtype == torch.float32 else 1e-12)
