@@ -149,7 +149,9 @@ def evaluate_plain(problem: Problem, config: BAConfig,
         z2 = pr.z.new_zeros((Nr, 2, 0))
         return ProjEval(r, z2, z2, z2, z2, err_sq)
 
-    J = vmap(jacfwd(r_of))(*args)                 # (Nr, 2, tdim)
+    # (Nr, 2, tdim); under jacfwd a 0-dim tensor times a Python float can
+    # come back as float64 (torch 2.13 on the CPU), so keep the input type
+    J = vmap(jacfwd(r_of))(*args).to(dtype)
     # measuring pose == reference pose contributes no pose gradient; also
     # mask invalid rows
     same = (pr.pose == ref_pose) & (config.lm_size == 1)

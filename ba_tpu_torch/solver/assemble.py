@@ -1,16 +1,26 @@
-"""Normal-equation assembly + Schur complement, banded path.
+"""Normal-equation assembly + Schur complement.
 
-Port of the banded path of `ba_tpu/solver/assemble.py`: per-residual block
-outer products are summed onto a (P*B, D, D) band grid of pose blocks
-(B = `config.band_width`), densified by a pad/reshape trick, and reduced by
-the Schur complement of the block-diagonal landmark Hessian.  The seven
-block sums of a build go through `seg_sum_groups` on the segment plans of
-an `AssemblyPlan`, built once per solve from the problem's static index
-tables: one launch of the grouped CUDA kernel (kernels/csrc/segsum.cu) for
-tensors on the card, the plain walk of the same plans on the CPU.
+Port of `ba_tpu/solver/assemble.py`.  Per-residual block outer products
+are summed per pose block and reduced by the Schur complement of the
+block-diagonal landmark Hessian, on one of two paths:
 
-The general path (`band_width == 0`, per-family `_pair_system` scatters)
-is not ported yet and raises.
+  * banded (0 < `config.band_width` = B <= P): the blocks land on a
+    (P*B, D, D) band grid, densified by a pad/reshape trick;
+  * general (B == 0, or a band wider than the window): the blocks land on
+    a per-pose diagonal and on the problem's unique pose-pair tables, and
+    `_pair_system` scatters them into the dense system.  Projections and
+    pose priors assemble at pose width 6 and are widened once
+    (`expand_contribution`); IMU blocks assemble at the full width D.
+
+On both paths the seven block sums of a build go through `seg_sum_groups`
+on the segment plans of an `AssemblyPlan`, built once per solve from the
+problem's static index tables: one launch of the grouped CUDA kernel
+(kernels/csrc/segsum.cu) for tensors on the card, the plain walk of the
+same plans on the CPU.  ba_tpu's general path sums family by family
+(`proj_contribution`, `prior_contribution`, `imu_contribution`, some
+thirteen sums); here the sums whose blocks share a width share a segment
+space, their ids offset past each other, so that a build stays one launch.
+A calibration block (K > 0) is not ported on either path and raises.
 """
 
 from __future__ import annotations
@@ -336,26 +346,91 @@ def _band_pair_ids(idx1, idx2, B):
     return torch.cat([ids, ids])
 
 
+def _cross_blocks(j1, j2, idx1, idx2, swap, B):
+    """The cross-term rows of one two-pose family.  Banded: as
+    `_band_pair_blocks`.  General: the block j1^T j2 oriented a->b
+    (a = the smaller pose id), one row per residual, summed per unique
+    pair (`_pair_system` scatters it and its transpose)."""
+    if B:
+        return _band_pair_blocks(j1, j2, idx1, idx2)
+    blk = _outer(j1, j2)
+    return torch.where(swap[:, None, None], blk.transpose(1, 2), blk)
+
+
+def _pair_system(N, P, D, diag, pairs, rhs_pose, pair_a, pair_b):
+    """Dense (U, rhs) from the general path's block sums: the per-pose
+    diagonal blocks (P, D, D), the per-pair blocks (n, D, D) at (a, b) and
+    their transposes at (b, a), and the per-pose rhs (P, D).  This is the
+    scatter half of ba_tpu's `_pair_system`; its segment sums are part of
+    the build's grouped launch.  Padded pair rows repeat the position
+    (0, 0) with zero blocks, so the scatter accumulates; a == b is right
+    too (both cross terms land on the diagonal block)."""
+    pd = torch.arange(P, device=diag.device) * D
+    pair_a = pair_a.long() * D
+    pair_b = pair_b.long() * D
+    U = torch.zeros((N, N), dtype=diag.dtype, device=diag.device)
+    U = _scatter_blocks(U, torch.cat([diag, pairs, pairs.transpose(1, 2)]),
+                        torch.cat([pd, pair_a, pair_b]),
+                        torch.cat([pd, pair_b, pair_a]))
+    rhs = torch.zeros((N,), dtype=diag.dtype, device=diag.device)
+    rhs[: P * D] = rhs_pose.reshape(-1)
+    return U, rhs
+
+
+def expand_contribution(c: Contribution, P: int, D: int, K: int,
+                        D_c: int = 6) -> Contribution:
+    """Expand a compact (P*D_c + K)-dim pose system into (P*D + K) dims:
+    projection and prior Jacobians touch only the first 6 of the D pose
+    dims, so they assemble at width 6 and are padded out once."""
+    if D == D_c:
+        return c
+    n_c = P * D_c
+
+    def expand_rows(M):
+        pose = F.pad(M[:n_c].reshape(P, D_c, -1), (0, 0, 0, D - D_c))
+        return torch.cat([pose.reshape(P * D, -1), M[n_c:]], dim=0)
+
+    return c._replace(U=expand_rows(expand_rows(c.U).T).T,
+                      rhs_p=expand_rows(c.rhs_p[:, None])[:, 0],
+                      W=expand_rows(c.W))
+
+
 class AssemblyPlan(NamedTuple):
-    """The segment plans of the seven sums of a banded build, built once
-    per solve (`assembly_plan`): every id they are made from is static
-    across the iterations of a solve."""
+    """The segment plans of the seven sums of a build, built once per
+    solve (`assembly_plan`): every id they are made from is static across
+    the iterations of a solve.  `band_width` is the build's path: > 0 the
+    banded grid, 0 the general path."""
 
     band_width: int
-    grid: segsum.SegPlan       # (P*B) band grid of 6x6 pose blocks
+    grid: segsum.SegPlan       # 6x6 pose blocks: the (P*B) band grid, or
+    #                            the (P) diagonal, then the projection and
+    #                            binary pair tables
     rhs: segsum.SegPlan        # (P) pose rhs
-    imu_grid: segsum.SegPlan   # (P*B) band grid of DxD IMU blocks
+    imu_grid: segsum.SegPlan   # DxD IMU blocks: the (P*B) band grid, or
+    #                            the (P) diagonal, then the IMU pair table
     imu_rhs: segsum.SegPlan    # (P) IMU rhs
     V: segsum.SegPlan          # (L) landmark blocks
     rhs_l: segsum.SegPlan      # (L) landmark rhs: V's ids, its own counters
     wb: segsum.SegPlan         # (Nw) W blocks
 
 
+def plan_width(problem: Problem, config: BAConfig) -> int:
+    """The band width a build of `problem` uses: `config.band_width` when
+    the banded grid applies (0 < B <= P), else 0, the general path.  A
+    calibration block raises (ROADMAP.md queue 1)."""
+    D, K, P, L, lm, N = dims(problem, config)
+    if K:
+        raise NotImplementedError(
+            "assembly with a calibration block is not ported yet "
+            "(ROADMAP.md queue 1)")
+    return config.band_width if config.band_width <= P else 0
+
+
 def sum_ids(problem: Problem, config: BAConfig):
-    """{AssemblyPlan field: (ids, nseg)} of the seven sums of a banded
-    build; the rows follow the order `_assemble_banded` stacks values in."""
+    """{AssemblyPlan field: (ids, nseg)} of the seven sums of a build; the
+    rows follow the order `contribution` stacks values in."""
     P, L = problem.poses.q.shape[0], problem.lms.x.shape[0]
-    B = config.band_width
+    B = plan_width(problem, config)
     pose = problem.proj.pose.long()
     ref = problem.lms.ref_pose[problem.proj.lm].long()
     b1 = problem.binary.pose1.long()
@@ -365,12 +440,23 @@ def sum_ids(problem: Problem, config: BAConfig):
     lm = problem.proj.lm.long()
     pose_rows = torch.cat([pose, ref, problem.unary.pose.long(), b1, b2])
     imu_rows = torch.cat([i1, i2])
+    if B:
+        grid = (torch.cat([pose_rows * B, _band_pair_ids(pose, ref, B),
+                           _band_pair_ids(b1, b2, B)]), P * B)
+        imu_grid = (torch.cat([imu_rows * B, _band_pair_ids(i1, i2, B)]),
+                    P * B)
+    else:
+        idx = problem.pidx
+        n_pair = idx.pair_a.shape[0]
+        grid = (torch.cat([pose_rows, P + problem.proj.pair.long(),
+                           P + n_pair + problem.binary.pair.long()]),
+                P + n_pair + idx.bpair_a.shape[0])
+        imu_grid = (torch.cat([imu_rows, P + problem.imu.pair.long()]),
+                    P + idx.ipair_a.shape[0])
     return dict(
-        grid=(torch.cat([pose_rows * B, _band_pair_ids(pose, ref, B),
-                         _band_pair_ids(b1, b2, B)]), P * B),
+        grid=grid,
         rhs=(pose_rows, P),
-        imu_grid=(torch.cat([imu_rows * B, _band_pair_ids(i1, i2, B)]),
-                  P * B),
+        imu_grid=imu_grid,
         imu_rhs=(imu_rows, P),
         V=(lm, L),
         rhs_l=(lm, L),
@@ -378,48 +464,45 @@ def sum_ids(problem: Problem, config: BAConfig):
             problem.pidx.wb_pose.shape[0]))
 
 
-def _check_banded(problem: Problem, config: BAConfig):
-    D, K, P, L, lm, N = dims(problem, config)
-    if not (config.band_width and config.band_width <= P and K == 0):
-        raise NotImplementedError(
-            "general assembly path (band_width == 0 or a calibration "
-            "block) is not ported yet (ROADMAP.md queue 1)")
-
-
 def assembly_plan(problem: Problem, config: BAConfig) -> AssemblyPlan:
-    """The segment plans of a banded build of `problem`, on its device,
-    with no host read.  Build it once per solve and pass it to every
-    `assemble` of that solve."""
-    _check_banded(problem, config)
-    return AssemblyPlan(config.band_width, **{
+    """The segment plans of a build of `problem` (banded or general, as
+    `plan_width` selects), on its device, with no host read.  Build it
+    once per solve and pass it to every `assemble` of that solve."""
+    return AssemblyPlan(plan_width(problem, config), **{
         name: segsum.build_plan(ids, nseg)
         for name, (ids, nseg) in sum_ids(problem, config).items()})
 
 
 def assemble(problem: Problem, config: BAConfig, imu_eval=None,
              plan: AssemblyPlan | None = None) -> Assembly:
-    """Build the Schur-reduced normal equations at the current state on
-    the banded grid (`config.band_width`, no calibration block).  `plan`
-    is the solve's `assembly_plan`; without one, the build makes its own."""
-    _check_banded(problem, config)
+    """Build the Schur-reduced normal equations at the current state, on
+    the banded grid or the general path (`plan_width`).  `plan` is the
+    solve's `assembly_plan`; without one, the build makes its own."""
+    B = plan_width(problem, config)
     if plan is None:
         plan = assembly_plan(problem, config)
-    elif plan.band_width != config.band_width:
+    elif plan.band_width != B:
         raise ValueError(f"assembly plan for band width {plan.band_width}, "
-                         f"config has {config.band_width}")
+                         f"the build needs {B}")
     cmask = col_mask(problem, config)
+    contrib, w = contribution(problem, config, imu_eval, cmask, plan)
+    contrib = _add(contrib, marg_contribution(problem, config,
+                                              cmask.to(contrib.U.dtype)))
+    return finish(contrib, cmask, w)
+
+
+def contribution(problem: Problem, config: BAConfig, imu_eval, cmask,
+                 plan: AssemblyPlan):
+    """The normal equations of the residual families before the Schur
+    step and without the marginalization prior: (Contribution, effective
+    projection weights).  The values of the seven segment sums, one
+    grouped sum over `plan`, then the banded grid densified or the general
+    path's blocks scattered (`plan.band_width`)."""
+    D, K, P, L, lm, N = dims(problem, config)
+    B = plan.band_width
     dtype = problem.poses.t.dtype
     colm = cmask.to(dtype)
     colm6 = col_mask(problem, config, 6).to(dtype)
-    return _assemble_banded(problem, config, imu_eval, cmask, colm, colm6,
-                            plan)
-
-
-def _assemble_banded(problem: Problem, config: BAConfig, imu_eval, cmask,
-                     colm, colm6, plan: AssemblyPlan) -> Assembly:
-    """Banded-grid assembly: the values of the seven segment sums, one
-    grouped sum over `plan`, then one densification."""
-    D, K, P, L, lm, N = dims(problem, config)
     pb = proj_blocks(problem, config, colm6)
     cm_p = colm6[: P * 6].reshape(P, 6)
 
@@ -435,8 +518,9 @@ def _assemble_banded(problem: Problem, config: BAConfig, imu_eval, cmask,
     grid_vals = torch.cat([
         _outer(pb.j_m, pb.j_m), _outer(pb.j_r, pb.j_r), _outer(ju, ju),
         _outer(jb1, jb1), _outer(jb2, jb2),
-        _band_pair_blocks(pb.j_m, pb.j_r, pb.pose, pb.ref),
-        _band_pair_blocks(jb1, jb2, b1, b2)])
+        _cross_blocks(pb.j_m, pb.j_r, pb.pose, pb.ref,
+                      problem.proj.pair_swap, B),
+        _cross_blocks(jb1, jb2, b1, b2, problem.binary.pair_swap, B)])
     rhs_vals = torch.cat([_jtr(pb.j_m, pb.r), _jtr(pb.j_r, pb.r),
                           _jtr(ju, ue.r), _jtr(jb1, be.r), _jtr(jb2, be.r)])
     cost = pb.cost + torch.sum(ue.err_sq) + torch.sum(be.err_sq)
@@ -450,7 +534,8 @@ def _assemble_banded(problem: Problem, config: BAConfig, imu_eval, cmask,
         ji2 = imu_eval.j2 * cm_pD[i2][:, None, :]
         groups += [
             (torch.cat([_outer(ji1, ji1), _outer(ji2, ji2),
-                        _band_pair_blocks(ji1, ji2, i1, i2)]),
+                        _cross_blocks(ji1, ji2, i1, i2,
+                                      problem.imu.pair_swap, B)]),
              plan.imu_grid),
             (torch.cat([_jtr(ji1, imu_eval.r), _jtr(ji2, imu_eval.r)]),
              plan.imu_rhs)]
@@ -463,26 +548,39 @@ def _assemble_banded(problem: Problem, config: BAConfig, imu_eval, cmask,
         (torch.cat([_outer(pb.j_m, j_lm_w), _outer(pb.j_r, j_lm_w)]),
          plan.wb)]
     sums = seg_sum_groups(groups)
-
-    grid = F.pad(sums[0], (0, D - 6, 0, D - 6))
-    rhs = F.pad(sums[1], (0, D - 6))
-    if imu_eval is not None:
-        grid = grid + sums[2]
-        rhs = rhs + sums[3]
     V, rhs_l, Wb = sums[-3:]
-    U = band_to_dense(grid.reshape(P, config.band_width, D, D))
-    rhs_p = rhs.reshape(-1)
-
-    # dense W (single block scatter)
-    idx = problem.pidx
-    W = torch.zeros((N, L * lm), dtype=U.dtype, device=U.device)
-    W = _scatter_blocks(W, Wb, idx.wb_pose.long() * D, idx.wb_lm.long() * lm)
     rhs_l = rhs_l.reshape(-1)
+    idx = problem.pidx
 
-    contrib = Contribution(U=U, rhs_p=rhs_p, W=W, V=V, rhs_l=rhs_l,
-                           cost=cost)
-    contrib = _add(contrib, marg_contribution(problem, config, colm))
-    return finish(contrib, cmask, pb.w)
+    def dense_w(width, n):
+        """W (n, L*lm) from its blocks at pose width `width`."""
+        W = torch.zeros((n, L * lm), dtype=dtype, device=Wb.device)
+        return _scatter_blocks(W, Wb, idx.wb_pose.long() * width,
+                               idx.wb_lm.long() * lm)
+
+    if B:
+        grid = F.pad(sums[0], (0, D - 6, 0, D - 6))
+        rhs = F.pad(sums[1], (0, D - 6))
+        if imu_eval is not None:
+            grid = grid + sums[2]
+            rhs = rhs + sums[3]
+        U = band_to_dense(grid.reshape(P, B, D, D))
+        return Contribution(U=U, rhs_p=rhs.reshape(-1), W=dense_w(D, N),
+                            V=V, rhs_l=rhs_l, cost=cost), pb.w
+
+    N6 = P * 6 + K
+    U6, rhs6 = _pair_system(N6, P, 6, sums[0][:P], sums[0][P:], sums[1],
+                            torch.cat([idx.pair_a, idx.bpair_a]),
+                            torch.cat([idx.pair_b, idx.bpair_b]))
+    contrib = expand_contribution(
+        Contribution(U=U6, rhs_p=rhs6, W=dense_w(6, N6), V=V, rhs_l=rhs_l,
+                     cost=cost), P, D, K)
+    if imu_eval is not None:
+        Ui, rhs_i = _pair_system(N, P, D, sums[2][:P], sums[2][P:], sums[3],
+                                 idx.ipair_a, idx.ipair_b)
+        contrib = contrib._replace(U=contrib.U + Ui,
+                                   rhs_p=contrib.rhs_p + rhs_i)
+    return contrib, pb.w
 
 
 def evaluate_cost(problem: Problem, config: BAConfig, imu_eval=None,

@@ -10,11 +10,12 @@ solve's status) read one scalar from the device each, counted by
 The dogleg boundary blend uses the textbook root
 beta = (-b + sqrt(b^2 - 4 a c)) / (2 a), as the JAX package does.
 
-Ported: the dense-Cholesky reduced solve on the banded assembly.  A solve
-builds the segment plans of its builds once, before the loop
-(`assemble.assembly_plan`), and hands them to every iteration.  The
-CG/banded solvers, the verbose and staged-Tvs host loop of `solve` and the
-calibration epilogue raise NotImplementedError.
+Ported: the dense-Cholesky reduced solve on both assembly paths, the
+banded grid and the general one (`assemble.plan_width` picks it from
+`config.band_width`).  A solve builds the segment plans of its builds once,
+before the loop (`assemble.assembly_plan`), and hands them to every
+iteration.  The CG/banded solvers, the verbose and staged-Tvs host loop of
+`solve` and the calibration epilogue raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -123,7 +124,8 @@ def _commit_imu_cov(problem: Problem, config: BAConfig, imu_c9) -> Problem:
 
 def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
                      plan: Optional[AssemblyPlan] = None) -> BuildOut:
-    """Dense-Cholesky reduced solve of the banded assembly."""
+    """Dense-Cholesky reduced solve of the assembly (banded or general,
+    as the plan says)."""
     if (config.use_cg_solver or config.use_banded_solver
             or config.schur_on_band):
         raise NotImplementedError(
@@ -272,13 +274,17 @@ def dogleg_iteration(problem: Problem, config: BAConfig, use_imu: bool,
 
 
 def solve_fixed(problem: Problem, config: BAConfig, use_imu: bool,
-                n_iters: int, gn_damping: float = 1.0):
+                n_iters: int, gn_damping: float = 1.0,
+                plan: Optional[AssemblyPlan] = None):
     """Fixed-iteration solve.  Returns (problem, costs (n_iters,),
-    delta_norms (n_iters,)); the problem must be `prepare_landmarks`-ed."""
+    delta_norms (n_iters,)); the problem must be `prepare_landmarks`-ed.
+    `plan` is the problem's `assembly_plan`, built here when absent (the
+    ring passes the slide's plan, which its marginalization reuses)."""
     trust = torch.full((), config.trust_region_size,
                        dtype=problem.poses.t.dtype,
                        device=problem.poses.t.device)
-    plan = assembly_plan(problem, config)
+    if plan is None:
+        plan = assembly_plan(problem, config)
     costs, dns = [], []
     for _ in range(n_iters):
         if config.use_dogleg:

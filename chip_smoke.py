@@ -25,11 +25,25 @@ Phases, each of which exits non-zero when a check fails:
      ground truth fall, everything is finite, and both kernels' launch
      counters moved by exactly the expected counts (kernel 2: one per
      build); host syncs per iteration, and those of the one-off plan;
-  8. timings from CUDA events: each kernel per call (host launch cost
-     included) and on the device (CUDA-graph replay), beside the launch
-     floor (a one-element add, replayed the same way), its bound and its
-     plain version; index_add_, kernel 2's library yardstick, both ways;
-     the segment plans' one-off build; kf/s of both drivers.
+  8. general_small: the general assembly path (band_width 0) on a small
+     f64 problem, one `assemble` (S, rhs, cost) and one `marginalize`
+     (H, g), on the card against the same code on the CPU;
+  9. ring_small: four slides of `run_ring` in f64, card against CPU;
+ 10. stream: the serving path at full width in f32, apps/vins_stream.py's
+     configuration at a VIO window's density (simulate(128 poses, 2,048
+     landmarks, seed 7), build_problem(perturb 0.02, seed 8), W = 10, 2 GN
+     iterations per slide), every keyframe through
+     `StreamingRing.push(block=False)`: keyframes retired per second after
+     the first push, ms per slide, host syncs per push, kernel launches per
+     slide, the retired trajectory's ATE (at most twice the JAX package's
+     f64 CPU ATE at the same configuration) and finite costs; kernel 1 and
+     kernel 2 against their plain versions at a slide's shapes;
+ 11. timings from CUDA events, at the flagship's shapes and at a slide's:
+     each kernel per call (host launch cost included) and on the device
+     (CUDA-graph replay), beside the launch floor (a one-element add,
+     replayed the same way), its bound and its plain version; index_add_,
+     kernel 2's library yardstick, both ways; the segment plans' one-off
+     build; kf/s of both drivers and of the stream.
 
 The last lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or when
@@ -62,6 +76,22 @@ TOL_K2 = {"float64": 1e-12, "float32": 1e-5}
 # card vs CPU on the small f64 problem: roundoff amplified by a few solves
 # (the CPU tests hold the port to ba_tpu at the same 1e-8)
 TOL_SMALL = 1e-8
+
+# the serving path: apps/vins_stream.py at VINS-Mono's EuRoC window and
+# density (WINDOW_SIZE 10, max_cnt 150); the table capacities its schedule
+# gives, and the slides of 128 keyframes
+STREAM = dict(poses=128, lms=2048, window=10, iters=2)
+STREAM_EXPECTED = dict(L_w=448, n_proj=2787, n_imu=9, imu_span=11,
+                       n_wb=3208, slides=119)
+# retired-trajectory ATE of the JAX package at the same configuration in
+# f64 on a CPU (`python apps/vins_stream.py --poses 128 --lms 2048
+# --window 10 --iters 2 --f64`); the f32 stream on the card may be at most
+# twice it
+JAX_F64_ATE_M = 0.00126      # printed as 0.126 cm
+# kernel launches per slide: 2 GN builds + the marginalization's build
+# with Jacobians, 2 trial costs without (kernel 1); one grouped sum per
+# build (kernel 2)
+K1_PER_SLIDE, K2_PER_SLIDE = 5, 3
 
 # H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
@@ -197,8 +227,8 @@ def cut_rows(p, n):
     return dataclasses.replace(p, proj=proj)
 
 
-def phase_k1(p64, p32, cfg):
-    """Kernel 1 against the plain version, at the flagship rows and at a
+def phase_k1(p64, p32, cfg, label="flagship"):
+    """Kernel 1 against the plain version, at the problem's rows and at a
     ragged last block; returns the f32 max abs error."""
     import torch
 
@@ -220,10 +250,10 @@ def phase_k1(p64, p32, cfg):
                       f"> {TOL_K1[dt]:g}")
                 if dt == "float32":
                     worst = max(worst, err)
-                say(f"kernel 1 {dt} Nr={p.proj.z.shape[0]} jac={int(jac)} "
-                    f"{name:7s} max abs err "
+                say(f"kernel 1 {label} {dt} Nr={p.proj.z.shape[0]} "
+                    f"jac={int(jac)} {name:7s} max abs err "
                     f"{err:.3e} rel {rel:.3e} (tol {TOL_K1[dt]:g})")
-    say("PHASE kernel1 ok")
+    say(f"PHASE kernel1 ({label}) ok")
     return worst
 
 
@@ -276,11 +306,11 @@ def _k2_check(dt, what, got, again, vals, ids, nseg):
     return err
 
 
-def phase_k2(sums):
+def phase_k2(sums, label="flagship", extras=True):
     """Kernel 2 against the plain version + determinism: the seven sums of
-    a build in one grouped launch (f32 and f64), out-of-range ids and a
-    2,100-row segment through one-group plans.  Returns the f32 max abs
-    error."""
+    a build in one grouped launch (f32 and f64); with `extras`,
+    out-of-range ids and a 2,100-row segment through one-group plans.
+    Returns the f32 max abs error."""
     import numpy as np
     import torch
 
@@ -294,10 +324,13 @@ def phase_k2(sums):
         b = segsum.seg_sum_grouped(groups)
         torch.cuda.synchronize()
         for (name, v, _, ids, nseg), x, y in zip(sums, a, b):
-            err = _k2_check(dt, f"grouped launch, {name}", x, y, v, ids,
-                            nseg)
+            err = _k2_check(dt, f"{label} grouped launch, {name}", x, y, v,
+                            ids, nseg)
             if dt == "float32":
                 worst = max(worst, err)
+    if not extras:
+        say(f"PHASE kernel2 ({label}) ok")
+        return worst
 
     # out-of-range ids drop their rows (the flagship build has none)
     _, v, _, ids, nseg = sums[0]
@@ -323,7 +356,7 @@ def phase_k2(sums):
             err = _k2_check(dt, what, x, y, vals, ids_, nseg_)
             if dt == "float32":
                 worst = max(worst, err)
-    say("PHASE kernel2 ok")
+    say(f"PHASE kernel2 ({label}) ok")
     return worst
 
 
@@ -533,9 +566,195 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     return dict(k1=k1, k2=k2, kf_s=kf, syncs=syncs, iters=s.iterations)
 
 
-def phase_timing(p32, cfg, sums, smi):
-    """Per-kernel times at the main-path shapes, beside the launch floor,
-    their bounds, their plain versions and the library yardstick."""
+def _compare(pairs, what, tol):
+    """Card tensors against CPU tensors: each rel err <= tol."""
+    for name, a, b in pairs:
+        _, rel = rel_err(a.cpu(), b)
+        say(f"card vs CPU, {what}: {name} rel err {rel:.3e} (tol {tol:g})")
+        check(rel <= tol, f"card vs CPU {what} {name}: {rel:.3g}")
+
+
+def phase_general_small():
+    """The general assembly path on the card against the CPU, f64, small:
+    one build and one marginalization on the build's plan."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import assemble as asm
+    from ba_tpu_torch.solver import step, window
+
+    sim = sv.simulate(n_poses=12, n_lms=48, seed=0)
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                                   device=dev)
+        p = prepare_landmarks(p, cfg)
+        plan = asm.assembly_plan(p, cfg)
+        check(plan.band_width == 0, "general_small: not the general path")
+        _counters_zero()
+        a = asm.assemble(p, cfg, imu_eval=step._imu_eval(p, cfg, True, True),
+                         plan=plan)
+        drop = torch.arange(p.poses.q.shape[0], device=dev) == 2
+        m = window.marginalize(p, cfg, True, drop, plan)
+        out[dev] = (a, m, _counters())
+    (ga, gm, counts), (ca, cm, _) = out["cuda"], out["cpu"]
+    _compare([(n, getattr(ga, n), getattr(ca, n))
+              for n in ("S", "rhs_sc", "cost", "U", "W", "V")]
+             + [("marginalize H", gm.H, cm.H), ("marginalize g", gm.g, cm.g)],
+             "general path, 12 poses f64", TOL_SMALL)
+    say(f"general_small kernel launches on the card: reprojection "
+        f"{counts[0]} segsum {counts[1]}")
+    check(counts[:2] == (2, 2), f"general_small: launches {counts[:2]}, "
+          "expected one of each kernel per build (assemble, marginalize)")
+    say("PHASE general_small ok")
+
+
+def phase_ring_small():
+    """Four slides of `run_ring` on the card against the CPU, f64."""
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import fixedlag
+
+    sim = sv.simulate(n_poses=16, n_lms=64, seed=2)
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=3,
+                                   with_marg_prior=False, device=dev)
+        sched = fixedlag.build_ring_schedule(prepare_landmarks(p, cfg), cfg,
+                                             5, 4)
+        _counters_zero()
+        out[dev] = fixedlag.run_ring(sched, cfg, True, 2) + (_counters(),)
+    (gc, go, counts), (cc, co, _) = out["cuda"], out["cpu"]
+    _compare([(f"retired {k}", go[k], co[k]) for k in go]
+             + [(f"final carry {n}", g, c)
+                for n, g, c in zip("qtvbx", gc[:5], cc[:5])]
+             + [("final prior H", gc[5].H, cc[5].H)],
+             "ring, 4 slides f64", TOL_SMALL)
+    check(counts[:2] == (4 * K1_PER_SLIDE, 4 * K2_PER_SLIDE),
+          f"ring_small: launches {counts[:2]} over 4 slides")
+    say("PHASE ring_small ok")
+
+
+def phase_stream(smi):
+    """The serving path at full width, f32, through
+    `StreamingRing.push(block=False)`; returns its numbers, and the
+    schedule and config for the kernel phases at a slide's shapes."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.apps.vins_stream import (add_keyframe, stream_feed,
+                                               stream_problem, wait)
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import fixedlag
+    from ba_tpu_torch.solver.streaming import RingCapacities, StreamingRing
+
+    t0 = time.perf_counter()
+    problem, cfg, sim = stream_problem(STREAM["poses"], STREAM["lms"])
+    W = STREAM["window"]
+    n_slides = STREAM["poses"] - W + 1
+    sched = fixedlag.build_ring_schedule(problem, cfg, W, n_slides)
+    caps = RingCapacities.from_schedule(sched)
+    sizes = dict(L_w=caps.L_w, n_proj=caps.n_proj, n_imu=caps.n_imu,
+                 imu_span=caps.imu_span, n_wb=caps.n_wb, slides=n_slides)
+    live_lms = sched.inputs["lm_active"].sum(1).double()
+    live_rows = sched.inputs["proj_valid"].sum(1).double()
+    say(f"stream configuration {STREAM}: capacities {sizes}; per window "
+        f"{float(live_lms.mean()):.1f} live landmarks (max "
+        f"{int(live_lms.max())}), {float(live_rows.mean()):.1f} valid "
+        f"projection rows (max {int(live_rows.max())}); problem and batch "
+        f"schedule built in {time.perf_counter() - t0:.2f} s")
+    check(sizes == STREAM_EXPECTED, f"stream sizes {sizes} != "
+          f"{STREAM_EXPECTED}")
+
+    feed = stream_feed(problem)
+    dev = problem.poses.t.device
+    ring = StreamingRing(cfg, W, problem.rig, problem.g_vec, caps,
+                         use_imu=True, iters_per_slide=STREAM["iters"],
+                         dtype=np.float32)
+    outs, syncs = [], []
+    _counters_zero()
+    t0 = time.perf_counter()
+    for g in range(STREAM["poses"]):
+        add_keyframe(ring, feed, g)
+        if outs:
+            out, n = _sync_count(lambda: ring.push(block=False))
+            syncs.append(n)
+        else:
+            out = ring.push(block=False)
+            if out is not None:
+                wait(dev)
+                t_first = time.perf_counter() - t0
+                t0 = time.perf_counter()
+        if out is not None:
+            outs.append(out)
+    wait(dev)
+    t_steady = time.perf_counter() - t0
+    k1, k2, _ = _counters()
+
+    n = len(outs)
+    n_steady = n - 1
+    costs = torch.stack([o["cost"] for o in outs]).double().cpu()
+    t_est = torch.stack([o["t"] for o in outs]).double().cpu().numpy()
+    ate = sv.ate(None, t_est, None, sim.t_wv[:n])
+    kf_s = n_steady / t_steady
+    ms_slide = 1e3 * t_steady / n_steady
+    say(f"[{smi}] stream f32: {n} keyframes retired; first push (builds "
+        f"and warm-up included) {t_first:.2f} s; steady state "
+        f"{kf_s:.3f} keyframes/s, {ms_slide:.1f} ms per slide over "
+        f"{n_steady} slides; host syncs per steady push min {min(syncs)} "
+        f"max {max(syncs)} total {sum(syncs)}; kernel launches "
+        f"reprojection {k1} ({k1 / n:.2f} per slide) segsum {k2} "
+        f"({k2 / n:.2f} per slide)")
+    say(f"stream f32: retired-trajectory ATE {ate:.6g} m (bound "
+        f"{2 * JAX_F64_ATE_M:g} m, twice the JAX f64 CPU ATE); last slide "
+        f"cost {float(costs[-1]):.6g}; costs finite "
+        f"{bool(torch.isfinite(costs).all())}")
+    check(n == n_slides, f"stream: {n} keyframes retired, not {n_slides}")
+    check(bool(torch.isfinite(costs).all()) and np.isfinite(t_est).all(),
+          "stream: non-finite costs or states")
+    check(ate <= 2 * JAX_F64_ATE_M, f"stream: ATE {ate:.6g} m > "
+          f"{2 * JAX_F64_ATE_M:g} m")
+    check((k1, k2) == (K1_PER_SLIDE * n, K2_PER_SLIDE * n),
+          f"stream: launches ({k1}, {k2}), expected "
+          f"({K1_PER_SLIDE * n}, {K2_PER_SLIDE * n})")
+    say("PHASE stream ok")
+    return dict(k1=k1, k2=k2, slides=n, kf_s=kf_s, ms_slide=ms_slide,
+                syncs_per_push=sum(syncs) / len(syncs), ate=ate,
+                last_cost=float(costs[-1])), sched, cfg
+
+
+def stream_slide(sched, cfg):
+    """(f64 problem, f32 problem) of the stream's first slide.  The f64
+    copy renormalizes its quaternions: cast from f32 they are unit only to
+    f32 roundoff, and kernel 1 and the plain version rotate with formulas
+    that agree only on unit quaternions (a 5e-7 relative gap otherwise)."""
+    import torch
+
+    from ba_tpu_torch.core import lie
+    from ba_tpu_torch.solver import fixedlag
+    from ba_tpu_torch.utils.tree import tree_map
+
+    p32 = fixedlag.slide_problem(sched.carry0,
+                                 fixedlag.slide_inputs(sched.inputs, 0),
+                                 sched.rig, sched.g_vec, sched.L_w)
+    p64 = tree_map(lambda a: a.double() if a.dtype == torch.float32 else a,
+                   p32)
+    p64 = dataclasses.replace(
+        p64,
+        poses=dataclasses.replace(p64.poses,
+                                  q=lie.quat_normalize(p64.poses.q)),
+        rig=dataclasses.replace(p64.rig,
+                                tvs_q=lie.quat_normalize(p64.rig.tvs_q)))
+    return p64, p32
+
+
+def phase_timing(p32, cfg, sums, smi, label="flagship"):
+    """Per-kernel times at one main path's shapes, beside the launch
+    floor, their bounds, their plain versions and the library
+    yardstick."""
     import torch
 
     from ba_tpu_torch.core.residuals import reprojection as rp
@@ -564,7 +783,8 @@ def phase_timing(p32, cfg, sums, smi):
         resid_ms=event_ms(lambda: k1.reprojection(p32, False), 200),
         resid_device_ms=graph_ms(lambda: k1.reprojection(p32, False), 50),
         plain_ms=event_ms(lambda: rp.evaluate_plain(p32, cfg, True), 10))
-    say(f"[{smi}] kernel 1 reprojection, Nr={pr.z.shape[0]} f32: "
+    say(f"[{smi}] kernel 1 reprojection, {label}, Nr={pr.z.shape[0]} "
+        f"({rows} valid) f32: "
         f"{t['ms']:.4f} ms per call ({t['device_ms']:.4f} ms on the device, "
         f"{t['device_ms'] / floor_ms:.2f}x the launch floor "
         f"{floor_ms:.4f} ms, {k1_bound / t['device_ms']:.1%} of the bound; "
@@ -582,7 +802,7 @@ def phase_timing(p32, cfg, sums, smi):
             vals.element_size()
         k2_ops += int(((ids >= 0) & (ids < nseg)).sum()) * vals.shape[1]
     check(all(bool(((i >= 0) & (i < n)).all()) for *_, i, n in sums),
-          "flagship segment ids out of range (index_add_ yardstick)")
+          f"{label} segment ids out of range (index_add_ yardstick)")
     groups = [(v, sp) for _, v, sp, _, _ in sums]
 
     def seven(fn):
@@ -603,8 +823,8 @@ def phase_timing(p32, cfg, sums, smi):
               library_device_ms=graph_ms(seven(library), 20))
     shapes = ", ".join(f"{v.shape[0]}x{v.shape[1]}->{n}"
                        for _, v, _, _, n in sums)
-    say(f"[{smi}] kernel 2 segsum, the seven sums of one build in one "
-        f"launch ({shapes}) f32: {t2['ms']:.4f} ms per build "
+    say(f"[{smi}] kernel 2 segsum, {label}, the seven sums of one build in "
+        f"one launch ({shapes}) f32: {t2['ms']:.4f} ms per build "
         f"({t2['device_ms']:.4f} ms on the device, "
         f"{k2_bound / t2['device_ms']:.2%} of the bound); index_add_ "
         f"{t2['library_ms']:.4f} ms per build ({t2['library_device_ms']:.4f} "
@@ -617,7 +837,7 @@ def phase_timing(p32, cfg, sums, smi):
                 bound_ms=k2_bound, bound_by=k2_by,
                 library_ms=t2["library_ms"],
                 library_device_ms=t2["library_device_ms"])
-    say("PHASE timing ok")
+    say(f"PHASE timing ({label}) ok")
     return rec1, rec2
 
 
@@ -645,25 +865,43 @@ def main():
     sums = capture_build_sums(p32, cfg)
     err2 = phase_k2(sums)
     phase_small_reference()
+    phase_general_small()
+    phase_ring_small()
     n_plan_syncs = plan_syncs(p32, cfg, smi)
     gn = phase_gn(p32, cfg, sim, smi, n_plan_syncs)
     dl = phase_dogleg(p32, cfg, sim, smi, n_plan_syncs)
+    st, sched, cfg_s = phase_stream(smi)
+    s64, s32 = stream_slide(sched, cfg_s)
+    err1s = phase_k1(s64, s32, cfg_s, "stream slide")
+    del s64
+    sums_s = capture_build_sums(s32, cfg_s)
+    err2s = phase_k2(sums_s, "stream slide", extras=False)
     rec1, rec2 = phase_timing(p32, cfg, sums, smi)
+    rec1s, rec2s = phase_timing(s32, cfg_s, sums_s, smi, "stream slide")
+
+    def paths(key):
+        return dict(launches=gn[key] + dl[key] + st[key],
+                    launches_gn=gn[key], launches_dogleg=dl[key],
+                    launches_stream=st[key],
+                    launches_per_slide=st[key] / st["slides"])
 
     kernels = [
         dict(name="reprojection", route="cuda",
              source="ba_tpu_torch/kernels/csrc/reprojection.cu",
              replaces="80bbf6f^:ba_tpu/ops/reprojection_pallas.py:83",
-             launches=gn["k1"] + dl["k1"], launches_gn=gn["k1"],
-             launches_dogleg=dl["k1"], max_abs_err=err1, **rec1),
+             **paths("k1"), max_abs_err=max(err1, err1s), **rec1,
+             stream_slide=dict(max_abs_err=err1s, **rec1s)),
         dict(name="segsum", route="cuda",
              source="ba_tpu_torch/kernels/csrc/segsum.cu",
              replaces="ba_tpu/solver/assemble.py:120",
-             launches=gn["k2"] + dl["k2"], launches_gn=gn["k2"],
-             launches_dogleg=dl["k2"], max_abs_err=err2, **rec2),
+             **paths("k2"), max_abs_err=max(err2, err2s), **rec2,
+             stream_slide=dict(max_abs_err=err2s, **rec2s)),
     ]
     say(f"[{smi}] kf/s: GN solve_fixed({N_ITERS}) {gn['kf_s']:.1f}, "
         f"dogleg solve {dl['kf_s']:.1f} ({dl['iters']} iterations); "
+        f"stream {st['kf_s']:.3f} keyframes retired/s "
+        f"({st['ms_slide']:.1f} ms per slide, "
+        f"{st['syncs_per_push']:.2f} host syncs per push); "
         f"total smoke {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

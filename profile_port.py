@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where a Gauss-Newton iteration of the port spends its time on the card.
+"""Where a Gauss-Newton iteration and a streaming slide of the port spend
+their time on the card.
 
     python3 profile_port.py
 
@@ -12,6 +13,13 @@ On the flagship problem of chip_smoke.py (128 keyframes, f32, band width
     PyTorch's sync debug mode;
   * the operators with the most device time and the most host time under
     `torch.profiler`, and the device's busy share of the profiled window.
+
+On the stream of chip_smoke.py (W = 10, 2 GN iterations per slide, f32) it
+prints the stages of one `StreamingRing.push`, timed the same way over
+several slides after a warm-up: the host's table build and packing, the
+upload, the two builds with their solves, the two trial costs, the
+marginalization and the whole push; the synchronizing source lines of a
+push; and the device's busy share of a few profiled pushes.
 
 The device's busy time is the sum of the kernel and copy spans of the
 profiler's trace (written to a temporary directory in the checkout and
@@ -129,19 +137,136 @@ def profile(p, cfg):
             q = step.gn_iteration(q, cfg, True, plan=plan).problem
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(dir=chip_smoke.ROOT) as tmp:
-        path = Path(tmp) / "profile_gn.json"
-        prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
-    busy_us = sum(e.get("dur", 0) for e in trace["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy = _busy_seconds(prof, "profile_gn.json")
     ka = prof.key_averages()
     dev_key = ("self_device_time_total"
                if hasattr(ka[0], "self_device_time_total")
                else "self_cuda_time_total")
     print(ka.table(sort_by=dev_key, row_limit=20))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=20))
-    return wall, busy_us * 1e-6
+    return wall, busy
+
+
+def slide_stage_times(smi, n_warm=3, n_slides=5):
+    """Mean seconds per slide of each stage of a push, from timed wrappers
+    around the functions a push calls (a stage's time includes the stages
+    nested in it); then the sync sites of one push and the device's busy
+    share of two profiled pushes."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from ba_tpu_torch.apps.vins_stream import (add_keyframe, stream_feed,
+                                               stream_problem)
+    from ba_tpu_torch.solver import fixedlag, step, streaming, window
+    from ba_tpu_torch.solver.streaming import RingCapacities, StreamingRing
+
+    cfg_s = chip_smoke.STREAM
+    problem, cfg, _ = stream_problem(cfg_s["poses"], cfg_s["lms"])
+    W = cfg_s["window"]
+    sched = fixedlag.build_ring_schedule(problem, cfg, W,
+                                         cfg_s["poses"] - W + 1)
+    ring = StreamingRing(cfg, W, problem.rig, problem.g_vec,
+                         RingCapacities.from_schedule(sched), use_imu=True,
+                         iters_per_slide=cfg_s["iters"], dtype=np.float32)
+    feed = stream_feed(problem)
+    sums = collections.defaultdict(float)
+    on = [False]
+
+    def wrap(owner, name, label):
+        fn = getattr(owner, name)
+
+        def timed(*a, **k):
+            if not on[0]:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            key = label(*a, **k) if callable(label) else label
+            sums[key] += time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, timed)
+
+    wrap(StreamingRing, "_slide_tables", "host: slide tables")
+    wrap(streaming, "_pack", "host: pack the three buffers")
+    wrap(StreamingRing, "_upload", "upload (pinned, asynchronous)")
+    wrap(fixedlag, "assembly_plan", "assembly plan (once per slide)")
+    wrap(step, "_build_and_solve",
+         "build: IMU + assemble + solve_reduced (x2)")
+    wrap(step, "_imu_eval", lambda p, c, u, jac, c9=None:
+         "  IMU evaluate with Jacobians (x2 builds)" if jac
+         else "  IMU evaluate without Jacobians (x2 trials)")
+    wrap(step, "assemble", "  assemble (x2)")
+    wrap(step, "solve_reduced", "  solve_reduced (x2)")
+    wrap(step, "_cost", "trial cost (x2)")
+    wrap(window, "marginalize", "marginalize")
+    wrap(StreamingRing, "push", "push, whole")
+
+    g = 0
+    while ring._next_slide < n_warm:
+        add_keyframe(ring, feed, g)
+        ring.push(block=False)
+        g += 1
+    on[0] = True
+    for _ in range(n_slides):
+        add_keyframe(ring, feed, g)
+        ring.push(block=False)
+        g += 1
+    on[0] = False
+    for name, secs in sums.items():
+        print(f"[{smi}] slide stage {name}: {secs / n_slides * 1e3:.2f} ms")
+
+    sites = collections.Counter()
+    root = str(chip_smoke.ROOT)
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if f.filename.startswith(root) and "profile_port" not in
+                  f.filename]
+        sites[" <- ".join(f"{Path(f.filename).relative_to(root)}:"
+                          f"{f.lineno}" for f in frames[::-1][:3])] += 1
+
+    add_keyframe(ring, feed, g)
+    g += 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ring.push(block=False)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for site, n in sites.most_common():
+        print(f"slide sync x{n}: {site}")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            add_keyframe(ring, feed, g)
+            ring.push(block=False)
+            g += 1
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = _busy_seconds(prof, "profile_slide.json")
+    print(f"[{smi}] profiled 2 pushes: wall {wall * 1e3:.1f} ms (profiler "
+          f"on), device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.2f}%")
+
+
+def _busy_seconds(prof, name):
+    """Sum of the kernel and copy spans of a profiler trace."""
+    with tempfile.TemporaryDirectory(dir=chip_smoke.ROOT) as tmp:
+        path = Path(tmp) / name
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    return 1e-6 * sum(e.get("dur", 0) for e in trace["traceEvents"]
+                      if e.get("cat") in ("kernel", "gpu_memcpy",
+                                          "gpu_memset"))
 
 
 def main():
@@ -163,6 +288,7 @@ def main():
     print(f"[{smi}] profiled {N_PROFILE_ITERS} GN iterations: wall "
           f"{wall * 1e3:.1f} ms (profiler on), device busy {busy * 1e3:.1f} "
           f"ms = {100 * busy / wall:.1f}%")
+    slide_stage_times(smi)
     return 0
 
 

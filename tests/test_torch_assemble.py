@@ -109,10 +109,12 @@ def test_banded_assembly_and_step_match(n_poses, pad_multiple, marg_active):
 
 
 def test_general_assembly_path_raises():
+    """The general path is ported (test_torch_general_assembly.py); what
+    still raises on it is a calibration block."""
     jp, jcfg, _ = jax_problem()
     tp = tprob.prepare_landmarks(to_torch(jp), torch_config(jcfg))
-    with pytest.raises(NotImplementedError, match="general assembly"):
-        tasm.assemble(tp, torch_config(jcfg, band_width=0))
+    with pytest.raises(NotImplementedError, match="calibration block"):
+        tasm.assemble(tp, torch_config(jcfg, band_width=0, do_tvs=True))
 
 
 def test_failed_factorization_gives_zero_pose_step():

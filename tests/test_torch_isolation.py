@@ -1,6 +1,7 @@
 """The port stands alone: no file of `ba_tpu_torch/` (nor `chip_smoke.py`
 or `profile_port.py`) imports jax or ba_tpu, importing the port leaves jax
-out of sys.modules, each entry point raises when CUDA is absent and no
+out of sys.modules, each entry point (the builders, the converters, the
+streaming smoother and the two apps) raises when CUDA is absent and no
 device="cpu" is given, and `chip_smoke.py` fails without a card."""
 
 import ast
@@ -41,7 +42,9 @@ def test_importing_the_port_loads_no_jax():
             "ba_tpu_torch.io.simulate_vins", "ba_tpu_torch.solver.step",
             "ba_tpu_torch.solver.summary", "ba_tpu_torch.kernels.build",
             "ba_tpu_torch.kernels.reprojection",
-            "ba_tpu_torch.kernels.segsum"]
+            "ba_tpu_torch.kernels.segsum", "ba_tpu_torch.solver.window",
+            "ba_tpu_torch.solver.fixedlag", "ba_tpu_torch.solver.streaming",
+            "ba_tpu_torch.apps.vins_stream", "ba_tpu_torch.apps.vins_window"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'ba_tpu')]\n"
@@ -52,11 +55,17 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["builder", "build_problem",
-                                   "problem_from_numpy"])
+                                   "problem_from_numpy",
+                                   "ring_schedule_from_numpy",
+                                   "streaming_ring"])
 def test_entry_points_need_cuda_or_cpu(entry, monkeypatch):
-    from ba_tpu_torch.convert import problem_from_numpy
-    from ba_tpu_torch.core.problem import BAConfig, ProblemBuilder
+    from ba_tpu_torch.convert import (problem_from_numpy,
+                                      ring_schedule_from_numpy)
+    from ba_tpu_torch.core.problem import (BAConfig, ProblemBuilder,
+                                           prepare_landmarks)
     from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import fixedlag
+    from ba_tpu_torch.solver.streaming import RingCapacities, StreamingRing
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = BAConfig(pose_dim=9)
@@ -68,17 +77,56 @@ def test_entry_points_need_cuda_or_cpu(entry, monkeypatch):
     elif entry == "build_problem":
         def call(**kw):
             return sv.build_problem(sim, cfg, **kw)
-    else:
+    elif entry == "problem_from_numpy":
         p, _, _ = sv.build_problem(sim, cfg, device="cpu")
         tree = _numpy_tree(p)
 
         def call(**kw):
             return problem_from_numpy(tree, **kw)
+    else:
+        p, _, _ = sv.build_problem(sim, cfg, device="cpu",
+                                   with_marg_prior=False)
+        sched = fixedlag.build_ring_schedule(
+            prepare_landmarks(p, cfg), cfg, 2)
+        if entry == "ring_schedule_from_numpy":
+            def call(**kw):
+                return ring_schedule_from_numpy(sched, **kw)
+        else:
+            caps = RingCapacities.from_schedule(sched)
+
+            def call(**kw):
+                return StreamingRing(cfg, 2, p.rig, p.g_vec, caps, **kw)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
     out = call(device="cpu")
+    if entry == "streaming_ring":
+        assert out.rig.params.device.type == "cpu"
+        return
+    if entry == "ring_schedule_from_numpy":
+        assert out.carry0[0].device.type == "cpu"
+        return
     p = out[0] if isinstance(out, tuple) else out
     assert p.poses.q.device.type == "cpu"
+
+
+@pytest.mark.parametrize("app,args", [
+    ("vins_stream", ["--poses", "7", "--lms", "28", "--window", "4"]),
+    ("vins_window", ["--poses", "7", "--lms", "28", "--window", "5",
+                     "--ring"]),
+    ("vins_window", ["--poses", "7", "--lms", "28", "--window", "6"])],
+    ids=["vins_stream", "vins_window_ring", "vins_window"])
+def test_apps_need_cuda_or_cpu(app, args, monkeypatch, capsys):
+    """Each app raises without CUDA and runs on the CPU with --device cpu
+    (tiny sizes: a few slides or marginalization steps)."""
+    import importlib
+
+    mod = importlib.import_module(f"ba_tpu_torch.apps.{app}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(args)
+    assert mod.main(args + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "on cpu" in out and "ATE" in out
 
 
 def _numpy_tree(problem):

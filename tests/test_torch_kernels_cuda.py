@@ -9,7 +9,11 @@ few ulps of f32 through ~10^3 operations); the segment sum is compared to
 an f64 sum of the same f32 values at 1e-5 and must be bit-identical between
 launches.  Kernel 1 also runs at a row count that is not a multiple of its
 32-row blocks; kernel 2 also runs as one grouped launch of seven sums of
-flagship shapes, with one segment of 927 rows and one of 2,100.
+flagship shapes, with one segment of 927 rows and one of 2,100.  On the
+general assembly path a build's seven sums are one launch that equals the
+plain walk of the same plans (f64, 1e-12: the same additions in the same
+order, FMA contraction aside), and three f32 slides of the ring run
+through both kernels with finite costs that fall.
 """
 
 import dataclasses
@@ -172,3 +176,66 @@ def test_segsum_long_segment_and_out_of_range_ids(dtype):
     assert torch.equal(a, b)
     assert _rel(a, _seg_sum_plain(vals.double(), ids, 700)) <= (
         1e-5 if dtype == torch.float32 else 1e-12)
+
+
+def test_general_build_grouped_launch_matches_plan_walk(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.kernels import segsum
+    from ba_tpu_torch.solver import assemble as asm
+    from ba_tpu_torch.solver import step
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    sim = sv.simulate(n_poses=12, n_lms=48, seed=0)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                               pad_multiple=3, device="cuda")
+    p = prepare_landmarks(p, cfg)
+    plan = asm.assembly_plan(p, cfg)
+    assert plan.band_width == 0
+    calls = []
+    orig = asm.seg_sum_groups
+
+    def record(groups):
+        calls.append([(v.reshape(v.shape[0], -1).contiguous(), sp)
+                      for v, sp in groups])
+        return orig(groups)
+
+    monkeypatch.setattr(asm, "seg_sum_groups", record)
+    before = segsum.seg_sum_grouped.launches
+    asm.assemble(p, cfg, imu_eval=step._imu_eval(p, cfg, True, True),
+                 plan=plan)
+    assert segsum.seg_sum_grouped.launches == before + 1
+    (groups,) = calls
+    assert len(groups) == 7
+    got = segsum.seg_sum_grouped(groups)
+    torch.cuda.synchronize()
+    for (v, sp), g in zip(groups, got):
+        assert _rel(g, segsum.plan_walk(v, sp)) <= 1e-12
+
+
+def test_ring_three_slides_f32():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.kernels import reprojection, segsum
+    from ba_tpu_torch.solver import fixedlag
+    from ba_tpu_torch.utils.tree import tree_map
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    sim = sv.simulate(n_poses=16, n_lms=64, seed=2)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=3,
+                               with_marg_prior=False, device="cuda")
+    p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
+    sched = fixedlag.build_ring_schedule(prepare_landmarks(p, cfg), cfg, 5,
+                                         3)
+    k1, k2 = reprojection.reprojection.launches, \
+        segsum.seg_sum_grouped.launches
+    _, outs = fixedlag.run_ring(sched, cfg, True, 2)
+    costs = outs["cost"].cpu()
+    assert bool(torch.isfinite(costs).all())
+    assert float(costs[-1]) < float(costs[0]), costs
+    assert reprojection.reprojection.launches - k1 == 3 * 5
+    assert segsum.seg_sum_grouped.launches - k2 == 3 * 3

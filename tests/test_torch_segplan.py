@@ -191,8 +191,17 @@ def test_assemble_rejects_a_plan_of_another_band_width():
     other = dataclasses.replace(tcfg, band_width=tcfg.band_width - 1)
     with pytest.raises(ValueError, match="band width"):
         tasm.assemble(tp, other, plan=plan)
-    with pytest.raises(NotImplementedError, match="general assembly"):
-        tasm.assembly_plan(tp, dataclasses.replace(tcfg, band_width=0))
+    # band width 0 plans the general path; a banded plan does not serve it,
+    # nor the general plan a banded build
+    general = tasm.assembly_plan(tp, dataclasses.replace(tcfg, band_width=0))
+    assert general.band_width == 0
+    with pytest.raises(ValueError, match="band width"):
+        tasm.assemble(tp, dataclasses.replace(tcfg, band_width=0), plan=plan)
+    with pytest.raises(ValueError, match="band width"):
+        tasm.assemble(tp, tcfg, plan=general)
+    with pytest.raises(NotImplementedError, match="calibration block"):
+        tasm.assembly_plan(tp, dataclasses.replace(tcfg, band_width=0,
+                                                   do_tvs=True))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
