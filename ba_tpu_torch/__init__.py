@@ -2,13 +2,15 @@
 
 The JAX package `ba_tpu` stays the reference; this package mirrors its
 layout module for module (core/, core/residuals/, io/, solver/, utils/) and
-adds kernels/ with the hand-written CUDA kernels of the main path:
+adds kernels/ with the hand-written CUDA kernels of its paths:
 
   kernels/csrc/reprojection.cu  reprojection residual + closed-form
                                 Jacobians (the retired Pallas kernel)
   kernels/csrc/segsum.cu        grouped deterministic segmented block sum
-                                (the seven normal-equation sums of a
-                                banded build, in one launch)
+                                (the normal-equation sums of a build)
+  kernels/csrc/band_schur.cu    grouped banded Schur correction (the
+                                long-trajectory banded solver)
+  kernels/csrc/band_matvec.cu   symmetric block-band product (its PCG)
 
 Every kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; a CUDA tensor goes through the kernel or

@@ -21,7 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("reprojection", "segsum")
+SOURCES = ("reprojection", "segsum", "band_schur", "band_matvec")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 

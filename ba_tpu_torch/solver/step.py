@@ -10,12 +10,25 @@ solve's status) read one scalar from the device each, counted by
 The dogleg boundary blend uses the textbook root
 beta = (-b + sqrt(b^2 - 4 a c)) / (2 a), as the JAX package does.
 
-Ported: the dense-Cholesky reduced solve on both assembly paths, the
-banded grid and the general one (`assemble.plan_width` picks it from
-`config.band_width`).  A solve builds the segment plans of its builds once,
-before the loop (`assemble.assembly_plan`), and hands them to every
-iteration.  The CG/banded solvers, the verbose and staged-Tvs host loop of
-`solve` and the calibration epilogue raise NotImplementedError.
+Ported reduced solves (`_reduced_path` picks one from static properties,
+as ba_tpu's `_build_and_solve` does):
+
+  * dense Cholesky on either assembly path, the banded grid or the general
+    one (`assemble.plan_width` picks it from `config.band_width`);
+  * `use_banded_solver`: the block system (`solver/cg.py`), the banded
+    Schur band and the chunked factorization as the preconditioner of a
+    short PCG (`banded.solve_reduced_banded`);
+  * `schur_on_band`: the banded Schur band, densified with the
+    marginalization prior and solved by one Cholesky
+    (`banded.solve_reduced_banded_dense`).
+
+`use_banded_solver` without a band, or with a marginalization prior, falls
+back to the dense solve as in ba_tpu.  A solve builds the segment plans of
+its builds once, before the loop (`solve_plan`: an `AssemblyPlan` or a
+`cg.BlockPlan`), and hands them to every iteration.  The matrix-free PCG
+solver (`use_cg_solver`), fleets (`fleet_size > 1` on the banded solver),
+the verbose and staged-Tvs host loop of `solve` and the calibration
+epilogue raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,8 +45,10 @@ from ..core.problem import (BAConfig, Problem, finalize_landmarks,
 from ..core.residuals import imu as imu_mod
 from ..utils.sync import item
 from ..utils.tree import tree_where
-from .assemble import (Assembly, AssemblyPlan, assemble, assembly_plan,
-                       band_width_of, evaluate_cost)
+from . import banded as banded_mod
+from . import cg as cg_mod
+from .assemble import (Assembly, assemble, assembly_plan, band_width_of,
+                       dims, evaluate_cost)
 from .linear import GnStep, solve_reduced
 
 
@@ -122,21 +137,69 @@ def _commit_imu_cov(problem: Problem, config: BAConfig, imu_c9) -> Problem:
     return dataclasses.replace(problem, imu=imu)
 
 
-def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
-                     plan: Optional[AssemblyPlan] = None) -> BuildOut:
-    """Dense-Cholesky reduced solve of the assembly (banded or general,
-    as the plan says)."""
-    if (config.use_cg_solver or config.use_banded_solver
-            or config.schur_on_band):
+def _reduced_path(problem: Problem, config: BAConfig) -> str:
+    """The reduced solve of a build, from static properties (ba_tpu's
+    gates): "banded" (`use_banded_solver` with a band, no calibration block
+    and no marginalization prior), "schur_on_band" (a band and no
+    calibration block; a prior is allowed) or "dense".  The paths ba_tpu
+    would take to its CG solver or its fleet solve raise."""
+    D, K, P, L, lm, N = dims(problem, config)
+    band = 0 < config.band_width <= P and K == 0
+    if (config.use_banded_solver and band
+            and problem.marg.H.shape[0] != P * D):
+        if config.fleet_size > 1:
+            raise NotImplementedError(
+                "fleet solves (fleet_size > 1) are not ported yet "
+                "(ROADMAP.md queue 1 item 4)")
+        return "banded"
+    if config.schur_on_band and band:
+        return "schur_on_band"
+    if config.use_cg_solver:
         raise NotImplementedError(
-            "CG and banded reduced solvers are not ported yet "
-            "(ROADMAP.md queue 2, K6-K10)")
+            "the matrix-free PCG solver (use_cg_solver) is not ported yet "
+            "(ROADMAP.md queue 1 item 2)")
+    return "dense"
+
+
+def solve_plan(problem: Problem, config: BAConfig):
+    """The segment plans of every build of a solve, on the problem's
+    device, with no host read: a `cg.BlockPlan` with its band plan for the
+    banded solvers, else the `AssemblyPlan` of the dense solve.  Build it
+    once per solve."""
+    if _reduced_path(problem, config) == "dense":
+        return assembly_plan(problem, config)
+    return cg_mod.block_plan(problem, config, band=True)
+
+
+def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
+                     plan=None) -> BuildOut:
+    """Assemble and solve the reduced system on the path `_reduced_path`
+    picks.  `plan` is the solve's `solve_plan`; a missing plan, or one of
+    the other path (the ring hands its slide's `AssemblyPlan`), is built
+    here."""
+    path = _reduced_path(problem, config)
+    blocks = path != "dense"
+    if plan is None or isinstance(plan, cg_mod.BlockPlan) != blocks:
+        plan = solve_plan(problem, config)
     imu_eval = _imu_eval(problem, config, use_imu, True)
+    imu_c9 = imu_eval.c9 if imu_eval is not None else None
+    if blocks:
+        D, K, P, L, lm, N = dims(problem, config)
+        bs, marg_H = cg_mod.assemble_blocks(problem, config, imu_eval,
+                                            with_precond=False, plan=plan)
+        if path == "banded":
+            step = banded_mod.solve_reduced_banded(problem, config, bs, P, D)
+        else:
+            step = banded_mod.solve_reduced_banded_dense(problem, config, bs,
+                                                         P, D, marg_H)
+        return BuildOut(step=step, cost=bs.cost, proj_w=bs.proj_w,
+                        rhs_p=bs.rhs_p, rhs_l=bs.rhs_l,
+                        cauchy_alpha=cg_mod.cauchy_factor(bs, marg_H, P, D),
+                        imu_c9=imu_c9)
     asm = assemble(problem, config, imu_eval=imu_eval, plan=plan)
     return BuildOut(step=solve_reduced(asm), cost=asm.cost,
                     proj_w=asm.proj_w, rhs_p=asm.rhs_p, rhs_l=asm.rhs_l,
-                    cauchy_alpha=_cauchy_factor(asm),
-                    imu_c9=imu_eval.c9 if imu_eval is not None else None)
+                    cauchy_alpha=_cauchy_factor(asm), imu_c9=imu_c9)
 
 
 def _cauchy_factor(asm: Assembly):
@@ -181,9 +244,9 @@ def apply_robust_reweighting(problem: Problem, config: BAConfig,
 def gn_iteration(problem: Problem, config: BAConfig, use_imu: bool,
                  gn_damping: float = 1.0,
                  error_increase_allowed: bool = False,
-                 plan: Optional[AssemblyPlan] = None) -> IterResult:
+                 plan=None) -> IterResult:
     """One damped Gauss-Newton outer iteration with rollback; `plan` is
-    the solve's `assembly_plan` (built here when absent)."""
+    the solve's `solve_plan` (built here when absent)."""
     problem = apply_robust_reweighting(problem, config, use_imu)
     built = _build_and_solve(problem, config, use_imu, plan)
     problem = _commit_imu_cov(problem, config, built.imu_c9)
@@ -243,8 +306,7 @@ def dogleg_search(problem: Problem, config: BAConfig, use_imu: bool,
 
 
 def dogleg_iteration(problem: Problem, config: BAConfig, use_imu: bool,
-                     trust_radius,
-                     plan: Optional[AssemblyPlan] = None) -> IterResult:
+                     trust_radius, plan=None) -> IterResult:
     """One dogleg outer iteration: bounded inner trust-region search;
     `plan` as in `gn_iteration`."""
     problem = apply_robust_reweighting(problem, config, use_imu)
@@ -274,17 +336,16 @@ def dogleg_iteration(problem: Problem, config: BAConfig, use_imu: bool,
 
 
 def solve_fixed(problem: Problem, config: BAConfig, use_imu: bool,
-                n_iters: int, gn_damping: float = 1.0,
-                plan: Optional[AssemblyPlan] = None):
+                n_iters: int, gn_damping: float = 1.0, plan=None):
     """Fixed-iteration solve.  Returns (problem, costs (n_iters,),
     delta_norms (n_iters,)); the problem must be `prepare_landmarks`-ed.
-    `plan` is the problem's `assembly_plan`, built here when absent (the
-    ring passes the slide's plan, which its marginalization reuses)."""
+    `plan` is the problem's `solve_plan`, built here when absent (the ring
+    passes the slide's plan, which its marginalization reuses)."""
     trust = torch.full((), config.trust_region_size,
                        dtype=problem.poses.t.dtype,
                        device=problem.poses.t.device)
     if plan is None:
-        plan = assembly_plan(problem, config)
+        plan = solve_plan(problem, config)
     costs, dns = [], []
     for _ in range(n_iters):
         if config.use_dogleg:
@@ -336,7 +397,7 @@ def solve_adaptive(problem: Problem, config: BAConfig, use_imu: bool,
 
     dtype, device = problem.poses.t.dtype, problem.poses.t.device
     problem = prepare_landmarks(problem, config)
-    plan = assembly_plan(problem, config)
+    plan = solve_plan(problem, config)
     trust = torch.full((), config.trust_region_size, dtype=dtype,
                        device=device)
     zero = torch.zeros((), dtype=dtype, device=device)

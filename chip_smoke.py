@@ -43,7 +43,28 @@ Phases, each of which exits non-zero when a check fails:
      (CUDA-graph replay), beside the launch floor (a one-element add,
      replayed the same way), its bound and its plain version; index_add_,
      kernel 2's library yardstick, both ways; the segment plans' one-off
-     build; kf/s of both drivers and of the stream.
+     build; kf/s of both drivers and of the stream;
+ 12. banded_small: the banded solvers on the card against the CPU in f64
+     (simulate(80 poses, 200 landmarks), four chunks): solve_reduced_banded
+     with cyclic reduction and with the scan, band_S and the step through
+     the grouped Schur form (forced), `schur_on_band` with an active
+     marginalization prior, and one dogleg `solve` on the banded solver;
+ 13. the long trajectory of bench_roofline.py --what band --poses 2048:
+     simulate(2,048 poses, 8,192 landmarks, seed 0), build_problem(perturb
+     0.01, seed 1, no marginalization prior), f32, band width from the
+     problem, use_banded_solver; k7: kernel 7 (grouped band Schur
+     correction) against its plain version at full width in f32 and on an
+     f64 copy, with padding W blocks, bit-identical relaunch; k9: kernel 9
+     (band matvec) against its plain version on the scaled band and at 2,047
+     poses (not a multiple of its 8-pose blocks);
+ 14. long: GN solve_fixed(..., 10) of that trajectory: cost and ATE fall,
+     everything finite, solver_ok at every iteration, exact launch counts
+     of all four kernels, no host sync per iteration (the one-off plans
+     counted apart), kf/s, ms per iteration and peak device memory; the
+     first iteration's step against the dense solve of the same build
+     (banded grid + dense Cholesky), within a multiple of the same gap on
+     an f32 CPU run of both at 256 poses; K7 and K9 timed as in 11, with
+     torch.mv on the densified band as K9's library yardstick.
 
 The last lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or when
@@ -92,6 +113,26 @@ JAX_F64_ATE_M = 0.00126      # printed as 0.126 cm
 # with Jacobians, 2 trial costs without (kernel 1); one grouped sum per
 # build (kernel 2)
 K1_PER_SLIDE, K2_PER_SLIDE = 5, 3
+
+# the long trajectory (bench_roofline.py:26-44, --what band --poses 2048;
+# bench_scaling.py's bandsolve at P = 2048, 10 GN iterations)
+LONG = dict(poses=2048, lms=8192, iters=10)
+LONG_EXPECTED = dict(P=2048, L=8174, Nr=173603, Nw=181771, Ni=2047, B=24,
+                     n_sp=2123334)
+# kernel launches per build of the banded solver: kernel 2 twice in
+# assemble_blocks (gradient, V, rhs_l and W blocks; then W V^-1 rhs_l), once
+# in band_S, once for the Cauchy factor and once for the landmark
+# back-substitution; kernel 7 once (band_S, grouped form); kernel 9 once per
+# PCG iteration (4)
+K2_PER_BANDED_BUILD, K7_PER_BUILD, K9_PER_BUILD = 5, 1, 4
+# kernel 7 and kernel 9 against their plain versions, relative to
+# max(1, max |plain|): the same products summed in another order
+TOL_K7 = {"float64": 1e-12, "float32": 1e-5}
+TOL_K9 = {"float64": 1e-12, "float32": 1e-5}
+# the long step may differ from the dense solve's by this multiple of the
+# same gap on an f32 CPU run of both at 256 poses: the gap lies along the
+# near-null gauge directions that the 4-iteration PCG does not converge
+STEP_GAP_POSES, STEP_GAP_FACTOR = 256, 3.0
 
 # H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
@@ -403,12 +444,22 @@ def phase_small_reference():
 
 
 def _counters_zero():
-    from ba_tpu_torch.kernels import reprojection, segsum
+    from ba_tpu_torch.kernels import (band_matvec, band_schur, reprojection,
+                                      segsum)
     from ba_tpu_torch.utils.sync import item
 
     reprojection.reprojection.launches = 0
     segsum.seg_sum_grouped.launches = 0
+    band_schur.band_schur.launches = 0
+    band_matvec.band_matvec.launches = 0
     item.count = 0
+
+
+def _band_counters():
+    """(kernel 7, kernel 9) launches since `_counters_zero`."""
+    from ba_tpu_torch.kernels import band_matvec, band_schur
+
+    return band_schur.band_schur.launches, band_matvec.band_matvec.launches
 
 
 def _counters():
@@ -841,6 +892,439 @@ def phase_timing(p32, cfg, sums, smi, label="flagship"):
     return rec1, rec2
 
 
+# ---------------------------------------------------------------------------
+# The banded solvers
+
+
+def _random_prior(p, scale, seed):
+    """`p` with an active random dense marginalization prior (H PSD)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = p.marg.H.shape[0]
+    A = rng.standard_normal((n, n)) * scale
+    kw = dict(dtype=p.marg.H.dtype, device=p.marg.H.device)
+    marg = dataclasses.replace(
+        p.marg, H=torch.as_tensor(A @ A.T, **kw),
+        g=torch.as_tensor(rng.standard_normal(n) * scale, **kw),
+        lin_t=p.marg.lin_t + 0.01 * scale,
+        active=torch.ones((), dtype=torch.bool, device=p.marg.H.device))
+    return dataclasses.replace(p, marg=marg)
+
+
+def phase_banded_small():
+    """The banded solvers on the card against the CPU in f64, on
+    simulate(80 poses, 200 landmarks) (band width 24, four chunks)."""
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import banded, cg, step
+    from ba_tpu_torch.solver.assemble import band_width_of
+
+    sim = sv.simulate(n_poses=80, n_lms=200, seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False,
+                       use_banded_solver=True)
+        raw, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                                     with_marg_prior=False, device=dev)
+        cfg = dataclasses.replace(cfg, band_width=band_width_of(raw))
+        p = prepare_landmarks(raw, cfg)
+        P, D = p.poses.q.shape[0], cfg.pose_dim
+        bs, _ = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True, True),
+                                   with_precond=False)
+        _counters_zero()
+        r = {}
+        for name, c in (("cyclic reduction", cfg),
+                        ("scan", dataclasses.replace(
+                            cfg, banded_cyclic_reduction=False))):
+            s = banded.solve_reduced_banded(p, c, bs, P, D)
+            r[f"{name} delta_p"], r[f"{name} delta_l"] = s.delta_p, s.delta_l
+            r[f"{name} ok"] = s.ok
+        old = banded._GROUPED_SP_MIN
+        banded._GROUPED_SP_MIN = 0
+        try:
+            r["grouped band_S"] = banded.band_S(p, cfg, bs, P, D)
+            r["grouped delta_p"] = banded.solve_reduced_banded(
+                p, cfg, bs, P, D).delta_p
+        finally:
+            banded._GROUPED_SP_MIN = old
+        # schur_on_band with an active marginalization prior
+        pm, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                                    device=dev)
+        pm = prepare_landmarks(_random_prior(pm, 0.05, 3), cfg)
+        cfg_s = dataclasses.replace(cfg, use_banded_solver=False,
+                                    schur_on_band=True)
+        check(step._reduced_path(pm, cfg_s) == "schur_on_band",
+              "banded_small: not the schur_on_band path")
+        built = step._build_and_solve(pm, cfg_s, True)
+        r["schur_on_band delta_p"] = built.step.delta_p
+        r["schur_on_band delta_l"] = built.step.delta_l
+        r["schur_on_band ok"] = built.step.ok
+        counts = _band_counters()
+        pd, summ = step.solve(raw, dataclasses.replace(cfg, use_dogleg=True),
+                              max_iter=10)
+        r["dogleg poses.t"] = pd.poses.t
+        r["dogleg lms.x_w"] = pd.lms.x_w
+        out[dev] = (r, summ, counts)
+    (g, gs, counts), (c, cs, _) = out["cuda"], out["cpu"]
+    import torch
+
+    _compare([(k, g[k], c[k]) for k in c]
+             + [("dogleg final cost", torch.tensor(gs.final_cost),
+                 torch.tensor(cs.final_cost))],
+             "banded solvers, 80 poses f64", TOL_SMALL)
+    check(all(bool(c[k]) for k in c if k.endswith(" ok")),
+          "banded_small: a factorization failed")
+    path = (gs.iterations, gs.result, gs.inner_iterations)
+    say(f"banded_small dogleg: {gs.iterations} iterations, {gs.result}, "
+        f"cost {gs.initial_cost:.6g} -> {gs.final_cost:.6g} (CPU "
+        f"{cs.iterations}, {cs.result}); card launches before the dogleg: "
+        f"band_schur {counts[0]} band_matvec {counts[1]}")
+    check(path == (cs.iterations, cs.result, cs.inner_iterations),
+          "banded_small: dogleg took another path on the card")
+    check(gs.final_cost < gs.initial_cost, "banded_small: dogleg cost")
+    check(counts[0] >= 2 and counts[1] >= 3 * K9_PER_BUILD,
+          f"banded_small: kernels 7/9 launched {counts} times")
+    say("PHASE banded_small ok")
+
+
+def long_problem():
+    """(f32 problem, config, SimData) of the long trajectory, prepared."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver.assemble import band_width_of
+    from ba_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False,
+                   use_banded_solver=True)
+    sim = sv.simulate(n_poses=LONG["poses"], n_lms=LONG["lms"], seed=0)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                               with_marg_prior=False)
+    cfg = dataclasses.replace(cfg, band_width=band_width_of(p))
+    p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
+    sizes = dict(P=p.poses.q.shape[0], L=p.lms.x.shape[0],
+                 Nr=p.proj.z.shape[0], Nw=p.pidx.wb_pose.shape[0],
+                 Ni=int(p.imu.valid.sum()), B=cfg.band_width,
+                 n_sp=p.pidx.sp_i.shape[0])
+    say(f"long problem {sizes} on {p.poses.q.device} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(sizes == LONG_EXPECTED, f"long sizes {sizes} != {LONG_EXPECTED}")
+    return prepare_landmarks(p, cfg), cfg, sim
+
+
+def long_blocks(p, cfg):
+    """(block system, plan) of one build of the long problem."""
+    from ba_tpu_torch.solver import cg, step
+
+    plan = step.solve_plan(p, cfg)
+    bs, _ = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True, True),
+                               with_precond=False, plan=plan)
+    return bs, plan
+
+
+def phase_k7(p, cfg, bs, plan):
+    """Kernel 7 against its plain version at full width, f32 and an f64
+    copy, with and without padding W blocks; two launches bit-identical.
+    Returns the f32 max abs error."""
+    import torch
+
+    from ba_tpu_torch.kernels import band_schur as k7
+    from ba_tpu_torch.solver import banded
+
+    P, L, B = p.poses.q.shape[0], p.lms.x.shape[0], cfg.band_width
+    idx = p.pidx
+    check(plan.band.grouped, "long: band_S is not on the grouped form")
+    sp = plan.band.schur
+    check(int(sp.slot.max()) == B - 1,
+          "k7: no landmark reaches the last slot of the band")
+    # padding W blocks (landmark id L), nonzero: both versions drop them
+    pad, dev = 64, bs.wb.device
+    wb_pose_p = torch.cat([idx.wb_pose, torch.arange(
+        pad, dtype=torch.int32, device=dev) % P])
+    wb_lm_p = torch.cat([idx.wb_lm, torch.full((pad,), L, dtype=torch.int32,
+                                               device=dev)])
+    Wb_p = torch.cat([bs.wb, torch.full((pad, 6, 1), 1e3, device=dev)])
+    cases = (("full width", idx.wb_pose, idx.wb_lm, bs.wb, sp),
+             ("padding rows", wb_pose_p, wb_lm_p, Wb_p,
+              k7.schur_plan(wb_pose_p, wb_lm_p, P, L, B)))
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        for what, wp, wl, Wb, sp_ in cases:
+            Wb, vinv = Wb.to(dtype), bs.vinv.to(dtype)
+            a = k7.band_schur(Wb, vinv, sp_, P)
+            b = k7.band_schur(Wb, vinv, sp_, P)
+            want = banded.band_schur_plain(wp, wl, Wb, vinv, P, B)
+            torch.cuda.synchronize()
+            err, rel = rel_err(a, want)
+            same = bool(torch.equal(a, b))
+            say(f"kernel 7 {dt} {what} (Nw={Wb.shape[0]}, P={P}, B={B}): "
+                f"max abs err {err:.3e} rel {rel:.3e} (tol {TOL_K7[dt]:g}); "
+                f"bit-identical relaunch {same}")
+            check(rel <= TOL_K7[dt], f"kernel 7 {dt} {what}: rel {rel:.3g}")
+            check(same, f"kernel 7 {dt} {what}: two launches differ")
+            if dt == "float32":
+                worst = max(worst, err)
+            del want
+    say("PHASE k7 ok")
+    return worst
+
+
+def phase_k9(p, cfg, bs):
+    """Kernel 9 against its plain version on the long build's scaled band
+    (the matrix the PCG multiplies) and on its first 2,047 poses, f32 and
+    an f64 copy.  Returns (f32 max abs error, band_s, x)."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.solver import banded
+
+    P, D = p.poses.q.shape[0], cfg.pose_dim
+    band_s, _ = banded.jacobi_scaled(banded.band_S(p, cfg, bs, P, D))
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(P * D),
+                        dtype=band_s.dtype, device=band_s.device)
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        for n in (P, P - 1):
+            bd, xv = band_s[:n].to(dtype), x[: n * D].to(dtype)
+            a = banded.band_matvec(bd, xv)
+            b = banded.band_matvec(bd, xv)
+            want = banded.band_matvec_plain(bd.double(), xv.double())
+            torch.cuda.synchronize()
+            err, rel = rel_err(a, want)
+            same = bool(torch.equal(a, b))
+            say(f"kernel 9 {dt} P={n} B={bd.shape[1]} D={D}: max abs err "
+                f"{err:.3e} rel {rel:.3e} (tol {TOL_K9[dt]:g}); "
+                f"bit-identical relaunch {same}")
+            check(rel <= TOL_K9[dt], f"kernel 9 {dt} P={n}: rel {rel:.3g}")
+            check(same, f"kernel 9 {dt} P={n}: two launches differ")
+            if dt == "float32":
+                worst = max(worst, err)
+    say("PHASE k9 ok")
+    return worst, band_s, x
+
+
+def _step_gap(a, b):
+    """max |a - b| / max |b| of two steps."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def step_gap_cpu():
+    """(delta_p gap, delta_l gap) of the banded solver's first step
+    against the dense solve's, f32 on the CPU at STEP_GAP_POSES poses of
+    the long configuration's simulator."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import step
+    from ba_tpu_torch.solver.assemble import band_width_of
+    from ba_tpu_torch.utils.tree import tree_map
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False,
+                   use_banded_solver=True)
+    sim = sv.simulate(n_poses=STEP_GAP_POSES, n_lms=4 * STEP_GAP_POSES,
+                      seed=0)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                               with_marg_prior=False, device="cpu")
+    cfg = dataclasses.replace(cfg, band_width=band_width_of(p))
+    p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
+    p = prepare_landmarks(p, cfg)
+    a = step._build_and_solve(p, cfg, True).step
+    b = step._build_and_solve(
+        p, dataclasses.replace(cfg, use_banded_solver=False), True).step
+    return _step_gap(a.delta_p, b.delta_p), _step_gap(a.delta_l, b.delta_l)
+
+
+def phase_long(p, cfg, sim, smi):
+    """GN solve_fixed(..., 10) of the long trajectory on the banded solver,
+    then its first step against the dense solve's."""
+    import torch
+
+    from ba_tpu_torch.solver import step
+    from ba_tpu_torch.solver.assemble import evaluate_cost
+
+    n = LONG["iters"]
+    # the factorization's f32 products must stay exact f32 (ba_tpu asks
+    # for Precision.HIGHEST there); the package pins TF32 off at import
+    exact = (not torch.backends.cuda.matmul.allow_tf32
+             and torch.get_float32_matmul_precision() == "highest")
+    say(f"long: f32 matmuls exact (TF32 off, precision highest) {exact}")
+    check(exact, "long: TF32 is on for f32 matmuls")
+    cost0 = float(evaluate_cost(p, cfg, step._imu_eval(p, cfg, True, False)))
+    ate0 = _ate(p, sim)
+
+    def plan():
+        out = step.solve_plan(p, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    plan_first, plan_again = _sync_count(plan)[1], _sync_count(plan)[1]
+    step.solve_fixed(p, cfg, True, 1)                      # warm-up
+    torch.cuda.synchronize()
+
+    oks = []
+    orig = step.gn_iteration
+
+    def recording(*a, **k):
+        res = orig(*a, **k)
+        oks.append(res.solver_ok)
+        return res
+
+    def run():
+        out = step.solve_fixed(p, cfg, True, n)
+        torch.cuda.synchronize()
+        return out
+
+    step.gn_iteration = recording
+    torch.cuda.reset_peak_memory_stats()
+    _counters_zero()
+    try:
+        t0 = time.perf_counter()
+        (q, costs, dns), syncs = _sync_count(run)
+        secs = time.perf_counter() - t0
+    finally:
+        step.gn_iteration = orig
+    k1, k2, reads = _counters()
+    k7, k9 = _band_counters()
+    peak = torch.cuda.max_memory_allocated()
+    costs_h = costs.double().cpu()
+    ate1 = _ate(q, sim)
+    all_ok = bool(torch.stack(oks).all())
+    kf = LONG["poses"] * n / secs
+    say(f"long GN solve_fixed({n}) f32: cost {cost0:.6g} -> "
+        f"{float(costs_h[-1]):.6g}, ATE {ate0:.6g} -> {ate1:.6g} m, "
+        f"solver_ok at every iteration {all_ok}, kernel launches "
+        f"reprojection {k1} segsum {k2} band_schur {k7} band_matvec {k9}")
+    say(f"[{smi}] long GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
+        f"{secs * 1e3 / n:.1f} ms per iteration, {kf:.1f} kf/s; peak device "
+        f"memory {peak / 2**30:.3f} GiB; host syncs {syncs} (the plans' "
+        f"{plan_again} once; {plan_first} at the process's first banded "
+        f"plan), {(syncs - plan_again) / n:.2f} per iteration")
+    check(bool(torch.isfinite(costs_h).all()) and _finite(q),
+          "long: non-finite values")
+    check(float(costs_h[-1]) < cost0, "long: cost did not fall")
+    check(ate1 < ate0, "long: ATE did not fall")
+    check(len(oks) == n and all_ok, "long: solver_ok failed")
+    want = (2 * n, K2_PER_BANDED_BUILD * n, K7_PER_BUILD * n,
+            K9_PER_BUILD * n)
+    check((k1, k2, k7, k9) == want, f"long: launches {(k1, k2, k7, k9)}, "
+          f"expected {want}")
+    check(syncs == plan_again, f"long: {syncs - plan_again} host syncs in "
+          f"{n} iterations")
+
+    # the first step against the dense solve of the same build
+    gap_p, gap_l = step_gap_cpu()
+    torch.cuda.reset_peak_memory_stats()
+    a = step._build_and_solve(p, cfg, True)
+    torch.cuda.synchronize()
+    peak_b = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b = step._build_and_solve(
+        p, dataclasses.replace(cfg, use_banded_solver=False), True)
+    torch.cuda.synchronize()
+    dense_secs = time.perf_counter() - t0
+    peak_d = torch.cuda.max_memory_allocated()
+    got_p = _step_gap(a.step.delta_p, b.step.delta_p)
+    got_l = _step_gap(a.step.delta_l, b.step.delta_l)
+    post = [float(step._cost(step.apply_update(p, cfg, s.step.delta_p,
+                                               s.step.delta_l),
+                             cfg, True, s.proj_w, s.imu_c9))
+            for s in (a, b)]
+    say(f"long first step, banded against dense: delta_p gap {got_p:.3e} "
+        f"(tol {STEP_GAP_FACTOR:g} x {gap_p:.3e}, the f32 CPU gap at "
+        f"{STEP_GAP_POSES} poses), delta_l gap {got_l:.3e} (tol "
+        f"{STEP_GAP_FACTOR:g} x {gap_l:.3e}); trial cost {post[0]:.6g} "
+        f"banded, {post[1]:.6g} dense (from {cost0:.6g}); both ok "
+        f"{bool(a.step.ok)}/{bool(b.step.ok)}")
+    say(f"[{smi}] long build + solve: peak device memory banded "
+        f"{peak_b / 2**30:.3f} GiB, dense {peak_d / 2**30:.3f} GiB (the dense "
+        f"build {dense_secs * 1e3:.1f} ms)")
+    check(bool(a.step.ok) and bool(b.step.ok), "long: a solve failed")
+    check(got_p <= STEP_GAP_FACTOR * gap_p and got_l <= STEP_GAP_FACTOR
+          * gap_l, "long: the banded step is off the dense one")
+    say("PHASE long ok")
+    return dict(k1=k1, k2=k2, k7=k7, k9=k9, kf_s=kf, ms_iter=secs * 1e3 / n,
+                peak_gib=peak / 2**30, peak_dense_gib=peak_d / 2**30,
+                syncs=syncs - plan_again, gap_p=got_p, gap_l=got_l)
+
+
+def phase_timing_band(p, cfg, bs, plan, band_s, x, floor_ms, smi):
+    """Kernels 7 and 9 timed at full width beside their bounds, plain
+    versions and (kernel 9) torch.mv on the densified band."""
+    import torch
+
+    from ba_tpu_torch.kernels import band_matvec as k9
+    from ba_tpu_torch.kernels import band_schur as k7
+    from ba_tpu_torch.solver import banded
+    from ba_tpu_torch.solver.assemble import band_to_dense
+
+    P, L, B, D = (p.poses.q.shape[0], p.lms.x.shape[0], cfg.band_width,
+                  cfg.pose_dim)
+    sp = plan.band.schur
+    Wb, vinv = bs.wb, bs.vinv
+    idx = p.pidx
+
+    def k7_call():
+        return k7.band_schur(Wb, vinv, sp, P)
+
+    occ = (sp.slot_row.view(L, B) >= 0).sum(1).double()
+    pairs = int((occ * (occ + 1) / 2).sum())
+    k7_bytes = nbytes(Wb, vinv, sp.perm, sp.offsets, sp.lm, sp.slot,
+                      sp.slot_row) + P * B * 36 * Wb.element_size()
+    k7_flops = 72 * pairs + 6 * int(sp.offsets[-1])
+    t7 = dict(ms=event_ms(k7_call, 50), device_ms=graph_ms(k7_call, 20),
+              plain_ms=event_ms(lambda: banded.band_schur_plain(
+                  idx.wb_pose, idx.wb_lm, Wb, vinv, P, B), 3))
+    b7 = max(k7_bytes / HBM_BPS, k7_flops / F32_FLOPS) * 1e3
+    by7 = "bytes" if k7_bytes / HBM_BPS >= k7_flops / F32_FLOPS \
+        else "operations"
+    say(f"[{smi}] kernel 7 band_schur, long build (Nw={Wb.shape[0]}, "
+        f"{pairs} block pairs, P={P}, B={B}) f32: {t7['ms']:.4f} ms per call "
+        f"({t7['device_ms']:.4f} ms on the device, "
+        f"{b7 / t7['device_ms']:.1%} of the bound); plain (the (L, B, B, 6, "
+        f"6) form) {t7['plain_ms']:.3f} ms; bound {b7:.5f} ms ({by7}: "
+        f"{k7_bytes} B, {k7_flops} flop); no library call computes it; "
+        f"launch floor {floor_ms:.4f} ms")
+    rec7 = dict(ms=t7["ms"], device_ms=t7["device_ms"], floor_ms=floor_ms,
+                plain_ms=t7["plain_ms"], bound_ms=b7, bound_by=by7,
+                library_ms=None)
+
+    blocks = P * B - B * (B - 1) // 2                # upper blocks in range
+    k9_flops = 2 * D * D * (2 * blocks - P)          # + the lower ones
+    k9_bytes = nbytes(band_s, x) + x.numel() * x.element_size()
+    S = band_to_dense(band_s)
+    t9 = dict(ms=event_ms(lambda: k9.band_matvec(band_s, x), 200),
+              device_ms=graph_ms(lambda: k9.band_matvec(band_s, x), 50),
+              plain_ms=event_ms(lambda: banded.band_matvec_plain(band_s, x),
+                                20),
+              library_ms=event_ms(lambda: torch.mv(S, x), 50),
+              library_device_ms=graph_ms(lambda: torch.mv(S, x), 20))
+    del S
+    b9 = max(k9_bytes / HBM_BPS, k9_flops / F32_FLOPS) * 1e3
+    by9 = "bytes" if k9_bytes / HBM_BPS >= k9_flops / F32_FLOPS \
+        else "operations"
+    say(f"[{smi}] kernel 9 band_matvec, long band (P={P}, B={B}, D={D}) f32: "
+        f"{t9['ms']:.4f} ms per call ({t9['device_ms']:.4f} ms on the "
+        f"device, {b9 / t9['device_ms']:.1%} of the bound); plain "
+        f"{t9['plain_ms']:.4f} ms; torch.mv on the densified band "
+        f"{t9['library_ms']:.4f} ms ({t9['library_device_ms']:.4f} ms on the "
+        f"device); bound {b9:.5f} ms ({by9}: {k9_bytes} B, {k9_flops} flop); "
+        f"launch floor {floor_ms:.4f} ms")
+    rec9 = dict(ms=t9["ms"], device_ms=t9["device_ms"], floor_ms=floor_ms,
+                plain_ms=t9["plain_ms"], bound_ms=b9, bound_by=by9,
+                library_ms=t9["library_ms"],
+                library_device_ms=t9["library_device_ms"])
+    say("PHASE timing (long) ok")
+    return rec7, rec9
+
+
 def main():
     import torch
 
@@ -878,12 +1362,23 @@ def main():
     err2s = phase_k2(sums_s, "stream slide", extras=False)
     rec1, rec2 = phase_timing(p32, cfg, sums, smi)
     rec1s, rec2s = phase_timing(s32, cfg_s, sums_s, smi, "stream slide")
+    del s32, sums_s, sched
+
+    phase_banded_small()
+    pl, cfg_l, sim_l = long_problem()
+    bs_l, plan_l = long_blocks(pl, cfg_l)
+    err7 = phase_k7(pl, cfg_l, bs_l, plan_l)
+    err9, band_s, x_l = phase_k9(pl, cfg_l, bs_l)
+    lg = phase_long(pl, cfg_l, sim_l, smi)
+    rec7, rec9 = phase_timing_band(pl, cfg_l, bs_l, plan_l, band_s, x_l,
+                                   rec1["floor_ms"], smi)
 
     def paths(key):
-        return dict(launches=gn[key] + dl[key] + st[key],
+        return dict(launches=gn[key] + dl[key] + st[key] + lg[key],
                     launches_gn=gn[key], launches_dogleg=dl[key],
                     launches_stream=st[key],
-                    launches_per_slide=st[key] / st["slides"])
+                    launches_per_slide=st[key] / st["slides"],
+                    launches_long=lg[key])
 
     kernels = [
         dict(name="reprojection", route="cuda",
@@ -896,13 +1391,23 @@ def main():
              replaces="ba_tpu/solver/assemble.py:120",
              **paths("k2"), max_abs_err=max(err2, err2s), **rec2,
              stream_slide=dict(max_abs_err=err2s, **rec2s)),
+        dict(name="band_schur", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/band_schur.cu",
+             replaces="ba_tpu/solver/banded.py:96", launches=lg["k7"],
+             launches_long=lg["k7"], max_abs_err=err7, **rec7),
+        dict(name="band_matvec", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/band_matvec.cu",
+             replaces="ba_tpu/solver/banded.py:229", launches=lg["k9"],
+             launches_long=lg["k9"], max_abs_err=err9, **rec9),
     ]
     say(f"[{smi}] kf/s: GN solve_fixed({N_ITERS}) {gn['kf_s']:.1f}, "
         f"dogleg solve {dl['kf_s']:.1f} ({dl['iters']} iterations); "
         f"stream {st['kf_s']:.3f} keyframes retired/s "
         f"({st['ms_slide']:.1f} ms per slide, "
-        f"{st['syncs_per_push']:.2f} host syncs per push); "
-        f"total smoke {time.perf_counter() - t_start:.1f} s")
+        f"{st['syncs_per_push']:.2f} host syncs per push); long GN "
+        f"{lg['kf_s']:.1f} kf/s ({lg['ms_iter']:.1f} ms per iteration, "
+        f"peak {lg['peak_gib']:.3f} GiB); total smoke "
+        f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

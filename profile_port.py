@@ -14,6 +14,16 @@ On the flagship problem of chip_smoke.py (128 keyframes, f32, band width
   * the operators with the most device time and the most host time under
     `torch.profiler`, and the device's busy share of the profiled window.
 
+With `--long`, instead, on chip_smoke.py's long trajectory (2,048
+keyframes, f32, band width 24, the banded solver) it prints the stages of
+one GN iteration (IMU, assemble_blocks, band_S with kernel 7, the chunk
+layout, the cyclic-reduction factor, the PCG wrap with kernel 9, the
+back-substitution, the Cauchy factor, the trial cost), the synchronizing
+source lines of an iteration, and the device's busy share and kernel
+launches of one profiled iteration.
+
+    python3 profile_port.py --long
+
 On the stream of chip_smoke.py (W = 10, 2 GN iterations per slide, f32) it
 prints the stages of one `StreamingRing.push`, timed the same way over
 several slides after a warm-up: the host's table build and packing, the
@@ -174,20 +184,7 @@ def slide_stage_times(smi, n_warm=3, n_slides=5):
     on = [False]
 
     def wrap(owner, name, label):
-        fn = getattr(owner, name)
-
-        def timed(*a, **k):
-            if not on[0]:
-                return fn(*a, **k)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            key = label(*a, **k) if callable(label) else label
-            sums[key] += time.perf_counter() - t0
-            return out
-
-        setattr(owner, name, timed)
+        _wrap(owner, name, label, sums, on)
 
     wrap(StreamingRing, "_slide_tables", "host: slide tables")
     wrap(streaming, "_pack", "host: pack the three buffers")
@@ -258,15 +255,124 @@ def slide_stage_times(smi, n_warm=3, n_slides=5):
           f"on), device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.2f}%")
 
 
-def _busy_seconds(prof, name):
+def _wrap(owner, name, label, sums, on):
+    """Replace owner.name by a wrapper that, while on[0], adds its seconds
+    between two synchronizes to sums[label] (a callable label gets the
+    call's arguments)."""
+    import torch
+
+    fn = getattr(owner, name)
+
+    def timed(*a, **k):
+        if not on[0]:
+            return fn(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        key = label(*a, **k) if callable(label) else label
+        sums[key] += time.perf_counter() - t0
+        return out
+
+    setattr(owner, name, timed)
+
+
+def long_iteration(smi, n_iters=3):
+    """Mean seconds per GN iteration of each stage of the long
+    trajectory's banded solve (a stage includes those nested in it), then
+    the sync sites of one iteration and the busy share and kernel launches
+    of one profiled iteration."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from ba_tpu_torch.solver import banded, cg, step
+
+    p, cfg, _ = chip_smoke.long_problem()
+    plan = step.solve_plan(p, cfg)
+    step.gn_iteration(p, cfg, True, plan=plan)                # warm-up
+    sums = collections.defaultdict(float)
+    on = [False]
+    for owner, name, label in (
+            (step, "_imu_eval", lambda p, c, u, jac, c9=None:
+             "IMU evaluate with Jacobians" if jac
+             else "  IMU evaluate without Jacobians (trial)"),
+            (cg, "assemble_blocks", "assemble_blocks (kernels 1, 2)"),
+            (banded, "band_S", "band_S (kernel 2)"),
+            (banded, "_band_schur_grouped", "  kernel 7"),
+            (banded, "banded_pcg_solve", "factor + PCG, whole"),
+            (banded, "_chunk_windows", "  chunk layout"),
+            (banded, "_bcr_factor", "  cyclic-reduction factor"),
+            (banded, "band_matvec", "  kernel 9 (4 per iteration)"),
+            (banded, "_bcr_solve", "  cyclic-reduction solves (5)"),
+            (cg, "back_substitute_blocks", "back-substitution (kernel 2)"),
+            (cg, "cauchy_factor", "Cauchy factor (kernel 2)"),
+            (step, "_cost", "trial cost (IMU, kernel 1, priors)"),
+            (step, "gn_iteration", "gn_iteration, whole")):
+        _wrap(owner, name, label, sums, on)
+    on[0] = True
+    q = p
+    for _ in range(n_iters):
+        q = step.gn_iteration(q, cfg, True, plan=plan).problem
+    on[0] = False
+    for name, secs in sums.items():
+        print(f"[{smi}] long stage {name}: {secs / n_iters * 1e3:.2f} ms")
+
+    sites = collections.Counter()
+    root = str(chip_smoke.ROOT)
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if f.filename.startswith(root) and "profile_port" not in
+                  f.filename]
+        sites[" <- ".join(f"{Path(f.filename).relative_to(root)}:"
+                          f"{f.lineno}" for f in frames[::-1][:3])
+              or "(no repository frame on the stack)"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step.gn_iteration(q, cfg, True, plan=plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()       # outside the window: it would count
+    print(f"long iteration host syncs: {sum(sites.values())}")
+    for site, n in sites.most_common():
+        print(f"long sync x{n}: {site}")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        step.gn_iteration(q, cfg, True, plan=plan)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, launches = _busy_seconds(prof, "profile_long.json", count=True)
+    print(f"[{smi}] profiled 1 long GN iteration: wall {wall * 1e3:.1f} ms "
+          f"(profiler on), device busy {busy * 1e3:.1f} ms = "
+          f"{100 * busy / wall:.2f}%, {launches} kernel launches")
+    ka = prof.key_averages()
+    dev_key = ("self_device_time_total"
+               if hasattr(ka[0], "self_device_time_total")
+               else "self_cuda_time_total")
+    print(ka.table(sort_by=dev_key, row_limit=15))
+
+
+def _busy_seconds(prof, name, count=False):
     """Sum of the kernel and copy spans of a profiler trace."""
     with tempfile.TemporaryDirectory(dir=chip_smoke.ROOT) as tmp:
         path = Path(tmp) / name
         prof.export_chrome_trace(str(path))
         trace = json.loads(path.read_text())
-    return 1e-6 * sum(e.get("dur", 0) for e in trace["traceEvents"]
+    events = trace["traceEvents"]
+    busy = 1e-6 * sum(e.get("dur", 0) for e in events
                       if e.get("cat") in ("kernel", "gpu_memcpy",
                                           "gpu_memset"))
+    if count:
+        return busy, sum(e.get("cat") == "kernel" for e in events)
+    return busy
 
 
 def main():
@@ -277,6 +383,9 @@ def main():
         return 1
     smi = chip_smoke.smi_line()
     chip_smoke.phase_build()
+    if "--long" in sys.argv[1:]:
+        long_iteration(smi)
+        return 0
     _, p, cfg, _ = chip_smoke.flagship()
     cfg = dataclasses.replace(cfg, use_dogleg=False)
 

@@ -16,6 +16,7 @@ import torch
 
 import ba_tpu.core.problem as jprob
 from ba_tpu.io import simulate_vins as jsv
+from ba_tpu.solver import assemble as jasm
 from ba_tpu_torch.convert import problem_from_numpy
 from ba_tpu_torch.core import problem as tprob
 
@@ -44,10 +45,12 @@ def assert_rel(got, want, tol, what=""):
 
 @functools.lru_cache(maxsize=None)
 def jax_problem(n_poses=12, n_lms=48, pose_dim=9, perturb=0.01, seed=1,
-                pad_multiple=1, with_marg_prior=True):
-    """(JAX problem before prepare_landmarks, JAX BAConfig, SimData)."""
+                pad_multiple=1, with_marg_prior=True, speed=1.0):
+    """(JAX problem before prepare_landmarks, JAX BAConfig, SimData); a
+    faster trajectory (`speed`) sees each landmark from fewer poses, so its
+    band is narrower."""
     cfg = jprob.BAConfig(pose_dim=pose_dim, lm_size=1, use_dogleg=False)
-    sim = jsv.simulate(n_poses=n_poses, n_lms=n_lms, seed=0)
+    sim = jsv.simulate(n_poses=n_poses, n_lms=n_lms, seed=0, speed=speed)
     p, _, _ = jsv.build_problem(sim, cfg, perturb=perturb, seed=seed,
                                 pad_multiple=pad_multiple,
                                 with_marg_prior=with_marg_prior)
@@ -65,6 +68,39 @@ def torch_config(jcfg, **changes):
     cfg = tprob.BAConfig(**{f.name: getattr(jcfg, f.name)
                             for f in dataclasses.fields(jcfg)})
     return dataclasses.replace(cfg, **changes)
+
+
+def banded_case(n_poses=24, mask=True, with_marg_prior=False, speed=1.0,
+                **cfg):
+    """Prepared problems on both sides for the banded solvers: band width
+    from the problem, `use_banded_solver` on unless `cfg` says otherwise,
+    one pose with masked dims.  No marginalization prior by default: with
+    one, the banded solver's gate sends the build to the dense path."""
+    jp, jcfg, _ = jax_problem(n_poses=n_poses, n_lms=int(2.5 * n_poses),
+                              with_marg_prior=with_marg_prior, speed=speed)
+    jcfg = dataclasses.replace(jcfg, **{
+        "band_width": jasm.band_width_of(jp), "use_banded_solver": True,
+        **cfg})
+    if mask:
+        m = np.asarray(jp.poses.mask).copy()
+        m[4, :6] = False
+        jp = dataclasses.replace(jp, poses=dataclasses.replace(
+            jp.poses, mask=jax.numpy.asarray(m)))
+    jp = jprob.prepare_landmarks(jp, jcfg)
+    return jp, jcfg, to_torch(jp), torch_config(jcfg)
+
+
+def with_random_prior(jp, scale=0.1, seed=1):
+    """The JAX problem with an active random dense marginalization prior
+    (its H PSD)."""
+    rng = np.random.default_rng(seed)
+    n = jp.marg.H.shape[0]
+    A = rng.standard_normal((n, n)) * scale
+    return dataclasses.replace(jp, marg=dataclasses.replace(
+        jp.marg, H=jax.numpy.asarray(A @ A.T),
+        g=jax.numpy.asarray(rng.standard_normal(n) * scale),
+        lin_t=jp.marg.lin_t + 0.01 * scale,
+        active=jax.numpy.ones((), bool)))
 
 
 def assert_tree_rel(got, want, tol, what="problem"):

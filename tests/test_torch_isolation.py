@@ -44,7 +44,10 @@ def test_importing_the_port_loads_no_jax():
             "ba_tpu_torch.kernels.reprojection",
             "ba_tpu_torch.kernels.segsum", "ba_tpu_torch.solver.window",
             "ba_tpu_torch.solver.fixedlag", "ba_tpu_torch.solver.streaming",
-            "ba_tpu_torch.apps.vins_stream", "ba_tpu_torch.apps.vins_window"]
+            "ba_tpu_torch.apps.vins_stream", "ba_tpu_torch.apps.vins_window",
+            "ba_tpu_torch.solver.cg", "ba_tpu_torch.solver.banded",
+            "ba_tpu_torch.kernels.band_schur",
+            "ba_tpu_torch.kernels.band_matvec"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'ba_tpu')]\n"

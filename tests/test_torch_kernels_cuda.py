@@ -1,4 +1,4 @@
-"""Kernels 1 and 2 against their plain versions on the card.
+"""Kernels 1, 2, 7 and 9 against their plain versions on the card.
 
 These need an NVIDIA GPU with nvcc (marker `cuda`); elsewhere they skip.
 Run them on the card with `python -m pytest tests/test_torch_kernels_cuda.py
@@ -13,7 +13,13 @@ flagship shapes, with one segment of 927 rows and one of 2,100.  On the
 general assembly path a build's seven sums are one launch that equals the
 plain walk of the same plans (f64, 1e-12: the same additions in the same
 order, FMA contraction aside), and three f32 slides of the ring run
-through both kernels with finite costs that fall.
+through both kernels with finite costs that fall.  Kernel 7 (grouped band
+Schur correction, with padding W blocks) and kernel 9 (band matvec, at a
+pose count that is not a multiple of its 8-pose blocks) match their plain
+versions to 1e-12 (f64) and 1e-5 (f32, the same products summed in
+another order), bit-identical between launches; a kernel that does not
+build raises; three f32 GN iterations of the banded solver run through all
+four kernels.
 """
 
 import dataclasses
@@ -239,3 +245,130 @@ def test_ring_three_slides_f32():
     assert float(costs[-1]) < float(costs[0]), costs
     assert reprojection.reprojection.launches - k1 == 3 * 5
     assert segsum.seg_sum_grouped.launches - k2 == 3 * 3
+
+
+@pytest.fixture(scope="module")
+def cuda_band_problem():
+    """A 48-pose f64 problem on the card with its block system (banded
+    solver config, no marginalization prior)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import cg, step
+    from ba_tpu_torch.solver.assemble import band_width_of
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False,
+                   use_banded_solver=True)
+    sim = sv.simulate(n_poses=48, n_lms=160, seed=0)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                               with_marg_prior=False, device="cuda")
+    cfg = dataclasses.replace(cfg, band_width=band_width_of(p))
+    p = prepare_landmarks(p, cfg)
+    bs, _ = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True, True),
+                               with_precond=False)
+    return p, cfg, bs
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_band_schur_kernel_matches_plain(cuda_band_problem, dtype, tol):
+    """Kernel 7 against its plain version, with padding W blocks
+    (landmark id L) that must be dropped; two launches bit-identical."""
+    from ba_tpu_torch.kernels import band_schur as k7
+    from ba_tpu_torch.solver import banded
+
+    p, cfg, bs = cuda_band_problem
+    P, B, L = p.poses.q.shape[0], cfg.band_width, p.lms.x.shape[0]
+    idx = p.pidx
+    pad = 7
+    wb_pose = torch.cat([idx.wb_pose, torch.zeros(pad, dtype=torch.int32,
+                                                  device="cuda")])
+    wb_lm = torch.cat([idx.wb_lm, torch.full((pad,), L, dtype=torch.int32,
+                                             device="cuda")])
+    Wb = torch.cat([bs.wb, torch.ones((pad, 6, 1), dtype=bs.wb.dtype,
+                                      device="cuda")]).to(dtype)
+    vinv = bs.vinv.to(dtype)
+    plan = k7.schur_plan(wb_pose, wb_lm, P, L, B)
+    assert int(plan.slot.max()) == B - 1
+    before = k7.band_schur.launches
+    a = k7.band_schur(Wb, vinv, plan, P)
+    b = k7.band_schur(Wb, vinv, plan, P)
+    assert k7.band_schur.launches == before + 2
+    want = banded.band_schur_plain(wb_pose, wb_lm, Wb.double(),
+                                   vinv.double(), P, B)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert _rel(a, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("P,B,D", [(1003, 24, 9), (2048, 24, 9), (37, 37, 6),
+                                   (64, 1, 15)])
+def test_band_matvec_kernel_matches_plain(dtype, tol, P, B, D):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import band_matvec as k9
+    from ba_tpu_torch.solver import banded
+
+    rng = np.random.default_rng(P + B)
+    band = rng.standard_normal((P, B, D, D))
+    band[:, 0] = band[:, 0] + np.swapaxes(band[:, 0], 1, 2)
+    band = torch.as_tensor(band, dtype=dtype, device="cuda")
+    x = torch.as_tensor(rng.standard_normal(P * D), dtype=dtype,
+                        device="cuda")
+    before = k9.band_matvec.launches
+    a = banded.band_matvec(band, x)
+    b = banded.band_matvec(band, x)
+    assert k9.band_matvec.launches == before + 2
+    want = banded.band_matvec_plain(band.double(), x.double())
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert _rel(a, want) <= tol
+
+
+def test_kernel_build_failure_raises(monkeypatch, tmp_path):
+    """A kernel that does not build raises on CUDA tensors; no wrapper
+    gives way to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import band_schur as k7
+    from ba_tpu_torch.kernels import build
+    from ba_tpu_torch.solver import banded
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "_nvcc", lambda: "false")
+    band = torch.ones((8, 2, 3, 3), device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        banded.band_matvec(band, torch.ones(24, device="cuda"))
+    wb_pose = torch.arange(8, dtype=torch.int32, device="cuda")
+    wb_lm = torch.zeros(8, dtype=torch.int32, device="cuda")
+    plan = k7.schur_plan(wb_pose, wb_lm, 8, 1, 8)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        k7.band_schur(torch.ones((8, 6, 1), device="cuda"),
+                      torch.ones((1, 1, 1), device="cuda"), plan, 8)
+
+
+@pytest.mark.parametrize("grouped", [True, False])
+def test_banded_gn_f32_on_the_card(cuda_band_problem, monkeypatch, grouped):
+    """Three f32 GN iterations of the banded solver through kernels 1, 2,
+    7 (grouped form forced) and 9: finite costs that fall, and the
+    launches per build."""
+    from ba_tpu_torch.kernels import band_matvec as k9
+    from ba_tpu_torch.kernels import band_schur as k7
+    from ba_tpu_torch.solver import banded, step
+    from ba_tpu_torch.utils.tree import tree_map
+
+    p, cfg, _ = cuda_band_problem
+    if grouped:
+        monkeypatch.setattr(banded, "_GROUPED_SP_MIN", 0)
+    p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
+    n7, n9 = k7.band_schur.launches, k9.band_matvec.launches
+    _, costs, _ = step.solve_fixed(p, cfg, True, 3)
+    costs = costs.cpu()
+    assert bool(torch.isfinite(costs).all())
+    assert float(costs[-1]) < float(costs[0]), costs
+    assert k7.band_schur.launches - n7 == (3 if grouped else 0)
+    assert k9.band_matvec.launches - n9 == 3 * 4
