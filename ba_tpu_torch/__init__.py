@@ -11,6 +11,10 @@ adds kernels/ with the hand-written CUDA kernels of its paths:
   kernels/csrc/band_schur.cu    grouped banded Schur correction (the
                                 long-trajectory banded solver)
   kernels/csrc/band_matvec.cu   symmetric block-band product (its PCG)
+  kernels/csrc/schur_matvec.cu  the projection rows of the matrix-free
+                                Schur product (the PCG solver)
+  kernels/csrc/fleet_schur.cu   W operands and scaled Schur system of a
+                                fused vehicle fleet
 
 Every kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; a CUDA tensor goes through the kernel or

@@ -377,6 +377,155 @@ class Problem:
     pidx: ProblemIndex
 
 
+def concat_problems(problems, config: BAConfig) -> Problem:
+    """Fuse B independent windows into one block-diagonal problem (the
+    fleet layout): poses, landmarks and cameras concatenated with offset
+    ids, the sparsity tables re-enumerated with `build_structure_index`.
+    Host work done once, like `ProblemBuilder.build`: the windows' leaves
+    are read to numpy and the result is put on the first window's device.
+
+    Windows must not carry an active marginalization prior (the fused
+    prior would be O((B P D)^2)), and must share one gravity vector.  IMU
+    tables of windows with fewer samples per span are padded by repeating
+    the last timestamp (dt = 0).  A pose of window b sits at the sum of the
+    earlier windows' pose counts, and so do its landmarks."""
+    if not problems:
+        raise ValueError("concat_problems needs at least one problem")
+    dev = problems[0].poses.t.device
+
+    def np_of(x):
+        return x.detach().cpu().numpy()
+
+    for p in problems:
+        if bool(p.marg.active):
+            raise ValueError("concat_problems: active marginalization "
+                             "priors are per-window state; marginalize "
+                             "before fusing")
+    g0 = np_of(problems[0].g_vec)
+    for p in problems[1:]:
+        if not np.allclose(np_of(p.g_vec), g0):
+            raise ValueError("concat_problems: gravity vectors differ")
+
+    pose_off, lm_off, cam_off = [], [], []
+    po = lo = co = 0
+    for p in problems:
+        pose_off.append(po)
+        lm_off.append(lo)
+        cam_off.append(co)
+        po += p.poses.q.shape[0]
+        lo += p.lms.x.shape[0]
+        co += p.rig.params.shape[0]
+    P, L = po, lo
+
+    def cat(get, off_list=None):
+        parts = []
+        for i, p in enumerate(problems):
+            a = np_of(get(p))
+            parts.append(a + off_list[i] if off_list is not None else a)
+        return np.concatenate(parts, axis=0)
+
+    def T(a):
+        return torch.as_tensor(np.array(a, order="C"), device=dev)
+
+    def node(cls, get, offs=None, cast=None):
+        """A state node of `cls` with every field concatenated; `offs` maps
+        a field to its id offsets, cast to int32."""
+        offs = offs or {}
+        return cls(**{
+            f.name: T(cat(lambda p, n=f.name: getattr(get(p), n),
+                          offs.get(f.name)).astype(np.int32)
+                      if f.name in offs else
+                      cat(lambda p, n=f.name: getattr(get(p), n)))
+            for f in dataclasses.fields(cls)})
+
+    poses = node(PoseStates, lambda p: p.poses)
+    lms = node(LandmarkStates, lambda p: p.lms,
+               dict(ref_pose=pose_off, ref_cam=cam_off))
+    rig = node(Rig, lambda p: p.rig)
+
+    proj_pose = cat(lambda p: p.proj.pose, pose_off).astype(np.int64)
+    proj_lm = cat(lambda p: p.proj.lm, lm_off).astype(np.int64)
+    proj_valid = cat(lambda p: p.proj.valid)
+    proj_ref = np_of(lms.ref_pose)[proj_lm]
+    b1 = cat(lambda p: p.binary.pose1, pose_off).astype(np.int64)
+    b2 = cat(lambda p: p.binary.pose2, pose_off).astype(np.int64)
+    b_valid = cat(lambda p: p.binary.valid)
+    i1 = cat(lambda p: p.imu.pose1, pose_off).astype(np.int64)
+    i2 = cat(lambda p: p.imu.pose2, pose_off).astype(np.int64)
+    i_valid = cat(lambda p: p.imu.valid)
+    per_row, pidx = build_structure_index(
+        proj_pose, proj_ref, proj_lm, proj_valid,
+        b1, b2, b_valid, i1, i2, i_valid, P, L, device=dev)
+
+    proj = ProjResiduals(
+        z=T(cat(lambda p: p.proj.z)),
+        pose=T(proj_pose.astype(np.int32)),
+        lm=T(proj_lm.astype(np.int32)),
+        cam=T(cat(lambda p: p.proj.cam, cam_off).astype(np.int32)),
+        weight=T(cat(lambda p: p.proj.weight)),
+        valid=T(proj_valid),
+        cond=T(cat(lambda p: p.proj.cond)),
+        pair=T(per_row["pair"]),
+        pair_swap=T(per_row["pair_swap"]),
+        wb_meas=T(per_row["wb_meas"]),
+        wb_ref=T(per_row["wb_ref"]))
+    unary = dataclasses.replace(
+        node(UnaryResiduals, lambda p: p.unary),
+        pose=T(cat(lambda p: p.unary.pose, pose_off).astype(np.int32)))
+    binary = BinaryResiduals(
+        pose1=T(b1.astype(np.int32)),
+        pose2=T(b2.astype(np.int32)),
+        q=T(cat(lambda p: p.binary.q)),
+        t=T(cat(lambda p: p.binary.t)),
+        cov_inv=T(cat(lambda p: p.binary.cov_inv)),
+        valid=T(b_valid),
+        pair=T(per_row["bpair"]),
+        pair_swap=T(per_row["bswap"]))
+
+    M = max(p.imu.w.shape[1] for p in problems)
+
+    def cat_imu(get):
+        parts = []
+        for p in problems:
+            a = np_of(get(p))
+            if a.shape[1] < M:
+                pad = [(0, 0), (0, M - a.shape[1])] + [(0, 0)] * (a.ndim - 2)
+                if a.dtype == np.bool_:
+                    a = np.pad(a, pad, constant_values=False)
+                elif a.ndim == 2:
+                    # times: repeat the last timestamp so dt = 0 on padding
+                    a = np.concatenate(
+                        [a, np.repeat(a[:, -1:], M - a.shape[1], 1)], 1)
+                else:
+                    a = np.pad(a, pad)
+            parts.append(a)
+        return np.concatenate(parts, axis=0)
+
+    imu = ImuResiduals(
+        pose1=T(i1.astype(np.int32)),
+        pose2=T(i2.astype(np.int32)),
+        w=T(cat_imu(lambda p: p.imu.w)),
+        a=T(cat_imu(lambda p: p.imu.a)),
+        time=T(cat_imu(lambda p: p.imu.time)),
+        meas_valid=T(cat_imu(lambda p: p.imu.meas_valid)),
+        weight=T(cat(lambda p: p.imu.weight)),
+        valid=T(i_valid),
+        cond=T(cat(lambda p: p.imu.cond)),
+        pair=T(per_row["ipair"]),
+        pair_swap=T(per_row["iswap"]),
+        c9=T(cat(lambda p: p.imu.c9)),
+        c9_set=torch.zeros((), dtype=torch.bool, device=dev))
+
+    marg = empty_marg_prior(P, config.pose_dim, poses.t.dtype, dev,
+                            enabled=False)
+    marg = dataclasses.replace(marg, lin_q=poses.q, lin_t=poses.t,
+                               lin_v=poses.v, lin_b=poses.b)
+    return Problem(poses=poses, lms=lms, rig=rig, proj=proj, unary=unary,
+                   binary=binary, imu=imu,
+                   g_vec=T(g0.astype(np_of(poses.t).dtype)), marg=marg,
+                   pidx=pidx)
+
+
 # ---------------------------------------------------------------------------
 # Host-side builder (numpy; the Add* API of the reference)
 # ---------------------------------------------------------------------------

@@ -3,10 +3,19 @@
   reprojection.py  kernel 1: reprojection residual + closed-form Jacobians
   segsum.py        kernel 2: grouped deterministic segmented block sum,
                    on segment plans built once per solve
+  band_schur.py    kernel 7: grouped banded Schur correction
+  band_matvec.py   kernel 9: symmetric block-band product
+  schur_matvec.py  kernel 6: the projection family's share of the
+                   matrix-free Schur product (the PCG solver)
+  fleet_schur.py   kernel 10: the W operands and the scaled per-window
+                   Schur system of a fused fleet
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises on a non-zero `cudaGetLastError()`, and
 counts its launches in `<wrapper>.launches`.  The plain PyTorch versions
 live beside the dispatch (`core/residuals/reprojection.py:evaluate_plain`,
-`solver/assemble.py:_seg_sum_plain`, `segsum.plan_walk`).
+`solver/assemble.py:_seg_sum_plain`, `segsum.plan_walk`,
+`solver/banded.py:band_schur_plain` and `band_matvec_plain`,
+`schur_matvec.schur_matvec_plain`, `fleet_schur.fleet_w_plain` and
+`fleet_epilogue_plain`).
 """

@@ -21,7 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("reprojection", "segsum", "band_schur", "band_matvec")
+SOURCES = ("reprojection", "segsum", "band_schur", "band_matvec",
+           "schur_matvec", "fleet_schur")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 

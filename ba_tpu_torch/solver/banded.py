@@ -31,8 +31,18 @@ Every segment sum goes through kernel 2 on a `BandPlan` built once per
 solve (`band_plan`): band_S is one launch of two groups (the 6x6 grid, with
 the pair rows on the pair path, and the IMU grid).
 
-Not ported: the sharded layout (`lm_offset`, queue 1 item 8), the fleet
-dense solve `solve_reduced_fleet_dense` (K10, queue 1 item 4), and
+A fused fleet of F equal windows (`core/problem.py:concat_problems`,
+`config.fleet_size`) whose windows are small enough takes
+`solve_reduced_fleet_dense`: each window's U densified off the
+families-only band, its Schur complement by one batched product through
+dense W operands, and one batched Cholesky.  Kernel 10
+(kernels/csrc/fleet_schur.cu) writes the W operands from the build's W
+blocks and, after the `torch.bmm`, forms the scaled system from the band
+and the product in one pass; the Cholesky and the triangular solves stay
+`torch.linalg`.  Its plan (`fleet_dense_plan`) holds the families-only
+grid and kernel 10's block table.
+
+Not ported: the sharded layout (`lm_offset`, queue 1 item 8) and
 `_effective_pcg_iters`' TPU-only clamp: the PCG count is
 `banded_pcg_iterations or 4`.
 """
@@ -47,6 +57,7 @@ import torch.nn.functional as F
 from ..core.problem import BAConfig, Problem
 from ..kernels import band_matvec as k9
 from ..kernels import band_schur as k7
+from ..kernels import fleet_schur as k10
 from ..kernels import segsum
 from . import assemble as asm
 from . import cg as cg_mod
@@ -72,6 +83,15 @@ class BandPlan(NamedTuple):
     #                            pair path followed by the Schur pair rows
     imu_grid: segsum.SegPlan   # (P*B) DxD band grid of the IMU family
     schur: Optional[k7.SchurPlan]   # kernel 7's tables (grouped path)
+
+
+class FleetPlan(NamedTuple):
+    """The plans of the dense fleet solve, built once per solve
+    (`fleet_dense_plan`)."""
+
+    grid: segsum.SegPlan       # (P*B) 6x6 band grid of the families only
+    imu_grid: segsum.SegPlan   # (P*B) DxD band grid of the IMU family
+    table: torch.Tensor        # kernel 10's W block table (`fleet_plan`)
 
 
 def grouped_schur(problem: Problem, config: BAConfig) -> bool:
@@ -105,6 +125,22 @@ def band_plan(problem: Problem, config: BAConfig, ids=None,
                     segsum.build_plan(*ids["imu_grid"]), schur)
 
 
+def fleet_dense_plan(problem: Problem, config: BAConfig,
+                     ids=None) -> FleetPlan:
+    """The plans of `solve_reduced_fleet_dense` for a fused fleet of
+    `config.fleet_size` windows: the band grid of the residual families
+    only (no Schur rows) and kernel 10's W block table, on the problem's
+    device, with no host read."""
+    P, L = problem.poses.q.shape[0], problem.lms.x.shape[0]
+    if ids is None:
+        ids = asm.sum_ids(problem, config)
+    idx = problem.pidx
+    return FleetPlan(segsum.build_plan(*ids["grid"]),
+                     segsum.build_plan(*ids["imu_grid"]),
+                     k10.fleet_plan(idx.wb_pose, idx.wb_lm, P, L,
+                                    config.fleet_size))
+
+
 def _pair_seg(idx, P: int, B: int):
     """Band-grid ids of the Schur pair rows: pair (i, j) at a = pose_i,
     d = pose_j - a; padding pairs and pairs past the band are dropped."""
@@ -114,11 +150,12 @@ def _pair_seg(idx, P: int, B: int):
 
 
 def _band_self_cross(bs: cg_mod.BlockSystem, P: int, B: int, D: int,
-                     plan: BandPlan, extra6=None):
+                     plan, extra6=None):
     """U on the (P, B) band grid from the weighted family blocks (band[p, d]
-    = U[p, p+d] block, d >= 0), one launch; `extra6` are further (n, 6, 6)
-    rows that `plan.grid` sums with the 6x6 families (the pair path's
-    Schur rows)."""
+    = U[p, p+d] block, d >= 0), one launch on the `grid` and `imu_grid` of
+    `plan` (a BandPlan or FleetPlan); `extra6` are further (n, 6, 6) rows
+    that `plan.grid` sums with the 6x6 families (the pair path's Schur
+    rows)."""
     pb = bs.pj
     rows = [_outer(pb.j_m, pb.j_m), _outer(pb.j_r, pb.j_r),
             _outer(bs.ju, bs.ju), _outer(bs.jb1, bs.jb1),
@@ -456,6 +493,67 @@ def solve_reduced_banded_dense(problem: Problem, config: BAConfig,
     return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
 
 
+def fleet_band(bs: cg_mod.BlockSystem, config: BAConfig, P: int, D: int,
+               plan: FleetPlan):
+    """U of a fused fleet on the (P, B, D, D) band grid, from the residual
+    families only (one kernel-2 launch on `plan.grid`), masked dims as
+    identity rows: the band kernel 10 (b) densifies per window."""
+    B = config.band_width
+    band = _band_self_cross(bs, P, B, D, plan).reshape(P, B, D, D)
+    pd = (torch.arange(P, device=band.device)[:, None]
+          + torch.arange(B, device=band.device)[None, :])
+    band = band * (pd < P)[:, :, None, None].to(band.dtype)
+    return band_add_identity(band, bs.col_mask, P, D)
+
+
+def solve_reduced_fleet_dense(problem: Problem, config: BAConfig,
+                              bs: cg_mod.BlockSystem, P: int,
+                              D: int) -> GnStep:
+    """Fleet reduced solve: per-window dense Schur complement and one
+    batched Cholesky, (F, n_w, n_w) with n_w = (P/F) D, for a fused fleet
+    of F equal windows (which never couple).
+
+      * U comes off the families-only band grid, masked dims as identity
+        rows, and is densified window by window inside kernel 10 (b);
+      * the Schur correction is one batched product
+        C = (V^-1 W)_T^T W_T over each window's dense (L_w lm, n_w)
+        operands, which kernel 10 (a) writes from the build's W blocks;
+      * kernel 10 (b) forms S = U_f - C, its Jacobi scaling and the eps
+        damping; one batched `cholesky_ex`, two triangular solves and one
+        refinement step, as `linear.solve_reduced` per window.
+
+    `ok` is the factorization's info and finiteness, with no host read; a
+    failed factor gives a zero pose step."""
+    dtype = bs.rhs_sc.dtype
+    F_ = config.fleet_size
+    n_w = (P // F_) * D
+    plan = bs.plan.fleet
+    if plan is None:
+        plan = fleet_dense_plan(problem, config)
+    band = fleet_band(bs, config, P, D, plan)
+    eps = 1e-8 if dtype == torch.float64 else 1e-4
+    idx = problem.pidx
+    if band.is_cuda:
+        W_T, WVi_T = k10.fleet_w(bs.wb, bs.vinv, plan.table, F_, D)
+        C = torch.bmm(WVi_T.mT, W_T)
+        Ss, scal = k10.fleet_epilogue(band, C, F_, eps)
+    else:
+        W_T, WVi_T = k10.fleet_w_plain(bs.wb, bs.vinv, idx.wb_pose,
+                                       idx.wb_lm, F_, P, D)
+        C = torch.bmm(WVi_T.mT, W_T)
+        Ss, scal = k10.fleet_epilogue_plain(band, C, F_, eps)
+    c, ok = _chol(Ss)
+    rhsF = (bs.rhs_sc * scal.reshape(-1)).reshape(F_, n_w)
+    x = _cho_solve_b(c, rhsF)
+    # one step of iterative refinement in the scaled space
+    x = x + _cho_solve_b(c, rhsF - _mv(Ss, x))
+    delta_p = x.reshape(-1) * scal.reshape(-1)
+    delta_p = torch.where(torch.isfinite(delta_p) & ok, delta_p, 0.0)
+    delta_p = torch.where(bs.col_mask, delta_p, 0.0)
+    delta_l = cg_mod.back_substitute_blocks(bs, delta_p, P, D, 0)
+    return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
+
+
 def banded_dense_solve(band, rhs_sc, col_mask, marg_H=None):
     """Densify an assembled band, optionally add the dense marginalization
     prior curvature, and solve by Jacobi-scaled Cholesky + one refinement
@@ -517,6 +615,29 @@ def jacobi_scaled(band):
     return band_s, scal
 
 
+def chunk_system(band_s, config: BAConfig, P: int, D: int):
+    """(Dg, Eg, F, P_w, chunk, n_c): the chunked block-tridiagonal system
+    of a scaled band (`_chunk_windows`), per window of a fleet of F =
+    `config.fleet_size` windows when F > 1 divides P, else of one window:
+    n_c chunks of `chunk` >= B poses, each window padded with identity
+    diagonal blocks to n_c * chunk poses."""
+    B = band_s.shape[1]
+    F_ = config.fleet_size if (config.fleet_size > 1
+                               and P % config.fleet_size == 0) else 1
+    P_w = P // F_
+    # chunk size >= B makes the system block-tridiagonal in chunks
+    chunk = max(B, min(P_w, config.banded_chunk or 16))
+    n_c = -(-P_w // chunk)
+    Pp_w = n_c * chunk
+    bandF = band_s.reshape(F_, P_w, B, D, D)
+    if Pp_w > P_w:
+        pad = band_s.new_zeros((F_, Pp_w - P_w, B, D, D))
+        pad[:, :, 0] = torch.eye(D, dtype=band_s.dtype, device=band_s.device)
+        bandF = torch.cat([bandF, pad], dim=1)
+    Dg, Eg = _chunk_windows(bandF, chunk)
+    return Dg, Eg, F_, P_w, chunk, n_c
+
+
 def banded_pcg_solve(band, rhs_sc, col_mask, config: BAConfig, P: int,
                      D: int):
     """Factor + solve the assembled band: Jacobi scaling, chunked
@@ -532,25 +653,9 @@ def banded_pcg_solve(band, rhs_sc, col_mask, config: BAConfig, P: int,
     masked no-ops, with no host read.  `ok` also requires the residual not
     to exceed the rhs."""
     dtype = rhs_sc.dtype
-    B = band.shape[1]
     band_s, scal = jacobi_scaled(band)
-    eye = torch.eye(D, dtype=dtype, device=band.device)
-
-    F_ = config.fleet_size if (config.fleet_size > 1
-                               and P % config.fleet_size == 0) else 1
-    P_w = P // F_
-    # chunk size >= B makes the system block-tridiagonal in chunks; pad
-    # each window with identity diagonal blocks
-    chunk = max(B, min(P_w, config.banded_chunk or 16))
-    n_c = -(-P_w // chunk)
+    Dg, Eg, F_, P_w, chunk, n_c = chunk_system(band_s, config, P, D)
     Pp_w = n_c * chunk
-    bandF = band_s.reshape(F_, P_w, B, D, D)
-    if Pp_w > P_w:
-        pad = band_s.new_zeros((F_, Pp_w - P_w, B, D, D))
-        pad[:, :, 0] = eye
-        bandF = torch.cat([bandF, pad], dim=1)
-
-    Dg, Eg = _chunk_windows(bandF, chunk)
     # log-depth batched cyclic reduction when the chunk chain is deep
     # enough; the 2-chunk system has nothing to gain
     use_bcr = config.banded_cyclic_reduction and n_c >= 4

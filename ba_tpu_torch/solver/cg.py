@@ -1,28 +1,46 @@
-"""The block system of the Schur-reduced camera system.
+"""The block system of the Schur-reduced camera system, and the
+matrix-free PCG solver on it.
 
-Port of the block half of `ba_tpu/solver/cg.py`: the weighted residual
-blocks and landmark inverses that a Schur product needs, nothing quadratic
-in the pose count, and the products through them
+Port of `ba_tpu/solver/cg.py`: the weighted residual blocks and landmark
+inverses that a Schur product needs, nothing quadratic in the pose count,
+and the products through them
 
     U x   = sum_fam J_f^T (J_f x)      (per-row products, summed by pose)
     W^T x = sum_r   j_l^T (J_p x)_r    (summed by landmark)
     W z   = sum_r   J_p^T (j_l z_lm)   (summed by pose)
 
 that the banded solvers (`solver/banded.py`) use for the Schur-reduced
-rhs, the landmark back-substitution and the dogleg's Cauchy factor.
+rhs, the landmark back-substitution and the dogleg's Cauchy factor, and
+that `solve_reduced_cg` (`use_cg_solver`, the reference's sparse reduced
+solve) iterates on: block-Jacobi PCG on S x = rhs_sc with S never formed.
 
 Every segment sum goes through `assemble.seg_sum_groups` on the plans of a
 `BlockPlan`, built once per solve from the problem's static ids with no
 host read (`block_plan`): kernel 2 (kernels/csrc/segsum.cu) on the card,
 the plain walk of the same plans on the CPU.  A build makes two launches
 (`assemble_blocks`: the gradient, V, rhs_l and the W blocks, then W V^-1
-rhs_l), the Cauchy factor one (U x and W z together) and the landmark
-back-substitution one.  The W blocks are summed once per build and kept in
-the system (`BlockSystem.wb`); ba_tpu sums them again in `band_S` and in
-the preconditioner.
+rhs_l with the preconditioner's sums), the Cauchy factor one (U x and W z
+together) and the landmark back-substitution one.  The W blocks are summed
+once per build and kept in the system (`BlockSystem.wb`); ba_tpu sums them
+again in `band_S` and in the preconditioner.
 
-Not ported here: the PCG loop (`s_matvec`, `_precond`, `solve_reduced_cg`;
-ROADMAP.md queue 1 item 2), a calibration block (K > 0 raises; queue 1
+A Schur product (`s_matvec`) is two launches on the card: kernel 6
+(kernels/csrc/schur_matvec.cu) writes the projection rows of U x - W V^-1
+W^T x straight into the rhs order of the plan, one warp per landmark, and
+kernel 2 sums them by pose with the unary, binary and IMU rows; the prior,
+the damping and the masked identity stay plain torch, as does the
+block-Jacobi preconditioner (`_precond`, a batched D x D product).
+
+The PCG loop (`pcg_solve`) replaces ba_tpu's `lax.while_loop` by a Python
+loop whose iterations are masked once the residual test fails
+(`torch.where(live, ...)`, never a multiplication by 0, which would turn a
+NaN into a step): a masked iteration changes nothing, so the result and the
+iteration count are the while loop's.  The host reads the stop test once
+every `CG_CHECK_EVERY` (8) iterations to leave the loop: at most
+ceil(cg_max_iterations / 8) host syncs per build (12 at 100 iterations),
+and up to 7 masked iterations after convergence.
+
+Not ported here: a calibration block (K > 0 raises; ROADMAP.md queue 1
 item 6) and the sharded layout (`axis_name`, `lm_offset`; queue 1 item 8).
 """
 
@@ -35,10 +53,16 @@ import torch.nn.functional as F
 
 from ..core.problem import BAConfig, Problem
 from ..core.residuals import prior
+from ..kernels import schur_matvec as k6
 from ..kernels import segsum
 from ..utils.linalg import block_diag_inv
+from ..utils.sync import item
 from . import assemble as asm
 from .assemble import _jtr, _outer
+from .linear import GnStep
+
+# PCG iterations between two host reads of the stop test (`pcg_solve`)
+CG_CHECK_EVERY = 8
 
 
 class BlockPlan(NamedTuple):
@@ -56,6 +80,10 @@ class BlockPlan(NamedTuple):
     wz: segsum.SegPlan        # (P) projection rows [pose, ref]: W z
     wb_pose: segsum.SegPlan   # (P) W blocks by pose: the preconditioner
     band: Optional[object]    # banded.BandPlan of band_S, or None
+    fleet: Optional[object]   # banded.FleetPlan of the dense fleet solve,
+    #                           or None
+    pose_ref: torch.Tensor    # (2, Nr) int32: the projection rows' pose
+    #                           and ref ids, kernel 6's
 
 
 class BlockSystem(NamedTuple):
@@ -97,25 +125,31 @@ class BlockSystem(NamedTuple):
     plan: BlockPlan
 
 
-def block_plan(problem: Problem, config: BAConfig,
-               band: bool = False) -> BlockPlan:
+def block_plan(problem: Problem, config: BAConfig, band: bool = False,
+               fleet: bool = False) -> BlockPlan:
     """The plans of the sums through a block system of `problem`, on its
     device, with no host read; with `band`, also band_S's
-    (`banded.band_plan`).  Build it once per solve."""
+    (`banded.band_plan`), with `fleet` those of the dense fleet solve
+    (`banded.fleet_dense_plan`).  Build it once per solve."""
     ids = asm.sum_ids(problem, config)
     P = problem.poses.q.shape[0]
     Nr = problem.proj.pose.shape[0]
     plans = {k: segsum.build_plan(*ids[k])
              for k in ("rhs", "imu_rhs", "V", "rhs_l", "wb")}
-    band_plan = None
-    if band:
-        from .banded import band_plan as make_band_plan
+    band_plan = fleet_plan = None
+    if band or fleet:
+        from . import banded
 
-        band_plan = make_band_plan(problem, config, ids)
+        if band:
+            band_plan = banded.band_plan(problem, config, ids)
+        if fleet:
+            fleet_plan = banded.fleet_dense_plan(problem, config, ids)
+    pose_ref = ids["rhs"][0][: 2 * Nr]
     return BlockPlan(**plans,
-                     wz=segsum.build_plan(ids["rhs"][0][: 2 * Nr], P),
+                     wz=segsum.build_plan(pose_ref, P),
                      wb_pose=segsum.build_plan(problem.pidx.wb_pose, P),
-                     band=band_plan)
+                     band=band_plan, fleet=fleet_plan,
+                     pose_ref=pose_ref.to(torch.int32).reshape(2, Nr))
 
 
 def _seg2_rows(j1, j2, u1, u2):
@@ -153,24 +187,32 @@ def _w_apply(bs: BlockSystem, z, P, D, K=0):
     return _w_finish(asm.seg_sum_groups([_w_group(bs, z)])[0], D)
 
 
+def _pose_rows(bs: BlockSystem, xp):
+    """The unary and binary rows of U x, (Nu + 2 Nb, 6), which follow the
+    projection rows on `plan.rhs`, and the IMU group on `plan.imu_rhs` (or
+    None); xp (P, D)."""
+    xp6 = xp[:, :6]
+    uu = torch.einsum("nik,nk->ni", bs.ju, xp6[bs.u_pose])
+    ub = (torch.einsum("nik,nk->ni", bs.jb1, xp6[bs.b1])
+          + torch.einsum("nik,nk->ni", bs.jb2, xp6[bs.b2]))
+    rows = torch.cat([_jtr(bs.ju, uu), _seg2_rows(bs.jb1, bs.jb2, ub, ub)])
+    imu = None
+    if bs.ji1 is not None:
+        ui = (torch.einsum("nik,nk->ni", bs.ji1, xp[bs.i1])
+              + torch.einsum("nik,nk->ni", bs.ji2, xp[bs.i2]))
+        imu = (_seg2_rows(bs.ji1, bs.ji2, ui, ui), bs.plan.imu_rhs)
+    return rows, imu
+
+
 def _u_groups(bs: BlockSystem, xm, P, D):
     """The rows of U x: the width-6 families on `plan.rhs`, the IMU on
     `plan.imu_rhs`."""
     xp = xm[: P * D].reshape(P, D)
-    xp6 = xp[:, :6]
-    u = _proj_u(bs, xp6)
-    uu = torch.einsum("nik,nk->ni", bs.ju, xp6[bs.u_pose])
-    ub = (torch.einsum("nik,nk->ni", bs.jb1, xp6[bs.b1])
-          + torch.einsum("nik,nk->ni", bs.jb2, xp6[bs.b2]))
-    groups = [(torch.cat([_seg2_rows(bs.pj.j_m, bs.pj.j_r, u, u),
-                          _jtr(bs.ju, uu),
-                          _seg2_rows(bs.jb1, bs.jb2, ub, ub)]),
+    u = _proj_u(bs, xp[:, :6])
+    rows, imu = _pose_rows(bs, xp)
+    groups = [(torch.cat([_seg2_rows(bs.pj.j_m, bs.pj.j_r, u, u), rows]),
                bs.plan.rhs)]
-    if bs.ji1 is not None:
-        ui = (torch.einsum("nik,nk->ni", bs.ji1, xp[bs.i1])
-              + torch.einsum("nik,nk->ni", bs.ji2, xp[bs.i2]))
-        groups.append((_seg2_rows(bs.ji1, bs.ji2, ui, ui), bs.plan.imu_rhs))
-    return groups
+    return groups + ([imu] if imu is not None else [])
 
 
 def _u_finish(sums, xm, P, D, marg_H):
@@ -338,3 +380,102 @@ def cauchy_factor(bs: BlockSystem, marg_H, P, D, K=0):
            + torch.einsum("li,lij,lj->", rl, bs.V, rl))
     num = torch.sum(bs.rhs_p ** 2) + torch.sum(bs.rhs_l ** 2)
     return num / torch.clamp(den, min=1e-30)
+
+
+def _s_groups(bs: BlockSystem, xm, P, D):
+    """The rows of (U - W V^-1 W^T) x in one buffer on `plan.rhs` (the
+    projection rows from kernel 6 on the card, `schur_matvec_plain` on the
+    CPU, written in place; then the unary and binary rows), and the IMU
+    group on `plan.imu_rhs`."""
+    pj = bs.pj
+    Nr = pj.j_m.shape[0]
+    xp = xm[: P * D]
+    rows, imu = _pose_rows(bs, xp.reshape(P, D))
+    buf = xm.new_empty((2 * Nr + rows.shape[0], 6))
+    if xm.is_cuda:
+        pose_ref = bs.plan.pose_ref
+        k6.schur_matvec(pj.j_m, pj.j_r, pj.j_l, pose_ref[0], pose_ref[1],
+                        bs.vinv, xp, bs.plan.V.perm, bs.plan.V.offsets, D,
+                        out=buf[: 2 * Nr])
+    else:
+        buf[: 2 * Nr] = k6.schur_matvec_plain(pj.j_m, pj.j_r, pj.j_l,
+                                              pj.pose, pj.ref, pj.lm,
+                                              bs.vinv, xp, D)
+    buf[2 * Nr:] = rows
+    return [(buf, bs.plan.rhs)] + ([imu] if imu is not None else [])
+
+
+def s_matvec(bs: BlockSystem, x, P, D, K, lam, marg_H=None):
+    """(S + lam*diag(S)) x in the masked subspace; identity on masked
+    dims.  Two launches on the card: kernel 6, then kernel 2."""
+    xm = torch.where(bs.col_mask, x, 0.0)
+    y = _u_finish(asm.seg_sum_groups(_s_groups(bs, xm, P, D)), xm, P, D,
+                  marg_H)
+    y = y + lam * bs.dscale * xm
+    return torch.where(bs.col_mask, y, x)
+
+
+def _precond(bs: BlockSystem, r, P, D, K=0):
+    """Block-Jacobi preconditioner: the inverted S diagonal blocks."""
+    rp = r[: P * D].reshape(P, D)
+    return torch.einsum("pij,pj->pi", bs.minv_pose, rp).reshape(-1)
+
+
+class PcgResult(NamedTuple):
+    x: torch.Tensor           # (N,) the PCG iterate
+    iterations: torch.Tensor  # () int64: iterations that updated x (the
+    #                           while loop's count)
+    matvecs: int              # Schur products launched, masked included
+    reads: int                # host reads of the stop test
+
+
+def pcg_solve(bs: BlockSystem, marg_H, config: BAConfig, P, D) -> PcgResult:
+    """PCG on S x = rhs_sc from x = 0 until r.r <= (cg_tolerance |b|)^2
+    or `cg_max_iterations`, as ba_tpu's while loop: the iterations past the
+    stop are masked, and the host reads the stop test every
+    `CG_CHECK_EVERY` iterations to leave the loop."""
+    dtype = bs.rhs_sc.dtype
+    lam = 1e-8 if dtype == torch.float64 else 1e-4
+    b = bs.rhs_sc
+    x = torch.zeros_like(b)
+    r = b
+    z = _precond(bs, r, P, D)
+    p = z
+    rz = r @ z
+    tol2 = (config.cg_tolerance * torch.sqrt(b @ b)) ** 2
+    n_live = torch.zeros((), dtype=torch.int64, device=b.device)
+    n_max = config.cg_max_iterations
+    k = reads = 0
+    while k < n_max:
+        for _ in range(min(CG_CHECK_EVERY, n_max - k)):
+            live = r @ r > tol2
+            Ap = s_matvec(bs, p, P, D, 0, lam, marg_H)
+            denom = p @ Ap
+            alpha = torch.where(denom > 0,
+                                rz / torch.where(denom > 0, denom, 1.0), 0.0)
+            x = torch.where(live, x + alpha * p, x)
+            r = torch.where(live, r - alpha * Ap, r)
+            z = _precond(bs, r, P, D)
+            rz_new = r @ z
+            beta = rz_new / torch.where(rz > 0, rz, 1.0)
+            p = torch.where(live, z + beta * p, p)
+            rz = torch.where(live, rz_new, rz)
+            n_live = n_live + live
+            k += 1
+        if k < n_max:
+            reads += 1
+            if not item(r @ r > tol2):
+                break
+    return PcgResult(x=x, iterations=n_live, matvecs=k, reads=reads)
+
+
+def solve_reduced_cg(bs: BlockSystem, marg_H, config: BAConfig, P, D,
+                     K=0) -> GnStep:
+    """PCG on S delta_p = rhs_sc (`pcg_solve`), then landmark
+    back-substitution; `ok` is a finite iterate."""
+    x = pcg_solve(bs, marg_H, config, P, D).x
+    delta_p = torch.where(torch.isfinite(x), x, 0.0)
+    delta_p = torch.where(bs.col_mask, delta_p, 0.0)
+    delta_l = back_substitute_blocks(bs, delta_p, P, D)
+    return GnStep(delta_p=delta_p, delta_l=delta_l,
+                  ok=torch.all(torch.isfinite(x)))

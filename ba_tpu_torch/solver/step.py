@@ -18,17 +18,23 @@ as ba_tpu's `_build_and_solve` does):
   * `use_banded_solver`: the block system (`solver/cg.py`), the banded
     Schur band and the chunked factorization as the preconditioner of a
     short PCG (`banded.solve_reduced_banded`);
+  * `use_banded_solver` on a fused fleet (`fleet_size` F > 1): the
+    per-window dense Schur complement and one batched Cholesky
+    (`banded.solve_reduced_fleet_dense`) when F divides the pose and
+    landmark counts and a window's system has at most 4,096 rows, else the
+    banded solver with a fleet axis;
   * `schur_on_band`: the banded Schur band, densified with the
     marginalization prior and solved by one Cholesky
-    (`banded.solve_reduced_banded_dense`).
+    (`banded.solve_reduced_banded_dense`);
+  * `use_cg_solver`: matrix-free block-Jacobi PCG on the block system
+    (`cg.solve_reduced_cg`).
 
 `use_banded_solver` without a band, or with a marginalization prior, falls
-back to the dense solve as in ba_tpu.  A solve builds the segment plans of
+back to the next path as in ba_tpu.  A solve builds the segment plans of
 its builds once, before the loop (`solve_plan`: an `AssemblyPlan` or a
-`cg.BlockPlan`), and hands them to every iteration.  The matrix-free PCG
-solver (`use_cg_solver`), fleets (`fleet_size > 1` on the banded solver),
-the verbose and staged-Tvs host loop of `solve` and the calibration
-epilogue raise NotImplementedError.
+`cg.BlockPlan`), and hands them to every iteration.  The verbose and
+staged-Tvs host loop of `solve` and the calibration epilogue raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -139,36 +145,38 @@ def _commit_imu_cov(problem: Problem, config: BAConfig, imu_c9) -> Problem:
 
 def _reduced_path(problem: Problem, config: BAConfig) -> str:
     """The reduced solve of a build, from static properties (ba_tpu's
-    gates): "banded" (`use_banded_solver` with a band, no calibration block
-    and no marginalization prior), "schur_on_band" (a band and no
-    calibration block; a prior is allowed) or "dense".  The paths ba_tpu
-    would take to its CG solver or its fleet solve raise."""
+    gates, `ba_tpu/solver/step.py:171-196`): with a band, no calibration
+    block and no marginalization prior, `use_banded_solver` takes
+    "fleet_dense" (F = `fleet_size` > 1 dividing P and L, (P/F) D <= 4096)
+    or "banded"; then "schur_on_band" (a band and no calibration block; a
+    prior is allowed), then "cg" (`use_cg_solver`), else "dense"."""
     D, K, P, L, lm, N = dims(problem, config)
     band = 0 < config.band_width <= P and K == 0
     if (config.use_banded_solver and band
             and problem.marg.H.shape[0] != P * D):
-        if config.fleet_size > 1:
-            raise NotImplementedError(
-                "fleet solves (fleet_size > 1) are not ported yet "
-                "(ROADMAP.md queue 1 item 4)")
+        F = config.fleet_size
+        if F > 1 and P % F == 0 and L % F == 0 and (P // F) * D <= 4096:
+            return "fleet_dense"
         return "banded"
     if config.schur_on_band and band:
         return "schur_on_band"
     if config.use_cg_solver:
-        raise NotImplementedError(
-            "the matrix-free PCG solver (use_cg_solver) is not ported yet "
-            "(ROADMAP.md queue 1 item 2)")
+        return "cg"
     return "dense"
 
 
 def solve_plan(problem: Problem, config: BAConfig):
     """The segment plans of every build of a solve, on the problem's
-    device, with no host read: a `cg.BlockPlan` with its band plan for the
-    banded solvers, else the `AssemblyPlan` of the dense solve.  Build it
-    once per solve."""
-    if _reduced_path(problem, config) == "dense":
+    device, with no host read: a `cg.BlockPlan` for the block-system paths
+    (with band_S's plan on the banded ones, the dense fleet solve's on
+    "fleet_dense", none for CG), else the `AssemblyPlan` of the dense
+    solve.  Build it once per solve."""
+    path = _reduced_path(problem, config)
+    if path == "dense":
         return assembly_plan(problem, config)
-    return cg_mod.block_plan(problem, config, band=True)
+    return cg_mod.block_plan(problem, config,
+                             band=path in ("banded", "schur_on_band"),
+                             fleet=path == "fleet_dense")
 
 
 def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
@@ -186,8 +194,14 @@ def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
     if blocks:
         D, K, P, L, lm, N = dims(problem, config)
         bs, marg_H = cg_mod.assemble_blocks(problem, config, imu_eval,
-                                            with_precond=False, plan=plan)
-        if path == "banded":
+                                            with_precond=path == "cg",
+                                            plan=plan)
+        if path == "cg":
+            step = cg_mod.solve_reduced_cg(bs, marg_H, config, P, D)
+        elif path == "fleet_dense":
+            step = banded_mod.solve_reduced_fleet_dense(problem, config, bs,
+                                                        P, D)
+        elif path == "banded":
             step = banded_mod.solve_reduced_banded(problem, config, bs, P, D)
         else:
             step = banded_mod.solve_reduced_banded_dense(problem, config, bs,

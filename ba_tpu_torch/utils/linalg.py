@@ -130,11 +130,13 @@ def inv3(A):
 
 def block_diag_inv(V, floor=1e-6):
     """Invert a batch of small SPD blocks with a diagonal floor; closed
-    forms for the 1x1 (inverse-depth) and 3x3 (XYZ landmark) cases."""
+    forms for the 1x1 (inverse-depth) and 3x3 (XYZ landmark) cases, else
+    `inv_ex`, which reports a singular block in its info instead of
+    raising and so makes no host sync."""
     k = V.shape[-1]
     V = V + floor * torch.eye(k, dtype=V.dtype, device=V.device)
     if k == 1:
         return 1.0 / V
     if k == 3:
         return inv3(V)
-    return torch.linalg.inv(V)
+    return torch.linalg.inv_ex(V)[0]

@@ -64,7 +64,43 @@ Phases, each of which exits non-zero when a check fails:
      first iteration's step against the dense solve of the same build
      (banded grid + dense Cholesky), within a multiple of the same gap on
      an f32 CPU run of both at 256 poses; K7 and K9 timed as in 11, with
-     torch.mv on the densified band as K9's library yardstick.
+     torch.mv on the densified band as K9's library yardstick; K8 (cyclic
+     reduction on torch.linalg): its factor and one solve timed apart
+     beside their bounds (flops and bytes counted level by level);
+ 15. cg_small: the matrix-free PCG solver (use_cg_solver) on the card
+     against the CPU in f64 (simulate(24 poses, 72 landmarks)): one
+     solve_reduced_cg step, one GN iteration with an active marginalization
+     prior, one dogleg `solve`;
+ 16. the PCG configuration of bench_scaling.py's `cg` solver at P = 1,024:
+     simulate(1,024 poses, 4,096 landmarks, seed 0), build_problem(perturb
+     0.01, seed 1, no marginalization prior), f32, band width 0,
+     cg_max_iterations 100, cg_tolerance 1e-5; k6: kernel 6 (the projection
+     rows of the Schur product) against its plain version at those shapes
+     in f32 and on an f64 copy, again with 8 landmarks merged into one of
+     more rows than a warp, bit-identical relaunch;
+ 17. cg: GN solve_fixed(..., 10) of that problem: cost and ATE fall,
+     solver_ok at every iteration, PCG iterations per build, host syncs per
+     build (at most ceil(100 / 8)), exact launch counts of kernels 1, 2 and
+     6, kf/s, ms per iteration, peak memory; the first step against the
+     dense solve of the same build (banded grid + dense Cholesky) within a
+     multiple of the same gap on an f32 CPU run at 256 poses;
+ 18. fleet_small: both fleet branches on the card against the CPU in f64 (2
+     windows of 12 poses: the dense fleet solve, and the banded solver with
+     a fleet axis when the landmark count is odd);
+ 19. the fused fleet of bench_fleet.py --mode concat at B = 4 flagship
+     windows (apps/fleet_serve.py's route): 4 x build_problem(perturb 0.01,
+     seeds 1-4) of simulate(128, 512, seed 0), f32, concat_problems, band
+     width from the fused problem, use_banded_solver, fleet_size 4; k10:
+     kernel 10 (a) and (b) against their plain versions, f32 and f64, with
+     padding W blocks, bit-identical relaunch; fleet: GN solve_fixed(...,
+     25) on solve_reduced_fleet_dense, 0 host syncs per iteration, exact
+     launch counts of kernels 1, 2 and 10, every window's cost and ATE
+     fall, one iteration against fleet_size 1 (the chunked banded path),
+     kf/s and ms per iteration;
+ 20. kernels 6 and 10 timed as in 11: torch.mv on the dense S of the same
+     CG build is K6's library yardstick, one index_put_ into a zeroed W_T
+     K10 (a)'s; the dense fleet solve's bmm, cholesky_ex and triangular
+     solves timed apart.
 
 The last lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or when
@@ -133,6 +169,39 @@ TOL_K9 = {"float64": 1e-12, "float32": 1e-5}
 # same gap on an f32 CPU run of both at 256 poses: the gap lies along the
 # near-null gauge directions that the 4-iteration PCG does not converge
 STEP_GAP_POSES, STEP_GAP_FACTOR = 256, 3.0
+
+# the matrix-free PCG solver: bench_scaling.py's `cg` solver at its largest
+# default size (:18-62; band width left at 0), 10 GN iterations
+CG = dict(poses=1024, lms=4096, iters=10, max_it=100, tol=1e-5)
+CG_EXPECTED = dict(P=1024, L=4076, Nr=85823, Nw=89896, Ni=1023)
+# kernel launches per CG build besides the PCG's Schur products (one kernel 6
+# and one kernel 2 each): kernel 2 twice in assemble_blocks, once for the
+# Cauchy factor, once for the landmark back-substitution
+K2_PER_CG_BUILD = 4
+# kernels 6 and 10 against their plain versions, relative to
+# max(1, max |plain|): the same products summed in another order
+TOL_K6 = {"float64": 1e-12, "float32": 1e-5}
+TOL_K10 = {"float64": 1e-12, "float32": 1e-5}
+# the first PCG step may differ from the dense solve's by this multiple of
+# the same gap on an f32 CPU run of both at 256 poses: the PCG stops at a
+# relative residual of 1e-5 or 100 iterations
+CG_GAP_POSES, CG_GAP_FACTOR = 256, 3.0
+
+# the fused fleet: bench_fleet.py --mode concat at B = 4 flagship windows
+# (:50-61, :89-96), apps/fleet_serve.py's fused route, 25 GN iterations
+FLEET = dict(vehicles=4, poses=128, lms=512, iters=25)
+FLEET_EXPECTED = dict(P=512, L=1988, Nr=38784, Nw=40752, B=24, H=(1, 1))
+# kernel 2 launches per dense fleet build: twice in assemble_blocks, once
+# for the families' band, once for the Cauchy factor, once for the
+# back-substitution; kernel 10 (a) and (b) once each
+K2_PER_FLEET_BUILD = 5
+# one f32 GN iteration of the fused fleet on the dense fleet solve against
+# the chunked banded path (fleet_size 1), as tests/test_fleet.py:120-146:
+# the same build (pre_cost relative), two solvers of the same system whose
+# steps differ along the near-null gauge directions that the banded
+# solver's 4 PCG iterations leave unconverged (post_cost relative, poses.t
+# max abs in m)
+FLEET_VS_BANDED = dict(pre_cost=1e-6, post_cost=1e-3, poses_t=1e-3)
 
 # H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
@@ -444,14 +513,17 @@ def phase_small_reference():
 
 
 def _counters_zero():
-    from ba_tpu_torch.kernels import (band_matvec, band_schur, reprojection,
-                                      segsum)
+    from ba_tpu_torch.kernels import (band_matvec, band_schur, fleet_schur,
+                                      reprojection, schur_matvec, segsum)
     from ba_tpu_torch.utils.sync import item
 
     reprojection.reprojection.launches = 0
     segsum.seg_sum_grouped.launches = 0
     band_schur.band_schur.launches = 0
     band_matvec.band_matvec.launches = 0
+    schur_matvec.schur_matvec.launches = 0
+    fleet_schur.fleet_w.launches = 0
+    fleet_schur.fleet_epilogue.launches = 0
     item.count = 0
 
 
@@ -1321,8 +1393,830 @@ def phase_timing_band(p, cfg, bs, plan, band_s, x, floor_ms, smi):
                 plain_ms=t9["plain_ms"], bound_ms=b9, bound_by=by9,
                 library_ms=t9["library_ms"],
                 library_device_ms=t9["library_device_ms"])
+    rec8 = k8_timing(p, cfg, band_s, smi)
     say("PHASE timing (long) ok")
-    return rec7, rec9
+    return rec7, rec9, rec8
+
+
+def k8_timing(p, cfg, band_s, smi):
+    """The cyclic-reduction factor and one solve of K8 (torch.linalg) on
+    the long band, timed apart on the device (CUDA events around a loop of
+    calls; the factor's operations are a chain of batched cuSOLVER and
+    cuBLAS calls), beside their bounds: the flops of the factor and of one
+    solve counted level by level, and the bytes they must move."""
+    import torch
+
+    from ba_tpu_torch.solver import banded
+
+    P, D = p.poses.q.shape[0], cfg.pose_dim
+    Dg, Eg, F_, P_w, chunk, n_c = banded.chunk_system(band_s, cfg, P, D)
+    n = chunk * D
+    levels, _ = banded._bcr_factor(Dg, Eg)
+    b = torch.ones((F_, n_c, n), dtype=band_s.dtype, device=band_s.device)
+    m = 1 << max(n_c - 1, 0).bit_length()
+    # per level of m blocks, h = m / 2 eliminated: h Choleskys (n^3 / 3),
+    # Dodd^-1 A^T and Dodd^-1 B (2 triangular solves of n columns each:
+    # 2 n^3 apiece), B^T Z, A X and A Z (2 n^3 each); the base Cholesky
+    hs = [m >> (k + 1) for k in range(len(levels) - 1)]
+    f_flops = sum(h * (n ** 3 / 3 + 4 * n ** 3 + 6 * n ** 3) for h in hs) \
+        + n ** 3 / 3
+    # it reads D and E of every level (m blocks each) and writes the kept
+    # levels (the Cholesky factor, A, B: 3 h blocks) and the next D and E
+    f_bytes = sum((2 * 2 * h + 3 * h + 2 * h) * n * n for h in hs) \
+        * band_s.element_size()
+    # one solve: per level 2 triangular solves (u, x_odd: 2 n^2 flop each
+    # with both halves), 4 block products with a vector (2 n^2 each) per
+    # eliminated block; it reads the kept levels once
+    s_flops = sum(h * (2 * 2 * n * n + 4 * 2 * n * n) for h in hs) \
+        + 2 * n * n
+    s_bytes = (sum(3 * h for h in hs) + 1) * n * n * band_s.element_size()
+    tf = event_ms(lambda: banded._bcr_factor(Dg, Eg), 5)
+    ts = event_ms(lambda: banded._bcr_solve(levels, b, n_c), 10)
+    bf = max(f_bytes / HBM_BPS, f_flops / F32_FLOPS) * 1e3
+    bs_ = max(s_bytes / HBM_BPS, s_flops / F32_FLOPS) * 1e3
+
+    def by(flops, nbytes_):
+        return "operations" if flops / F32_FLOPS >= nbytes_ / HBM_BPS \
+            else "bytes"
+
+    say(f"[{smi}] K8 cyclic reduction on the long band ({n_c} -> {m} chunks "
+        f"of {n} x {n}, {len(levels) - 1} levels): factor {tf:.4f} ms, one "
+        f"solve {ts:.4f} ms (CUDA events around 5 and 10 calls); bounds: "
+        f"factor {bf:.5f} ms ({f_flops:.4g} flop, {f_bytes} B; "
+        f"{by(f_flops, f_bytes)}), solve {bs_:.5f} ms ({s_flops:.4g} flop, "
+        f"{s_bytes} B; {by(s_flops, s_bytes)})")
+    return dict(factor_ms=tf, solve_ms=ts, factor_bound_ms=bf,
+                solve_bound_ms=bs_, factor_flops=f_flops,
+                factor_bytes=f_bytes, solve_flops=s_flops, solve_bytes=s_bytes)
+
+
+# ---------------------------------------------------------------------------
+# The matrix-free PCG solver
+
+
+def _new_counters():
+    """(kernel 6, kernel 10 (a), kernel 10 (b)) launches since
+    `_counters_zero`."""
+    from ba_tpu_torch.kernels import fleet_schur, schur_matvec
+
+    return (schur_matvec.schur_matvec.launches,
+            fleet_schur.fleet_w.launches, fleet_schur.fleet_epilogue.launches)
+
+
+def phase_cg_small():
+    """The PCG solver on the card against the CPU in f64, on
+    simulate(24 poses, 72 landmarks): one `solve_reduced_cg` step, one GN
+    iteration with an active marginalization prior, one dogleg `solve`."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import cg, step
+
+    sim = sv.simulate(n_poses=24, n_lms=72, seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False,
+                       use_cg_solver=True)
+        raw, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                                     with_marg_prior=False, device=dev)
+        p = prepare_landmarks(raw, cfg)
+        P, D = p.poses.q.shape[0], cfg.pose_dim
+        check(step._reduced_path(p, cfg) == "cg", "cg_small: not the CG path")
+        _counters_zero()
+        bs, mH = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True,
+                                                           True))
+        s = cg.solve_reduced_cg(bs, mH, cfg, P, D)
+        r = {"step delta_p": s.delta_p, "step delta_l": s.delta_l,
+             "step ok": s.ok}
+        pm, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                                    device=dev)
+        pm = prepare_landmarks(_random_prior(pm, 0.05, 3), cfg)
+        g = step.gn_iteration(pm, cfg, True)
+        r.update({"prior GN post_cost": g.post_cost,
+                  "prior GN poses.t": g.problem.poses.t,
+                  "prior GN lms.x": g.problem.lms.x,
+                  "prior GN ok": g.solver_ok})
+        k6 = _new_counters()[0]
+        pd, summ = step.solve(raw, dataclasses.replace(cfg, use_dogleg=True),
+                              max_iter=10)
+        r["dogleg poses.t"] = pd.poses.t
+        r["dogleg lms.x_w"] = pd.lms.x_w
+        out[dev] = (r, summ, k6)
+    (g, gs, k6), (c, cs, _) = out["cuda"], out["cpu"]
+    _compare([(k, g[k], c[k]) for k in c]
+             + [("dogleg final cost", torch.tensor(gs.final_cost),
+                 torch.tensor(cs.final_cost))],
+             "PCG solver, 24 poses f64", TOL_SMALL)
+    check(all(bool(c[k]) for k in c if k.endswith(" ok")),
+          "cg_small: a solve failed")
+    path = (gs.iterations, gs.result, gs.inner_iterations)
+    say(f"cg_small dogleg: {gs.iterations} iterations, {gs.result}, cost "
+        f"{gs.initial_cost:.6g} -> {gs.final_cost:.6g} (CPU {cs.iterations}, "
+        f"{cs.result}); schur_matvec launches on the card before the dogleg "
+        f"{k6}")
+    check(path == (cs.iterations, cs.result, cs.inner_iterations),
+          "cg_small: dogleg took another path on the card")
+    check(gs.final_cost < gs.initial_cost, "cg_small: dogleg cost")
+    check(k6 > 0, "cg_small: kernel 6 never launched")
+    say("PHASE cg_small ok")
+
+
+def cg_problem():
+    """(f32 problem, config, SimData) of the PCG configuration, prepared."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False,
+                   use_cg_solver=True, cg_max_iterations=CG["max_it"],
+                   cg_tolerance=CG["tol"])
+    sim = sv.simulate(n_poses=CG["poses"], n_lms=CG["lms"], seed=0)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                               with_marg_prior=False)
+    p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
+    sizes = dict(P=p.poses.q.shape[0], L=p.lms.x.shape[0],
+                 Nr=p.proj.z.shape[0], Nw=p.pidx.wb_pose.shape[0],
+                 Ni=int(p.imu.valid.sum()))
+    say(f"CG problem {sizes} on {p.poses.q.device} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(sizes == CG_EXPECTED, f"CG sizes {sizes} != {CG_EXPECTED}")
+    return prepare_landmarks(p, cfg), cfg, sim
+
+
+def cg_blocks(p, cfg):
+    """The block system (with the preconditioner) of one CG build."""
+    from ba_tpu_torch.solver import cg, step
+
+    bs, _ = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True, True),
+                               plan=step.solve_plan(p, cfg))
+    return bs
+
+
+def phase_k6(p, cfg, bs):
+    """Kernel 6 against its plain version at the CG shapes, f32 and an f64
+    copy; again with the rows of the first 8 landmarks given to landmark 0
+    (the simulator's landmarks have at most 23 rows, this one more than a
+    warp's 32 lanes); two launches bit-identical.  Returns (f32 max abs
+    error, x)."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.kernels import schur_matvec as k6
+    from ba_tpu_torch.kernels import segsum
+
+    P, D = p.poses.q.shape[0], cfg.pose_dim
+    pj, V = bs.pj, bs.plan.V
+    pose, ref = bs.plan.pose_ref
+    merged = torch.where(pj.lm < 8, 0, pj.lm)
+    cases = (("CG build", pj.lm, V),
+             ("8 landmarks merged", merged, segsum.build_plan(merged,
+                                                              V.nseg)))
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(P * D),
+                        dtype=torch.float32, device=bs.wb.device)
+    worst = 0.0
+    for what, lm, plan in cases:
+        longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
+        if what != "CG build":
+            check(longest > 32, "k6: the merged landmark fits one warp")
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).replace("torch.", "")
+            args = [t.to(dtype) for t in (pj.j_m, pj.j_r, pj.j_l)]
+            vinv, xv = bs.vinv.to(dtype), x.to(dtype)
+            a = k6.schur_matvec(*args, pose, ref, vinv, xv, plan.perm,
+                                plan.offsets, D)
+            b = k6.schur_matvec(*args, pose, ref, vinv, xv, plan.perm,
+                                plan.offsets, D)
+            want = k6.schur_matvec_plain(*[t.double() for t in args], pj.pose,
+                                         pj.ref, lm, vinv.double(),
+                                         xv.double(), D)
+            torch.cuda.synchronize()
+            err, rel = rel_err(a, want)
+            same = bool(torch.equal(a, b))
+            say(f"kernel 6 {dt} {what} (Nr={pj.j_m.shape[0]}, L={V.nseg}, "
+                f"longest landmark {longest} rows): max abs err {err:.3e} "
+                f"rel {rel:.3e} (tol {TOL_K6[dt]:g}); bit-identical relaunch "
+                f"{same}")
+            check(rel <= TOL_K6[dt], f"kernel 6 {dt} {what}: rel {rel:.3g}")
+            check(same, f"kernel 6 {dt} {what}: two launches differ")
+            if dt == "float32":
+                worst = max(worst, err)
+    say("PHASE k6 ok")
+    return worst, x
+
+
+def cg_gap_cpu():
+    """(delta_p gap, delta_l gap) of the PCG solver's first step against
+    the dense solve's, f32 on the CPU at CG_GAP_POSES poses of the PCG
+    configuration's simulator."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import step
+    from ba_tpu_torch.utils.tree import tree_map
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False,
+                   use_cg_solver=True, cg_max_iterations=CG["max_it"],
+                   cg_tolerance=CG["tol"])
+    sim = sv.simulate(n_poses=CG_GAP_POSES, n_lms=4 * CG_GAP_POSES, seed=0)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                               with_marg_prior=False, device="cpu")
+    p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
+    p = prepare_landmarks(p, cfg)
+    a = step._build_and_solve(p, cfg, True).step
+    b = step._build_and_solve(p, _dense_config(p, cfg), True).step
+    return _step_gap(a.delta_p, b.delta_p), _step_gap(a.delta_l, b.delta_l)
+
+
+def _dense_config(p, cfg):
+    """The dense solve of the same build: the banded grid and one dense
+    Cholesky."""
+    from ba_tpu_torch.solver.assemble import band_width_of
+
+    return dataclasses.replace(cfg, use_cg_solver=False,
+                               band_width=band_width_of(p))
+
+
+def phase_cg(p, cfg, sim, smi):
+    """GN solve_fixed(..., 10) of the PCG configuration at full width, then
+    its first step against the dense solve's."""
+    import torch
+
+    from ba_tpu_torch.solver import cg, step
+    from ba_tpu_torch.solver.assemble import evaluate_cost
+
+    n = CG["iters"]
+    cost0 = float(evaluate_cost(p, cfg, step._imu_eval(p, cfg, True, False)))
+    ate0 = _ate(p, sim)
+
+    def plan():
+        out = step.solve_plan(p, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    plan_first, plan_again = _sync_count(plan)[1], _sync_count(plan)[1]
+    step.solve_fixed(p, cfg, True, 1)                      # warm-up
+    torch.cuda.synchronize()
+
+    oks, pcgs = [], []
+    orig_gn, orig_pcg = step.gn_iteration, cg.pcg_solve
+
+    def gn_recording(*a, **k):
+        res = orig_gn(*a, **k)
+        oks.append(res.solver_ok)
+        return res
+
+    def pcg_recording(*a, **k):
+        res = orig_pcg(*a, **k)
+        pcgs.append(res)
+        return res
+
+    def run():
+        out = step.solve_fixed(p, cfg, True, n)
+        torch.cuda.synchronize()
+        return out
+
+    step.gn_iteration, cg.pcg_solve = gn_recording, pcg_recording
+    torch.cuda.reset_peak_memory_stats()
+    _counters_zero()
+    try:
+        t0 = time.perf_counter()
+        (q, costs, dns), syncs = _sync_count(run)
+        secs = time.perf_counter() - t0
+    finally:
+        step.gn_iteration, cg.pcg_solve = orig_gn, orig_pcg
+    k1, k2, reads = _counters()
+    k6 = _new_counters()[0]
+    peak = torch.cuda.max_memory_allocated()
+    costs_h = costs.double().cpu()
+    ate1 = _ate(q, sim)
+    all_ok = bool(torch.stack(oks).all())
+    its = [int(r.iterations) for r in pcgs]
+    matvecs = sum(r.matvecs for r in pcgs)
+    pcg_reads = [r.reads for r in pcgs]
+    kf = CG["poses"] * n / secs
+    max_reads = -(-CG["max_it"] // cg.CG_CHECK_EVERY)
+    say(f"CG GN solve_fixed({n}) f32: cost {cost0:.6g} -> "
+        f"{float(costs_h[-1]):.6g}, ATE {ate0:.6g} -> {ate1:.6g} m, "
+        f"solver_ok at every iteration {all_ok}; PCG iterations per build "
+        f"{its} (cap {CG['max_it']}, tol {CG['tol']:g}); Schur products "
+        f"launched {matvecs}; kernel launches reprojection {k1} segsum {k2} "
+        f"schur_matvec {k6}")
+    say(f"[{smi}] CG GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
+        f"{secs * 1e3 / n:.1f} ms per iteration, {kf:.1f} kf/s; peak device "
+        f"memory {peak / 2**30:.3f} GiB; host syncs {syncs} (the plans' "
+        f"{plan_again}; {plan_first} at the process's first plan), per build "
+        f"{pcg_reads} (at most {max_reads}: one read of the stop test every "
+        f"{cg.CG_CHECK_EVERY} iterations)")
+    check(bool(torch.isfinite(costs_h).all()) and _finite(q),
+          "cg: non-finite values")
+    check(float(costs_h[-1]) < cost0, "cg: cost did not fall")
+    check(ate1 < ate0, "cg: ATE did not fall")
+    check(len(oks) == n and all_ok, "cg: solver_ok failed")
+    check(len(pcgs) == n, f"cg: {len(pcgs)} PCG solves in {n} iterations")
+    want = (2 * n, K2_PER_CG_BUILD * n + matvecs, matvecs)
+    check((k1, k2, k6) == want, f"cg: launches {(k1, k2, k6)}, expected "
+          f"{want}")
+    check(max(pcg_reads) <= max_reads, f"cg: {max(pcg_reads)} host reads in "
+          "one PCG solve")
+    check(syncs - plan_again == sum(pcg_reads) == reads,
+          f"cg: {syncs - plan_again} host syncs, {reads} counted reads, "
+          f"{sum(pcg_reads)} PCG stop tests")
+
+    gap_p, gap_l = cg_gap_cpu()
+    a = step._build_and_solve(p, cfg, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b = step._build_and_solve(p, _dense_config(p, cfg), True)
+    torch.cuda.synchronize()
+    peak_d = torch.cuda.max_memory_allocated()
+    got_p = _step_gap(a.step.delta_p, b.step.delta_p)
+    got_l = _step_gap(a.step.delta_l, b.step.delta_l)
+    post = [float(step._cost(step.apply_update(p, cfg, s.step.delta_p,
+                                               s.step.delta_l),
+                             cfg, True, s.proj_w, s.imu_c9))
+            for s in (a, b)]
+    say(f"CG first step, PCG against dense: delta_p gap {got_p:.3e} (tol "
+        f"{CG_GAP_FACTOR:g} x {gap_p:.3e}, the f32 CPU gap at {CG_GAP_POSES} "
+        f"poses), delta_l gap {got_l:.3e} (tol {CG_GAP_FACTOR:g} x "
+        f"{gap_l:.3e}); trial cost {post[0]:.6g} PCG, {post[1]:.6g} dense "
+        f"(from {cost0:.6g}); both ok {bool(a.step.ok)}/{bool(b.step.ok)}; "
+        f"[{smi}] peak device memory of the dense build {peak_d / 2**30:.3f} "
+        "GiB")
+    check(bool(a.step.ok) and bool(b.step.ok), "cg: a solve failed")
+    check(got_p <= CG_GAP_FACTOR * gap_p and got_l <= CG_GAP_FACTOR * gap_l,
+          "cg: the PCG step is off the dense one")
+    say("PHASE cg ok")
+    return dict(k1=k1, k2=k2, k6=k6, kf_s=kf, ms_iter=secs * 1e3 / n,
+                peak_gib=peak / 2**30, cg_iters=its, syncs_per_build=pcg_reads,
+                gap_p=got_p, gap_l=got_l)
+
+
+# ---------------------------------------------------------------------------
+# The fused vehicle fleet
+
+
+def _fleet_windows(sim, n, seed0, dev="cuda", dtype=None, **build):
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.utils.tree import tree_map
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    out = []
+    for v in range(n):
+        p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=seed0 + v,
+                                   device=dev, **build)
+        if dtype is not None:
+            p = tree_map(lambda a: a.to(dtype)
+                         if a.dtype == torch.float64 else a, p)
+        out.append(p)
+    return out
+
+
+def _fuse(windows, F):
+    from ba_tpu_torch.core.problem import (BAConfig, concat_problems,
+                                           prepare_landmarks)
+    from ba_tpu_torch.solver.assemble import band_width_of
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    fused = concat_problems(windows, cfg)
+    cfg = dataclasses.replace(cfg, band_width=band_width_of(fused),
+                              use_banded_solver=True, fleet_size=F)
+    return prepare_landmarks(fused, cfg), cfg
+
+
+def phase_fleet_small():
+    """Both fleet branches on the card against the CPU in f64: two windows
+    of one scene (simulate(12, 30)) on the dense fleet solve, and windows of
+    30 and 31 landmarks (an odd landmark count) on the banded solver with a
+    fleet axis; one build's step and two GN iterations each."""
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import step
+
+    sims = [sv.simulate(n_poses=12, n_lms=n, seed=0) for n in (30, 31)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r, paths = {}, {}
+        for kind, ws in (
+                ("dense", _fleet_windows(sims[0], 2, 1, dev)),
+                ("banded", _fleet_windows(sims[0], 1, 1, dev)
+                 + _fleet_windows(sims[1], 1, 2, dev))):
+            p, cfg = _fuse(ws, 2)
+            paths[kind] = step._reduced_path(p, cfg)
+            _counters_zero()
+            built = step._build_and_solve(p, cfg, True)
+            q, costs, _ = step.solve_fixed(p, cfg, True, 2)
+            r.update({f"{kind} delta_p": built.step.delta_p,
+                      f"{kind} delta_l": built.step.delta_l,
+                      f"{kind} ok": built.step.ok, f"{kind} costs": costs,
+                      f"{kind} poses.t": q.poses.t})
+            paths[f"{kind} launches"] = _new_counters()[1:]
+        out[dev] = (r, paths)
+    (g, paths), (c, cpaths) = out["cuda"], out["cpu"]
+    say(f"fleet_small paths {paths['dense']} / {paths['banded']} (CPU "
+        f"{cpaths['dense']} / {cpaths['banded']}); fleet_schur launches on "
+        f"the card (a, b): dense {paths['dense launches']}, banded "
+        f"{paths['banded launches']}")
+    check((paths["dense"], paths["banded"]) == ("fleet_dense", "banded")
+          == (cpaths["dense"], cpaths["banded"]),
+          "fleet_small: not the two fleet branches")
+    check(paths["dense launches"] == (3, 3)
+          and paths["banded launches"] == (0, 0),
+          "fleet_small: kernel 10 launches off")
+    _compare([(k, g[k], c[k]) for k in c], "fleet, 2 x 12 poses f64",
+             TOL_SMALL)
+    check(all(bool(c[k]) and bool(g[k]) for k in c if k.endswith(" ok")),
+          "fleet_small: a solve failed")
+    say("PHASE fleet_small ok")
+
+
+def fleet_problem():
+    """(fused f32 problem, config, SimData, prepared f32 windows) of the
+    fleet configuration."""
+    import torch
+
+    from ba_tpu_torch.core.problem import prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+
+    t0 = time.perf_counter()
+    sim = sv.simulate(n_poses=FLEET["poses"], n_lms=FLEET["lms"], seed=0)
+    windows = _fleet_windows(sim, FLEET["vehicles"], 1, dtype=torch.float32)
+    p, cfg = _fuse(windows, FLEET["vehicles"])
+    sizes = dict(P=p.poses.q.shape[0], L=p.lms.x.shape[0],
+                 Nr=p.proj.z.shape[0], Nw=p.pidx.wb_pose.shape[0],
+                 B=cfg.band_width, H=tuple(p.marg.H.shape))
+    say(f"fleet problem {sizes} on {p.poses.q.device} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(sizes == FLEET_EXPECTED, f"fleet sizes {sizes} != "
+          f"{FLEET_EXPECTED}")
+    return p, cfg, sim, [prepare_landmarks(w, cfg) for w in windows]
+
+
+def fleet_blocks(p, cfg):
+    """(block system, plan) of one build of the fused fleet."""
+    from ba_tpu_torch.solver import cg, step
+
+    plan = step.solve_plan(p, cfg)
+    bs, _ = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True, True),
+                               with_precond=False, plan=plan)
+    return bs, plan
+
+
+def _fleet_operands(p, cfg, bs, plan):
+    """(band, C, eps) that kernel 10 (b) takes in one build of the fused
+    fleet, C from kernel 10 (a)."""
+    import torch
+
+    from ba_tpu_torch.kernels import fleet_schur as k10
+    from ba_tpu_torch.solver import banded
+
+    P, D = p.poses.q.shape[0], cfg.pose_dim
+    band = banded.fleet_band(bs, cfg, P, D, plan.fleet)
+    W_T, WVi_T = k10.fleet_w(bs.wb, bs.vinv, plan.fleet.table,
+                             cfg.fleet_size, D)
+    eps = 1e-8 if band.dtype == torch.float64 else 1e-4
+    return band, torch.bmm(WVi_T.mT, W_T), eps
+
+
+def phase_k10(p, cfg, bs, plan):
+    """Kernel 10 (a) and (b) against their plain versions at the fleet
+    shapes, f32 and an f64 copy, (a) with padding W blocks; two launches
+    bit-identical.  Returns ((a) f32 max abs error, (b) f32 max abs
+    error)."""
+    import torch
+
+    from ba_tpu_torch.kernels import fleet_schur as k10
+
+    P, L, D, F = (p.poses.q.shape[0], p.lms.x.shape[0], cfg.pose_dim,
+                  cfg.fleet_size)
+    idx = p.pidx
+    pad, dev = 64, bs.wb.device
+    wb_pose = torch.cat([idx.wb_pose, torch.arange(
+        pad, dtype=torch.int32, device=dev) % P])
+    wb_lm = torch.cat([idx.wb_lm, torch.full((pad,), L, dtype=torch.int32,
+                                             device=dev)])
+    Wb_p = torch.cat([bs.wb, torch.full((pad, 6, 1), 1e3, device=dev)])
+    table = k10.fleet_plan(wb_pose, wb_lm, P, L, F)
+    band, C, _ = _fleet_operands(p, cfg, bs, plan)
+    worst = [0.0, 0.0]
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        Wb, vinv = Wb_p.to(dtype), bs.vinv.to(dtype)
+        a = k10.fleet_w(Wb, vinv, table, F, D)
+        b = k10.fleet_w(Wb, vinv, table, F, D)
+        want = k10.fleet_w_plain(Wb.double(), vinv.double(), wb_pose, wb_lm,
+                                 F, P, D)
+        eps = 1e-8 if dtype == torch.float64 else 1e-4
+        bd, Cd = band.to(dtype), C.to(dtype)
+        x = k10.fleet_epilogue(bd, Cd, F, eps)
+        y = k10.fleet_epilogue(bd, Cd, F, eps)
+        want_e = k10.fleet_epilogue_plain(bd.double(), Cd.double(), F, eps)
+        torch.cuda.synchronize()
+        for part, got, again, ref in (("(a) W_T", a[0], b[0], want[0]),
+                                      ("(a) WVi_T", a[1], b[1], want[1]),
+                                      ("(b) Ss", x[0], y[0], want_e[0]),
+                                      ("(b) scal", x[1], y[1], want_e[1])):
+            err, rel = rel_err(got, ref)
+            same = bool(torch.equal(got, again))
+            say(f"kernel 10 {dt} {part} {tuple(got.shape)} (Nw={Wb.shape[0]}"
+                f" with {pad} padding blocks): max abs err {err:.3e} rel "
+                f"{rel:.3e} (tol {TOL_K10[dt]:g}); bit-identical relaunch "
+                f"{same}")
+            check(rel <= TOL_K10[dt], f"kernel 10 {dt} {part}: rel {rel:.3g}")
+            check(same, f"kernel 10 {dt} {part}: two launches differ")
+            if dt == "float32":
+                i = 0 if part.startswith("(a)") else 1
+                worst[i] = max(worst[i], err)
+        del want, want_e, a, b, x, y
+    say("PHASE k10 ok")
+    return worst
+
+
+def _window_state(fused, w, v, P_w, L_w):
+    """Window `w` (prepared) holding window v's states of the fused
+    problem."""
+    sl, sll = slice(v * P_w, (v + 1) * P_w), slice(v * L_w, (v + 1) * L_w)
+    poses = dataclasses.replace(w.poses, **{
+        k: getattr(fused.poses, k)[sl] for k in ("q", "t", "v", "b")})
+    lms = dataclasses.replace(w.lms, x=fused.lms.x[sll])
+    return dataclasses.replace(w, poses=poses, lms=lms)
+
+
+def _window_costs(fused, windows, cfg, sim):
+    """[(cost, ATE)] of each window of the fused problem."""
+    from ba_tpu_torch.solver import step
+    from ba_tpu_torch.solver.assemble import evaluate_cost
+
+    P_w = FLEET["poses"]
+    L_w = fused.lms.x.shape[0] // len(windows)
+    out = []
+    for v, w in enumerate(windows):
+        wv = _window_state(fused, w, v, P_w, L_w)
+        out.append((float(evaluate_cost(wv, cfg, step._imu_eval(
+            wv, cfg, True, False))), _ate(wv, sim)))
+    return out
+
+
+def phase_fleet(p, cfg, sim, windows, smi):
+    """GN solve_fixed(..., 25) of the fused fleet at full width on the
+    dense fleet solve; one GN iteration against the chunked banded path."""
+    import torch
+
+    from ba_tpu_torch.solver import banded, step
+
+    n = FLEET["iters"]
+    check(step._reduced_path(p, cfg) == "fleet_dense",
+          "fleet: not the dense fleet solve")
+    before = _window_costs(p, windows, cfg, sim)
+
+    def plan():
+        out = step.solve_plan(p, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    plan_first, plan_again = _sync_count(plan)[1], _sync_count(plan)[1]
+    step.solve_fixed(p, cfg, True, 1)                      # warm-up
+    torch.cuda.synchronize()
+    oks, solves = [], []
+    orig_gn, orig_fd = step.gn_iteration, banded.solve_reduced_fleet_dense
+
+    def gn_recording(*a, **k):
+        res = orig_gn(*a, **k)
+        oks.append(res.solver_ok)
+        return res
+
+    def fd_recording(*a, **k):
+        solves.append(1)
+        return orig_fd(*a, **k)
+
+    def run():
+        out = step.solve_fixed(p, cfg, True, n)
+        torch.cuda.synchronize()
+        return out
+
+    step.gn_iteration, banded.solve_reduced_fleet_dense = (gn_recording,
+                                                           fd_recording)
+    torch.cuda.reset_peak_memory_stats()
+    _counters_zero()
+    try:
+        t0 = time.perf_counter()
+        (q, costs, _), syncs = _sync_count(run)
+        secs = time.perf_counter() - t0
+    finally:
+        step.gn_iteration, banded.solve_reduced_fleet_dense = (orig_gn,
+                                                               orig_fd)
+    k1, k2, reads = _counters()
+    _, k10a, k10b = _new_counters()
+    peak = torch.cuda.max_memory_allocated()
+    costs_h = costs.double().cpu()
+    after = _window_costs(q, windows, cfg, sim)
+    all_ok = bool(torch.stack(oks).all())
+    kf = FLEET["vehicles"] * FLEET["poses"] * n / secs
+    say(f"fleet GN solve_fixed({n}) f32, {FLEET['vehicles']} windows: fused "
+        f"cost {float(costs_h[0]):.6g} -> {float(costs_h[-1]):.6g}; per "
+        "window (cost, ATE m) "
+        + "; ".join(f"{b[0]:.6g} -> {a[0]:.6g}, {b[1]:.4g} -> {a[1]:.4g}"
+                    for b, a in zip(before, after))
+        + f"; solver_ok at every iteration {all_ok}; dense fleet solves "
+        f"{len(solves)}; kernel launches reprojection {k1} segsum {k2} "
+        f"fleet_schur (a) {k10a} (b) {k10b}")
+    say(f"[{smi}] fleet GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
+        f"{secs * 1e3 / n:.1f} ms per iteration, {kf:.1f} kf/s "
+        f"({FLEET['vehicles']} x {FLEET['poses']} x {n} / wall); peak device "
+        f"memory {peak / 2**30:.3f} GiB; host syncs {syncs} (the plans' "
+        f"{plan_again}; {plan_first} at the process's first plan), "
+        f"{(syncs - plan_again) / n:.2f} per iteration")
+    check(bool(torch.isfinite(costs_h).all()) and _finite(q),
+          "fleet: non-finite values")
+    check(all(a[0] < b[0] and a[1] < b[1] for b, a in zip(before, after)),
+          "fleet: a window's cost or ATE did not fall")
+    check(len(oks) == n and all_ok, "fleet: solver_ok failed")
+    check(len(solves) == n, f"fleet: {len(solves)} dense fleet solves")
+    want = (2 * n, K2_PER_FLEET_BUILD * n, n, n)
+    check((k1, k2, k10a, k10b) == want, f"fleet: launches "
+          f"{(k1, k2, k10a, k10b)}, expected {want}")
+    check(syncs == plan_again, f"fleet: {syncs - plan_again} host syncs in "
+          f"{n} iterations")
+
+    # one iteration against the chunked banded path (tests/test_fleet.py)
+    r4 = step.gn_iteration(p, cfg, True)
+    cfg1 = dataclasses.replace(cfg, fleet_size=1)
+    check(step._reduced_path(p, cfg1) == "banded", "fleet: F=1 not banded")
+    r1 = step.gn_iteration(p, cfg1, True)
+    pre = abs(float(r4.pre_cost) - float(r1.pre_cost)) / float(r1.pre_cost)
+    post = abs(float(r4.post_cost) - float(r1.post_cost)) / float(
+        r1.post_cost)
+    dt_ = float((r4.problem.poses.t - r1.problem.poses.t).abs().max())
+    say(f"fleet one GN iteration, fleet_size {cfg.fleet_size} against 1 "
+        f"(chunked banded): pre_cost rel {pre:.3e} (tol "
+        f"{FLEET_VS_BANDED['pre_cost']:g}), post_cost "
+        f"{float(r4.post_cost):.6g} / {float(r1.post_cost):.6g} rel "
+        f"{post:.3e} (tol "
+        f"{FLEET_VS_BANDED['post_cost']:g}), poses.t max abs diff {dt_:.3e} m "
+        f"(tol {FLEET_VS_BANDED['poses_t']:g}); ok {bool(r4.solver_ok)}/"
+        f"{bool(r1.solver_ok)}")
+    check(bool(r4.solver_ok) and bool(r1.solver_ok), "fleet: a solve failed")
+    check(pre <= FLEET_VS_BANDED["pre_cost"]
+          and post <= FLEET_VS_BANDED["post_cost"]
+          and dt_ <= FLEET_VS_BANDED["poses_t"],
+          "fleet: fleet_size 4 and 1 disagree")
+    say("PHASE fleet ok")
+    return dict(k1=k1, k2=k2, k10=k10a + k10b, k10a=k10a, k10b=k10b, kf_s=kf,
+                ms_iter=secs * 1e3 / n, peak_gib=peak / 2**30,
+                costs_after=[a[0] for a in after],
+                ate_after=[a[1] for a in after])
+
+
+def phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f,
+                          floor_ms, smi):
+    """Kernels 6 and 10 timed at full width beside their bounds, plain
+    versions and library yardsticks (torch.mv on the dense S of the same CG
+    build; one index_put_ of the W blocks into a zeroed W_T), and the
+    library parts of the dense fleet solve timed apart."""
+    import torch
+
+    from ba_tpu_torch.kernels import fleet_schur as k10
+    from ba_tpu_torch.kernels import schur_matvec as k6
+    from ba_tpu_torch.solver import assemble as asm
+    from ba_tpu_torch.solver import step
+
+    # kernel 6
+    P, D = pc.poses.q.shape[0], cfg_c.pose_dim
+    pj, V = bs_c.pj, bs_c.plan.V
+    pose, ref = bs_c.plan.pose_ref
+    Nr = pj.j_m.shape[0]
+    x = x_c
+
+    def k6_call():
+        return k6.schur_matvec(pj.j_m, pj.j_r, pj.j_l, pose, ref, bs_c.vinv,
+                               x, V.perm, V.offsets, D)
+
+    b6_bytes = nbytes(pj.j_m, pj.j_r, pj.j_l, pose, ref, bs_c.vinv, x,
+                      V.perm, V.offsets) + 2 * Nr * 6 * x.element_size()
+    # per row: u (24 multiply-adds), j_l^T u (2), w (2), 12 outputs of 2
+    # multiply-adds; per landmark one product with V^-1
+    b6_flops = Nr * 2 * (24 + 2 + 2 + 24) + V.nseg
+    b6 = max(b6_bytes / HBM_BPS, b6_flops / F32_FLOPS) * 1e3
+    by6 = "bytes" if b6_bytes / HBM_BPS >= b6_flops / F32_FLOPS \
+        else "operations"
+    cfg_d = _dense_config(pc, cfg_c)
+    S = asm.assemble(pc, cfg_d, imu_eval=step._imu_eval(pc, cfg_d, True,
+                                                        True)).S
+    xs = torch.zeros(S.shape[0], dtype=x.dtype, device=x.device)
+    xs[: x.numel()] = x
+    t6 = dict(ms=event_ms(k6_call, 200), device_ms=graph_ms(k6_call, 50),
+              plain_ms=event_ms(lambda: k6.schur_matvec_plain(
+                  pj.j_m, pj.j_r, pj.j_l, pj.pose, pj.ref, pj.lm, bs_c.vinv,
+                  x, D), 20),
+              library_ms=event_ms(lambda: torch.mv(S, xs), 50),
+              library_device_ms=graph_ms(lambda: torch.mv(S, xs), 20))
+    del S
+    say(f"[{smi}] kernel 6 schur_matvec, CG build (Nr={Nr}, L={V.nseg}, "
+        f"P={P}) f32: {t6['ms']:.4f} ms per call ({t6['device_ms']:.4f} ms "
+        f"on the device, {b6 / t6['device_ms']:.1%} of the bound); plain "
+        f"{t6['plain_ms']:.4f} ms; torch.mv on the dense S of the same build "
+        f"({P * D}^2) {t6['library_ms']:.4f} ms ({t6['library_device_ms']:.4f}"
+        f" ms on the device); bound {b6:.5f} ms ({by6}: {b6_bytes} B, "
+        f"{b6_flops} flop); launch floor {floor_ms:.4f} ms")
+    rec6 = dict(ms=t6["ms"], device_ms=t6["device_ms"], floor_ms=floor_ms,
+                plain_ms=t6["plain_ms"], bound_ms=b6, bound_by=by6,
+                library_ms=t6["library_ms"],
+                library_device_ms=t6["library_device_ms"])
+
+    # kernel 10
+    P, L, D, F = (pf.poses.q.shape[0], pf.lms.x.shape[0], cfg_f.pose_dim,
+                  cfg_f.fleet_size)
+    idx = pf.pidx
+    table = plan_f.fleet.table
+    band, C, eps = _fleet_operands(pf, cfg_f, bs_f, plan_f)
+    Wb, vinv = bs_f.wb, bs_f.vinv
+    W_T, WVi_T = k10.fleet_w(Wb, vinv, table, F, D)
+    Ss, scal = k10.fleet_epilogue(band, C, F, eps)
+
+    def w_call():
+        return k10.fleet_w(Wb, vinv, table, F, D)
+
+    def e_call():
+        return k10.fleet_epilogue(band, C, F, eps)
+
+    # the library yardstick of (a): one index_put_ of the kept blocks'
+    # entries into a zeroed W_T (the indices built once, outside the timing)
+    kept = table[table >= 0].long()
+    cell = torch.nonzero(table >= 0)[:, 0]
+    lg, pl = cell // (P // F), cell % (P // F)
+    c6 = torch.arange(6, device=Wb.device)
+    rows = (lg % (L // F))[:, None].expand(-1, 6).reshape(-1)
+    cols = (pl[:, None] * D + c6[None]).reshape(-1)
+    win = (lg // (L // F))[:, None].expand(-1, 6).reshape(-1)
+    vals = Wb[kept, :, 0].reshape(-1)
+
+    def lib_w():
+        return torch.zeros_like(W_T).index_put_((win, rows, cols), vals)
+
+    check(torch.equal(lib_w(), W_T), "kernel 10 (a): index_put_ yardstick "
+          "differs")
+    ba_bytes = nbytes(Wb, vinv, table, W_T, WVi_T)
+    ba_flops = 2 * int(kept.numel()) * 6
+    bb_bytes = nbytes(band, C, Ss, scal)
+    bb_flops = 4 * C.numel()
+    b10a = max(ba_bytes / HBM_BPS, ba_flops / F32_FLOPS) * 1e3
+    b10b = max(bb_bytes / HBM_BPS, bb_flops / F32_FLOPS) * 1e3
+    by10 = "bytes" if (ba_bytes + bb_bytes) / HBM_BPS >= (
+        ba_flops + bb_flops) / F32_FLOPS else "operations"
+    ta = dict(ms=event_ms(w_call, 100), device_ms=graph_ms(w_call, 20),
+              plain_ms=event_ms(lambda: k10.fleet_w_plain(
+                  Wb, vinv, idx.wb_pose, idx.wb_lm, F, P, D), 10),
+              library_ms=event_ms(lib_w, 50),
+              library_device_ms=graph_ms(lib_w, 20))
+    tb = dict(ms=event_ms(e_call, 100), device_ms=graph_ms(e_call, 20),
+              plain_ms=event_ms(lambda: k10.fleet_epilogue_plain(
+                  band, C, F, eps), 10))
+    c_ex = torch.linalg.cholesky_ex(Ss)[0]
+    rhs = torch.ones_like(scal)
+    lib = dict(
+        bmm_ms=graph_ms(lambda: torch.bmm(WVi_T.mT, W_T), 20),
+        cholesky_ms=graph_ms(lambda: torch.linalg.cholesky_ex(Ss), 10),
+        solves_ms=graph_ms(lambda: torch.linalg.solve_triangular(
+            c_ex.mT, torch.linalg.solve_triangular(
+                c_ex, rhs[..., None], upper=False), upper=True), 20))
+    n_w = (P // F) * D
+    lib["bmm_bound_ms"] = 2 * F * n_w * n_w * (L // F) / F32_FLOPS * 1e3
+    lib["cholesky_bound_ms"] = F * n_w ** 3 / 3 / F32_FLOPS * 1e3
+    say(f"[{smi}] kernel 10 fleet_schur, fused fleet (F={F}, n_w={n_w}, "
+        f"L_w={L // F}, Nw={Wb.shape[0]}) f32: (a) W operands "
+        f"{ta['ms']:.4f} ms per call ({ta['device_ms']:.4f} ms on the device,"
+        f" {b10a / ta['device_ms']:.1%} of the bound {b10a:.5f} ms: "
+        f"{ba_bytes} B); plain {ta['plain_ms']:.4f} ms; index_put_ into a "
+        f"zeroed W_T {ta['library_ms']:.4f} ms ({ta['library_device_ms']:.4f}"
+        f" ms on the device); (b) scaled Schur system {tb['ms']:.4f} ms per "
+        f"call ({tb['device_ms']:.4f} ms on the device, "
+        f"{b10b / tb['device_ms']:.1%} of the bound {b10b:.5f} ms: "
+        f"{bb_bytes} B); plain {tb['plain_ms']:.4f} ms; launch floor "
+        f"{floor_ms:.4f} ms")
+    say(f"[{smi}] dense fleet solve's library parts on the device: bmm "
+        f"C = WVi_T^T W_T {lib['bmm_ms']:.4f} ms (bound "
+        f"{lib['bmm_bound_ms']:.4f} ms of f32 operations), cholesky_ex "
+        f"{lib['cholesky_ms']:.4f} ms (bound {lib['cholesky_bound_ms']:.4f} "
+        f"ms), two triangular solves {lib['solves_ms']:.4f} ms")
+    # no one library call computes (a) and (b): the index_put_ yardstick
+    # of (a) alone stands in parts.w
+    rec10 = dict(ms=ta["ms"] + tb["ms"],
+                 device_ms=ta["device_ms"] + tb["device_ms"],
+                 floor_ms=floor_ms, plain_ms=ta["plain_ms"] + tb["plain_ms"],
+                 bound_ms=b10a + b10b, bound_by=by10,
+                 library_ms=None, library_device_ms=None,
+                 parts=dict(w=dict(ta, bound_ms=b10a, bytes=ba_bytes),
+                            epilogue=dict(tb, bound_ms=b10b, bytes=bb_bytes,
+                                          library_ms=None)),
+                 library_parts=lib)
+    say("PHASE timing (cg, fleet) ok")
+    return rec6, rec10
 
 
 def main():
@@ -1370,15 +2264,33 @@ def main():
     err7 = phase_k7(pl, cfg_l, bs_l, plan_l)
     err9, band_s, x_l = phase_k9(pl, cfg_l, bs_l)
     lg = phase_long(pl, cfg_l, sim_l, smi)
-    rec7, rec9 = phase_timing_band(pl, cfg_l, bs_l, plan_l, band_s, x_l,
-                                   rec1["floor_ms"], smi)
+    rec7, rec9, rec8 = phase_timing_band(pl, cfg_l, bs_l, plan_l, band_s,
+                                         x_l, rec1["floor_ms"], smi)
+    del pl, bs_l, plan_l, band_s, x_l
+
+    t_new = time.perf_counter()
+    phase_cg_small()
+    pc, cfg_c, sim_c = cg_problem()
+    bs_c = cg_blocks(pc, cfg_c)
+    err6, x_c = phase_k6(pc, cfg_c, bs_c)
+    cg = phase_cg(pc, cfg_c, sim_c, smi)
+    phase_fleet_small()
+    pf, cfg_f, sim_f, windows = fleet_problem()
+    bs_f, plan_f = fleet_blocks(pf, cfg_f)
+    err10 = phase_k10(pf, cfg_f, bs_f, plan_f)
+    fl = phase_fleet(pf, cfg_f, sim_f, windows, smi)
+    rec6, rec10 = phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f,
+                                        plan_f, rec1["floor_ms"], smi)
+    t_new = time.perf_counter() - t_new
 
     def paths(key):
-        return dict(launches=gn[key] + dl[key] + st[key] + lg[key],
+        return dict(launches=gn[key] + dl[key] + st[key] + lg[key] + cg[key]
+                    + fl[key],
                     launches_gn=gn[key], launches_dogleg=dl[key],
                     launches_stream=st[key],
                     launches_per_slide=st[key] / st["slides"],
-                    launches_long=lg[key])
+                    launches_long=lg[key], launches_cg=cg[key],
+                    launches_fleet=fl[key])
 
     kernels = [
         dict(name="reprojection", route="cuda",
@@ -1399,6 +2311,17 @@ def main():
              source="ba_tpu_torch/kernels/csrc/band_matvec.cu",
              replaces="ba_tpu/solver/banded.py:229", launches=lg["k9"],
              launches_long=lg["k9"], max_abs_err=err9, **rec9),
+        dict(name="schur_matvec", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/schur_matvec.cu",
+             replaces="ba_tpu/solver/cg.py:160", launches=cg["k6"],
+             launches_cg=cg["k6"], max_abs_err=err6, **rec6),
+        dict(name="fleet_schur", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/fleet_schur.cu",
+             replaces="ba_tpu/solver/banded.py:498", launches=fl["k10"],
+             launches_fleet=fl["k10"],
+             launches_parts=dict(w=fl["k10a"], epilogue=fl["k10b"]),
+             max_abs_err=max(err10),
+             max_abs_err_parts=dict(w=err10[0], epilogue=err10[1]), **rec10),
     ]
     say(f"[{smi}] kf/s: GN solve_fixed({N_ITERS}) {gn['kf_s']:.1f}, "
         f"dogleg solve {dl['kf_s']:.1f} ({dl['iters']} iterations); "
@@ -1406,8 +2329,12 @@ def main():
         f"({st['ms_slide']:.1f} ms per slide, "
         f"{st['syncs_per_push']:.2f} host syncs per push); long GN "
         f"{lg['kf_s']:.1f} kf/s ({lg['ms_iter']:.1f} ms per iteration, "
-        f"peak {lg['peak_gib']:.3f} GiB); total smoke "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"peak {lg['peak_gib']:.3f} GiB); CG GN {cg['kf_s']:.1f} kf/s "
+        f"({cg['ms_iter']:.1f} ms per iteration, peak {cg['peak_gib']:.3f} "
+        f"GiB); fleet GN {fl['kf_s']:.1f} kf/s ({fl['ms_iter']:.1f} ms per "
+        f"iteration); K8 factor {rec8['factor_ms']:.3f} ms, solve "
+        f"{rec8['solve_ms']:.3f} ms; CG and fleet phases {t_new:.1f} s; "
+        f"total smoke {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

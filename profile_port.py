@@ -24,6 +24,13 @@ launches of one profiled iteration.
 
     python3 profile_port.py --long
 
+With `--cg` or `--fleet`, the same on chip_smoke.py's PCG configuration
+(1,024 keyframes, `use_cg_solver`: IMU, assemble_blocks with the
+preconditioner, the PCG with its Schur products through kernels 6 and 2
+and the preconditioner, ...) or on its fused fleet (4 x 128 keyframes: the
+families' band, kernel 10 (a) and (b), the batched Cholesky and the
+triangular solves, ...).
+
 On the stream of chip_smoke.py (W = 10, 2 GN iterations per slide, f32) it
 prints the stages of one `StreamingRing.push`, timed the same way over
 several slides after a warm-up: the host's table build and packing, the
@@ -274,40 +281,68 @@ def _wrap(owner, name, label, sums, on):
         sums[key] += time.perf_counter() - t0
         return out
 
+    timed.__dict__.update(fn.__dict__)         # a kernel's launch count
     setattr(owner, name, timed)
 
 
-def long_iteration(smi, n_iters=3):
-    """Mean seconds per GN iteration of each stage of the long
-    trajectory's banded solve (a stage includes those nested in it), then
-    the sync sites of one iteration and the busy share and kernel launches
-    of one profiled iteration."""
+def _stages(which):
+    """(problem, config, [(owner, name, label)]) of `path_iteration`."""
+    from ba_tpu_torch.kernels import fleet_schur
+    from ba_tpu_torch.solver import banded, cg, step
+
+    imu = (step, "_imu_eval", lambda p, c, u, jac, c9=None:
+           "IMU evaluate with Jacobians" if jac
+           else "  IMU evaluate without Jacobians (trial)")
+    tail = [(cg, "back_substitute_blocks", "back-substitution (kernel 2)"),
+            (cg, "cauchy_factor", "Cauchy factor (kernel 2)"),
+            (step, "_cost", "trial cost (IMU, kernel 1, priors)"),
+            (step, "gn_iteration", "gn_iteration, whole")]
+    if which == "long":
+        p, cfg, _ = chip_smoke.long_problem()
+        mid = [(cg, "assemble_blocks", "assemble_blocks (kernels 1, 2)"),
+               (banded, "band_S", "band_S (kernel 2)"),
+               (banded, "_band_schur_grouped", "  kernel 7"),
+               (banded, "banded_pcg_solve", "factor + PCG, whole"),
+               (banded, "_chunk_windows", "  chunk layout"),
+               (banded, "_bcr_factor", "  cyclic-reduction factor"),
+               (banded, "band_matvec", "  kernel 9 (4 per iteration)"),
+               (banded, "_bcr_solve", "  cyclic-reduction solves (5)")]
+    elif which == "cg":
+        p, cfg, _ = chip_smoke.cg_problem()
+        mid = [(cg, "assemble_blocks",
+                "assemble_blocks with the preconditioner (kernels 1, 2)"),
+               (cg, "pcg_solve", "PCG, whole"),
+               (cg, "s_matvec", "  Schur products (kernels 6, 2)"),
+               (cg, "_precond", "  preconditioner")]
+    else:
+        p, cfg, _, _ = chip_smoke.fleet_problem()
+        mid = [(cg, "assemble_blocks", "assemble_blocks (kernels 1, 2)"),
+               (banded, "solve_reduced_fleet_dense", "dense fleet solve, "
+                "whole (with the back-substitution)"),
+               (banded, "_band_self_cross", "  families' band (kernel 2)"),
+               (fleet_schur, "fleet_w", "  kernel 10 (a)"),
+               (fleet_schur, "fleet_epilogue", "  kernel 10 (b)"),
+               (banded, "_chol", "  batched cholesky_ex"),
+               (banded, "_cho_solve_b", "  triangular solves (2 x 2)")]
+    return p, cfg, [imu] + mid + tail
+
+
+def path_iteration(smi, which, n_iters=3):
+    """Mean seconds per GN iteration of each stage of the long trajectory's
+    banded solve, the PCG configuration's or the fused fleet's (a stage
+    includes those nested in it), then the sync sites of one iteration and
+    the busy share and kernel launches of one profiled iteration."""
     import torch
     from torch.profiler import ProfilerActivity
 
-    from ba_tpu_torch.solver import banded, cg, step
+    from ba_tpu_torch.solver import step
 
-    p, cfg, _ = chip_smoke.long_problem()
+    p, cfg, stages = _stages(which)
     plan = step.solve_plan(p, cfg)
     step.gn_iteration(p, cfg, True, plan=plan)                # warm-up
     sums = collections.defaultdict(float)
     on = [False]
-    for owner, name, label in (
-            (step, "_imu_eval", lambda p, c, u, jac, c9=None:
-             "IMU evaluate with Jacobians" if jac
-             else "  IMU evaluate without Jacobians (trial)"),
-            (cg, "assemble_blocks", "assemble_blocks (kernels 1, 2)"),
-            (banded, "band_S", "band_S (kernel 2)"),
-            (banded, "_band_schur_grouped", "  kernel 7"),
-            (banded, "banded_pcg_solve", "factor + PCG, whole"),
-            (banded, "_chunk_windows", "  chunk layout"),
-            (banded, "_bcr_factor", "  cyclic-reduction factor"),
-            (banded, "band_matvec", "  kernel 9 (4 per iteration)"),
-            (banded, "_bcr_solve", "  cyclic-reduction solves (5)"),
-            (cg, "back_substitute_blocks", "back-substitution (kernel 2)"),
-            (cg, "cauchy_factor", "Cauchy factor (kernel 2)"),
-            (step, "_cost", "trial cost (IMU, kernel 1, priors)"),
-            (step, "gn_iteration", "gn_iteration, whole")):
+    for owner, name, label in stages:
         _wrap(owner, name, label, sums, on)
     on[0] = True
     q = p
@@ -315,7 +350,7 @@ def long_iteration(smi, n_iters=3):
         q = step.gn_iteration(q, cfg, True, plan=plan).problem
     on[0] = False
     for name, secs in sums.items():
-        print(f"[{smi}] long stage {name}: {secs / n_iters * 1e3:.2f} ms")
+        print(f"[{smi}] {which} stage {name}: {secs / n_iters * 1e3:.2f} ms")
 
     sites = collections.Counter()
     root = str(chip_smoke.ROOT)
@@ -339,9 +374,9 @@ def long_iteration(smi, n_iters=3):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()       # outside the window: it would count
-    print(f"long iteration host syncs: {sum(sites.values())}")
+    print(f"{which} iteration host syncs: {sum(sites.values())}")
     for site, n in sites.most_common():
-        print(f"long sync x{n}: {site}")
+        print(f"{which} sync x{n}: {site}")
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
@@ -349,9 +384,10 @@ def long_iteration(smi, n_iters=3):
         step.gn_iteration(q, cfg, True, plan=plan)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    busy, launches = _busy_seconds(prof, "profile_long.json", count=True)
-    print(f"[{smi}] profiled 1 long GN iteration: wall {wall * 1e3:.1f} ms "
-          f"(profiler on), device busy {busy * 1e3:.1f} ms = "
+    busy, launches = _busy_seconds(prof, f"profile_{which}.json",
+                                   count=True)
+    print(f"[{smi}] profiled 1 {which} GN iteration: wall {wall * 1e3:.1f} "
+          f"ms (profiler on), device busy {busy * 1e3:.1f} ms = "
           f"{100 * busy / wall:.2f}%, {launches} kernel launches")
     ka = prof.key_averages()
     dev_key = ("self_device_time_total"
@@ -383,9 +419,10 @@ def main():
         return 1
     smi = chip_smoke.smi_line()
     chip_smoke.phase_build()
-    if "--long" in sys.argv[1:]:
-        long_iteration(smi)
-        return 0
+    for which in ("long", "cg", "fleet"):
+        if f"--{which}" in sys.argv[1:]:
+            path_iteration(smi, which)
+            return 0
     _, p, cfg, _ = chip_smoke.flagship()
     cfg = dataclasses.replace(cfg, use_dogleg=False)
 

@@ -5,9 +5,11 @@ problems (f64, CPU, plain versions of the kernels).
 build's step, cost, gradient and Cauchy factor agree to 1e-9 relative,
 three GN iterations keep the cost and step traces within 1e-8 (32 poses of
 a fast trajectory, band width 8, chunks of 8: four chunks, so cyclic
-reduction engages).  The dense fallback without a band, and the reduced
-solvers that still raise.  `schur_on_band`, the grouped Schur form and the
-dogleg are in test_torch_banded_drivers.py.
+reduction engages).  The dense fallback without a band.  One build of the
+two reduced solvers ported after these, the matrix-free PCG and the dense
+fleet solve (their own tests: test_torch_cg.py, test_torch_fleet.py).
+`schur_on_band`, the grouped Schur form and the dogleg are in
+test_torch_banded_drivers.py.
 """
 
 import dataclasses
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 import ba_tpu.core.problem as jprob
+from ba_tpu.solver import assemble as jasm
 from ba_tpu.solver import step as jstep
 from ba_tpu_torch.solver import step as tstep
 
@@ -74,10 +77,41 @@ def test_banded_solver_falls_back_without_band():
     assert_rel(costs_t, costs_j, 1e-8, "costs")
 
 
-@pytest.mark.parametrize("option,queue", [
-    (dict(use_cg_solver=True, use_banded_solver=False), "queue 1 item 2"),
-    (dict(fleet_size=2), "queue 1 item 4")])
-def test_unported_reduced_solvers_raise(option, queue):
-    _, _, tp, tcfg = banded_case(24)
-    with pytest.raises(NotImplementedError, match=queue):
-        tstep.solve_fixed(tp, dataclasses.replace(tcfg, **option), True, 1)
+def _fused_fleet(n_poses=24):
+    """Two windows of one scene (perturbation seeds 1 and 2) fused by
+    `concat_problems`, with the fleet configuration: band width from the
+    fused problem, `use_banded_solver`, `fleet_size` 2."""
+    (w1, jcfg, _), (w2, _, _) = [
+        jax_problem(n_poses=n_poses, n_lms=int(2.5 * n_poses), seed=s,
+                    with_marg_prior=False) for s in (1, 2)]
+    jf = jprob.concat_problems([w1, w2], jcfg)
+    jcfg = dataclasses.replace(jcfg, band_width=jasm.band_width_of(jf),
+                               use_banded_solver=True, fleet_size=2)
+    jf = jprob.prepare_landmarks(jf, jcfg)
+    return jf, jcfg, to_torch(jf), torch_config(jcfg)
+
+
+@pytest.mark.parametrize("case,path", [("cg", "cg"),
+                                       ("fleet", "fleet_dense")])
+def test_cg_and_fleet_builds_match(case, path):
+    """The two reduced solvers ported after the banded ones: the
+    matrix-free PCG on a banded problem (`use_cg_solver` with the band set
+    and the banded solver off) and the dense fleet solve of a fused fleet,
+    one build against ba_tpu at 1e-9."""
+    if case == "cg":
+        jp, jcfg, _, _ = banded_case(24)
+        jcfg = dataclasses.replace(jcfg, use_cg_solver=True,
+                                   use_banded_solver=False)
+        tp, tcfg = to_torch(jp), torch_config(jcfg)
+    else:
+        jp, jcfg, tp, tcfg = _fused_fleet()
+    assert tstep._reduced_path(tp, tcfg) == path
+    want = jax.jit(jstep._build_and_solve, static_argnums=(1, 2))(
+        jp, jcfg, True)
+    got = tstep._build_and_solve(tp, tcfg, True)
+    assert bool(got.step.ok) and bool(want.step.ok)
+    for field in ("delta_p", "delta_l"):
+        assert_rel(getattr(got.step, field), getattr(want.step, field), TOL,
+                   field)
+    for field in ("cost", "rhs_p", "rhs_l", "cauchy_alpha"):
+        assert_rel(getattr(got, field), getattr(want, field), TOL, field)

@@ -1,4 +1,4 @@
-"""Kernels 1, 2, 7 and 9 against their plain versions on the card.
+"""Kernels 1, 2, 6, 7, 9 and 10 against their plain versions on the card.
 
 These need an NVIDIA GPU with nvcc (marker `cuda`); elsewhere they skip.
 Run them on the card with `python -m pytest tests/test_torch_kernels_cuda.py
@@ -19,7 +19,12 @@ pose count that is not a multiple of its 8-pose blocks) match their plain
 versions to 1e-12 (f64) and 1e-5 (f32, the same products summed in
 another order), bit-identical between launches; a kernel that does not
 build raises; three f32 GN iterations of the banded solver run through all
-four kernels.
+four kernels.  Kernel 6 (the projection rows of the matrix-free Schur
+product, with landmarks merged into one of more rows than a warp's
+lanes) and kernel 10 (the fleet's W operands, with padding W blocks, and
+its scaled Schur system) match their plain versions to 1e-12 (f64) and 1e-5 (f32),
+bit-identical between launches; three f32 GN iterations run on the PCG
+solver and on the dense fleet solve.
 """
 
 import dataclasses
@@ -372,3 +377,151 @@ def test_banded_gn_f32_on_the_card(cuda_band_problem, monkeypatch, grouped):
     assert float(costs[-1]) < float(costs[0]), costs
     assert k7.band_schur.launches - n7 == (3 if grouped else 0)
     assert k9.band_matvec.launches - n9 == 3 * 4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_schur_matvec_kernel_matches_plain(cuda_band_problem, dtype, tol):
+    """Kernel 6 against its plain version on the 48-pose build with the
+    rows of its first 8 landmarks given to landmark 0, more than one warp's
+    lanes (the simulator's landmarks have at most 23 rows); two launches
+    bit-identical."""
+    from ba_tpu_torch.kernels import schur_matvec as k6
+    from ba_tpu_torch.kernels import segsum
+
+    p, cfg, bs = cuda_band_problem
+    P, D = p.poses.q.shape[0], cfg.pose_dim
+    pj = bs.pj
+    lm = torch.where(pj.lm < 8, 0, pj.lm)
+    V = segsum.build_plan(lm, bs.vinv.shape[0])
+    assert int((V.offsets[1:] - V.offsets[:-1]).max()) > 32
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(P * D),
+                        dtype=dtype, device="cuda")
+    args = [t.to(dtype) for t in (pj.j_m, pj.j_r, pj.j_l)]
+    vinv = bs.vinv.to(dtype)
+    pose, ref = bs.plan.pose_ref
+    before = k6.schur_matvec.launches
+    a = k6.schur_matvec(*args, pose, ref, vinv, x, V.perm, V.offsets, D)
+    b = k6.schur_matvec(*args, pose, ref, vinv, x, V.perm, V.offsets, D)
+    assert k6.schur_matvec.launches == before + 2
+    want = k6.schur_matvec_plain(*[t.double() for t in args], pj.pose,
+                                 pj.ref, lm, vinv.double(), x.double(), D)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert _rel(a, want) <= tol
+
+
+@pytest.fixture(scope="module")
+def cuda_fleet():
+    """A fused f64 fleet of two 24-pose windows on the card with its block
+    system and dense fleet plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.core.problem import (BAConfig, concat_problems,
+                                           prepare_landmarks)
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import cg, step
+    from ba_tpu_torch.solver.assemble import band_width_of
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    sim = sv.simulate(n_poses=24, n_lms=80, seed=0)
+    ws = [sv.build_problem(sim, cfg, perturb=0.01, seed=s, device="cuda")[0]
+          for s in (1, 2)]
+    p = concat_problems(ws, cfg)
+    cfg = dataclasses.replace(cfg, band_width=band_width_of(p),
+                              use_banded_solver=True, fleet_size=2)
+    p = prepare_landmarks(p, cfg)
+    assert step._reduced_path(p, cfg) == "fleet_dense"
+    plan = step.solve_plan(p, cfg)
+    bs, _ = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True, True),
+                               with_precond=False, plan=plan)
+    return p, cfg, bs, plan
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_fleet_schur_kernels_match_plain(cuda_fleet, dtype, tol):
+    """Kernel 10 (a) with padding W blocks (landmark id L) that must be
+    dropped, and (b) on the fleet's band and product, against their plain
+    versions; two launches bit-identical."""
+    from ba_tpu_torch.kernels import fleet_schur as k10
+    from ba_tpu_torch.solver import banded
+
+    p, cfg, bs, plan = cuda_fleet
+    P, L, D, F = p.poses.q.shape[0], p.lms.x.shape[0], cfg.pose_dim, 2
+    idx = p.pidx
+    pad = 5
+    wb_pose = torch.cat([idx.wb_pose, torch.arange(
+        pad, dtype=torch.int32, device="cuda")])
+    wb_lm = torch.cat([idx.wb_lm, torch.full((pad,), L, dtype=torch.int32,
+                                             device="cuda")])
+    Wb = torch.cat([bs.wb, torch.ones((pad, 6, 1), dtype=bs.wb.dtype,
+                                      device="cuda")]).to(dtype)
+    vinv = bs.vinv.to(dtype)
+    table = k10.fleet_plan(wb_pose, wb_lm, P, L, F)
+    before = k10.fleet_w.launches
+    a = k10.fleet_w(Wb, vinv, table, F, D)
+    b = k10.fleet_w(Wb, vinv, table, F, D)
+    assert k10.fleet_w.launches == before + 2
+    want = k10.fleet_w_plain(Wb.double(), vinv.double(), wb_pose, wb_lm, F,
+                             P, D)
+    torch.cuda.synchronize()
+    for x, y, w in zip(a, b, want):
+        assert torch.equal(x, y)
+        assert _rel(x, w) <= tol
+
+    band = banded.fleet_band(bs, cfg, P, D, plan.fleet).to(dtype)
+    C = torch.bmm(a[1].mT, a[0])
+    eps = 1e-8 if dtype == torch.float64 else 1e-4
+    before = k10.fleet_epilogue.launches
+    x = k10.fleet_epilogue(band, C, F, eps)
+    y = k10.fleet_epilogue(band, C, F, eps)
+    assert k10.fleet_epilogue.launches == before + 2
+    want = k10.fleet_epilogue_plain(band.double(), C.double(), F, eps)
+    torch.cuda.synchronize()
+    for g, h, w in zip(x, y, want):
+        assert torch.equal(g, h)
+        assert _rel(g, w) <= tol
+
+
+@pytest.mark.parametrize("path", ["cg", "fleet_dense"])
+def test_cg_and_fleet_gn_f32_on_the_card(cuda_band_problem, cuda_fleet,
+                                         path):
+    """Three f32 GN iterations on the matrix-free PCG solver (kernels 1, 2,
+    6) and on the dense fleet solve (kernels 1, 2, 10): finite costs that
+    fall, and the launches per build."""
+    from ba_tpu_torch.kernels import fleet_schur as k10
+    from ba_tpu_torch.kernels import schur_matvec as k6
+    from ba_tpu_torch.solver import cg, step
+    from ba_tpu_torch.utils.tree import tree_map
+
+    if path == "cg":
+        p, cfg, _ = cuda_band_problem
+        cfg = dataclasses.replace(cfg, use_banded_solver=False,
+                                  use_cg_solver=True, cg_tolerance=1e-5)
+    else:
+        p, cfg, _, _ = cuda_fleet
+    assert step._reduced_path(p, cfg) == path
+    p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
+    matvecs = []
+    orig = cg.pcg_solve
+
+    def record(*a, **k):
+        res = orig(*a, **k)
+        matvecs.append(res.matvecs)
+        return res
+
+    n6, n10 = k6.schur_matvec.launches, k10.fleet_w.launches
+    n10e = k10.fleet_epilogue.launches
+    cg.pcg_solve = record
+    try:
+        _, costs, _ = step.solve_fixed(p, cfg, True, 3)
+    finally:
+        cg.pcg_solve = orig
+    costs = costs.cpu()
+    assert bool(torch.isfinite(costs).all())
+    assert float(costs[-1]) < float(costs[0]), costs
+    assert k6.schur_matvec.launches - n6 == sum(matvecs)
+    assert len(matvecs) == (3 if path == "cg" else 0)
+    assert k10.fleet_w.launches - n10 == (3 if path == "fleet_dense" else 0)
+    assert k10.fleet_epilogue.launches - n10e == k10.fleet_w.launches - n10

@@ -78,7 +78,7 @@ def test_solve_default_dogleg_matches():
     assert_rel(p_t.lms.x_w, p_j.lms.x_w, 1e-8, "lms.x_w")
 
 
-@pytest.mark.parametrize("option", ["verbose", "use_cg_solver",
+@pytest.mark.parametrize("option", ["verbose",
                                     "calculate_calibration_marginals"])
 def test_unported_solve_options_raise(option):
     _, _, tp, tcfg = _case(True)
@@ -89,6 +89,26 @@ def test_unported_solve_options_raise(option):
         tcfg = dataclasses.replace(tcfg, **{option: True})
     with pytest.raises(NotImplementedError):
         tstep.solve(tp, tcfg, max_iter=2, **kw)
+
+
+def test_solve_cg_dogleg_matches():
+    """The default dogleg `solve` on the matrix-free PCG solver
+    (`use_cg_solver`): the same accept/reject path, costs and states to
+    1e-8."""
+    jp, jcfg, _, _ = _case(True)
+    jcfg = dataclasses.replace(jcfg, use_cg_solver=True, band_width=0)
+    tp, tcfg = to_torch(jp), torch_config(jcfg)
+    assert tstep._reduced_path(tp, tcfg) == "cg"
+    p_j, s_j = jstep.solve(jp, jcfg, max_iter=10)
+    p_t, s_t = tstep.solve(tp, tcfg, max_iter=10)
+    assert (s_t.iterations, s_t.result, s_t.inner_iterations) == (
+        s_j.iterations, s_j.result, s_j.inner_iterations)
+    for name in ("initial_cost", "final_cost", "delta_norm",
+                 "pre_solve_norm", "post_solve_norm"):
+        assert_rel(getattr(s_t, name), getattr(s_j, name), 1e-8, name)
+    assert s_t.final_cost < s_t.initial_cost
+    assert_rel(p_t.poses.t, p_j.poses.t, 1e-8, "poses.t")
+    assert_rel(p_t.lms.x_w, p_j.lms.x_w, 1e-8, "lms.x_w")
 
 
 def test_solve_auto_band_width_matches_jax():
