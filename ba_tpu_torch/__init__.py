@@ -5,7 +5,10 @@ layout module for module (core/, core/residuals/, io/, solver/, utils/) and
 adds kernels/ with the hand-written CUDA kernels of its paths:
 
   kernels/csrc/reprojection.cu  reprojection residual + closed-form
-                                Jacobians (the retired Pallas kernel)
+                                Jacobians (the retired Pallas kernel),
+                                with self-calibration's columns
+  kernels/csrc/imu_preint.cu    IMU preintegration with Jacobians and
+                                covariance, and without (K2)
   kernels/csrc/segsum.cu        grouped deterministic segmented block sum
                                 (the normal-equation sums of a build)
   kernels/csrc/band_schur.cu    grouped banded Schur correction (the

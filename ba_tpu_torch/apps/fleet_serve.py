@@ -39,7 +39,7 @@ def main(argv=None):
     if args.mesh:
         raise NotImplementedError(
             "the sharded fleet (--mesh) is not ported yet (ROADMAP.md queue 1 "
-            "item 8)")
+            "item 4)")
 
     from ..core.problem import BAConfig, concat_problems, prepare_landmarks
     from ..io import simulate_vins as sv
@@ -62,7 +62,7 @@ def main(argv=None):
                               use_banded_solver=True,
                               fleet_size=args.vehicles)
     fused = prepare_landmarks(fused, cfg)
-    path = step_mod._reduced_path(fused, cfg)
+    path = step_mod._reduced_path(fused, cfg)[0]
 
     for run in ("first", "second"):
         t0 = time.perf_counter()

@@ -604,7 +604,7 @@ class ProblemBuilder:
                      active=True) -> int:
         x_w = np.asarray(x_w, self.dtype)
         if x_w.shape == (3,):
-            x_w = np.concatenate([x_w, [1.0]])
+            x_w = np.concatenate([x_w, np.ones(1, self.dtype)])
         self.lms.append(dict(x_w=x_w, ref_pose=int(ref_pose),
                              ref_cam=int(ref_cam), active=bool(active),
                              z_ref=None))
@@ -667,8 +667,9 @@ class ProblemBuilder:
 
         n_p = len(self.poses)
         q_p = _pad(_stack_or_empty(self.poses, "q", (4,), dt), P)
-        q_p = q_p + np.concatenate([np.zeros((min(n_p, P), 4)),
-                                    np.tile([1.0, 0, 0, 0], (P - n_p, 1))])
+        q_p = q_p + np.concatenate([np.zeros((min(n_p, P), 4), dt),
+                                    np.tile(np.array([1.0, 0, 0, 0], dt),
+                                            (P - n_p, 1))])
         poses = PoseStates(
             q=T(q_p),
             t=T(_pad(_stack_or_empty(self.poses, "t", (3,), dt), P)),

@@ -14,6 +14,10 @@ of M measurements (padded steps have dt == 0 and pass the state through).
 
 Residual, res_dim 9 (pose_dim 9) or 15:
   r = [ log_decoupled(y_hat.t_wp, T_w2);  y_hat.v - v2;  b1 - b2 ]
+
+On the card `evaluate` goes through kernel K2 (kernels/csrc/imu_preint.cu,
+one launch with or without Jacobians); `full_plain` and `residual_plain`
+are its plain versions, which the CPU runs.  The whitening stays plain.
 """
 
 from __future__ import annotations
@@ -165,11 +169,6 @@ def integrate_full(q1, t1, v1, b, w, a, times, g, r_imu):
     return y_final, C, Phi, Bsum
 
 
-def integrate_cov(q1, t1, v1, b, w, a, times, g, r_imu):
-    y10, C, _, _ = integrate_full(q1, t1, v1, b, w, a, times, g, r_imu)
-    return y10, C
-
-
 def _dy0_dtangent(q1):
     """J_y0 (n, 10, 9): d(t1, q1_coords, v1) / d[dt(3), dw(3), dv(3)];
     rotation block 0.5 * q1 x [0, e_c]."""
@@ -198,43 +197,28 @@ def _res_map(y10, d2, q2, t2, v2):
     return torch.cat([rp, yv - (v2 + d2[6:9])])
 
 
-def evaluate(problem, config, with_jacobians: bool = True,
-             c9=None) -> ImuEval:
-    """Residuals + Jacobians + information weighting for every IMU span.
+def _r_imu(config, dtype, device):
+    # filled on the device: a host-built tensor would be a blocking copy
+    kw = dict(dtype=dtype, device=device)
+    return torch.cat([torch.full((3,), config.gyro_sigma**2, **kw),
+                      torch.full((3,), config.accel_sigma**2, **kw)])
 
-    `c9` optionally supplies the (Ni, 9, 9) residual covariance from a
-    previous build, so cost-only evaluation (trial costs) skips the
-    covariance propagation."""
+
+def full_plain(problem, config):
+    """The plain version of kernel K2 (a): (r (Ni, R), j1, j2 (Ni, R, D),
+    C9 (Ni, 9, 9), y_t, y_v) of every span, unwhitened; R = 15 with the
+    bias rows, y_t / y_v are pose 1's t and v (ba_tpu's `evaluate`)."""
     im = problem.imu
     poses = problem.poses
     dtype, device = poses.t.dtype, poses.t.device
     D = config.pose_dim
-    g = problem.g_vec
-
     q1, t1 = poses.q[im.pose1], poses.t[im.pose1]
     v1, b1 = poses.v[im.pose1], poses.b[im.pose1]
     q2, t2 = poses.q[im.pose2], poses.t[im.pose2]
     v2, b2 = poses.v[im.pose2], poses.b[im.pose2]
-
-    # filled on the device: a host-built tensor would be a blocking copy
-    kw = dict(dtype=dtype, device=device)
-    r_imu = torch.cat([torch.full((3,), config.gyro_sigma**2, **kw),
-                       torch.full((3,), config.accel_sigma**2, **kw)])
-
-    if not with_jacobians:
-        yt, yq, yv = integrate_span(q1, t1, v1, b1, im.w, im.a, im.time, g)
-        parts = [lie.se3_log_decoupled((yq, yt), (q2, t2)), yv - v2]
-        if config.bias_in_state:
-            parts.append(b1 - b2)
-        r = torch.cat(parts, dim=-1)
-        if c9 is None:
-            c9 = _c9(problem, config, r_imu, q1, t1, v1, b1, q2, t2, im)
-        S = _whiten_from_c9(config, c9, im, dtype)
-        return _whiten_pack(problem, config, r, None, None, S,
-                            with_jacobians=False, y_t=yt, y_v=yv, c9=c9)
-
     y10, C10, Phi, Bsum = integrate_full(q1, t1, v1, b1, im.w, im.a,
-                                         im.time, g, r_imu)
+                                         im.time, problem.g_vec,
+                                         _r_imu(config, dtype, device))
     Ni = im.pose1.shape[0]
     d2z = t1.new_zeros((Ni, 9))
     r9 = vmap(_res_map)(y10, d2z, q2, t2, v2)
@@ -243,9 +227,6 @@ def evaluate(problem, config, with_jacobians: bool = True,
     J1s = Jy @ (Phi @ _dy0_dtangent(q1))
     J1b = Jy @ Bsum
     C9 = Jy @ C10 @ Jy.transpose(-1, -2)
-    if config.calculate_inertial_covariance_once:
-        C9 = torch.where(problem.imu.c9_set, problem.imu.c9, C9)
-
     if config.bias_in_state:
         r = torch.cat([r9, b1 - b2], dim=-1)
         eye6 = torch.eye(6, dtype=dtype, device=device).expand(Ni, 6, 6)
@@ -259,24 +240,73 @@ def evaluate(problem, config, with_jacobians: bool = True,
         r = r9
         j1 = J1s[:, :, :D]
         j2 = J2s[:, :, :D]
+    return r, j1, j2, C9, t1, v1
 
+
+def residual_plain(problem, config):
+    """The plain version of kernel K2 (b): (r (Ni, R), y_t, y_v), the
+    residual of the integrated state and its t and v."""
+    im = problem.imu
+    poses = problem.poses
+    q1, t1 = poses.q[im.pose1], poses.t[im.pose1]
+    v1, b1 = poses.v[im.pose1], poses.b[im.pose1]
+    q2, t2 = poses.q[im.pose2], poses.t[im.pose2]
+    v2, b2 = poses.v[im.pose2], poses.b[im.pose2]
+    yt, yq, yv = integrate_span(q1, t1, v1, b1, im.w, im.a, im.time,
+                                problem.g_vec)
+    parts = [lie.se3_log_decoupled((yq, yt), (q2, t2)), yv - v2]
+    if config.bias_in_state:
+        parts.append(b1 - b2)
+    return torch.cat(parts, dim=-1), yt, yv
+
+
+def _full(problem, config):
+    """Kernel K2 (a) for a problem on the card, its plain version on the
+    CPU."""
+    if problem.imu.w.is_cuda:
+        from ...kernels import imu_preint
+
+        return imu_preint.imu_full(problem, config.pose_dim,
+                                   config.gyro_sigma**2,
+                                   config.accel_sigma**2)
+    return full_plain(problem, config)
+
+
+def _residual(problem, config):
+    """Kernel K2 (b) for a problem on the card, its plain version on the
+    CPU."""
+    if problem.imu.w.is_cuda:
+        from ...kernels import imu_preint
+
+        return imu_preint.imu_residual(problem, config.pose_dim)
+    return residual_plain(problem, config)
+
+
+def evaluate(problem, config, with_jacobians: bool = True,
+             c9=None) -> ImuEval:
+    """Residuals + Jacobians + information weighting for every IMU span:
+    kernel K2 on the card (one launch of (a) with Jacobians, one of (b)
+    without), its plain version on the CPU.  `c9` optionally supplies the
+    (Ni, 9, 9) residual covariance from a previous build, so cost-only
+    evaluation (trial costs) skips the covariance propagation; without it
+    a cost-only evaluation takes (a)'s C9 (the Jacobian of `_c9`'s map
+    equals (a)'s Jy)."""
+    im = problem.imu
+    dtype = problem.poses.t.dtype
+    if not with_jacobians:
+        r, yt, yv = _residual(problem, config)
+        if c9 is None:
+            c9 = _full(problem, config)[3]
+        S = _whiten_from_c9(config, c9, im, dtype)
+        return _whiten_pack(problem, config, r, None, None, S,
+                            with_jacobians=False, y_t=yt, y_v=yv, c9=c9)
+
+    r, j1, j2, C9, yt, yv = _full(problem, config)
+    if config.calculate_inertial_covariance_once:
+        C9 = torch.where(problem.imu.c9_set, problem.imu.c9, C9)
     S = _whiten_from_c9(config, C9, im, dtype)
     return _whiten_pack(problem, config, r, j1, j2, S,
-                        with_jacobians=True, y_t=t1, y_v=v1, c9=C9)
-
-
-def _c9(problem, config, r_imu, q1, t1, v1, b1, q2, t2, im):
-    """Integrated residual covariance when no cache is supplied."""
-    y10, C10 = integrate_cov(q1, t1, v1, b1, im.w, im.a, im.time,
-                             problem.g_vec, r_imu)
-
-    def res_of_y(y10, q2, t2):
-        yt, yq, yv = _unflat(y10)
-        rp = lie.se3_log_decoupled((lie.quat_normalize(yq), yt), (q2, t2))
-        return torch.cat([rp, yv])
-
-    Jy = vmap(jacfwd(res_of_y))(y10, q2, t2)
-    return Jy @ C10 @ Jy.transpose(-1, -2)
+                        with_jacobians=True, y_t=yt, y_v=yv, c9=C9)
 
 
 def _whiten_from_c9(config, C9, im, dtype):

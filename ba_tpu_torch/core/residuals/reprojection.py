@@ -5,8 +5,10 @@ once as a function of the tangent perturbation around the current states,
 and the plain version takes its exact manifold Jacobians with
 `torch.func.vmap(jacfwd(...))` at delta = 0.  On a CUDA problem `evaluate`
 goes through the hand-written kernel (kernels/csrc/reprojection.cu, the
-closed form of the retired Pallas kernel) and raises for the
-configurations it does not cover; the plain version runs on CPU problems.
+closed form of the retired Pallas kernel, with the calibration columns of
+self-calibration) and raises for the configurations it does not cover
+(lm_size 0, per-pose intrinsics, the poly3 and equidistant models); the
+plain version runs on CPU problems.
 
 Residual: r = z - project(T_sv_meas^-1 T_wv_meas^-1 T_wv_ref T_vs_ref x_s)
 with x_s the homogeneous inverse-depth landmark (lm_size==1) or the world
@@ -92,20 +94,21 @@ def evaluate(problem: Problem, config: BAConfig,
 
 
 def _evaluate_kernel(problem, config, with_jacobians):
-    if (config.lm_size != 1 or config.calib_dim
+    if (config.lm_size not in (1, 3) or config.calib_size not in (0, 5)
             or config.use_per_pose_cam_params):
         raise NotImplementedError(
-            "reprojection kernel covers lm_size == 1 without calibration "
-            "or per-pose intrinsics (ROADMAP.md queue 2, K1 variants)")
+            "reprojection kernel covers lm_size 1 and 3 with the rig's "
+            "intrinsics, not per-pose intrinsics (ROADMAP.md queue 1 item "
+            "2)")
     from ...kernels import reprojection as kern
 
-    r, j_meas, j_ref, j_lm, err_sq = kern.reprojection(problem,
-                                                       with_jacobians)
-    Nr = r.shape[0]
-    z2 = r.new_zeros((Nr, 2, 0))
+    r, j_meas, j_ref, j_lm, j_cal, err_sq = kern.reprojection(
+        problem, with_jacobians, config.lm_size, config.calib_size,
+        config.do_tvs)
     if not with_jacobians:
+        z2 = r.new_zeros((r.shape[0], 2, 0))
         return ProjEval(r, z2, z2, z2, z2, err_sq)
-    return ProjEval(r, j_meas, j_ref, j_lm, z2, err_sq)
+    return ProjEval(r, j_meas, j_ref, j_lm, j_cal, err_sq)
 
 
 def evaluate_plain(problem: Problem, config: BAConfig,

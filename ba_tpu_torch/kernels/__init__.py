@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels of the main path and their ctypes wrappers.
 
   reprojection.py  kernel 1: reprojection residual + closed-form Jacobians
-  segsum.py        kernel 2: grouped deterministic segmented block sum,
+                   (with the calibration columns of self-calibration)
+  imu_preint.py    K2 (`imu_preint`): IMU preintegration of every span,
+                   with and without Jacobians
+  segsum.py        segsum: grouped deterministic segmented block sum,
                    on segment plans built once per solve
   band_schur.py    kernel 7: grouped banded Schur correction
   band_matvec.py   kernel 9: symmetric block-band product
@@ -14,6 +17,7 @@ Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises on a non-zero `cudaGetLastError()`, and
 counts its launches in `<wrapper>.launches`.  The plain PyTorch versions
 live beside the dispatch (`core/residuals/reprojection.py:evaluate_plain`,
+`core/residuals/imu.py:full_plain` and `residual_plain`,
 `solver/assemble.py:_seg_sum_plain`, `segsum.plan_walk`,
 `solver/banded.py:band_schur_plain` and `band_matvec_plain`,
 `schur_matvec.schur_matvec_plain`, `fleet_schur.fleet_w_plain` and

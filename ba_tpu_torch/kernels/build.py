@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles on first use, one `nvcc` process per source
 started together, to `_build/lib<name>-<hash>.so` next to this file (the
-hash is of the source text, so an edited source rebuilds):
+hash is of the source text and of the shared headers `csrc/*.cuh`, so an
+edited source rebuilds):
 
   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
        -Xcompiler -fPIC -Xptxas -v
@@ -22,7 +23,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("reprojection", "segsum", "band_schur", "band_matvec",
-           "schur_matvec", "fleet_schur")
+           "schur_matvec", "fleet_schur", "imu_preint")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
@@ -43,6 +44,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -11,7 +11,7 @@
 //   out[Nr + n] = J_r[n]^T w_n                          (6 values, to ref_n)
 //
 // The rows come out in the order of the block plan's rhs ids ([pose rows,
-// ref rows, ...]), so kernel 2 sums them by pose with the unary, binary and
+// ref rows, ...]), so segsum sums them by pose with the unary, binary and
 // IMU rows of U x in one grouped launch.  U x and -W V^-1 W^T x of the
 // projection family are one pass; W^T x never goes to device memory.
 //

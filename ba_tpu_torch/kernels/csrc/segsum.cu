@@ -1,6 +1,7 @@
 // Grouped deterministic segmented block sum: for each group g of one launch,
 // out_g[s, :] = sum of vals_g[i, :] over the rows i with id s, in a fixed
-// order.  One launch carries all seven sums of a banded build.
+// order.  One launch carries all seven sums of a banded build (ten with a
+// calibration block).
 //
 // Replaces the TPU formulation ba_tpu/solver/assemble.py:seg_sum_blocks
 // (:120-156, a one-hot MXU matmul below 512 segments, a serialized scatter
@@ -41,7 +42,7 @@ namespace {
 
 constexpr int R = 32;           // rows per chunk: kernels/segsum.py R
 constexpr int WARPS = 8;        // chunks (warps) per block
-constexpr int MAX_GROUPS = 8;   // kernels/segsum.py MAX_GROUPS
+constexpr int MAX_GROUPS = 12;  // kernels/segsum.py MAX_GROUPS
 constexpr int NC = 4;           // column accumulators per lane for k > 32
 
 template <typename T>

@@ -14,9 +14,12 @@ split each row's work by role (residual and inverse depth, translations,
 meas rotation, ref rotation), each recomputing the shared transfer chain
 and the FOV/linear projection with the exact `atan`; that shortens the
 longest thread's chain and fills the card (303 blocks at the flagship).
-The block's r, j_meas, j_ref, j_lm and err_sq are staged in shared memory
-and written as contiguous 16-byte stores.  A compile-time flag drops the
-Jacobians (and three of the warps) for trial costs.  Float and double.
+With calibration columns (self-calibration, K = calib_size + 6 do_tvs),
+four more warps take them by forward-mode duals through the whole
+residual, the intrinsics' unprojection of the reference pixel included.
+The block's outputs are staged in shared memory and written as contiguous
+16-byte stores.  A compile-time flag drops the Jacobians (and all but one
+warp) for trial costs.  Float and double.
 
 Bound on an H100: it reads ~20 B of indices and z per row (the gathered
 tables stay in L2) and writes 116 B (f32) per row, ~1.3 MB at Nr = 9,696 —
@@ -24,8 +27,9 @@ tables stay in L2) and writes 116 B (f32) per row, ~1.3 MB at Nr = 9,696 —
 at 67 TFLOP/s f32.  Launch latency and the dependent chain of a row
 dominate; the design keeps one launch per evaluation.
 
-Scope: lm_size == 1, no calibration, rig intrinsics, linear and FOV
-models.  A rig with another model raises.
+Scope: lm_size 1 (inverse depth) and 3 (world points), the rig's
+intrinsics of the linear and FOV models, optionally with the calibration
+columns of camera 0 (calib_size 0 or 5, do_tvs).  Another model raises.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 14 + [_I] * 4 + [_P] * 5 + [_P]
+_ARGTYPES = [_P] * 16 + [_I] * 7 + [_P] * 6 + [_P]
 
 
 def _fn(dtype):
@@ -61,22 +65,28 @@ def _check_models(model):
     if bad:
         raise NotImplementedError(
             "reprojection kernel covers the linear and FOV camera models "
-            "(ROADMAP.md queue 2, K1 variants)")
+            "(ROADMAP.md queue 1 item 2)")
     model._ba_models_checked = True
 
 
-def reprojection(problem, with_jacobians: bool):
-    """(r, j_meas, j_ref, j_lm, err_sq) of every projection row, from the
-    CUDA kernel.  j_* are None without Jacobians."""
+def reprojection(problem, with_jacobians: bool, lm_size: int = 1,
+                 calib_size: int = 0, do_tvs: bool = False):
+    """(r, j_meas, j_ref, j_lm, j_cal, err_sq) of every projection row,
+    from the CUDA kernel: j_lm (Nr, 2, lm_size), j_cal (Nr, 2, K) with
+    K = calib_size + 6 do_tvs the calibration columns of camera 0.  The
+    j_* are None without Jacobians."""
     pr, poses, lms, rig = problem.proj, problem.poses, problem.lms, \
         problem.rig
     dtype = pr.z.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"reprojection kernel: unsupported dtype {dtype}")
-    floats = (pr.z, poses.q, poses.t, lms.x, rig.params, rig.tvs_q,
-              rig.tvs_t)
+    if lm_size not in (1, 3) or calib_size not in (0, 5):
+        raise ValueError("reprojection kernel: lm_size 1 or 3, calib_size "
+                         "0 or 5")
+    floats = (pr.z, poses.q, poses.t, lms.x, lms.z_ref, rig.params,
+              rig.tvs_q, rig.tvs_t)
     ints = (pr.pose, pr.lm, pr.cam, lms.ref_pose, lms.ref_cam, rig.model)
-    for t in floats + ints + (pr.valid,):
+    for t in floats + ints + (pr.valid, lms.has_z_ref):
         if not t.is_cuda or t.device != pr.z.device:
             raise ValueError("reprojection kernel: every tensor must be "
                              "on the problem's CUDA device")
@@ -87,24 +97,30 @@ def reprojection(problem, with_jacobians: bool):
         raise TypeError("reprojection kernel: mixed float dtypes")
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError("reprojection kernel: index tables must be int32")
-    if pr.valid.dtype != torch.bool:
-        raise TypeError("reprojection kernel: valid must be bool")
+    if pr.valid.dtype != torch.bool or lms.has_z_ref.dtype != torch.bool:
+        raise TypeError("reprojection kernel: valid and has_z_ref must be "
+                        "bool")
     if rig.params.shape[1] < 5:
         raise ValueError("reprojection kernel: params need >= 5 entries")
     _check_models(rig.model)
 
     Nr = pr.z.shape[0]
-    r = torch.empty((Nr, 2), dtype=dtype, device=pr.z.device)
-    err_sq = torch.empty((Nr,), dtype=dtype, device=pr.z.device)
+    K = calib_size + (6 if do_tvs else 0)
+    kw = dict(dtype=dtype, device=pr.z.device)
+    r = torch.empty((Nr, 2), **kw)
+    err_sq = torch.empty((Nr,), **kw)
     if with_jacobians:
-        j_meas = torch.empty((Nr, 2, 6), dtype=dtype, device=pr.z.device)
+        j_meas = torch.empty((Nr, 2, 6), **kw)
         j_ref = torch.empty_like(j_meas)
-        j_lm = torch.empty((Nr, 2, 1), dtype=dtype, device=pr.z.device)
-        jp = (j_meas.data_ptr(), j_ref.data_ptr(), j_lm.data_ptr())
+        j_lm = torch.empty((Nr, 2, lm_size), **kw)
+        j_cal = torch.empty((Nr, 2, K), **kw)
+        outs = (j_meas, j_ref, j_lm, j_cal)
+        jp = tuple(t.data_ptr() for t in outs)
     else:
-        j_meas = j_ref = j_lm = None
-        jp = (None, None, None)
-    for t in (r, err_sq) + ((j_meas, j_ref, j_lm) if with_jacobians else ()):
+        j_meas = j_ref = j_lm = j_cal = None
+        outs = ()
+        jp = (None,) * 4
+    for t in (r, err_sq) + outs:
         if t.data_ptr() % 16:
             raise ValueError("reprojection kernel: outputs must be 16-byte "
                              "aligned")
@@ -114,15 +130,17 @@ def reprojection(problem, with_jacobians: bool):
         pr.cam.data_ptr(), pr.valid.data_ptr(),
         poses.q.data_ptr(), poses.t.data_ptr(), lms.x.data_ptr(),
         lms.ref_pose.data_ptr(), lms.ref_cam.data_ptr(),
+        lms.z_ref.data_ptr(), lms.has_z_ref.data_ptr(),
         rig.params.data_ptr(), rig.model.data_ptr(), rig.tvs_q.data_ptr(),
         rig.tvs_t.data_ptr(),
         rig.params.shape[1], rig.params.shape[0], Nr, int(with_jacobians),
-        r.data_ptr(), *jp, err_sq.data_ptr(), stream)
+        lm_size, calib_size, K, r.data_ptr(), *jp, err_sq.data_ptr(),
+        stream)
     if rc != 0:
         raise RuntimeError(f"reprojection kernel launch failed: CUDA error "
                            f"{rc}")
     reprojection.launches += 1
-    return r, j_meas, j_ref, j_lm, err_sq
+    return r, j_meas, j_ref, j_lm, j_cal, err_sq
 
 
 reprojection.launches = 0

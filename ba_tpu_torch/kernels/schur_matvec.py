@@ -13,7 +13,7 @@ of the block plan (`BlockPlan.V`, built once per solve).  Each warp forms
 u_n = J_m x + J_r x of its rows, sums j_l^T u_n in a fixed order (no
 atomics), takes z_l = V_l^-1 of the sum, and writes J_m^T w_n and J_r^T w_n
 with w_n = u_n - j_l z_l: the first 2 Nr rows of the block plan's rhs
-order, which kernel 2 then sums by pose with the other families' rows.
+order, which segsum then sums by pose with the other families' rows.
 U x and -W V^-1 W^T x of the projection family are one pass; W^T x never
 goes to device memory.  Bit-identical from launch to launch.
 
@@ -25,7 +25,7 @@ in f32: ~4.2 us at 3.35 TB/s).
 
 Scope: inverse-depth landmarks (lm_size 1), pose width D >= 6, float32 and
 float64.  Other landmark sizes raise on the card (ROADMAP.md queue 1 item
-7).
+2).
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def schur_matvec(j_m, j_r, j_l, pose, ref, vinv, x, perm, offsets, D: int,
         raise NotImplementedError(
             "schur_matvec kernel covers inverse-depth landmarks (lm_size 1): "
             f"j_l {tuple(j_l.shape)}, vinv {tuple(vinv.shape)} (ROADMAP.md "
-            "queue 1 item 7)")
+            "queue 1 item 2)")
     if j_m.shape != (Nr, 2, 6) or j_r.shape != (Nr, 2, 6) \
             or j_l.shape[0] != Nr:
         raise ValueError("schur_matvec kernel: J_m, J_r must be (Nr, 2, 6) "

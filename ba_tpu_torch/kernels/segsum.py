@@ -1,10 +1,10 @@
-"""Kernel 2: grouped deterministic segmented block sum (CUDA).
+"""segsum: grouped deterministic segmented block sum (CUDA).
 
 Replaces the TPU formulation `ba_tpu/solver/assemble.py:seg_sum_blocks`
 (:120-156): a one-hot MXU matmul below 512 segments and a serialized
 scatter above.  It carries the seven normal-equation accumulations of a
 banded build (the band grid, the pose rhs, the IMU grid and rhs, V, rhs_l
-and the W blocks) in one launch.
+and the W blocks), ten with a calibration block, in one launch.
 
 Design (csrc/segsum.cu): the segment ids of the main path are static per
 problem, so the index work happens once, in a `SegPlan` built before the
@@ -37,7 +37,7 @@ import torch
 from . import build
 
 R = 32            # rows per chunk: csrc/segsum.cu R (one warp's lanes)
-MAX_GROUPS = 8    # groups per launch: csrc/segsum.cu MAX_GROUPS
+MAX_GROUPS = 12   # groups per launch: csrc/segsum.cu MAX_GROUPS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -20,12 +20,14 @@ same plans on the CPU.  ba_tpu's general path sums family by family
 (`proj_contribution`, `prior_contribution`, `imu_contribution`, some
 thirteen sums); here the sums whose blocks share a width share a segment
 space, their ids offset past each other, so that a build stays one launch.
-A calibration block (K > 0) is not ported on either path and raises.
+A calibration block (K > 0, self-calibration) takes the general path: its
+three sums (the pose-calibration blocks Uc, the landmark-calibration blocks
+Wc, and U_cc with rhs_c over every row) join the same launch.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -133,7 +135,7 @@ def seg_sum_groups(groups):
 
 
 def _seg_sum_plain(v2, ids, nseg: int):
-    """The plain version of kernel 2: the same stable-sort CSR, then a
+    """The plain version of segsum: the same stable-sort CSR, then a
     padded gather of each segment's rows and a sum over them."""
     perm, offsets = segsum.segment_csr(ids, nseg)
     n, k = v2.shape
@@ -195,6 +197,7 @@ class ProjBlocks(NamedTuple):
     lm: torch.Tensor         # (Nr,) int64
     w: torch.Tensor          # (Nr,) effective weights
     cost: torch.Tensor       # scalar
+    j_c: Optional[torch.Tensor] = None   # (Nr, 2, K) calibration columns
 
 
 def _outer(a, b):
@@ -229,13 +232,17 @@ def proj_blocks(problem: Problem, config: BAConfig, colm6) -> ProjBlocks:
     pose_m = pr.pose.long()
     ref_pose = problem.lms.ref_pose[pr.lm].long()
     cm_p = colm6[: P * 6].reshape(P, 6)
+    # the calibration columns' mask holds staged-frozen T_vs translation
+    # dims (all ones otherwise); masking at the source keeps rhs_p zero there
+    cm_k = colm6[P * 6:]
     return ProjBlocks(
         j_m=pe.j_meas * sw * cm_p[pose_m][:, None, :],
         j_r=pe.j_ref * sw * cm_p[ref_pose][:, None, :],
         j_l=j_lm * sw,
         r=pe.r * sw[:, :, 0],
         pose=pose_m, ref=ref_pose, lm=pr.lm.long(),
-        w=w, cost=torch.sum(w * pe.err_sq))
+        w=w, cost=torch.sum(w * pe.err_sq),
+        j_c=pe.j_cal * sw * cm_k[None, None, :] if K else None)
 
 
 def finish(contrib: Contribution, cmask, proj_w) -> Assembly:
@@ -412,23 +419,29 @@ class AssemblyPlan(NamedTuple):
     V: segsum.SegPlan          # (L) landmark blocks
     rhs_l: segsum.SegPlan      # (L) landmark rhs: V's ids, its own counters
     wb: segsum.SegPlan         # (Nw) W blocks
+    # with a calibration block (K > 0), else None:
+    uc: Optional[segsum.SegPlan] = None   # (P) projection rows [pose,
+    #                                       ref]: the 6 x K blocks of Uc
+    wc: Optional[segsum.SegPlan] = None   # (L) projection rows by
+    #                                       landmark: the K x lm Wc blocks
+    cc: Optional[segsum.SegPlan] = None   # (1) every projection row:
+    #                                       U_cc and rhs_c
 
 
 def plan_width(problem: Problem, config: BAConfig) -> int:
     """The band width a build of `problem` uses: `config.band_width` when
-    the banded grid applies (0 < B <= P), else 0, the general path.  A
-    calibration block raises (ROADMAP.md queue 1)."""
+    the banded grid applies (0 < B <= P and no calibration block, whose
+    rows couple every pose), else 0, the general path."""
     D, K, P, L, lm, N = dims(problem, config)
     if K:
-        raise NotImplementedError(
-            "assembly with a calibration block is not ported yet "
-            "(ROADMAP.md queue 1)")
+        return 0
     return config.band_width if config.band_width <= P else 0
 
 
 def sum_ids(problem: Problem, config: BAConfig):
-    """{AssemblyPlan field: (ids, nseg)} of the seven sums of a build; the
-    rows follow the order `contribution` stacks values in."""
+    """{AssemblyPlan field: (ids, nseg)} of the seven sums of a build (ten
+    with a calibration block); the rows follow the order `contribution`
+    stacks values in."""
     P, L = problem.poses.q.shape[0], problem.lms.x.shape[0]
     B = plan_width(problem, config)
     pose = problem.proj.pose.long()
@@ -453,7 +466,7 @@ def sum_ids(problem: Problem, config: BAConfig):
                 P + n_pair + idx.bpair_a.shape[0])
         imu_grid = (torch.cat([imu_rows, P + problem.imu.pair.long()]),
                     P + idx.ipair_a.shape[0])
-    return dict(
+    out = dict(
         grid=grid,
         rhs=(pose_rows, P),
         imu_grid=imu_grid,
@@ -462,6 +475,10 @@ def sum_ids(problem: Problem, config: BAConfig):
         rhs_l=(lm, L),
         wb=(torch.cat([problem.proj.wb_meas, problem.proj.wb_ref]),
             problem.pidx.wb_pose.shape[0]))
+    if config.calib_dim:
+        out.update(uc=(torch.cat([pose, ref]), P), wc=(lm, L),
+                   cc=(torch.zeros_like(lm), 1))
+    return out
 
 
 def assembly_plan(problem: Problem, config: BAConfig) -> AssemblyPlan:
@@ -547,7 +564,18 @@ def contribution(problem: Problem, config: BAConfig, imu_eval, cmask,
         (torch.einsum("nil,ni->nl", j_lm_w, pb.r), plan.rhs_l),
         (torch.cat([_outer(pb.j_m, j_lm_w), _outer(pb.j_r, j_lm_w)]),
          plan.wb)]
+    if K:
+        jc = pb.j_c
+        Nr = jc.shape[0]
+        groups += [
+            (torch.cat([_outer(pb.j_m, jc), _outer(pb.j_r, jc)]), plan.uc),
+            (_outer(jc, j_lm_w), plan.wc),
+            (torch.cat([_outer(jc, jc).reshape(Nr, K * K), _jtr(jc, pb.r)],
+                       dim=1), plan.cc)]
     sums = seg_sum_groups(groups)
+    if K:
+        Uc, Wc, cc = sums[-3:]
+        sums = sums[:-3]
     V, rhs_l, Wb = sums[-3:]
     rhs_l = rhs_l.reshape(-1)
     idx = problem.pidx
@@ -572,8 +600,18 @@ def contribution(problem: Problem, config: BAConfig, imu_eval, cmask,
     U6, rhs6 = _pair_system(N6, P, 6, sums[0][:P], sums[0][P:], sums[1],
                             torch.cat([idx.pair_a, idx.bpair_a]),
                             torch.cat([idx.pair_b, idx.bpair_b]))
+    W6 = dense_w(6, N6)
+    if K:
+        # the calibration block: Uc by pose, U_cc and rhs_c, Wc by landmark
+        # (ba_tpu's `_pair_system` with j_cal and `proj_contribution`)
+        Uc = Uc.reshape(P * 6, K)
+        U6[: P * 6, N6 - K:] += Uc
+        U6[N6 - K:, : P * 6] += Uc.T
+        U6[N6 - K:, N6 - K:] += cc[0, : K * K].reshape(K, K)
+        rhs6[N6 - K:] += cc[0, K * K:]
+        W6[N6 - K:] += Wc.permute(1, 0, 2).reshape(K, L * lm)
     contrib = expand_contribution(
-        Contribution(U=U6, rhs_p=rhs6, W=dense_w(6, N6), V=V, rhs_l=rhs_l,
+        Contribution(U=U6, rhs_p=rhs6, W=W6, V=V, rhs_l=rhs_l,
                      cost=cost), P, D, K)
     if imu_eval is not None:
         Ui, rhs_i = _pair_system(N, P, D, sums[2][:P], sums[2][P:], sums[3],

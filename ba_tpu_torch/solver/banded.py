@@ -27,7 +27,7 @@ failed Cholesky is reported by `cholesky_ex`'s info with no host read, and
 together with non-finite factors rejects the step (`ok == False`, a zero
 pose step), as the NaNs of `jnp.linalg.cholesky` do in ba_tpu.
 
-Every segment sum goes through kernel 2 on a `BandPlan` built once per
+Every segment sum goes through segsum on a `BandPlan` built once per
 solve (`band_plan`): band_S is one launch of two groups (the 6x6 grid, with
 the pair rows on the pair path, and the IMU grid).
 
@@ -42,7 +42,7 @@ and the product in one pass; the Cholesky and the triangular solves stay
 `torch.linalg`.  Its plan (`fleet_dense_plan`) holds the families-only
 grid and kernel 10's block table.
 
-Not ported: the sharded layout (`lm_offset`, queue 1 item 8) and
+Not ported: the sharded layout (`lm_offset`, queue 1 item 4) and
 `_effective_pcg_iters`' TPU-only clamp: the PCG count is
 `banded_pcg_iterations or 4`.
 """

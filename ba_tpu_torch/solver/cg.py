@@ -16,7 +16,7 @@ solve) iterates on: block-Jacobi PCG on S x = rhs_sc with S never formed.
 
 Every segment sum goes through `assemble.seg_sum_groups` on the plans of a
 `BlockPlan`, built once per solve from the problem's static ids with no
-host read (`block_plan`): kernel 2 (kernels/csrc/segsum.cu) on the card,
+host read (`block_plan`): segsum (kernels/csrc/segsum.cu) on the card,
 the plain walk of the same plans on the CPU.  A build makes two launches
 (`assemble_blocks`: the gradient, V, rhs_l and the W blocks, then W V^-1
 rhs_l with the preconditioner's sums), the Cauchy factor one (U x and W z
@@ -27,7 +27,7 @@ again in `band_S` and in the preconditioner.
 A Schur product (`s_matvec`) is two launches on the card: kernel 6
 (kernels/csrc/schur_matvec.cu) writes the projection rows of U x - W V^-1
 W^T x straight into the rhs order of the plan, one warp per landmark, and
-kernel 2 sums them by pose with the unary, binary and IMU rows; the prior,
+segsum sums them by pose with the unary, binary and IMU rows; the prior,
 the damping and the masked identity stay plain torch, as does the
 block-Jacobi preconditioner (`_precond`, a batched D x D product).
 
@@ -41,7 +41,7 @@ ceil(cg_max_iterations / 8) host syncs per build (12 at 100 iterations),
 and up to 7 masked iterations after convergence.
 
 Not ported here: a calibration block (K > 0 raises; ROADMAP.md queue 1
-item 6) and the sharded layout (`axis_name`, `lm_offset`; queue 1 item 8).
+item 1) and the sharded layout (`axis_name`, `lm_offset`; queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -84,6 +84,8 @@ class BlockPlan(NamedTuple):
     #                           or None
     pose_ref: torch.Tensor    # (2, Nr) int32: the projection rows' pose
     #                           and ref ids, kernel 6's
+    windows: int = 1          # independent pose windows of a fused fleet's
+    #                           banded solve (step._reduced_path)
 
 
 class BlockSystem(NamedTuple):
@@ -126,11 +128,12 @@ class BlockSystem(NamedTuple):
 
 
 def block_plan(problem: Problem, config: BAConfig, band: bool = False,
-               fleet: bool = False) -> BlockPlan:
+               fleet: bool = False, windows: int = 1) -> BlockPlan:
     """The plans of the sums through a block system of `problem`, on its
     device, with no host read; with `band`, also band_S's
     (`banded.band_plan`), with `fleet` those of the dense fleet solve
-    (`banded.fleet_dense_plan`).  Build it once per solve."""
+    (`banded.fleet_dense_plan`); `windows` as `step._reduced_path` found
+    it.  Build it once per solve."""
     ids = asm.sum_ids(problem, config)
     P = problem.poses.q.shape[0]
     Nr = problem.proj.pose.shape[0]
@@ -149,7 +152,8 @@ def block_plan(problem: Problem, config: BAConfig, band: bool = False,
                      wz=segsum.build_plan(pose_ref, P),
                      wb_pose=segsum.build_plan(problem.pidx.wb_pose, P),
                      band=band_plan, fleet=fleet_plan,
-                     pose_ref=pose_ref.to(torch.int32).reshape(2, Nr))
+                     pose_ref=pose_ref.to(torch.int32).reshape(2, Nr),
+                     windows=windows)
 
 
 def _seg2_rows(j1, j2, u1, u2):
@@ -244,7 +248,7 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     if K:
         raise NotImplementedError(
             "the block system with a calibration block is not ported yet "
-            "(ROADMAP.md queue 1 item 6)")
+            "(ROADMAP.md queue 1 item 1)")
     if plan is None:
         plan = block_plan(problem, config)
     dtype = problem.poses.t.dtype
@@ -407,7 +411,7 @@ def _s_groups(bs: BlockSystem, xm, P, D):
 
 def s_matvec(bs: BlockSystem, x, P, D, K, lam, marg_H=None):
     """(S + lam*diag(S)) x in the masked subspace; identity on masked
-    dims.  Two launches on the card: kernel 6, then kernel 2."""
+    dims.  Two launches on the card: kernel 6, then segsum."""
     xm = torch.where(bs.col_mask, x, 0.0)
     y = _u_finish(asm.seg_sum_groups(_s_groups(bs, xm, P, D)), xm, P, D,
                   marg_H)

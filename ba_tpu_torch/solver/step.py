@@ -4,7 +4,7 @@ Port of `ba_tpu/solver/step.py`.  A step proposal never mutates the
 problem: it produces a candidate tree, and rollback is not committing it
 (`tree_where`).  Python loops take the place of `lax.scan`/`while_loop`/
 `cond`; the data-dependent exits (a dogleg trial accepted, the adaptive
-solve's status) read one scalar from the device each, counted by
+solve's exit test) read from the device once each, counted by
 `utils.sync.item`.  GN iterations need no host read.
 
 The dogleg boundary blend uses the textbook root
@@ -21,8 +21,10 @@ as ba_tpu's `_build_and_solve` does):
   * `use_banded_solver` on a fused fleet (`fleet_size` F > 1): the
     per-window dense Schur complement and one batched Cholesky
     (`banded.solve_reduced_fleet_dense`) when F divides the pose and
-    landmark counts and a window's system has at most 4,096 rows, else the
-    banded solver with a fleet axis;
+    landmark counts, a window's system has at most 4,096 rows and every
+    valid row's ids lie inside one equal window (`solve_plan` reads this
+    once per solve), else the banded solver, with a fleet axis when the
+    rows stay inside equal pose windows;
   * `schur_on_band`: the banded Schur band, densified with the
     marginalization prior and solved by one Cholesky
     (`banded.solve_reduced_banded_dense`);
@@ -32,9 +34,16 @@ as ba_tpu's `_build_and_solve` does):
 `use_banded_solver` without a band, or with a marginalization prior, falls
 back to the next path as in ba_tpu.  A solve builds the segment plans of
 its builds once, before the loop (`solve_plan`: an `AssemblyPlan` or a
-`cg.BlockPlan`), and hands them to every iteration.  The verbose and
-staged-Tvs host loop of `solve` and the calibration epilogue raise
-NotImplementedError.
+`cg.BlockPlan`), and hands them to every iteration.
+
+Self-calibration (a calibration block, K > 0) runs on the general dense
+path: `apply_update` moves the intrinsics and T_vs of camera 0 and
+re-unprojects the inverse-depth rays; `solve_adaptive`, the one loop of
+`solve`, prints each iteration with `verbose` and holds the T_vs
+translation while `staging` waits for the extrinsic to settle; the
+calibration epilogue gives the calibration marginals and dumps the
+reduced system.  A deliberate difference from ba_tpu: a fused fleet whose
+windows are not equal takes the banded path, where ba_tpu drops rows.
 """
 
 from __future__ import annotations
@@ -45,17 +54,19 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..core import camera as cam_mod
 from ..core import lie
 from ..core.problem import (BAConfig, Problem, finalize_landmarks,
                             prepare_landmarks)
 from ..core.residuals import imu as imu_mod
-from ..utils.sync import item
+from ..utils.sync import item, values
 from ..utils.tree import tree_where
 from . import banded as banded_mod
 from . import cg as cg_mod
 from .assemble import (Assembly, assemble, assembly_plan, band_width_of,
                        dims, evaluate_cost)
-from .linear import GnStep, solve_reduced
+from .linear import (GnStep, calibration_marginals, dump_system,
+                     solve_reduced)
 
 
 def _imu_eval(problem: Problem, config: BAConfig, use_imu: bool,
@@ -69,10 +80,10 @@ def _imu_eval(problem: Problem, config: BAConfig, use_imu: bool,
 def apply_update(problem: Problem, config: BAConfig, delta_p, delta_l,
                  scale=1.0) -> Problem:
     """x <- retract(x, -scale * delta).  Inverse-depth landmarks whose depth
-    would go negative keep their old value and are marked unreliable."""
-    if config.calib_dim:
-        raise NotImplementedError(
-            "calibration updates are not ported yet (ROADMAP.md queue 1)")
+    would go negative keep their old value and are marked unreliable.  A
+    calibration block moves camera 0's intrinsics and T_vs; when the
+    intrinsics move, each inverse-depth ray is unprojected again from its
+    reference pixel, keeping its norm."""
     D = config.pose_dim
     poses = problem.poses
     P = poses.q.shape[0]
@@ -98,7 +109,29 @@ def apply_update(problem: Problem, config: BAConfig, delta_p, delta_l,
         else:
             x = torch.cat([lms.x[:, :3] - dl, lms.x[:, 3:]], dim=1)
             lms = dataclasses.replace(lms, x=x)
-    return dataclasses.replace(problem, poses=poses, lms=lms)
+
+    rig = problem.rig
+    if config.calib_dim:
+        dk = delta_p[P * D:] * scale
+        cs = config.calib_size
+        if cs:
+            params = rig.params.clone()
+            params[0, :cs] = rig.params[0, :cs] + (-dk[:cs])
+            rig = dataclasses.replace(rig, params=params)
+        if config.do_tvs:
+            dtvs = dk[config.tvs_offset: config.tvs_offset + 6]
+            q0, t0 = lie.se3_retract((rig.tvs_q[0], rig.tvs_t[0]), -dtvs)
+            tvs_q, tvs_t = rig.tvs_q.clone(), rig.tvs_t.clone()
+            tvs_q[0], tvs_t[0] = q0, t0
+            rig = dataclasses.replace(rig, tvs_q=tvs_q, tvs_t=tvs_t)
+        if cs and config.lm_size == 1:
+            ray = cam_mod.unproject(rig.params[lms.ref_cam],
+                                    rig.model[lms.ref_cam], lms.z_ref)
+            norm = torch.linalg.norm(lms.x[:, :3], dim=-1, keepdim=True)
+            x_new = torch.cat([ray * norm, lms.x[:, 3:]], dim=1)
+            use = (lms.has_z_ref & lms.active)[:, None]
+            lms = dataclasses.replace(lms, x=torch.where(use, x_new, lms.x))
+    return dataclasses.replace(problem, poses=poses, lms=lms, rig=rig)
 
 
 class IterResult(NamedTuple):
@@ -143,40 +176,74 @@ def _commit_imu_cov(problem: Problem, config: BAConfig, imu_c9) -> Problem:
     return dataclasses.replace(problem, imu=imu)
 
 
-def _reduced_path(problem: Problem, config: BAConfig) -> str:
-    """The reduced solve of a build, from static properties (ba_tpu's
-    gates, `ba_tpu/solver/step.py:171-196`): with a band, no calibration
-    block and no marginalization prior, `use_banded_solver` takes
-    "fleet_dense" (F = `fleet_size` > 1 dividing P and L, (P/F) D <= 4096)
-    or "banded"; then "schur_on_band" (a band and no calibration block; a
-    prior is allowed), then "cg" (`use_cg_solver`), else "dense"."""
+def _fleet_split(problem: Problem, F: int):
+    """(poses, landmarks) of a fused fleet of F windows: whether every
+    valid projection, IMU and binary row has its pose ids inside one of F
+    equal windows of P/F poses, and whether its landmark also lies in the
+    matching window of L/F landmarks.  One host read."""
+    P, L = problem.poses.q.shape[0], problem.lms.x.shape[0]
+    Pw, Lw = P // F, max(L // F, 1)
+    pr, im, bn = problem.proj, problem.imu, problem.binary
+    wp = pr.pose.long() // Pw
+    ref = problem.lms.ref_pose[pr.lm].long()
+    pose_bad = torch.stack([
+        (pr.valid & (ref // Pw != wp)).any(),
+        (im.valid & (im.pose1.long() // Pw != im.pose2.long() // Pw)).any(),
+        (bn.valid & (bn.pose1.long() // Pw != bn.pose2.long() // Pw)).any()])
+    lm_bad = (pr.valid & (pr.lm.long() // Lw != wp)).any() | (L % F != 0)
+    poses, lms = values(torch.stack([pose_bad.any(), lm_bad]))
+    return not poses, not lms
+
+
+def _reduced_path(problem: Problem, config: BAConfig, plan=None):
+    """(path, windows): the reduced solve of a build (ba_tpu's gates,
+    `ba_tpu/solver/step.py:171-196`) and the independent pose windows of
+    the banded solver's fleet axis.
+
+    With a band, no calibration block and no marginalization prior,
+    `use_banded_solver` takes "fleet_dense" (F = `fleet_size` > 1 dividing
+    P and L, (P/F) D <= 4096, and every row inside its window) or
+    "banded"; then "schur_on_band" (a band and no calibration block; a
+    prior is allowed), then "cg" (`use_cg_solver`), else "dense".  A fused
+    fleet's banded solve splits into F windows only when the rows stay
+    inside equal pose windows; ba_tpu splits regardless and drops the rows
+    that cross (a deliberate difference).  Where the rows lie is the one
+    property read from the device: the solve's `cg.BlockPlan` carries it,
+    without one it is read here."""
     D, K, P, L, lm, N = dims(problem, config)
     band = 0 < config.band_width <= P and K == 0
     if (config.use_banded_solver and band
             and problem.marg.H.shape[0] != P * D):
         F = config.fleet_size
-        if F > 1 and P % F == 0 and L % F == 0 and (P // F) * D <= 4096:
-            return "fleet_dense"
-        return "banded"
+        if F == 1 or P % F:
+            return "banded", 1
+        if isinstance(plan, cg_mod.BlockPlan):
+            poses, lms = plan.windows == F, plan.fleet is not None
+        else:
+            poses, lms = _fleet_split(problem, F)
+        if poses and lms and (P // F) * D <= 4096:
+            return "fleet_dense", F
+        return "banded", F if poses else 1
     if config.schur_on_band and band:
-        return "schur_on_band"
+        return "schur_on_band", 1
     if config.use_cg_solver:
-        return "cg"
-    return "dense"
+        return "cg", 1
+    return "dense", 1
 
 
 def solve_plan(problem: Problem, config: BAConfig):
     """The segment plans of every build of a solve, on the problem's
-    device, with no host read: a `cg.BlockPlan` for the block-system paths
-    (with band_S's plan on the banded ones, the dense fleet solve's on
-    "fleet_dense", none for CG), else the `AssemblyPlan` of the dense
-    solve.  Build it once per solve."""
-    path = _reduced_path(problem, config)
+    device: a `cg.BlockPlan` for the block-system paths (with band_S's
+    plan on the banded ones, the dense fleet solve's on "fleet_dense",
+    none for CG, and the banded fleet axis's window count), else the
+    `AssemblyPlan` of the dense solve.  No host read, except one for a
+    fused fleet's rows (`_fleet_split`).  Build it once per solve."""
+    path, windows = _reduced_path(problem, config)
     if path == "dense":
         return assembly_plan(problem, config)
     return cg_mod.block_plan(problem, config,
                              band=path in ("banded", "schur_on_band"),
-                             fleet=path == "fleet_dense")
+                             fleet=path == "fleet_dense", windows=windows)
 
 
 def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
@@ -185,9 +252,11 @@ def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
     picks.  `plan` is the solve's `solve_plan`; a missing plan, or one of
     the other path (the ring hands its slide's `AssemblyPlan`), is built
     here."""
-    path = _reduced_path(problem, config)
+    if plan is None:
+        plan = solve_plan(problem, config)
+    path, windows = _reduced_path(problem, config, plan)
     blocks = path != "dense"
-    if plan is None or isinstance(plan, cg_mod.BlockPlan) != blocks:
+    if isinstance(plan, cg_mod.BlockPlan) != blocks:
         plan = solve_plan(problem, config)
     imu_eval = _imu_eval(problem, config, use_imu, True)
     imu_c9 = imu_eval.c9 if imu_eval is not None else None
@@ -202,6 +271,8 @@ def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
             step = banded_mod.solve_reduced_fleet_dense(problem, config, bs,
                                                         P, D)
         elif path == "banded":
+            if windows != config.fleet_size:
+                config = dataclasses.replace(config, fleet_size=windows)
             step = banded_mod.solve_reduced_banded(problem, config, bs, P, D)
         else:
             step = banded_mod.solve_reduced_banded_dense(problem, config, bs,
@@ -400,13 +471,20 @@ def _status_code(res: IterResult, config: BAConfig, tiny=1e-30):
 
 def solve_adaptive(problem: Problem, config: BAConfig, use_imu: bool,
                    max_iter: int, gn_damping: float = 1.0,
-                   error_increase_allowed: bool = False):
+                   error_increase_allowed: bool = False, verbose: int = 0,
+                   staging: bool = False):
     """The adaptive solve: GN/dogleg iterations until an exit criterion,
-    plus the per-family error epilogue.  One host read per iteration.
+    plus the per-family error epilogue.  Each iteration reads one vector of
+    scalars from the device (its exit status and costs, and the T_vs
+    change while `staging` waits).
+
+    `verbose` prints a line per iteration.  With `staging` the T_vs
+    translation stays frozen until the extrinsic's change between builds
+    drops below 0.01 with >= 30 poses (one more read, of the pose count).
 
     Returns (problem, stats) with iterations, status code, initial/final
-    cost, delta_norm, the ErrorBreakdown and the last iteration's
-    solve-norm trace."""
+    cost, delta_norm, the ErrorBreakdown, the last iteration's
+    solve-norm trace and the config the solve ended with."""
     from .summary import error_breakdown
 
     dtype, device = problem.poses.t.dtype, problem.poses.t.device
@@ -418,6 +496,9 @@ def solve_adaptive(problem: Problem, config: BAConfig, use_imu: bool,
     it, status = 0, _RUNNING
     init_c = post_c = dn = zero
     norms = (zero, zero, torch.zeros((), dtype=torch.int32, device=device))
+    if staging:
+        n_poses = int(item(torch.sum(problem.poses.active)))
+        last_tvs = (problem.rig.tvs_q[0], problem.rig.tvs_t[0])
     while it < max_iter and status == _RUNNING:
         if config.use_dogleg:
             res = dogleg_iteration(problem, config, use_imu, trust, plan)
@@ -430,14 +511,36 @@ def solve_adaptive(problem: Problem, config: BAConfig, use_imu: bool,
         problem = res.problem
         post_c, dn = res.post_cost, res.delta_norm
         norms = (res.pre_solve_norm, res.post_solve_norm, res.inner_trials)
-        status = item(_status_code(res, config))
+        read = [_status_code(res, config), res.pre_cost, res.post_cost,
+                res.delta_norm, res.accepted]
+        waiting = staging and not config.tvs_translation_active
+        if waiting:
+            tvs_now = (problem.rig.tvs_q[0], problem.rig.tvs_t[0])
+            read.append(torch.linalg.norm(
+                lie.se3_log_decoupled(tvs_now, last_tvs)))
+        status, pre, post, dnv, accepted, *log_dif = values(
+            torch.stack([v.double() for v in read]))
+        status = int(status)
+        if verbose:
+            print(f"  iter {it:3d}: cost {pre:12.6g} -> {post:12.6g}  "
+                  f"|dx| {dnv:10.4g}  "
+                  f"{'accepted' if accepted else 'REJECTED'}")
+        if waiting:
+            if verbose:
+                print(f"  tvs logDif {log_dif[0]:.5g}")
+            if log_dif[0] < 0.01 and n_poses >= 30:
+                if verbose:
+                    print("  ENABLING Tvs TRANSLATION")
+                config = dataclasses.replace(config,
+                                             tvs_translation_active=True)
+            last_tvs = tvs_now
         it += 1
     eb = error_breakdown(problem, config, use_imu)
     problem = finalize_landmarks(problem, config)
     stats = dict(iterations=it, status=status, initial_cost=init_c,
                  final_cost=post_c, delta_norm=dn, breakdown=eb,
                  pre_solve_norm=norms[0], post_solve_norm=norms[1],
-                 inner_trials=norms[2])
+                 inner_trials=norms[2], config=config)
     return problem, stats
 
 
@@ -484,27 +587,41 @@ def _auto_band_width(problem: Problem, config: BAConfig) -> BAConfig:
     return config
 
 
+def _calibration_epilogue(problem: Problem, config: BAConfig,
+                          use_imu: bool, summary: Summary) -> None:
+    """Fill `Summary.calibration_marginals` and/or dump the reduced system:
+    one more build at the solution, on the general dense path (the
+    calibration block needs the dense S anyway)."""
+    if not (config.calculate_calibration_marginals
+            or config.write_reduced_camera_matrix):
+        return
+    cfg = dataclasses.replace(config, band_width=0)
+    p = prepare_landmarks(problem, config)
+    asm = assemble(p, cfg, imu_eval=_imu_eval(p, cfg, use_imu, True))
+    if config.calculate_calibration_marginals and config.calib_dim:
+        summary.calibration_marginals = calibration_marginals(
+            asm, config.calib_dim).cpu().numpy()
+    if config.write_reduced_camera_matrix:
+        dump_system(asm, config.write_reduced_camera_matrix)
+
+
 def solve(problem: Problem, config: BAConfig, max_iter: int = 10,
           gn_damping: float = 1.0, error_increase_allowed: bool = False,
           use_imu: Optional[bool] = None, verbose: int = 0):
-    """Outer solve (reference Solve) through `solve_adaptive`, on the
-    device the problem lives on.  Returns (problem, Summary)."""
+    """Outer solve (reference Solve), on the device the problem lives on:
+    `solve_adaptive`, with the T_vs translation staged when
+    `tvs_translation_staging` asks for it.  Returns (problem, Summary)."""
     if use_imu is None:
         use_imu = bool(item(torch.any(problem.imu.valid)))
     config = _auto_band_width(problem, config)
     staging = (config.do_tvs and config.tvs_translation_staging
                and config.tvs_translation_active)
-    if verbose or staging:
-        raise NotImplementedError(
-            "the verbose / staged-Tvs host loop of solve is not ported yet "
-            "(ROADMAP.md queue 1)")
-    if (config.calculate_calibration_marginals
-            or config.write_reduced_camera_matrix):
-        raise NotImplementedError(
-            "the calibration epilogue is not ported yet (ROADMAP.md "
-            "queue 1)")
-    p, stats = solve_adaptive(problem, config, use_imu, max_iter,
-                              gn_damping, error_increase_allowed)
+    if staging:
+        # start with the T_vs translation frozen
+        config = dataclasses.replace(config, tvs_translation_active=False)
+    p, stats = solve_adaptive(problem, config, use_imu, max_iter, gn_damping,
+                              error_increase_allowed, verbose, staging)
+    config = stats["config"]
     summary = Summary()
     summary.iterations = stats["iterations"]
     summary.initial_cost = float(stats["initial_cost"])
@@ -514,7 +631,9 @@ def solve(problem: Problem, config: BAConfig, max_iter: int = 10,
     summary.pre_solve_norm = float(stats["pre_solve_norm"])
     summary.post_solve_norm = float(stats["post_solve_norm"])
     summary.inner_iterations = int(stats["inner_trials"])
+    summary.tvs_translation_enabled = config.tvs_translation_active
     _fill_breakdown(summary, stats["breakdown"])
+    _calibration_epilogue(p, config, use_imu, summary)
     return p, summary
 
 

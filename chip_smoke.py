@@ -12,8 +12,12 @@ Phases, each of which exits non-zero when a check fails:
      seed 1), band width from the problem, cast to f32, prepare_landmarks;
   3. kernel 1 (reprojection) against its plain version, f64 and f32, with
      and without Jacobians, at the flagship rows and at a row count that is
-     not a multiple of the kernel's 32-row blocks;
-  4. kernel 2 (grouped segmented block sum) against its plain version on
+     not a multiple of the kernel's 32-row blocks; k2: K2 (imu_preint, the
+     IMU preintegration) (a) with Jacobians and (b) without against its
+     plain version at the flagship's spans, f32 and f64, bit-identical
+     between launches (also at a stream slide's, the long trajectory's and
+     the self-calibration's 15-dim spans, below);
+  4. segsum (grouped segmented block sum) against its plain version on
      the seven sums of one flagship build, all in one launch over the
      build's segment plans, plus out-of-range ids and a segment of 2,100
      rows through one-group plans; two launches must give bit-identical
@@ -23,7 +27,7 @@ Phases, each of which exits non-zero when a check fails:
   6. GN `solve_fixed(..., 25)` and 7. the default dogleg `solve`, at the
      flagship size in f32: the cost and the ATE against the simulator's
      ground truth fall, everything is finite, and both kernels' launch
-     counters moved by exactly the expected counts (kernel 2: one per
+     counters moved by exactly the expected counts (segsum: one per
      build); host syncs per iteration, and those of the one-off plan;
   8. general_small: the general assembly path (band_width 0) on a small
      f64 problem, one `assemble` (S, rhs, cost) and one `marginalize`
@@ -37,12 +41,12 @@ Phases, each of which exits non-zero when a check fails:
      the first push, ms per slide, host syncs per push, kernel launches per
      slide, the retired trajectory's ATE (at most twice the JAX package's
      f64 CPU ATE at the same configuration) and finite costs; kernel 1 and
-     kernel 2 against their plain versions at a slide's shapes;
+     segsum against their plain versions at a slide's shapes;
  11. timings from CUDA events, at the flagship's shapes and at a slide's:
      each kernel per call (host launch cost included) and on the device
      (CUDA-graph replay), beside the launch floor (a one-element add,
      replayed the same way), its bound and its plain version; index_add_,
-     kernel 2's library yardstick, both ways; the segment plans' one-off
+     segsum's library yardstick, both ways; the segment plans' one-off
      build; kf/s of both drivers and of the stream;
  12. banded_small: the banded solvers on the card against the CPU in f64
      (simulate(80 poses, 200 landmarks), four chunks): solve_reduced_banded
@@ -80,8 +84,8 @@ Phases, each of which exits non-zero when a check fails:
      more rows than a warp, bit-identical relaunch;
  17. cg: GN solve_fixed(..., 10) of that problem: cost and ATE fall,
      solver_ok at every iteration, PCG iterations per build, host syncs per
-     build (at most ceil(100 / 8)), exact launch counts of kernels 1, 2 and
-     6, kf/s, ms per iteration, peak memory; the first step against the
+     build (at most ceil(100 / 8)), exact launch counts of kernel 1,
+     segsum and kernel 6, kf/s, ms per iteration, peak memory; the first step against the
      dense solve of the same build (banded grid + dense Cholesky) within a
      multiple of the same gap on an f32 CPU run at 256 poses;
  18. fleet_small: both fleet branches on the card against the CPU in f64 (2
@@ -94,15 +98,39 @@ Phases, each of which exits non-zero when a check fails:
      kernel 10 (a) and (b) against their plain versions, f32 and f64, with
      padding W blocks, bit-identical relaunch; fleet: GN solve_fixed(...,
      25) on solve_reduced_fleet_dense, 0 host syncs per iteration, exact
-     launch counts of kernels 1, 2 and 10, every window's cost and ATE
+     launch counts of kernel 1, segsum and kernel 10, every window's cost
+     and ATE
      fall, one iteration against fleet_size 1 (the chunked banded path),
      kf/s and ms per iteration;
  20. kernels 6 and 10 timed as in 11: torch.mv on the dense S of the same
      CG build is K6's library yardstick, one index_put_ into a zeroed W_T
      K10 (a)'s; the dense fleet solve's bmm, cholesky_ex and triangular
-     solves timed apart.
+     solves timed apart;
+ 21. the full-width self-calibration (the flagship sequence under the
+     reference's fullest template configuration <R,1,15,5,true>: pose_dim
+     15, inverse depth, the 5 FOV intrinsics and the 6 T_vs tangents,
+     intrinsics and T_vs moved as tests/test_selfcal.py moves them, f32):
+     K2 at its 15-dim spans; k1_calib: kernel 1 with the 11 calibration
+     columns against its plain version, and with XYZ landmarks (lm_size 3,
+     linear camera) at the calibration service's 43,200 rows, f32 and f64,
+     and the calibration variant timed;
+ 22. selfcal_small: a GN iteration, the dogleg `solve` and its calibration
+     marginals on the card against the CPU in f64 (10 poses);
+ 23. selfcal: the dogleg `solve(..., max_iter=40)` at full width: the final
+     cost at most 1e-4 of the first build's, the intrinsics' error falls,
+     everything finite; the intrinsics and T_vs errors against the
+     simulator beside the JAX package's test bound of 5e-2, kf/s, ms per
+     iteration, host syncs per iteration, exact launches of kernel 1,
+     segsum and K2, peak memory;
+ 24. vicalib: `ViCalibrator.solve_once` through its three stages (T_vs
+     rotation only, then its translation, then the biases) on a synthetic
+     camera-IMU capture made from a seed (a 6 x 6 tag grid of 144 corners,
+     300 frames at 20 Hz, IMU at 200 Hz, the linear camera), f32: the
+     stages advance, the calibration improves, the mse per stage and the
+     seconds per solve_once.
 
-The last lines are the `kernels` JSON line, the card's name and power
+K2 launches are counted on every path (one (a) per build, one (b) per
+trial cost).  The last lines are the `kernels` JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or when
 `ba_tpu_torch` is not next to this script, it exits non-zero before
 printing a result.
@@ -129,7 +157,7 @@ EXPECTED = dict(P=128, L=497, Nr=9696, Ni=127, B=24)
 # ~10^3 operations each.  Segment sums: the same values added in another
 # order.
 TOL_K1 = {"float64": 1e-10, "float32": 1e-4}
-TOL_K2 = {"float64": 1e-12, "float32": 1e-5}
+TOL_SEG = {"float64": 1e-12, "float32": 1e-5}
 # card vs CPU on the small f64 problem: roundoff amplified by a few solves
 # (the CPU tests hold the port to ba_tpu at the same 1e-8)
 TOL_SMALL = 1e-8
@@ -147,15 +175,16 @@ STREAM_EXPECTED = dict(L_w=448, n_proj=2787, n_imu=9, imu_span=11,
 JAX_F64_ATE_M = 0.00126      # printed as 0.126 cm
 # kernel launches per slide: 2 GN builds + the marginalization's build
 # with Jacobians, 2 trial costs without (kernel 1); one grouped sum per
-# build (kernel 2)
-K1_PER_SLIDE, K2_PER_SLIDE = 5, 3
+# build (segsum); K2 (a) per build, (b) per trial
+K1_PER_SLIDE, SEG_PER_SLIDE = 5, 3
+IMU_A_PER_SLIDE, IMU_B_PER_SLIDE = 3, 2
 
 # the long trajectory (bench_roofline.py:26-44, --what band --poses 2048;
 # bench_scaling.py's bandsolve at P = 2048, 10 GN iterations)
 LONG = dict(poses=2048, lms=8192, iters=10)
 LONG_EXPECTED = dict(P=2048, L=8174, Nr=173603, Nw=181771, Ni=2047, B=24,
                      n_sp=2123334)
-# kernel launches per build of the banded solver: kernel 2 twice in
+# kernel launches per build of the banded solver: segsum twice in
 # assemble_blocks (gradient, V, rhs_l and W blocks; then W V^-1 rhs_l), once
 # in band_S, once for the Cauchy factor and once for the landmark
 # back-substitution; kernel 7 once (band_S, grouped form); kernel 9 once per
@@ -175,7 +204,7 @@ STEP_GAP_POSES, STEP_GAP_FACTOR = 256, 3.0
 CG = dict(poses=1024, lms=4096, iters=10, max_it=100, tol=1e-5)
 CG_EXPECTED = dict(P=1024, L=4076, Nr=85823, Nw=89896, Ni=1023)
 # kernel launches per CG build besides the PCG's Schur products (one kernel 6
-# and one kernel 2 each): kernel 2 twice in assemble_blocks, once for the
+# and one segsum each): segsum twice in assemble_blocks, once for the
 # Cauchy factor, once for the landmark back-substitution
 K2_PER_CG_BUILD = 4
 # kernels 6 and 10 against their plain versions, relative to
@@ -191,7 +220,7 @@ CG_GAP_POSES, CG_GAP_FACTOR = 256, 3.0
 # (:50-61, :89-96), apps/fleet_serve.py's fused route, 25 GN iterations
 FLEET = dict(vehicles=4, poses=128, lms=512, iters=25)
 FLEET_EXPECTED = dict(P=512, L=1988, Nr=38784, Nw=40752, B=24, H=(1, 1))
-# kernel 2 launches per dense fleet build: twice in assemble_blocks, once
+# segsum launches per dense fleet build: twice in assemble_blocks, once
 # for the families' band, once for the Cauchy factor, once for the
 # back-substitution; kernel 10 (a) and (b) once each
 K2_PER_FLEET_BUILD = 5
@@ -203,14 +232,60 @@ K2_PER_FLEET_BUILD = 5
 # max abs in m)
 FLEET_VS_BANDED = dict(pre_cost=1e-6, post_cost=1e-3, poses_t=1e-3)
 
+# K2 (imu_preint) against its plain version: the residuals and integrated
+# states relative to the states' scale max(1, max |t|, max |v|) (a residual
+# is a difference of two states of that size), the Jacobians and C9 to
+# their own max |plain| (C9 is ~1e-6); f64 the same operations in another
+# order, f32 through ~10 dependent RK4 steps and the 10 x 10 products.
+# Tightened from 1e-11 (f64) and 1e-5 / 2e-4 (f32) to ~20x what the H100
+# showed (f32 r <= 5.3e-8, J and C9 <= 3.9e-7; f64 <= 5.4e-16)
+TOL_IMU = {"float64": dict(r=1e-13, j=1e-13),
+           "float32": dict(r=1e-6, j=1e-5)}
+
+# the full-width self-calibration: the flagship sequence under the
+# reference's fullest template configuration <R,1,15,5,true>
+# (tests/test_selfcal.py:126-152), intrinsics and T_vs moved as that test
+# moves them, the dogleg `solve` with max_iter 40
+CALIB_ERR = [2.0, -2.0, 3.0, -2.0, 0.01]
+TVS_ROT, TVS_T = [0.01, -0.008, 0.012], [0.01, -0.02, 0.015]
+SELFCAL = dict(max_iter=40)
+SELFCAL_EXPECTED = dict(P=128, K=11, N=1931, Nr=9696, Ni=127, M=11)
+
+# the calibration service: a synthetic camera-IMU capture (a real one runs
+# a minute or more; cut to 15 s): a 6 x 6 tag grid, 300 frames at 20 Hz,
+# IMU at 200 Hz, the linear camera TRUE_CAM (tests/test_calibrator.py)
+VICALIB = dict(seed=0, tags=6, tag=0.088, gap=0.0264, frames=300,
+               imu_hz=200.0, imu_per_frame=10, mse_bound=1e-2)
+VICALIB_EXPECTED = dict(rows=43200)
+TRUE_CAM = (250.0, 245.0, 320.0, 240.0)
+
 # H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 # floating-point operations of one reprojection row with Jacobians, counted
 # from csrc/reprojection.cu (transfer chain ~185, projection ~70, the 13
-# Jacobian columns ~800)
+# Jacobian columns ~800), and of one calibration column by the chain rule on
+# the primal's intermediates (the ray, the transfer rotation, the 2 x 3
+# projection Jacobian): an intrinsic moves the projection directly (~8) and
+# the reference ray (~20, rotated ~15 and projected ~10); a T_vs tangent
+# moves the point at the measuring camera (~10) and the reference point
+# through the transfer rotation (~20), projected (~10).  This counts the
+# function, not the kernel's dual numbers (which re-run the residual)
 K1_FLOPS_PER_ROW = 1055
+K1_CAL_FLOPS_INTRINSIC, K1_CAL_FLOPS_TVS = 55, 40
+# floating-point operations of K2 (a) by the chain rule, not the kernel's
+# forward mode: per RK4 step the primal (~440), the step Jacobian [A | B]
+# (10 x 16) from the four stages' sparse Jacobians (the quaternion rows
+# 4 x 7, the velocity rows 3 x 4 plus R: ~110 to form, ~250 to apply, ~320
+# per stage input, ~800 for the combination, ~150 through the
+# normalization: ~3,300) and the products Phi <- A Phi (~2,000), Bsum <- A
+# Bsum + B (~1,260) and the symmetric C <- A C A^T + B R B^T / dt (~3,900);
+# per span the residual map and its Jacobians (~600) and J1s = Jy Phi J_y0,
+# J1b = Jy Bsum and the symmetric C9 = Jy C10 Jy^T (~7,200); (b) the primal
+# step and the residual
+K2A_FLOPS_PER_STEP, K2A_FLOPS_PER_SPAN = 11000, 7800
+K2B_FLOPS_PER_STEP, K2B_FLOPS_PER_SPAN = 440, 100
 
 
 def check(cond, msg):
@@ -398,8 +473,8 @@ def capture_build_sums(p, cfg):
             for v, sp in calls[0]]
 
 
-def _k2_check(dt, what, got, again, vals, ids, nseg):
-    """One sum of kernel 2 against `_seg_sum_plain` in f64 and against a
+def _seg_check(dt, what, got, again, vals, ids, nseg):
+    """One sum of segsum against `_seg_sum_plain` in f64 and against a
     second launch; returns the max abs error."""
     import torch
 
@@ -408,16 +483,16 @@ def _k2_check(dt, what, got, again, vals, ids, nseg):
     want = _seg_sum_plain(vals.double(), ids, nseg)
     err, rel = rel_err(got, want)
     same = bool(torch.equal(got, again))
-    say(f"kernel 2 {dt} {what} n={vals.shape[0]} k={vals.shape[1]} "
+    say(f"segsum {dt} {what} n={vals.shape[0]} k={vals.shape[1]} "
         f"nseg={nseg}: max abs err {err:.3e} rel {rel:.3e} "
-        f"(tol {TOL_K2[dt]:g}); bit-identical relaunch {same}")
-    check(rel <= TOL_K2[dt], f"kernel 2 {what}: rel err {rel:.3g}")
-    check(same, f"kernel 2 {what}: two launches differ")
+        f"(tol {TOL_SEG[dt]:g}); bit-identical relaunch {same}")
+    check(rel <= TOL_SEG[dt], f"segsum {what}: rel err {rel:.3g}")
+    check(same, f"segsum {what}: two launches differ")
     return err
 
 
-def phase_k2(sums, label="flagship", extras=True):
-    """Kernel 2 against the plain version + determinism: the seven sums of
+def phase_segsum(sums, label="flagship", extras=True):
+    """segsum against the plain version + determinism: the seven sums of
     a build in one grouped launch (f32 and f64); with `extras`,
     out-of-range ids and a 2,100-row segment through one-group plans.
     Returns the f32 max abs error."""
@@ -434,12 +509,12 @@ def phase_k2(sums, label="flagship", extras=True):
         b = segsum.seg_sum_grouped(groups)
         torch.cuda.synchronize()
         for (name, v, _, ids, nseg), x, y in zip(sums, a, b):
-            err = _k2_check(dt, f"{label} grouped launch, {name}", x, y, v,
+            err = _seg_check(dt, f"{label} grouped launch, {name}", x, y, v,
                             ids, nseg)
             if dt == "float32":
                 worst = max(worst, err)
     if not extras:
-        say(f"PHASE kernel2 ({label}) ok")
+        say(f"PHASE segsum ({label}) ok")
         return worst
 
     # out-of-range ids drop their rows (the flagship build has none)
@@ -463,10 +538,10 @@ def phase_k2(sums, label="flagship", extras=True):
             x = segsum.seg_sum(vals.to(dtype), ids_, nseg_)
             y = segsum.seg_sum(vals.to(dtype), ids_, nseg_)
             torch.cuda.synchronize()
-            err = _k2_check(dt, what, x, y, vals, ids_, nseg_)
+            err = _seg_check(dt, what, x, y, vals, ids_, nseg_)
             if dt == "float32":
                 worst = max(worst, err)
-    say(f"PHASE kernel2 ({label}) ok")
+    say(f"PHASE segsum ({label}) ok")
     return worst
 
 
@@ -514,10 +589,13 @@ def phase_small_reference():
 
 def _counters_zero():
     from ba_tpu_torch.kernels import (band_matvec, band_schur, fleet_schur,
-                                      reprojection, schur_matvec, segsum)
+                                      imu_preint, reprojection, schur_matvec,
+                                      segsum)
     from ba_tpu_torch.utils.sync import item
 
     reprojection.reprojection.launches = 0
+    imu_preint.imu_full.launches = 0
+    imu_preint.imu_residual.launches = 0
     segsum.seg_sum_grouped.launches = 0
     band_schur.band_schur.launches = 0
     band_matvec.band_matvec.launches = 0
@@ -525,6 +603,13 @@ def _counters_zero():
     fleet_schur.fleet_w.launches = 0
     fleet_schur.fleet_epilogue.launches = 0
     item.count = 0
+
+
+def _imu_counters():
+    """(K2 (a), K2 (b)) launches since `_counters_zero`."""
+    from ba_tpu_torch.kernels import imu_preint
+
+    return imu_preint.imu_full.launches, imu_preint.imu_residual.launches
 
 
 def _band_counters():
@@ -612,6 +697,7 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
     p, costs, dns = run()
     secs = time.perf_counter() - t0
     k1, k2, reads = _counters()
+    ia, ib = _imu_counters()
 
     costs_h = costs.double().cpu()
     ate1 = _ate(p, sim)
@@ -620,8 +706,8 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
     say(f"GN solve_fixed({N_ITERS}) f32: cost {cost0:.6g} -> "
         f"{float(costs_h[-1]):.6g}, ATE {ate0:.6g} -> {ate1:.6g} m, "
         f"solver_ok at start/end {ok0}/{ok1}, kernel launches "
-        f"reprojection {k1} segsum {k2}, bit-identical to the warm-up run "
-        f"{torch.equal(costs, warm[1])}")
+        f"reprojection {k1} segsum {k2} imu_preint (a) {ia} (b) {ib}, "
+        f"bit-identical to the warm-up run {torch.equal(costs, warm[1])}")
     check(bool(torch.isfinite(costs_h).all()) and _finite(p),
           "GN: non-finite values")
     check(float(costs_h[-1]) < cost0, "GN: cost did not fall")
@@ -631,13 +717,16 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
           f"expected {2 * N_ITERS} (one build + one trial per iteration)")
     check(k2 == N_ITERS, f"GN: {k2} segsum launches, expected "
           f"{N_ITERS} (one per build)")
+    check((ia, ib) == (N_ITERS, N_ITERS), f"GN: imu_preint launches "
+          f"({ia}, {ib}), expected one (a) per build, one (b) per trial")
     kf = N_POSES * N_ITERS / secs
     say(f"[{smi}] GN solve_fixed({N_ITERS}): {secs * 1e3:.1f} ms, "
         f"{kf:.1f} kf/s; host syncs {syncs}: the plan's {n_plan_syncs} "
         f"once, then {(syncs - n_plan_syncs) / N_ITERS:.2f} per iteration "
         f"(counted reads {reads})")
     say("PHASE gn ok")
-    return dict(k1=k1, k2=k2, kf_s=kf, syncs=syncs, iters=N_ITERS)
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, kf_s=kf,
+                syncs=syncs, iters=N_ITERS)
 
 
 def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
@@ -659,6 +748,7 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     p, s = run()
     secs = time.perf_counter() - t0
     k1, k2, reads = _counters()
+    ia, ib = _imu_counters()
 
     ate1 = _ate(p, sim)
     # host reads: one for use_imu, then per iteration one per inner trial
@@ -668,7 +758,8 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     say(f"dogleg solve f32: {s.iterations} iterations ({trials} trials), "
         f"{s.result}, cost {s.initial_cost:.6g} -> {s.final_cost:.6g}, "
         f"ATE {ate0:.6g} -> {ate1:.6g} m, kernel launches reprojection "
-        f"{k1} segsum {k2}, same as the warm-up run "
+        f"{k1} segsum {k2} imu_preint (a) {ia} (b) {ib}, same as the warm-up "
+        f"run "
         f"{(s.iterations, s.final_cost) == (warm.iterations, warm.final_cost)}")
     check(s.is_good, f"dogleg: result {s.result}")
     check(_finite(p) and torch.isfinite(torch.tensor(s.final_cost)),
@@ -680,13 +771,19 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
           f"{s.iterations + trials + 1}")
     check(k2 == s.iterations, f"dogleg: {k2} segsum launches, "
           f"expected {s.iterations} (one per build)")
+    # K2: (a) per build, (b) per trial, and one of each for the error
+    # breakdown (its cost-only evaluation has no cached covariance)
+    check((ia, ib) == (s.iterations + 1, trials + 1),
+          f"dogleg: imu_preint launches ({ia}, {ib}), expected "
+          f"({s.iterations + 1}, {trials + 1})")
     kf = N_POSES * s.iterations / secs
     say(f"[{smi}] dogleg solve: {secs * 1e3:.1f} ms, {kf:.1f} kf/s; host "
         f"syncs {syncs}: the plan's {n_plan_syncs} once, then "
         f"{(syncs - n_plan_syncs) / s.iterations:.2f} per iteration "
         f"(counted reads {reads})")
     say("PHASE dogleg ok")
-    return dict(k1=k1, k2=k2, kf_s=kf, syncs=syncs, iters=s.iterations)
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, kf_s=kf,
+                syncs=syncs, iters=s.iterations)
 
 
 def _compare(pairs, what, tol):
@@ -756,7 +853,7 @@ def phase_ring_small():
                 for n, g, c in zip("qtvbx", gc[:5], cc[:5])]
              + [("final prior H", gc[5].H, cc[5].H)],
              "ring, 4 slides f64", TOL_SMALL)
-    check(counts[:2] == (4 * K1_PER_SLIDE, 4 * K2_PER_SLIDE),
+    check(counts[:2] == (4 * K1_PER_SLIDE, 4 * SEG_PER_SLIDE),
           f"ring_small: launches {counts[:2]} over 4 slides")
     say("PHASE ring_small ok")
 
@@ -816,6 +913,7 @@ def phase_stream(smi):
     wait(dev)
     t_steady = time.perf_counter() - t0
     k1, k2, _ = _counters()
+    ia, ib = _imu_counters()
 
     n = len(outs)
     n_steady = n - 1
@@ -830,7 +928,7 @@ def phase_stream(smi):
         f"{n_steady} slides; host syncs per steady push min {min(syncs)} "
         f"max {max(syncs)} total {sum(syncs)}; kernel launches "
         f"reprojection {k1} ({k1 / n:.2f} per slide) segsum {k2} "
-        f"({k2 / n:.2f} per slide)")
+        f"({k2 / n:.2f} per slide) imu_preint (a) {ia} (b) {ib}")
     say(f"stream f32: retired-trajectory ATE {ate:.6g} m (bound "
         f"{2 * JAX_F64_ATE_M:g} m, twice the JAX f64 CPU ATE); last slide "
         f"cost {float(costs[-1]):.6g}; costs finite "
@@ -840,11 +938,15 @@ def phase_stream(smi):
           "stream: non-finite costs or states")
     check(ate <= 2 * JAX_F64_ATE_M, f"stream: ATE {ate:.6g} m > "
           f"{2 * JAX_F64_ATE_M:g} m")
-    check((k1, k2) == (K1_PER_SLIDE * n, K2_PER_SLIDE * n),
+    check((k1, k2) == (K1_PER_SLIDE * n, SEG_PER_SLIDE * n),
           f"stream: launches ({k1}, {k2}), expected "
-          f"({K1_PER_SLIDE * n}, {K2_PER_SLIDE * n})")
+          f"({K1_PER_SLIDE * n}, {SEG_PER_SLIDE * n})")
+    check((ia, ib) == (IMU_A_PER_SLIDE * n, IMU_B_PER_SLIDE * n),
+          f"stream: imu_preint launches ({ia}, {ib}), expected "
+          f"({IMU_A_PER_SLIDE * n}, {IMU_B_PER_SLIDE * n})")
     say("PHASE stream ok")
-    return dict(k1=k1, k2=k2, slides=n, kf_s=kf_s, ms_slide=ms_slide,
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, slides=n,
+                kf_s=kf_s, ms_slide=ms_slide,
                 syncs_per_push=sum(syncs) / len(syncs), ate=ate,
                 last_cost=float(costs[-1])), sched, cfg
 
@@ -946,7 +1048,7 @@ def phase_timing(p32, cfg, sums, smi, label="flagship"):
               library_device_ms=graph_ms(seven(library), 20))
     shapes = ", ".join(f"{v.shape[0]}x{v.shape[1]}->{n}"
                        for _, v, _, _, n in sums)
-    say(f"[{smi}] kernel 2 segsum, {label}, the seven sums of one build in "
+    say(f"[{smi}] segsum, {label}, the seven sums of one build in "
         f"one launch ({shapes}) f32: {t2['ms']:.4f} ms per build "
         f"({t2['device_ms']:.4f} ms on the device, "
         f"{k2_bound / t2['device_ms']:.2%} of the bound); index_add_ "
@@ -1027,7 +1129,7 @@ def phase_banded_small():
         pm = prepare_landmarks(_random_prior(pm, 0.05, 3), cfg)
         cfg_s = dataclasses.replace(cfg, use_banded_solver=False,
                                     schur_on_band=True)
-        check(step._reduced_path(pm, cfg_s) == "schur_on_band",
+        check(step._reduced_path(pm, cfg_s)[0] == "schur_on_band",
               "banded_small: not the schur_on_band path")
         built = step._build_and_solve(pm, cfg_s, True)
         r["schur_on_band delta_p"] = built.step.delta_p
@@ -1264,6 +1366,7 @@ def phase_long(p, cfg, sim, smi):
         step.gn_iteration = orig
     k1, k2, reads = _counters()
     k7, k9 = _band_counters()
+    ia, ib = _imu_counters()
     peak = torch.cuda.max_memory_allocated()
     costs_h = costs.double().cpu()
     ate1 = _ate(q, sim)
@@ -1272,7 +1375,8 @@ def phase_long(p, cfg, sim, smi):
     say(f"long GN solve_fixed({n}) f32: cost {cost0:.6g} -> "
         f"{float(costs_h[-1]):.6g}, ATE {ate0:.6g} -> {ate1:.6g} m, "
         f"solver_ok at every iteration {all_ok}, kernel launches "
-        f"reprojection {k1} segsum {k2} band_schur {k7} band_matvec {k9}")
+        f"reprojection {k1} segsum {k2} band_schur {k7} band_matvec {k9} "
+        f"imu_preint (a) {ia} (b) {ib}")
     say(f"[{smi}] long GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
         f"{secs * 1e3 / n:.1f} ms per iteration, {kf:.1f} kf/s; peak device "
         f"memory {peak / 2**30:.3f} GiB; host syncs {syncs} (the plans' "
@@ -1287,6 +1391,7 @@ def phase_long(p, cfg, sim, smi):
             K9_PER_BUILD * n)
     check((k1, k2, k7, k9) == want, f"long: launches {(k1, k2, k7, k9)}, "
           f"expected {want}")
+    check((ia, ib) == (n, n), f"long: imu_preint launches ({ia}, {ib})")
     check(syncs == plan_again, f"long: {syncs - plan_again} host syncs in "
           f"{n} iterations")
 
@@ -1322,7 +1427,8 @@ def phase_long(p, cfg, sim, smi):
     check(got_p <= STEP_GAP_FACTOR * gap_p and got_l <= STEP_GAP_FACTOR
           * gap_l, "long: the banded step is off the dense one")
     say("PHASE long ok")
-    return dict(k1=k1, k2=k2, k7=k7, k9=k9, kf_s=kf, ms_iter=secs * 1e3 / n,
+    return dict(k1=k1, k2=k2, k7=k7, k9=k9, imu=ia + ib, imu_a=ia, imu_b=ib,
+                kf_s=kf, ms_iter=secs * 1e3 / n,
                 peak_gib=peak / 2**30, peak_dense_gib=peak_d / 2**30,
                 syncs=syncs - plan_again, gap_p=got_p, gap_l=got_l)
 
@@ -1482,7 +1588,8 @@ def phase_cg_small():
                                      with_marg_prior=False, device=dev)
         p = prepare_landmarks(raw, cfg)
         P, D = p.poses.q.shape[0], cfg.pose_dim
-        check(step._reduced_path(p, cfg) == "cg", "cg_small: not the CG path")
+        check(step._reduced_path(p, cfg)[0] == "cg",
+              "cg_small: not the CG path")
         _counters_zero()
         bs, mH = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True,
                                                            True))
@@ -1691,6 +1798,7 @@ def phase_cg(p, cfg, sim, smi):
         step.gn_iteration, cg.pcg_solve = orig_gn, orig_pcg
     k1, k2, reads = _counters()
     k6 = _new_counters()[0]
+    ia, ib = _imu_counters()
     peak = torch.cuda.max_memory_allocated()
     costs_h = costs.double().cpu()
     ate1 = _ate(q, sim)
@@ -1705,7 +1813,7 @@ def phase_cg(p, cfg, sim, smi):
         f"solver_ok at every iteration {all_ok}; PCG iterations per build "
         f"{its} (cap {CG['max_it']}, tol {CG['tol']:g}); Schur products "
         f"launched {matvecs}; kernel launches reprojection {k1} segsum {k2} "
-        f"schur_matvec {k6}")
+        f"schur_matvec {k6} imu_preint (a) {ia} (b) {ib}")
     say(f"[{smi}] CG GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
         f"{secs * 1e3 / n:.1f} ms per iteration, {kf:.1f} kf/s; peak device "
         f"memory {peak / 2**30:.3f} GiB; host syncs {syncs} (the plans' "
@@ -1721,6 +1829,7 @@ def phase_cg(p, cfg, sim, smi):
     want = (2 * n, K2_PER_CG_BUILD * n + matvecs, matvecs)
     check((k1, k2, k6) == want, f"cg: launches {(k1, k2, k6)}, expected "
           f"{want}")
+    check((ia, ib) == (n, n), f"cg: imu_preint launches ({ia}, {ib})")
     check(max(pcg_reads) <= max_reads, f"cg: {max(pcg_reads)} host reads in "
           "one PCG solve")
     check(syncs - plan_again == sum(pcg_reads) == reads,
@@ -1751,7 +1860,8 @@ def phase_cg(p, cfg, sim, smi):
     check(got_p <= CG_GAP_FACTOR * gap_p and got_l <= CG_GAP_FACTOR * gap_l,
           "cg: the PCG step is off the dense one")
     say("PHASE cg ok")
-    return dict(k1=k1, k2=k2, k6=k6, kf_s=kf, ms_iter=secs * 1e3 / n,
+    return dict(k1=k1, k2=k2, k6=k6, imu=ia + ib, imu_a=ia, imu_b=ib,
+                kf_s=kf, ms_iter=secs * 1e3 / n,
                 peak_gib=peak / 2**30, cg_iters=its, syncs_per_build=pcg_reads,
                 gap_p=got_p, gap_l=got_l)
 
@@ -1808,7 +1918,7 @@ def phase_fleet_small():
                 ("banded", _fleet_windows(sims[0], 1, 1, dev)
                  + _fleet_windows(sims[1], 1, 2, dev))):
             p, cfg = _fuse(ws, 2)
-            paths[kind] = step._reduced_path(p, cfg)
+            paths[kind] = step._reduced_path(p, cfg)[0]
             _counters_zero()
             built = step._build_and_solve(p, cfg, True)
             q, costs, _ = step.solve_fixed(p, cfg, True, 2)
@@ -1971,7 +2081,7 @@ def phase_fleet(p, cfg, sim, windows, smi):
     from ba_tpu_torch.solver import banded, step
 
     n = FLEET["iters"]
-    check(step._reduced_path(p, cfg) == "fleet_dense",
+    check(step._reduced_path(p, cfg)[0] == "fleet_dense",
           "fleet: not the dense fleet solve")
     before = _window_costs(p, windows, cfg, sim)
 
@@ -2013,6 +2123,7 @@ def phase_fleet(p, cfg, sim, windows, smi):
                                                                orig_fd)
     k1, k2, reads = _counters()
     _, k10a, k10b = _new_counters()
+    ia, ib = _imu_counters()
     peak = torch.cuda.max_memory_allocated()
     costs_h = costs.double().cpu()
     after = _window_costs(q, windows, cfg, sim)
@@ -2025,7 +2136,7 @@ def phase_fleet(p, cfg, sim, windows, smi):
                     for b, a in zip(before, after))
         + f"; solver_ok at every iteration {all_ok}; dense fleet solves "
         f"{len(solves)}; kernel launches reprojection {k1} segsum {k2} "
-        f"fleet_schur (a) {k10a} (b) {k10b}")
+        f"fleet_schur (a) {k10a} (b) {k10b} imu_preint (a) {ia} (b) {ib}")
     say(f"[{smi}] fleet GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
         f"{secs * 1e3 / n:.1f} ms per iteration, {kf:.1f} kf/s "
         f"({FLEET['vehicles']} x {FLEET['poses']} x {n} / wall); peak device "
@@ -2041,13 +2152,14 @@ def phase_fleet(p, cfg, sim, windows, smi):
     want = (2 * n, K2_PER_FLEET_BUILD * n, n, n)
     check((k1, k2, k10a, k10b) == want, f"fleet: launches "
           f"{(k1, k2, k10a, k10b)}, expected {want}")
+    check((ia, ib) == (n, n), f"fleet: imu_preint launches ({ia}, {ib})")
     check(syncs == plan_again, f"fleet: {syncs - plan_again} host syncs in "
           f"{n} iterations")
 
     # one iteration against the chunked banded path (tests/test_fleet.py)
     r4 = step.gn_iteration(p, cfg, True)
     cfg1 = dataclasses.replace(cfg, fleet_size=1)
-    check(step._reduced_path(p, cfg1) == "banded", "fleet: F=1 not banded")
+    check(step._reduced_path(p, cfg1)[0] == "banded", "fleet: F=1 not banded")
     r1 = step.gn_iteration(p, cfg1, True)
     pre = abs(float(r4.pre_cost) - float(r1.pre_cost)) / float(r1.pre_cost)
     post = abs(float(r4.post_cost) - float(r1.post_cost)) / float(
@@ -2067,7 +2179,8 @@ def phase_fleet(p, cfg, sim, windows, smi):
           and dt_ <= FLEET_VS_BANDED["poses_t"],
           "fleet: fleet_size 4 and 1 disagree")
     say("PHASE fleet ok")
-    return dict(k1=k1, k2=k2, k10=k10a + k10b, k10a=k10a, k10b=k10b, kf_s=kf,
+    return dict(k1=k1, k2=k2, k10=k10a + k10b, k10a=k10a, k10b=k10b,
+                imu=ia + ib, imu_a=ia, imu_b=ib, kf_s=kf,
                 ms_iter=secs * 1e3 / n, peak_gib=peak / 2**30,
                 costs_after=[a[0] for a in after],
                 ate_after=[a[1] for a in after])
@@ -2219,6 +2332,538 @@ def phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f,
     return rec6, rec10
 
 
+# ---------------------------------------------------------------------------
+# K2 (imu_preint), self-calibration and the calibration service
+
+
+def _imu_scale(p):
+    """The size of the states a residual subtracts: max(1, max |t|,
+    max |v|)."""
+    return max(1.0, float(p.poses.t.double().abs().max()),
+               float(p.poses.v.double().abs().max()))
+
+
+def phase_imu(p, cfg, label):
+    """K2 (a) and (b) against their plain versions on the spans of `p`, in
+    f32 and on an f64 copy, bit-identical between launches.  Returns the
+    f32 max abs error (of the residuals and the Jacobians and C9)."""
+    import torch
+
+    from ba_tpu_torch.core.residuals import imu
+    from ba_tpu_torch.kernels import imu_preint
+    from ba_tpu_torch.utils.tree import tree_map
+
+    worst = 0.0
+    for dt in ("float32", "float64"):
+        dtype = getattr(torch, dt)
+        q = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, p)
+        var = (cfg.gyro_sigma**2, cfg.accel_sigma**2)
+        a1 = imu_preint.imu_full(q, cfg.pose_dim, *var)
+        a2 = imu_preint.imu_full(q, cfg.pose_dim, *var)
+        b1 = imu_preint.imu_residual(q, cfg.pose_dim)
+        b2 = imu_preint.imu_residual(q, cfg.pose_dim)
+        wa, wb = imu.full_plain(q, cfg), imu.residual_plain(q, cfg)
+        torch.cuda.synchronize()
+        scale = _imu_scale(q)
+        for part, names, got, again, want in (
+                ("(a)", ("r", "j1", "j2", "c9", "y_t", "y_v"), a1, a2, wa),
+                ("(b)", ("r", "y_t", "y_v"), b1, b2, wb)):
+            for name, g, g2, w in zip(names, got, again, want):
+                err = float((g.double() - w.double()).abs().max())
+                own = name in ("j1", "j2", "c9")
+                ref = (max(1e-300, float(w.double().abs().max())) if own
+                       else scale)
+                tol = TOL_IMU[dt]["j" if own else "r"]
+                same = bool(torch.equal(g, g2))
+                say(f"K2 imu_preint {part} {label} {dt} Ni={w.shape[0]} "
+                    f"{name:3s} {tuple(w.shape)}: max abs err {err:.3e} rel "
+                    f"{err / ref:.3e} (tol {tol:g} of "
+                    f"{'its max' if own else 'the state scale'} {ref:.3g});"
+                    f" bit-identical relaunch {same}")
+                check(err <= tol * ref, f"K2 {part} {label} {dt} {name}: "
+                      f"rel err {err / ref:.3g} > {tol:g}")
+                check(same, f"K2 {part} {label} {dt} {name}: two launches "
+                      "differ")
+                if dt == "float32":
+                    worst = max(worst, err)
+    say(f"PHASE k2 ({label}) ok")
+    return worst
+
+
+def phase_timing_imu(p, cfg, floor_ms, smi, label="flagship"):
+    """K2 (a) and (b) timed at one path's spans beside their bounds and
+    their plain versions; no PyTorch call computes them."""
+    from ba_tpu_torch.core.residuals import imu
+    from ba_tpu_torch.kernels import imu_preint
+
+    var = (cfg.gyro_sigma**2, cfg.accel_sigma**2)
+    D = cfg.pose_dim
+
+    def a_call():
+        return imu_preint.imu_full(p, D, *var)
+
+    def b_call():
+        return imu_preint.imu_residual(p, D)
+
+    im, poses = p.imu, p.poses
+    Ni, M = im.time.shape
+    steps = int(((im.time[:, 1:] - im.time[:, :-1]) > 0).sum())
+    ins = nbytes(poses.q, poses.t, poses.v, poses.b, im.pose1, im.pose2,
+                 im.w, im.a, im.time, p.g_vec)
+    a_bytes, b_bytes = ins + nbytes(*a_call()), ins + nbytes(*b_call())
+    a_flops = K2A_FLOPS_PER_STEP * steps + K2A_FLOPS_PER_SPAN * Ni
+    b_flops = K2B_FLOPS_PER_STEP * steps + K2B_FLOPS_PER_SPAN * Ni
+    out = {}
+    for part, call, nb, nf, plain in (
+            ("full", a_call, a_bytes, a_flops, lambda: imu.full_plain(p, cfg)),
+            ("residual", b_call, b_bytes, b_flops,
+             lambda: imu.residual_plain(p, cfg))):
+        bound = max(nb / HBM_BPS, nf / F32_FLOPS) * 1e3
+        by = "bytes" if nb / HBM_BPS >= nf / F32_FLOPS else "operations"
+        out[part] = dict(ms=event_ms(call, 200), device_ms=graph_ms(call, 50),
+                         plain_ms=event_ms(plain, 5), bound_ms=bound,
+                         bound_by=by, bytes=nb, flops=nf)
+    a, b = out["full"], out["residual"]
+    say(f"[{smi}] K2 imu_preint, {label} ({Ni} spans x {M} slots, {steps} "
+        f"steps, D={D}) f32: (a) with Jacobians {a['ms']:.4f} ms per call "
+        f"({a['device_ms']:.4f} ms on the device, "
+        f"{a['bound_ms'] / a['device_ms']:.1%} of the bound "
+        f"{a['bound_ms']:.5f} ms, {a['bound_by']}: {a['bytes']} B, "
+        f"{a['flops']} flop), plain {a['plain_ms']:.3f} ms; (b) residual "
+        f"{b['ms']:.4f} ms per call ({b['device_ms']:.4f} ms on the device, "
+        f"bound {b['bound_ms']:.5f} ms, {b['bound_by']}), plain "
+        f"{b['plain_ms']:.3f} ms; launch floor {floor_ms:.4f} ms")
+    say(f"PHASE timing k2 ({label}) ok")
+    rec = dict(ms=a["ms"] + b["ms"], device_ms=a["device_ms"] + b["device_ms"],
+               floor_ms=floor_ms, plain_ms=a["plain_ms"] + b["plain_ms"],
+               bound_ms=a["bound_ms"] + b["bound_ms"],
+               bound_by=a["bound_by"], library_ms=None,
+               library_device_ms=None, parts=out)
+    return rec
+
+
+def _move_calibration(p, err=CALIB_ERR, rot=TVS_ROT, trans=TVS_T):
+    """`p` with camera 0's intrinsics moved by `err` and its T_vs by the
+    rotation `rot` and the translation `trans` (tests/test_selfcal.py)."""
+    from ba_tpu_torch.core import lie
+
+    params = p.rig.params.clone()
+    params[0, :5] += params.new_tensor(err)
+    dq = lie.so3_exp(params.new_tensor(rot))
+    rig = dataclasses.replace(
+        p.rig, params=params, tvs_q=lie.quat_mul(p.rig.tvs_q[0], dq)[None],
+        tvs_t=p.rig.tvs_t + params.new_tensor([trans]))
+    return dataclasses.replace(p, rig=rig)
+
+
+def selfcal_problem():
+    """(f64 problem, f32 problem, config, SimData) of the full-width
+    self-calibration configuration, calibration moved, prepared."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = BAConfig(pose_dim=15, lm_size=1, calib_size=5, do_tvs=True,
+                   use_dogleg=True)
+    sim = sv.simulate(n_poses=N_POSES, n_lms=N_LMS, seed=0)
+    p64, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1)
+    p64 = _move_calibration(p64)
+    p32 = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a,
+                   p64)
+    P, K = p32.poses.q.shape[0], cfg.calib_dim
+    sizes = dict(P=P, K=K, N=P * cfg.pose_dim + K, Nr=p32.proj.z.shape[0],
+                 Ni=int(p32.imu.valid.sum()), M=p32.imu.time.shape[1])
+    say(f"selfcal problem {sizes} on {p32.poses.q.device} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(sizes == SELFCAL_EXPECTED, f"selfcal sizes {sizes} != "
+          f"{SELFCAL_EXPECTED}")
+    return (prepare_landmarks(p64, cfg), prepare_landmarks(p32, cfg), cfg,
+            sim)
+
+
+def phase_k1_calib(cases):
+    """Kernel 1's calibration columns (K = 11, FOV, inverse depth) and its
+    XYZ landmarks (lm_size 3, linear camera, K = 11) against the plain
+    version, f32 and f64, with and without Jacobians.  `cases` is
+    [(label, f32 problem, config)]; the f64 copies renormalize their
+    quaternions (as `stream_slide` does: the closed form and the plain
+    version's compositions agree only on unit quaternions).  Returns the
+    f32 max abs error."""
+    import torch
+
+    from ba_tpu_torch.core import lie
+    from ba_tpu_torch.core.residuals import reprojection as rp
+    from ba_tpu_torch.utils.tree import tree_map
+
+    worst = 0.0
+    for label, p, cfg in cases:
+        for dt in ("float64", "float32"):
+            dtype = getattr(torch, dt)
+            q = tree_map(lambda a: a.to(dtype) if a.is_floating_point()
+                         else a, p)
+            if dt == "float64":
+                q = dataclasses.replace(
+                    q, poses=dataclasses.replace(
+                        q.poses, q=lie.quat_normalize(q.poses.q)),
+                    rig=dataclasses.replace(
+                        q.rig, tvs_q=lie.quat_normalize(q.rig.tvs_q)))
+            for jac in (True, False):
+                got = rp.evaluate(q, cfg, jac)
+                want = rp.evaluate_plain(q, cfg, jac)
+                torch.cuda.synchronize()
+                for name in want._fields:
+                    err, rel = rel_err(getattr(got, name),
+                                       getattr(want, name))
+                    check(rel <= TOL_K1[dt], f"kernel 1 {label} {dt} "
+                          f"jac={jac} {name}: rel err {rel:.3g}")
+                    if dt == "float32":
+                        worst = max(worst, err)
+                    say(f"kernel 1 {label} {dt} Nr={q.proj.z.shape[0]} "
+                        f"jac={int(jac)} {name:7s} "
+                        f"{tuple(getattr(want, name).shape)} max abs err "
+                        f"{err:.3e} rel {rel:.3e} (tol {TOL_K1[dt]:g})")
+    say("PHASE k1_calib ok")
+    return worst
+
+
+def phase_timing_k1_calib(p, cfg, floor_ms, smi):
+    """Kernel 1 with the calibration columns timed at the self-calibration
+    shapes beside its bound and its plain version."""
+    from ba_tpu_torch.core.residuals import reprojection as rp
+    from ba_tpu_torch.kernels import reprojection as k1
+
+    pr, poses, lms, rig = p.proj, p.poses, p.lms, p.rig
+
+    def call():
+        return k1.reprojection(p, True, cfg.lm_size, cfg.calib_size,
+                               cfg.do_tvs)
+
+    nb = nbytes(pr.z, pr.pose, pr.lm, pr.cam, pr.valid, poses.q, poses.t,
+                lms.x, lms.ref_pose, lms.ref_cam, lms.z_ref, lms.has_z_ref,
+                rig.params, rig.model, rig.tvs_q, rig.tvs_t, *call())
+    rows = int(pr.valid.sum())
+    nf = rows * (K1_FLOPS_PER_ROW + cfg.calib_size * K1_CAL_FLOPS_INTRINSIC
+                 + 6 * cfg.do_tvs * K1_CAL_FLOPS_TVS)
+    bound = max(nb / HBM_BPS, nf / F32_FLOPS) * 1e3
+    by = "bytes" if nb / HBM_BPS >= nf / F32_FLOPS else "operations"
+    t = dict(ms=event_ms(call, 200), device_ms=graph_ms(call, 50),
+             plain_ms=event_ms(lambda: rp.evaluate_plain(p, cfg, True), 5))
+    say(f"[{smi}] kernel 1 reprojection with {cfg.calib_dim} calibration "
+        f"columns, selfcal, Nr={pr.z.shape[0]} f32: {t['ms']:.4f} ms per "
+        f"call ({t['device_ms']:.4f} ms on the device, "
+        f"{bound / t['device_ms']:.1%} of the bound {bound:.5f} ms, {by}: "
+        f"{nb} B, {nf} flop), plain {t['plain_ms']:.3f} ms; launch floor "
+        f"{floor_ms:.4f} ms")
+    return dict(t, bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def phase_selfcal_small():
+    """Self-calibration on the card against the CPU in f64
+    (<R,1,15,5,true> on simulate(10, 60, seed 13), calibration moved): a
+    GN iteration, the dogleg `solve` and its calibration marginals.  The
+    T_vs translation is held (staged, not yet active): the simulator turns
+    about the vertical only, which leaves the translation along it
+    unobservable and its step set by rounding, on the card as on the
+    CPU."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import step
+
+    sim = sv.simulate(n_poses=10, n_lms=60, seed=13)
+    cfg = BAConfig(pose_dim=15, lm_size=1, calib_size=5, do_tvs=True,
+                   use_dogleg=False, error_change_threshold=0.0,
+                   param_change_threshold=1e-10, tvs_translation_staging=True,
+                   tvs_translation_active=False,
+                   calculate_calibration_marginals=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        raw, _, _ = sv.build_problem(sim, cfg, perturb=0.0, seed=14,
+                                     device=dev)
+        raw = _move_calibration(raw)
+        g = step.gn_iteration(prepare_landmarks(raw, cfg), cfg, True)
+        q, s = step.solve(raw, dataclasses.replace(cfg, use_dogleg=True),
+                          max_iter=10, use_imu=True)
+        out[dev] = ({"GN post_cost": g.post_cost,
+                     "GN poses.t": g.problem.poses.t,
+                     "GN rig.params": g.problem.rig.params,
+                     "GN lms.x": g.problem.lms.x, "GN ok": g.solver_ok,
+                     "dogleg rig.params": q.rig.params,
+                     "dogleg tvs_q": q.rig.tvs_q, "dogleg poses.t": q.poses.t,
+                     "dogleg lms.x_w": q.lms.x_w,
+                     "dogleg final cost": torch.tensor(s.final_cost),
+                     "marginals": torch.as_tensor(s.calibration_marginals)},
+                    s)
+    (g, gs), (c, cs) = out["cuda"], out["cpu"]
+    _compare([(k, g[k], c[k]) for k in c], "selfcal, 10 poses f64",
+             TOL_SMALL)
+    say(f"selfcal_small dogleg: {gs.iterations} iterations, {gs.result}, "
+        f"cost {gs.initial_cost:.6g} -> {gs.final_cost:.6g} (CPU "
+        f"{cs.iterations}, {cs.result}); marginals "
+        f"{tuple(gs.calibration_marginals.shape)}")
+    check((gs.iterations, gs.result) == (cs.iterations, cs.result),
+          "selfcal_small: the dogleg took another path on the card")
+    check(bool(c["GN ok"]) and bool(g["GN ok"]), "selfcal_small: GN failed")
+    check(gs.final_cost < gs.initial_cost, "selfcal_small: dogleg cost")
+    say("PHASE selfcal_small ok")
+
+
+def _calib_errors(p, sim):
+    """(intrinsics, T_vs rotation, T_vs translation across / along the
+    turn axis) errors against the simulator's truth."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.core import lie
+
+    params = p.rig.params[0, :5].double().cpu().numpy()
+    q = p.rig.tvs_q[0].double().cpu()
+    q_true = torch.as_tensor(sim.tvs_q, dtype=torch.float64)
+    rot = float(torch.linalg.norm(lie.so3_log(lie.quat_mul(
+        q, lie.quat_conj(q_true)))))
+    dt = p.rig.tvs_t[0].double().cpu().numpy() - sim.tvs_t
+    # the vehicle turns about its z axis only: the lever arm along it is
+    # unobservable
+    return (float(np.abs(params - sim.cam_params).max()), rot,
+            float(np.abs(dt[:2]).max()), float(abs(dt[2])))
+
+
+def phase_selfcal(p, cfg, sim, smi):
+    """The full-width self-calibrating dogleg `solve` (max_iter 40) in
+    f32."""
+    import torch
+
+    from ba_tpu_torch.kernels import imu_preint
+    from ba_tpu_torch.solver import step
+    from ba_tpu_torch.solver.assemble import evaluate_cost
+
+    cost0 = float(evaluate_cost(p, cfg, step._imu_eval(p, cfg, True, False)))
+    err0 = _calib_errors(p, sim)
+    step.solve(p, cfg, max_iter=1, use_imu=True)           # warm-up
+    torch.cuda.synchronize()
+
+    def run():
+        out = step.solve(p, cfg, max_iter=SELFCAL["max_iter"], use_imu=True)
+        torch.cuda.synchronize()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    _counters_zero()
+    t0 = time.perf_counter()
+    (q, s), syncs = _sync_count(run)
+    secs = time.perf_counter() - t0
+    k1, k2, reads = _counters()
+    ia, ib = _imu_counters()
+    peak = torch.cuda.max_memory_allocated()
+    err1 = _calib_errors(q, sim)
+    its = s.iterations
+    trials = reads - its                 # use_imu given: no read for it
+    kf = N_POSES * its / secs
+    finite = _finite(q) and bool(torch.isfinite(torch.tensor(
+        [s.initial_cost, s.final_cost])).all()) and bool(
+        torch.isfinite(q.rig.params).all() and torch.isfinite(q.rig.tvs_t).all())
+    say(f"selfcal dogleg solve f32 (max_iter {SELFCAL['max_iter']}): "
+        f"{its} iterations ({trials} trials), {s.result}, cost {cost0:.6g} "
+        f"(first build {s.initial_cost:.6g}) -> {s.final_cost:.6g} "
+        f"({s.final_cost / s.initial_cost:.3e} of the first build's); "
+        f"intrinsics max error {err0[0]:.4g} -> {err1[0]:.4g} (the JAX "
+        f"package's f64 test bound 5e-2 at 12 poses), T_vs rotation error "
+        f"{err0[1]:.4g} -> {err1[1]:.4g} rad, T_vs translation error across "
+        f"the turn axis {err0[2]:.4g} -> {err1[2]:.4g} m, along it (not "
+        f"observable) {err0[3]:.4g} -> {err1[3]:.4g} m; kernel launches "
+        f"reprojection {k1} segsum {k2} imu_preint (a) {ia} (b) {ib}")
+    say(f"[{smi}] selfcal solve: {secs * 1e3:.1f} ms, {secs * 1e3 / its:.1f} "
+        f"ms per iteration, {kf:.1f} kf/s ({N_POSES} x {its} / wall); peak "
+        f"device memory {peak / 2**30:.3f} GiB; host syncs {syncs}, "
+        f"{syncs / its:.2f} per iteration (counted reads {reads}: one status "
+        f"per iteration, one per dogleg trial)")
+    check(finite, "selfcal: non-finite values")
+    check(s.final_cost <= 1e-4 * s.initial_cost,
+          f"selfcal: final cost {s.final_cost:.6g} above 1e-4 of "
+          f"{s.initial_cost:.6g}")
+    check(err1[0] < err0[0], "selfcal: the intrinsics did not improve")
+    check(k2 == its, f"selfcal: {k2} segsum launches in {its} builds")
+    check(k1 == its + trials + 1, f"selfcal: {k1} reprojection launches, "
+          f"expected {its + trials + 1}")
+    check((ia, ib) == (its + 1, trials + 1), f"selfcal: imu_preint "
+          f"launches ({ia}, {ib}), expected ({its + 1}, {trials + 1})")
+    say("PHASE selfcal ok")
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, kf_s=kf,
+                ms_iter=secs * 1e3 / its, iters=its, peak_gib=peak / 2**30,
+                syncs_per_iter=syncs / its, calib_err=err1,
+                cost_ratio=s.final_cost / s.initial_cost)
+
+
+def vicalib_capture(seed=0):
+    """A synthetic camera-IMU capture of a calibration target, made with
+    numpy from `seed`: a 6 x 6 grid of tags (88 mm, 26.4 mm gaps, the
+    layout of an AprilGrid) whose 144 corners lie on the plane z = 0; 300
+    frames at 20 Hz of a vehicle (T_vs = I, linear camera TRUE_CAM) that
+    sways 1 m in front of it while turning about all three axes; gyro and
+    accelerometer at 200 Hz, 10 samples per frame interval.  Returns
+    (target, frames [(q, t, obs, time)], imu [(w, a, time)])."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.core import lie
+
+    c = VICALIB
+    pitch = c["tag"] + c["gap"]
+    corners = []
+    for i in range(c["tags"]):
+        for j in range(c["tags"]):
+            x0, y0 = j * pitch, i * pitch
+            corners += [(x0, y0), (x0 + c["tag"], y0),
+                        (x0 + c["tag"], y0 + c["tag"]), (x0, y0 + c["tag"])]
+    target = np.array([[x, y, 0.0] for x, y in corners])
+    target[:, :2] -= target[:, :2].mean(0)
+    rng = np.random.default_rng(seed)
+    amp = rng.uniform(0.1, 0.2, 3) * np.array([1.0, 1.0, 0.5])
+    om = rng.uniform(0.5, 0.9, 3)
+    ph = rng.uniform(0.0, 2 * np.pi, 3)
+    rot_amp = np.array([0.2, 0.25, 0.15])
+    rot_om = np.array([1.1, 0.8, 0.6])
+
+    def pos(t):
+        return (np.array([0.0, 0.0, -1.0])
+                + amp * np.sin(om * t[:, None] + ph))
+
+    def acc(t):
+        return -amp * om**2 * np.sin(om * t[:, None] + ph)
+
+    def quat(t):
+        w = torch.as_tensor(rot_amp * np.sin(rot_om * t[:, None]))
+        return lie.so3_exp(w)
+
+    n_imu = (c["frames"] - 1) * c["imu_per_frame"] + 1
+    t_imu = np.arange(n_imu) / c["imu_hz"]
+    h = 1e-4
+    q0, q1 = quat(t_imu - h / 2), quat(t_imu + h / 2)
+    w = (lie.so3_log(lie.quat_mul(lie.quat_conj(q0), q1)) / h).numpy()
+    R = lie.quat_to_matrix(quat(t_imu)).numpy()
+    g = np.array([0.0, 0.0, -lie.GRAVITY])
+    a = np.einsum("nji,nj->ni", R, acc(t_imu) - g)        # R^T (a_w - g)
+    imu = [(w[k], a[k], float(t_imu[k])) for k in range(n_imu)]
+
+    t_f = t_imu[:: c["imu_per_frame"]]
+    q_f, p_f = quat(t_f).numpy(), pos(t_f)
+    R_f = lie.quat_to_matrix(quat(t_f)).numpy()
+    frames = []
+    for k in range(c["frames"]):
+        pc = (target - p_f[k]) @ R_f[k]                   # R^T (x - p)
+        check(bool((pc[:, 2] > 0.3).all()), "vicalib: a corner behind the "
+              "camera")
+        cam = np.array(TRUE_CAM)
+        pix = cam[None, :2] * pc[:, :2] / pc[:, 2:] + cam[None, 2:]
+        frames.append((q_f[k], p_f[k], list(enumerate(pix)), float(t_f[k])))
+    return target, frames, imu
+
+
+def _vicalib_service(target, frames, imu, seed):
+    """A `ViCalibrator` on the card holding the capture, started from moved
+    intrinsics, T_vs rotation and pose guesses."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.calib import ViCalibrator
+    from ba_tpu_torch.core import lie
+
+    rng = np.random.default_rng(seed + 1)
+    cal = ViCalibrator(target)
+    cal.add_camera(np.array(TRUE_CAM) + [15.0, -12.0, 6.0, -5.0], 0)
+    cal.tvs_q = lie.so3_exp(torch.tensor([0.06, -0.05, 0.04],
+                                         dtype=torch.float64)).numpy()
+    for (q, t, obs, tm) in frames:
+        dq = lie.so3_exp(torch.as_tensor(rng.normal(size=3) * 0.01)).numpy()
+        f = cal.add_frame(lie.quat_mul(torch.as_tensor(q),
+                                       torch.as_tensor(dq)).numpy(),
+                          t + rng.normal(size=3) * 0.01, tm)
+        for pid, pix in obs:
+            cal.add_observation(f, pid, pix)
+    for (w, a, tm) in imu:
+        cal.add_imu_measurements(w, a, tm)
+    return cal
+
+
+def vicalib_problems():
+    """[(prepared f32 problem, config)] of the calibration service's first
+    and last stages on the synthetic capture: XYZ landmarks, K = 11, 9-dim
+    then 15-dim states."""
+    from ba_tpu_torch.calib import STAGE_BIASES, STAGE_ROTATION
+    from ba_tpu_torch.core.problem import prepare_landmarks
+
+    cal = _vicalib_service(*vicalib_capture(VICALIB["seed"]),
+                           VICALIB["seed"])
+    out = []
+    for stage in (STAGE_ROTATION, STAGE_BIASES):
+        p, cfg, _, _ = cal._build(*cal._snapshot(), stage)
+        out.append((prepare_landmarks(p, cfg), cfg))
+    return out
+
+
+def phase_vicalib(smi):
+    """`ViCalibrator.solve_once` through its three stages on the synthetic
+    capture, f32 on the card, from moved intrinsics, T_vs rotation and
+    pose guesses."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.calib import STAGE_BIASES
+    from ba_tpu_torch.core import lie
+
+    t0 = time.perf_counter()
+    target, frames, imu = vicalib_capture(VICALIB["seed"])
+    rows = sum(len(f[2]) for f in frames)
+    cal = _vicalib_service(target, frames, imu, VICALIB["seed"])
+    say(f"vicalib capture: {len(target)} target corners, {len(frames)} "
+        f"frames, {len(imu)} IMU samples, {rows} projection rows "
+        f"({time.perf_counter() - t0:.2f} s to make and add)")
+    check(rows == VICALIB_EXPECTED["rows"], f"vicalib: {rows} rows")
+
+    def intr_err():
+        return float(np.abs(np.asarray(cal.cam_params[:4])
+                            - np.array(TRUE_CAM)).max())
+
+    def rot_err():
+        return float(torch.linalg.norm(lie.so3_log(torch.as_tensor(
+            np.asarray(cal.tvs_q, np.float64)))))
+
+    e0, r0 = intr_err(), rot_err()
+    stages = []
+    _counters_zero()
+    for k in range(3):
+        stage = cal.stage
+        t0 = time.perf_counter()
+        mse = cal.solve_once()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stages.append(dict(stage=stage, mse=mse, secs=secs))
+        say(f"[{smi}] vicalib solve_once {k}: stage {stage} -> {cal.stage}, "
+            f"mse {mse:.6g} px^2, {secs:.2f} s; intrinsics error "
+            f"{intr_err():.4g} px (from {e0:.4g}), T_vs rotation error "
+            f"{rot_err():.4g} rad (from {r0:.4g})")
+        check(np.isfinite(mse), f"vicalib: mse {mse} at stage {stage}")
+    k1, k2, _ = _counters()
+    ia, ib = _imu_counters()
+    say(f"vicalib kernel launches: reprojection {k1} segsum {k2} imu_preint "
+        f"(a) {ia} (b) {ib}")
+    check([s["stage"] for s in stages] == [0, 1, 2]
+          and cal.stage == STAGE_BIASES, "vicalib: the stages did not "
+          f"advance ({[s['stage'] for s in stages]} -> {cal.stage})")
+    check(intr_err() < e0 and rot_err() < r0,
+          "vicalib: the calibration did not improve")
+    check(stages[-1]["mse"] < VICALIB["mse_bound"],
+          f"vicalib: final mse {stages[-1]['mse']:.3g}")
+    check(min(k1, k2, ia, ib) > 0, "vicalib: a kernel never launched")
+    say("PHASE vicalib ok")
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, stages=stages,
+                rows=rows)
+
+
 def main():
     import torch
 
@@ -2239,9 +2884,10 @@ def main():
     phase_build()
     p64, p32, cfg, sim = flagship()
     err1 = phase_k1(p64, p32, cfg)
+    err_imu = [phase_imu(p64, cfg, "flagship")]
     del p64
     sums = capture_build_sums(p32, cfg)
-    err2 = phase_k2(sums)
+    err2 = phase_segsum(sums)
     phase_small_reference()
     phase_general_small()
     phase_ring_small()
@@ -2251,11 +2897,13 @@ def main():
     st, sched, cfg_s = phase_stream(smi)
     s64, s32 = stream_slide(sched, cfg_s)
     err1s = phase_k1(s64, s32, cfg_s, "stream slide")
+    err_imu.append(phase_imu(s64, cfg_s, "stream slide"))
     del s64
     sums_s = capture_build_sums(s32, cfg_s)
-    err2s = phase_k2(sums_s, "stream slide", extras=False)
+    err2s = phase_segsum(sums_s, "stream slide", extras=False)
     rec1, rec2 = phase_timing(p32, cfg, sums, smi)
     rec1s, rec2s = phase_timing(s32, cfg_s, sums_s, smi, "stream slide")
+    rec_imu = phase_timing_imu(p32, cfg, rec1["floor_ms"], smi)
     del s32, sums_s, sched
 
     phase_banded_small()
@@ -2263,45 +2911,71 @@ def main():
     bs_l, plan_l = long_blocks(pl, cfg_l)
     err7 = phase_k7(pl, cfg_l, bs_l, plan_l)
     err9, band_s, x_l = phase_k9(pl, cfg_l, bs_l)
+    err_imu.append(phase_imu(pl, cfg_l, "long"))
     lg = phase_long(pl, cfg_l, sim_l, smi)
     rec7, rec9, rec8 = phase_timing_band(pl, cfg_l, bs_l, plan_l, band_s,
                                          x_l, rec1["floor_ms"], smi)
     del pl, bs_l, plan_l, band_s, x_l
 
-    t_new = time.perf_counter()
     phase_cg_small()
     pc, cfg_c, sim_c = cg_problem()
     bs_c = cg_blocks(pc, cfg_c)
     err6, x_c = phase_k6(pc, cfg_c, bs_c)
+    err_imu.append(phase_imu(pc, cfg_c, "cg"))
     cg = phase_cg(pc, cfg_c, sim_c, smi)
     phase_fleet_small()
     pf, cfg_f, sim_f, windows = fleet_problem()
     bs_f, plan_f = fleet_blocks(pf, cfg_f)
     err10 = phase_k10(pf, cfg_f, bs_f, plan_f)
+    err_imu.append(phase_imu(pf, cfg_f, "fleet"))
     fl = phase_fleet(pf, cfg_f, sim_f, windows, smi)
     rec6, rec10 = phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f,
                                         plan_f, rec1["floor_ms"], smi)
+    del pc, bs_c, x_c, pf, bs_f, plan_f, windows
+
+    t_new = time.perf_counter()
+    ps64, ps32, cfg_sc, sim_sc = selfcal_problem()
+    err_imu.append(phase_imu(ps64, cfg_sc, "selfcal"))
+    del ps64
+    (pv0, cfg_v0), (pv, cfg_v) = vicalib_problems()
+    err_imu.append(phase_imu(pv0, cfg_v0, "vicalib stage 0"))
+    err_imu.append(phase_imu(pv, cfg_v, "vicalib stage 2"))
+    err1c = phase_k1_calib([("selfcal K=11 FOV", ps32, cfg_sc),
+                            ("vicalib lm_size 3 linear K=11", pv, cfg_v)])
+    del pv0, pv
+    rec1c = phase_timing_k1_calib(ps32, cfg_sc, rec1["floor_ms"], smi)
+    phase_selfcal_small()
+    sc = phase_selfcal(ps32, cfg_sc, sim_sc, smi)
+    vc = phase_vicalib(smi)
     t_new = time.perf_counter() - t_new
 
-    def paths(key):
-        return dict(launches=gn[key] + dl[key] + st[key] + lg[key] + cg[key]
-                    + fl[key],
-                    launches_gn=gn[key], launches_dogleg=dl[key],
-                    launches_stream=st[key],
-                    launches_per_slide=st[key] / st["slides"],
-                    launches_long=lg[key], launches_cg=cg[key],
-                    launches_fleet=fl[key])
+    runs = dict(gn=gn, dogleg=dl, stream=st, long=lg, cg=cg, fleet=fl,
+                selfcal=sc, vicalib=vc)
+
+    def paths(key, names=tuple(runs)):
+        out = {f"launches_{n}": runs[n][key] for n in names}
+        return dict(launches=sum(out.values()), **out)
 
     kernels = [
         dict(name="reprojection", route="cuda",
              source="ba_tpu_torch/kernels/csrc/reprojection.cu",
              replaces="80bbf6f^:ba_tpu/ops/reprojection_pallas.py:83",
-             **paths("k1"), max_abs_err=max(err1, err1s), **rec1,
-             stream_slide=dict(max_abs_err=err1s, **rec1s)),
+             **paths("k1"), launches_per_slide=st["k1"] / st["slides"],
+             max_abs_err=max(err1, err1s, err1c), **rec1,
+             stream_slide=dict(max_abs_err=err1s, **rec1s),
+             calib=dict(max_abs_err=err1c, **rec1c)),
+        dict(name="imu_preint", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/imu_preint.cu",
+             replaces="ba_tpu/core/residuals/imu.py:122",
+             **paths("imu"),
+             launches_parts=dict(full=paths("imu_a"),
+                                 residual=paths("imu_b")),
+             max_abs_err=max(err_imu), **rec_imu),
         dict(name="segsum", route="cuda",
              source="ba_tpu_torch/kernels/csrc/segsum.cu",
              replaces="ba_tpu/solver/assemble.py:120",
-             **paths("k2"), max_abs_err=max(err2, err2s), **rec2,
+             **paths("k2"), launches_per_slide=st["k2"] / st["slides"],
+             max_abs_err=max(err2, err2s), **rec2,
              stream_slide=dict(max_abs_err=err2s, **rec2s)),
         dict(name="band_schur", route="cuda",
              source="ba_tpu_torch/kernels/csrc/band_schur.cu",
@@ -2333,8 +3007,12 @@ def main():
         f"({cg['ms_iter']:.1f} ms per iteration, peak {cg['peak_gib']:.3f} "
         f"GiB); fleet GN {fl['kf_s']:.1f} kf/s ({fl['ms_iter']:.1f} ms per "
         f"iteration); K8 factor {rec8['factor_ms']:.3f} ms, solve "
-        f"{rec8['solve_ms']:.3f} ms; CG and fleet phases {t_new:.1f} s; "
-        f"total smoke {time.perf_counter() - t_start:.1f} s")
+        f"{rec8['solve_ms']:.3f} ms; selfcal {sc['kf_s']:.1f} kf/s "
+        f"({sc['ms_iter']:.1f} ms per iteration, {sc['iters']} iterations); "
+        f"vicalib solve_once "
+        + ", ".join(f"{x['secs']:.2f} s" for x in vc["stages"])
+        + f"; selfcal and vicalib phases {t_new:.1f} s; total smoke "
+        f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

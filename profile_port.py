@@ -29,7 +29,12 @@ With `--cg` or `--fleet`, the same on chip_smoke.py's PCG configuration
 preconditioner, the PCG with its Schur products through kernels 6 and 2
 and the preconditioner, ...) or on its fused fleet (4 x 128 keyframes: the
 families' band, kernel 10 (a) and (b), the batched Cholesky and the
-triangular solves, ...).
+triangular solves, ...).  With `--selfcal`, on chip_smoke.py's full-width
+self-calibration configuration (128 keyframes, 15-dim states, 11
+calibration columns, the general dense path: IMU through K2, kernel 1 with
+the calibration columns, the assembly with its calibration block in one
+segsum launch, the Cholesky of the 1,931-row S, the calibration update
+with its re-unprojection, the trial cost).
 
 On the stream of chip_smoke.py (W = 10, 2 GN iterations per slide, f32) it
 prints the stages of one `StreamingRing.push`, timed the same way over
@@ -84,8 +89,8 @@ def stage_times(p, cfg):
     for _ in range(N_STAGE_ITERS + 1):
         if _ == 1:
             sums.clear()                       # the first pass warms up
-        ie = timed("imu evaluate + Jacobians", lambda: step._imu_eval(
-            p, cfg, True, True))
+        ie = timed("imu evaluate + Jacobians (K2 (a))",
+                   lambda: step._imu_eval(p, cfg, True, True))
         colm6 = asm.col_mask(p, cfg, 6).to(p.poses.t.dtype)
         timed("reprojection blocks (kernel 1)",
               lambda: asm.proj_blocks(p, cfg, colm6))
@@ -95,7 +100,7 @@ def stage_times(p, cfg):
                   lambda: solve_reduced(a))
         cand = timed("apply_update", lambda: step.apply_update(
             p, cfg, s.delta_p, s.delta_l))
-        timed("trial cost (imu with cached c9 + kernel 1 + priors)",
+        timed("trial cost (K2 (b) with cached c9 + kernel 1 + priors)",
               lambda: step._cost(cand, cfg, True, a.proj_w, ie.c9))
         timed("gn_iteration (whole)",
               lambda: step.gn_iteration(p, cfg, True, plan=plan))
@@ -288,19 +293,20 @@ def _wrap(owner, name, label, sums, on):
 def _stages(which):
     """(problem, config, [(owner, name, label)]) of `path_iteration`."""
     from ba_tpu_torch.kernels import fleet_schur
+    from ba_tpu_torch.solver import assemble as asm
     from ba_tpu_torch.solver import banded, cg, step
 
     imu = (step, "_imu_eval", lambda p, c, u, jac, c9=None:
-           "IMU evaluate with Jacobians" if jac
-           else "  IMU evaluate without Jacobians (trial)")
-    tail = [(cg, "back_substitute_blocks", "back-substitution (kernel 2)"),
-            (cg, "cauchy_factor", "Cauchy factor (kernel 2)"),
+           "IMU evaluate with Jacobians (K2 (a))" if jac
+           else "  IMU evaluate without Jacobians (trial, K2 (b))")
+    tail = [(cg, "back_substitute_blocks", "back-substitution (segsum)"),
+            (cg, "cauchy_factor", "Cauchy factor (segsum)"),
             (step, "_cost", "trial cost (IMU, kernel 1, priors)"),
             (step, "gn_iteration", "gn_iteration, whole")]
     if which == "long":
         p, cfg, _ = chip_smoke.long_problem()
-        mid = [(cg, "assemble_blocks", "assemble_blocks (kernels 1, 2)"),
-               (banded, "band_S", "band_S (kernel 2)"),
+        mid = [(cg, "assemble_blocks", "assemble_blocks (kernel 1, segsum)"),
+               (banded, "band_S", "band_S (segsum)"),
                (banded, "_band_schur_grouped", "  kernel 7"),
                (banded, "banded_pcg_solve", "factor + PCG, whole"),
                (banded, "_chunk_windows", "  chunk layout"),
@@ -310,16 +316,30 @@ def _stages(which):
     elif which == "cg":
         p, cfg, _ = chip_smoke.cg_problem()
         mid = [(cg, "assemble_blocks",
-                "assemble_blocks with the preconditioner (kernels 1, 2)"),
+                "assemble_blocks with the preconditioner (kernel 1, segsum)"),
                (cg, "pcg_solve", "PCG, whole"),
-               (cg, "s_matvec", "  Schur products (kernels 6, 2)"),
+               (cg, "s_matvec", "  Schur products (kernel 6, segsum)"),
                (cg, "_precond", "  preconditioner")]
+    elif which == "selfcal":
+        _, p, cfg, _ = chip_smoke.selfcal_problem()
+        cfg = dataclasses.replace(cfg, use_dogleg=False)
+        mid = [(step, "assemble", "assemble, the general path with the "
+                "calibration block (kernel 1, segsum)"),
+               (asm, "proj_blocks", "  reprojection blocks (kernel 1 with "
+                "the calibration columns)"),
+               (asm, "seg_sum_groups", "  the build's ten sums (segsum)"),
+               (asm, "finish", "  Schur complement (dense)"),
+               (step, "solve_reduced", "solve_reduced (Cholesky of S, "
+                "back-substitution)"),
+               (step, "apply_update", "apply_update (calibration, "
+                "re-unprojection)")]
+        tail = tail[2:]
     else:
         p, cfg, _, _ = chip_smoke.fleet_problem()
-        mid = [(cg, "assemble_blocks", "assemble_blocks (kernels 1, 2)"),
+        mid = [(cg, "assemble_blocks", "assemble_blocks (kernel 1, segsum)"),
                (banded, "solve_reduced_fleet_dense", "dense fleet solve, "
                 "whole (with the back-substitution)"),
-               (banded, "_band_self_cross", "  families' band (kernel 2)"),
+               (banded, "_band_self_cross", "  families' band (segsum)"),
                (fleet_schur, "fleet_w", "  kernel 10 (a)"),
                (fleet_schur, "fleet_epilogue", "  kernel 10 (b)"),
                (banded, "_chol", "  batched cholesky_ex"),
@@ -329,7 +349,8 @@ def _stages(which):
 
 def path_iteration(smi, which, n_iters=3):
     """Mean seconds per GN iteration of each stage of the long trajectory's
-    banded solve, the PCG configuration's or the fused fleet's (a stage
+    banded solve, the PCG configuration's, the fused fleet's or the
+    self-calibration's dense solve (a stage
     includes those nested in it), then the sync sites of one iteration and
     the busy share and kernel launches of one profiled iteration."""
     import torch
@@ -419,7 +440,7 @@ def main():
         return 1
     smi = chip_smoke.smi_line()
     chip_smoke.phase_build()
-    for which in ("long", "cg", "fleet"):
+    for which in ("long", "cg", "fleet", "selfcal"):
         if f"--{which}" in sys.argv[1:]:
             path_iteration(smi, which)
             return 0

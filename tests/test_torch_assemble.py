@@ -20,7 +20,6 @@ import ba_tpu.core.problem as jprob
 from ba_tpu.solver import assemble as jasm
 from ba_tpu.solver import linear as jlin
 from ba_tpu.solver import step as jstep
-from ba_tpu_torch.core import problem as tprob
 from ba_tpu_torch.solver import assemble as tasm
 from ba_tpu_torch.solver import linear as tlin
 from ba_tpu_torch.solver import step as tstep
@@ -109,12 +108,21 @@ def test_banded_assembly_and_step_match(n_poses, pad_multiple, marg_active):
 
 
 def test_general_assembly_path_raises():
-    """The general path is ported (test_torch_general_assembly.py); what
-    still raises on it is a calibration block."""
+    """The general path is ported (test_torch_general_assembly.py), with a
+    calibration block since self-calibration was ported: here the six T_vs
+    columns alone (K = 6) on a 9-dim problem, against ba_tpu's assemble;
+    nothing raises on it any more."""
     jp, jcfg, _ = jax_problem()
-    tp = tprob.prepare_landmarks(to_torch(jp), torch_config(jcfg))
-    with pytest.raises(NotImplementedError, match="calibration block"):
-        tasm.assemble(tp, torch_config(jcfg, band_width=0, do_tvs=True))
+    jcfg = dataclasses.replace(jcfg, band_width=0, do_tvs=True)
+    jp = jprob.prepare_landmarks(jp, jcfg)
+    tp, tcfg = to_torch(jp), torch_config(jcfg)
+    want = jasm.assemble(jp, jcfg, imu_eval=jstep._imu_eval(jp, jcfg, True,
+                                                            True))
+    got = tasm.assemble(tp, tcfg, imu_eval=tstep._imu_eval(tp, tcfg, True,
+                                                            True))
+    assert got.S.shape[0] == tp.poses.q.shape[0] * 9 + 6
+    for name in ("S", "rhs_sc", "U", "W", "V", "cost"):
+        assert_rel(getattr(got, name), getattr(want, name), TOL, name)
 
 
 def test_failed_factorization_gives_zero_pose_step():

@@ -34,7 +34,7 @@ def solver_case(path, **cfg):
     "schur_on_band")."""
     jp, jcfg, tp, tcfg = banded_case(32, speed=3.0, banded_chunk=8, **cfg)
     assert jcfg.band_width == 8
-    assert tstep._reduced_path(tp, tcfg) == path
+    assert tstep._reduced_path(tp, tcfg)[0] == path
     return jp, jcfg, tp, tcfg
 
 
@@ -70,7 +70,7 @@ def test_banded_solver_falls_back_without_band():
     jcfg = dataclasses.replace(jcfg, use_banded_solver=True)
     jp = jprob.prepare_landmarks(jp, jcfg)
     tp, tcfg = to_torch(jp), torch_config(jcfg)
-    assert tstep._reduced_path(tp, tcfg) == "dense"
+    assert tstep._reduced_path(tp, tcfg)[0] == "dense"
     _, costs_j, _ = jstep.solve_fixed(jp, jcfg, True, 2)
     _, costs_t, _ = tstep.solve_fixed(tp, tcfg, True, 2)
     assert bool(torch.isfinite(costs_t).all())
@@ -105,7 +105,7 @@ def test_cg_and_fleet_builds_match(case, path):
         tp, tcfg = to_torch(jp), torch_config(jcfg)
     else:
         jp, jcfg, tp, tcfg = _fused_fleet()
-    assert tstep._reduced_path(tp, tcfg) == path
+    assert tstep._reduced_path(tp, tcfg)[0] == path
     want = jax.jit(jstep._build_and_solve, static_argnums=(1, 2))(
         jp, jcfg, True)
     got = tstep._build_and_solve(tp, tcfg, True)

@@ -87,7 +87,7 @@ def test_block_system_matches(case, with_precond):
 
 def test_block_system_rejects_a_calibration_block():
     _, _, tp, tcfg = _case(mask=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="calibration block"):
         tcg.assemble_blocks(tp, dataclasses.replace(tcfg, calib_size=5))
 
 

@@ -44,7 +44,7 @@ def cg_case(prior=False, **cfg):
         jp = with_random_prior(jp, 0.05, 2)
     jp = jprob.prepare_landmarks(jp, jcfg)
     tp, tcfg = to_torch(jp), torch_config(jcfg)
-    assert tstep._reduced_path(tp, tcfg) == "cg"
+    assert tstep._reduced_path(tp, tcfg)[0] == "cg"
     return jp, jcfg, tp, tcfg
 
 

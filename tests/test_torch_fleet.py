@@ -114,7 +114,7 @@ def test_fleet_build_and_solve_matches(kind, path):
     jp, jcfg, tp, tcfg = fleet_case(kind)
     L = tp.lms.x.shape[0]
     assert (L % 2 == 0) == (kind == "equal")
-    assert tstep._reduced_path(tp, tcfg) == path
+    assert tstep._reduced_path(tp, tcfg)[0] == path
     want = jax.jit(jstep._build_and_solve, static_argnums=(1, 2))(
         jp, jcfg, True)
     got = tstep._build_and_solve(tp, tcfg, True)
@@ -128,7 +128,7 @@ def test_fleet_build_and_solve_matches(kind, path):
 
 def test_fused_fleet_solve_fixed_traces_match():
     jp, jcfg, tp, tcfg = fleet_case("equal")
-    assert tstep._reduced_path(tp, tcfg) == "fleet_dense"
+    assert tstep._reduced_path(tp, tcfg)[0] == "fleet_dense"
     p_j, costs_j, dns_j = jstep.solve_fixed(jp, jcfg, True, 3)
     p_t, costs_t, dns_t = tstep.solve_fixed(tp, tcfg, True, 3)
     assert_rel(costs_t, costs_j, 1e-8, "costs")

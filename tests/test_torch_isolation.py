@@ -1,8 +1,9 @@
 """The port stands alone: no file of `ba_tpu_torch/` (nor `chip_smoke.py`
 or `profile_port.py`) imports jax or ba_tpu, importing the port leaves jax
 out of sys.modules, each entry point (the builders, the converters, the
-streaming smoother and the three apps) raises when CUDA is absent and no
-device="cpu" is given, and `chip_smoke.py` fails without a card."""
+streaming smoother, the calibration service and the three apps) raises
+when CUDA is absent and no device="cpu" is given, and `chip_smoke.py`
+fails without a card."""
 
 import ast
 import subprocess
@@ -50,7 +51,9 @@ def test_importing_the_port_loads_no_jax():
             "ba_tpu_torch.kernels.band_matvec",
             "ba_tpu_torch.kernels.schur_matvec",
             "ba_tpu_torch.kernels.fleet_schur",
-            "ba_tpu_torch.apps.fleet_serve"]
+            "ba_tpu_torch.apps.fleet_serve", "ba_tpu_torch.calib",
+            "ba_tpu_torch.kernels.imu_preint",
+            "ba_tpu_torch.solver.linear"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'ba_tpu')]\n"
@@ -63,7 +66,7 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("entry", ["builder", "build_problem",
                                    "problem_from_numpy",
                                    "ring_schedule_from_numpy",
-                                   "streaming_ring"])
+                                   "streaming_ring", "vi_calibrator"])
 def test_entry_points_need_cuda_or_cpu(entry, monkeypatch):
     from ba_tpu_torch.convert import (problem_from_numpy,
                                       ring_schedule_from_numpy)
@@ -76,6 +79,14 @@ def test_entry_points_need_cuda_or_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = BAConfig(pose_dim=9)
     sim = sv.simulate(n_poses=4, n_lms=16, seed=0)
+    if entry == "vi_calibrator":
+        from ba_tpu_torch.calib import ViCalibrator
+
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ViCalibrator(np.zeros((4, 3)))
+        assert ViCalibrator(np.zeros((4, 3)), device="cpu").device.type \
+            == "cpu"
+        return
     if entry == "builder":
         b = ProblemBuilder(cfg)
         b.add_pose([1.0, 0, 0, 0], [0.0, 0, 0])

@@ -1,4 +1,5 @@
-"""Kernels 1, 2, 6, 7, 9 and 10 against their plain versions on the card.
+"""Kernels 1, K2 (imu_preint), segsum, 6, 7, 9 and 10 against their plain
+versions on the card.
 
 These need an NVIDIA GPU with nvcc (marker `cuda`); elsewhere they skip.
 Run them on the card with `python -m pytest tests/test_torch_kernels_cuda.py
@@ -24,7 +25,13 @@ product, with landmarks merged into one of more rows than a warp's
 lanes) and kernel 10 (the fleet's W operands, with padding W blocks, and
 its scaled Schur system) match their plain versions to 1e-12 (f64) and 1e-5 (f32),
 bit-identical between launches; three f32 GN iterations run on the PCG
-solver and on the dense fleet solve.
+solver and on the dense fleet solve.  K2 (a) and (b) match their plain
+versions at pose_dim 9 and 15 (f64 1e-11, f32 2e-4 on the Jacobians and
+C9 and 1e-5 on the residual, relative to each output's own scale),
+bit-identical between launches; kernel 1 with the 11 calibration columns
+(FOV) and with XYZ landmarks (linear camera) matches its plain version at
+kernel 1's tolerances; three f32 GN iterations of a self-calibration scene
+launch each kernel once per build and trial.
 """
 
 import dataclasses
@@ -431,7 +438,7 @@ def cuda_fleet():
     cfg = dataclasses.replace(cfg, band_width=band_width_of(p),
                               use_banded_solver=True, fleet_size=2)
     p = prepare_landmarks(p, cfg)
-    assert step._reduced_path(p, cfg) == "fleet_dense"
+    assert step._reduced_path(p, cfg)[0] == "fleet_dense"
     plan = step.solve_plan(p, cfg)
     bs, _ = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True, True),
                                with_precond=False, plan=plan)
@@ -501,7 +508,7 @@ def test_cg_and_fleet_gn_f32_on_the_card(cuda_band_problem, cuda_fleet,
                                   use_cg_solver=True, cg_tolerance=1e-5)
     else:
         p, cfg, _, _ = cuda_fleet
-    assert step._reduced_path(p, cfg) == path
+    assert step._reduced_path(p, cfg)[0] == path
     p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
     matvecs = []
     orig = cg.pcg_solve
@@ -525,3 +532,126 @@ def test_cg_and_fleet_gn_f32_on_the_card(cuda_band_problem, cuda_fleet,
     assert len(matvecs) == (3 if path == "cg" else 0)
     assert k10.fleet_w.launches - n10 == (3 if path == "fleet_dense" else 0)
     assert k10.fleet_epilogue.launches - n10e == k10.fleet_w.launches - n10
+
+
+# ---------------------------------------------------------------------------
+# K2 (imu_preint) and kernel 1's self-calibration and XYZ variants
+
+# K2 against its plain version, relative to max |plain| of each output (C9
+# is ~1e-6): f64 the same operations summed in another order; f32 through
+# ~10 dependent RK4 steps and the 10 x 10 products (the H100 showed f32
+# <= 4e-7, f64 <= 6e-16 in chip_smoke.py)
+TOL_K2 = {torch.float64: dict(r=1e-11, j=1e-11, c9=1e-11),
+          torch.float32: dict(r=1e-5, j=2e-4, c9=2e-4)}
+
+
+def _rel_own(a, b):
+    assert a.shape == b.shape
+    if b.numel() == 0:
+        return 0.0
+    return float((a.double() - b.double()).abs().max()) / max(
+        1e-300, float(b.double().abs().max()))
+
+
+@pytest.fixture(scope="module")
+def cuda_selfcal():
+    """A noiseless <R,1,15,5,true> scene on the card (FOV camera, moved
+    intrinsics and T_vs), prepared, and its config."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.core import lie
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+
+    cfg = BAConfig(pose_dim=15, lm_size=1, calib_size=5, do_tvs=True,
+                   tvs_translation_staging=True, tvs_translation_active=False)
+    sim = sv.simulate(n_poses=12, n_lms=80, seed=13)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=14,
+                               device="cuda")
+    params = p.rig.params.clone()
+    params[0, :5] += torch.tensor([2.0, -2.0, 3.0, -2.0, 0.01],
+                                  dtype=params.dtype, device="cuda")
+    dq = lie.so3_exp(params.new_tensor([0.01, -0.008, 0.012]))
+    rig = dataclasses.replace(
+        p.rig, params=params, tvs_q=lie.quat_mul(p.rig.tvs_q[0], dq)[None],
+        tvs_t=p.rig.tvs_t + params.new_tensor([[0.01, -0.02, 0.015]]))
+    b = p.poses.b + 0.01 * torch.arange(6, dtype=params.dtype,
+                                        device="cuda")
+    p = dataclasses.replace(p, rig=rig,
+                            poses=dataclasses.replace(p.poses, b=b))
+    return prepare_landmarks(p, cfg), cfg
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("pose_dim", [9, 15])
+def test_imu_preint_kernels_match_plain(cuda_selfcal, dtype, pose_dim):
+    from ba_tpu_torch.core.residuals import imu
+    from ba_tpu_torch.kernels import imu_preint
+    from ba_tpu_torch.utils.tree import tree_map
+
+    p, cfg = cuda_selfcal
+    cfg = dataclasses.replace(cfg, pose_dim=pose_dim)
+    p = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, p)
+    tol = TOL_K2[dtype]
+    got = imu_preint.imu_full(p, pose_dim, cfg.gyro_sigma**2,
+                              cfg.accel_sigma**2)
+    again = imu_preint.imu_full(p, pose_dim, cfg.gyro_sigma**2,
+                                cfg.accel_sigma**2)
+    want = imu.full_plain(p, cfg)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("r", "j", "j", "c9", "r", "r"), got, again,
+                             want):
+        assert _rel_own(g, w) <= tol[name], name
+        assert torch.equal(g, a), name
+    got = imu_preint.imu_residual(p, pose_dim)
+    want = imu.residual_plain(p, cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= tol["r"]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("case", ["calib_fov", "xyz_linear"])
+@pytest.mark.parametrize("with_jacobians", [True, False])
+def test_reprojection_calibration_and_xyz_match_plain(
+        cuda_selfcal, dtype, tol, case, with_jacobians):
+    from ba_tpu_torch.core.residuals import reprojection as rp
+    from ba_tpu_torch.core.problem import prepare_landmarks
+    from ba_tpu_torch.utils.tree import tree_map
+
+    p, cfg = cuda_selfcal
+    if case == "xyz_linear":
+        cfg = dataclasses.replace(cfg, lm_size=3)
+        rig = dataclasses.replace(p.rig, model=torch.zeros_like(p.rig.model))
+        p = prepare_landmarks(dataclasses.replace(p, rig=rig), cfg)
+    p = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, p)
+    got = rp.evaluate(p, cfg, with_jacobians)
+    want = rp.evaluate_plain(p, cfg, with_jacobians)
+    torch.cuda.synchronize()
+    if with_jacobians:
+        assert got.j_cal.shape[-1] == 11
+        assert got.j_lm.shape[-1] == cfg.lm_size
+    for name in want._fields:
+        assert _rel(getattr(got, name), getattr(want, name)) <= tol, name
+
+
+def test_selfcal_gn_f32_on_the_card(cuda_selfcal):
+    from ba_tpu_torch.kernels import imu_preint, reprojection
+    from ba_tpu_torch.solver import step
+    from ba_tpu_torch.utils.tree import tree_map
+
+    p, cfg = cuda_selfcal
+    p = tree_map(lambda a: a.float() if a.is_floating_point() else a, p)
+    cfg = dataclasses.replace(cfg, use_dogleg=False)
+    cost0 = float(step._cost(p, cfg, True))
+    k1, ka, kb = (reprojection.reprojection.launches,
+                  imu_preint.imu_full.launches,
+                  imu_preint.imu_residual.launches)
+    q, costs, _ = step.solve_fixed(p, cfg, True, 3)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(costs).all())
+    assert float(costs[-1]) < cost0
+    assert reprojection.reprojection.launches - k1 == 6
+    assert imu_preint.imu_full.launches - ka == 3
+    assert imu_preint.imu_residual.launches - kb == 3

@@ -141,7 +141,8 @@ def test_seven_sums_of_a_build_match_the_plain_version():
     _, _, tp, tcfg = _case(12, 3)
     plan = tasm.assembly_plan(tp, tcfg)
     ids = tasm.sum_ids(tp, tcfg)
-    assert list(ids) == [f for f in plan._fields if f != "band_width"]
+    assert list(ids) == [f for f in plan._fields
+                         if f != "band_width" and getattr(plan, f) is not None]
     rng = np.random.default_rng(3)
     groups, want = [], []
     for name, (i, nseg) in ids.items():
@@ -199,9 +200,13 @@ def test_assemble_rejects_a_plan_of_another_band_width():
         tasm.assemble(tp, dataclasses.replace(tcfg, band_width=0), plan=plan)
     with pytest.raises(ValueError, match="band width"):
         tasm.assemble(tp, tcfg, plan=general)
-    with pytest.raises(NotImplementedError, match="calibration block"):
-        tasm.assembly_plan(tp, dataclasses.replace(tcfg, band_width=0,
-                                                   do_tvs=True))
+    # a calibration block plans the general path, with its three sums,
+    # whatever the band width; a banded plan does not serve it
+    calib = dataclasses.replace(tcfg, do_tvs=True)
+    cplan = tasm.assembly_plan(tp, calib)
+    assert cplan.band_width == 0 and cplan.cc is not None
+    with pytest.raises(ValueError, match="band width"):
+        tasm.assemble(tp, calib, plan=plan)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

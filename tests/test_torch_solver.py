@@ -80,15 +80,29 @@ def test_solve_default_dogleg_matches():
 
 @pytest.mark.parametrize("option", ["verbose",
                                     "calculate_calibration_marginals"])
-def test_unported_solve_options_raise(option):
-    _, _, tp, tcfg = _case(True)
+def test_unported_solve_options_raise(option, capsys):
+    """The options that raised before self-calibration was ported now run
+    as ba_tpu's: the verbose host loop prints one line per iteration with
+    the same trace, and the calibration epilogue without a calibration
+    block leaves no marginals."""
+    jp, jcfg, tp, tcfg = _case(True)
     kw = {}
     if option == "verbose":
         kw["verbose"] = 1
     else:
+        jcfg = dataclasses.replace(jcfg, **{option: True})
         tcfg = dataclasses.replace(tcfg, **{option: True})
-    with pytest.raises(NotImplementedError):
-        tstep.solve(tp, tcfg, max_iter=2, **kw)
+    p_j, s_j = jstep.solve(jp, jcfg, max_iter=3, **kw)
+    out_j = capsys.readouterr().out
+    p_t, s_t = tstep.solve(tp, tcfg, max_iter=3, **kw)
+    out_t = capsys.readouterr().out
+    assert out_t.count("iter ") == out_j.count("iter ")
+    assert (s_t.iterations, s_t.result) == (s_j.iterations, s_j.result)
+    assert s_t.calibration_marginals is None
+    assert s_j.calibration_marginals is None
+    for name in ("initial_cost", "final_cost", "delta_norm"):
+        assert_rel(getattr(s_t, name), getattr(s_j, name), 1e-8, name)
+    assert_rel(p_t.poses.t, p_j.poses.t, 1e-8, "poses.t")
 
 
 def test_solve_cg_dogleg_matches():
@@ -98,7 +112,7 @@ def test_solve_cg_dogleg_matches():
     jp, jcfg, _, _ = _case(True)
     jcfg = dataclasses.replace(jcfg, use_cg_solver=True, band_width=0)
     tp, tcfg = to_torch(jp), torch_config(jcfg)
-    assert tstep._reduced_path(tp, tcfg) == "cg"
+    assert tstep._reduced_path(tp, tcfg)[0] == "cg"
     p_j, s_j = jstep.solve(jp, jcfg, max_iter=10)
     p_t, s_t = tstep.solve(tp, tcfg, max_iter=10)
     assert (s_t.iterations, s_t.result, s_t.inner_iterations) == (
