@@ -1,14 +1,19 @@
 """Online streaming VINS on the port: one keyframe in, one estimate out.
 
-Port of the single-stream path of `apps/vins_stream.py`: keyframes and
-their measurements arrive one at a time through `StreamingRing.add_*`;
-each `push(block=False)` solves the compact W-keyframe window and retires
-the oldest keyframe.  Reports the first push, the steady-state keyframes
-retired per second and the retired-trajectory ATE against ground truth.
+Port of `apps/vins_stream.py`: keyframes and their measurements arrive
+one at a time through `StreamingRing.add_*`; each `push(block=False)`
+solves the compact W-keyframe window and retires the oldest keyframe.
+Reports the first push, the steady-state keyframes retired per second and
+the retired-trajectory ATE against ground truth.  With `--streams M`, M
+independent streams of the same sequence (build seeds 8 .. 8 + M - 1) are
+pushed round-robin, one ring each (`stream_many`), and the aggregate and
+per-stream rates and each stream's ATE are reported.
 
     python -m ba_tpu_torch.apps.vins_stream --poses 64 --window 8
     python -m ba_tpu_torch.apps.vins_stream --poses 128 --lms 2048 \\
         --window 10          # a VIO window at VINS-Mono's EuRoC density
+    python -m ba_tpu_torch.apps.vins_stream --poses 128 --lms 2048 \\
+        --window 10 --streams 4   # four vehicles' streams, round-robin
 
 Tensors live on `--device` (cuda unless told otherwise; without CUDA that
 default raises).
@@ -71,49 +76,72 @@ def wait(device) -> None:
 
 def stream_sequence(problem, cfg, W, iters, caps):
     """Drive a built problem's data through a StreamingRing keyframe by
-    keyframe, on the problem's device and float type.  Returns (outs as
-    numpy, steady seconds, steady keyframes).  The steady-state timer
-    starts once the first push has drained, so that its one-off costs
-    (kernel builds among them) stay out of the rate."""
+    keyframe, on the problem's device and float type: `stream_many` of one
+    stream.  Returns (outs as numpy, steady seconds, steady keyframes).
+    The steady-state timer starts once the first push has drained, so that
+    its one-off costs (kernel builds among them) stay out of the rate."""
+    outs, t_steady, n_steady = stream_many([problem], cfg, W, iters, caps)
+    return outs[0], t_steady, n_steady
+
+
+def stream_many(problems, cfg, W, iters, caps, warm_drop=1,
+                keyframes=None):
+    """Round-robin M independent streams, one StreamingRing each, on the
+    problems' device and float type: the multi-stream serving shape.  Each
+    keyframe index is fed and pushed on every stream in turn before the
+    next, up to `keyframes` (all of them by default).  The steady-state
+    timer starts once the last stream's first `warm_drop` pushes have
+    drained.  Returns (per-stream outs as numpy, steady seconds, keyframes
+    retired after the warm-up)."""
     from ..solver.streaming import StreamingRing
 
-    feed = stream_feed(problem)
-    dev = problem.poses.t.device
-    ring = StreamingRing(cfg, W, problem.rig, problem.g_vec, caps,
-                         use_imu=True, iters_per_slide=iters,
-                         dtype=feed["po"]["t"].dtype, device=dev)
-    outs = []
+    if warm_drop < 1:
+        raise ValueError(f"warm_drop {warm_drop}: the timer starts after at "
+                         "least one drained push")
+    dev = problems[0].poses.t.device
+    feeds = [stream_feed(pb) for pb in problems]
+    rings = [StreamingRing(cfg, W, pb.rig, pb.g_vec, caps, use_imu=True,
+                           iters_per_slide=iters,
+                           dtype=f["po"]["t"].dtype, device=dev)
+             for pb, f in zip(problems, feeds)]
+    M = len(problems)
+    outs = [[] for _ in range(M)]
     n_steady = 0
     t0 = time.perf_counter()
-    for g in range(int(problem.poses.q.shape[0])):
-        add_keyframe(ring, feed, g)
-        out = ring.push(block=False)     # pipelined: no per-push wait
-        if out is None:
-            continue
-        outs.append(out)
-        if len(outs) == 1:
-            wait(dev)
-            t0 = time.perf_counter()
-        else:
-            n_steady += 1
+    if keyframes is None:
+        keyframes = int(problems[0].poses.q.shape[0])
+    for g in range(keyframes):
+        for m in range(M):
+            add_keyframe(rings[m], feeds[m], g)
+            out = rings[m].push(block=False)
+            if out is None:
+                continue
+            outs[m].append(out)
+            if m == M - 1 and len(outs[m]) == warm_drop:
+                wait(dev)
+                t0 = time.perf_counter()
+            if len(outs[m]) > warm_drop:
+                n_steady += 1
     wait(dev)
-    t_steady = time.perf_counter() - t0 if n_steady else 0.0
-    outs = [{k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
-             for k, v in o.items()} for o in outs]
-    return outs, t_steady, n_steady
+    t_steady = time.perf_counter() - t0
+    return ([[{k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+               for k, v in o.items()} for o in os_] for os_ in outs],
+            t_steady, n_steady)
 
 
-def stream_problem(poses, lms, perturb=0.02, f64=False, device="cuda"):
+def stream_problem(poses, lms, perturb=0.02, f64=False, device="cuda",
+                   seed=8):
     """(prepared problem, config, SimData) of `apps/vins_stream.py`:
-    simulate(poses, lms, seed 7), build_problem(perturb, seed 8, no marg
-    prior), pose_dim 9, inverse depth, GN; f32 unless `f64`."""
+    simulate(poses, lms, seed 7), build_problem(perturb, `seed` (8; stream
+    m of a multi-stream run takes 8 + m), no marg prior), pose_dim 9,
+    inverse depth, GN; f32 unless `f64`."""
     from ..core.problem import BAConfig, prepare_landmarks
     from ..io import simulate_vins as sv
     from ..utils.tree import tree_map
 
     sim = sv.simulate(n_poses=poses, n_lms=lms, seed=7)
     cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
-    problem, _, _ = sv.build_problem(sim, cfg, perturb=perturb, seed=8,
+    problem, _, _ = sv.build_problem(sim, cfg, perturb=perturb, seed=seed,
                                      with_marg_prior=False, device=device)
     if not f64:
         problem = tree_map(lambda a: a.float()
@@ -128,6 +156,9 @@ def main(argv=None):
     ap.add_argument("--lms", type=int, default=256)
     ap.add_argument("--perturb", type=float, default=0.02)
     ap.add_argument("--iters", type=int, default=2)
+    ap.add_argument("--streams", type=int, default=1,
+                    help="interleave M independent streams (multi-vehicle "
+                         "serving), each with its own ring")
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -144,6 +175,27 @@ def main(argv=None):
     sched = fixedlag.build_ring_schedule(problem, cfg, args.window,
                                          n_slides)
     caps = RingCapacities.from_schedule(sched)
+    if args.streams > 1:
+        problems = [problem] + [
+            stream_problem(args.poses, args.lms, args.perturb, args.f64,
+                           args.device, seed=8 + m)[0]
+            for m in range(1, args.streams)]
+        outs, t_steady, n_steady = stream_many(problems, cfg, args.window,
+                                               args.iters, caps)
+        ates = [sv.ate(None, np.stack([x["t"] for x in o]), None,
+                       sim.t_wv[:len(o)]) for o in outs]
+        rate = n_steady / max(t_steady, 1e-9)
+        rounds = n_steady / args.streams
+        print(f"{args.streams} streams x {args.poses} keyframes on "
+              f"{problem.poses.t.device}: steady-state {rate:.3f} "
+              f"keyframes/s aggregate ({rate / args.streams:.3f} per "
+              f"stream), {1e3 * t_steady / max(rounds, 1e-9):.1f} ms per "
+              f"round of {args.streams} slides "
+              f"({1e3 * t_steady / max(n_steady, 1):.1f} ms per slide); "
+              f"retired {[len(o) for o in outs]}; ATE "
+              f"{min(ates) * 100:.3f}..{max(ates) * 100:.3f} cm (per stream "
+              + ", ".join(f"{a * 100:.3f}" for a in ates) + ")")
+        return 0
     t0 = time.perf_counter()
     outs, t_steady, n_steady = stream_sequence(problem, cfg, args.window,
                                                args.iters, caps)

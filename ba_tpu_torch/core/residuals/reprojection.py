@@ -98,8 +98,8 @@ def _evaluate_kernel(problem, config, with_jacobians):
             or config.use_per_pose_cam_params):
         raise NotImplementedError(
             "reprojection kernel covers lm_size 1 and 3 with the rig's "
-            "intrinsics, not per-pose intrinsics (ROADMAP.md queue 1 item "
-            "2)")
+            "intrinsics, not per-pose intrinsics (ROADMAP.md queue 1, the "
+            "kernel variants)")
     from ...kernels import reprojection as kern
 
     r, j_meas, j_ref, j_lm, j_cal, err_sq = kern.reprojection(

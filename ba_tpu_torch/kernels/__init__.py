@@ -12,6 +12,11 @@
                    matrix-free Schur product (the PCG solver)
   fleet_schur.py   kernel 10: the W operands and the scaled per-window
                    Schur system of a fused fleet
+  schur_finish.py  K5: the dense Schur step S = U - W V^-1 W^T and its
+                   rhs, with the column mask (every dense build and
+                   marginalization)
+  marginalize.py   K11: the departing dims' Schur complement into the
+                   prior and its PSD clip (Jacobi), no host read
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises on a non-zero `cudaGetLastError()`, and
@@ -21,5 +26,6 @@ live beside the dispatch (`core/residuals/reprojection.py:evaluate_plain`,
 `solver/assemble.py:_seg_sum_plain`, `segsum.plan_walk`,
 `solver/banded.py:band_schur_plain` and `band_matvec_plain`,
 `schur_matvec.schur_matvec_plain`, `fleet_schur.fleet_w_plain` and
-`fleet_epilogue_plain`).
+`fleet_epilogue_plain`, `schur_finish.schur_finish_plain`,
+`marginalize.marginalize_prior_plain`).
 """

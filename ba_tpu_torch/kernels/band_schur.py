@@ -21,7 +21,8 @@ Bound on an H100: bytes (4.4 MB of W blocks read and 7.1 MB of output
 written at the full-width trajectory, f32; ~3.4 us at 3.35 TB/s).
 
 Scope: inverse-depth landmarks (lm_size 1), float32 and float64.  Other
-landmark sizes raise on the card (ROADMAP.md queue 1 item 2).
+landmark sizes raise on the card (ROADMAP.md queue 1, the kernel
+variants).
 """
 
 from __future__ import annotations
@@ -117,7 +118,7 @@ def band_schur(Wb, vinv, plan: SchurPlan, P: int):
         raise NotImplementedError(
             "band_schur kernel covers inverse-depth landmarks (lm_size 1): "
             f"Wb {tuple(Wb.shape)}, vinv {tuple(vinv.shape)} (ROADMAP.md "
-            "queue 1 item 2)")
+            "queue 1, the kernel variants)")
     B = plan.B
     if (B + 1) * (6 * Wb.element_size() + 4) > 48 * 1024:
         raise ValueError(f"band_schur kernel: band width {B} too wide")

@@ -23,7 +23,8 @@ import time
 from pathlib import Path
 
 SOURCES = ("reprojection", "segsum", "band_schur", "band_matvec",
-           "schur_matvec", "fleet_schur", "imu_preint")
+           "schur_matvec", "fleet_schur", "imu_preint", "schur_finish",
+           "marginalize")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 

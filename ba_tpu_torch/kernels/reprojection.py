@@ -65,7 +65,7 @@ def _check_models(model):
     if bad:
         raise NotImplementedError(
             "reprojection kernel covers the linear and FOV camera models "
-            "(ROADMAP.md queue 1 item 2)")
+            "(ROADMAP.md queue 1, the kernel variants)")
     model._ba_models_checked = True
 
 

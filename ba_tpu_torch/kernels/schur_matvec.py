@@ -24,8 +24,8 @@ Bound on an H100: bytes (~14 MB at the long CG configuration, 85,823 rows
 in f32: ~4.2 us at 3.35 TB/s).
 
 Scope: inverse-depth landmarks (lm_size 1), pose width D >= 6, float32 and
-float64.  Other landmark sizes raise on the card (ROADMAP.md queue 1 item
-2).
+float64.  Other landmark sizes raise on the card (ROADMAP.md queue 1, the
+kernel variants).
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def schur_matvec(j_m, j_r, j_l, pose, ref, vinv, x, perm, offsets, D: int,
         raise NotImplementedError(
             "schur_matvec kernel covers inverse-depth landmarks (lm_size 1): "
             f"j_l {tuple(j_l.shape)}, vinv {tuple(vinv.shape)} (ROADMAP.md "
-            "queue 1 item 2)")
+            "queue 1, the kernel variants)")
     if j_m.shape != (Nr, 2, 6) or j_r.shape != (Nr, 2, 6) \
             or j_l.shape[0] != Nr:
         raise ValueError("schur_matvec kernel: J_m, J_r must be (Nr, 2, 6) "

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from ..core import lie, robust
 from ..core.problem import BAConfig, Problem
 from ..core.residuals import prior, reprojection
+from ..kernels import schur_finish as k5
 from ..kernels import segsum
 from ..utils.linalg import block_diag_inv
 
@@ -245,18 +246,23 @@ def proj_blocks(problem: Problem, config: BAConfig, colm6) -> ProjBlocks:
         j_c=pe.j_cal * sw * cm_k[None, None, :] if K else None)
 
 
+def schur_step(U, W, vinv, rhs_p, rhs_l, cmask=None, n=None):
+    """(S, rhs) = (U - W V^-1 W^T, rhs_p - W V^-1 rhs_l), cut to the
+    leading n rows and columns, with the column mask's 1e6 diagonal and
+    zero rhs where `cmask` is given: K5 (kernels/csrc/schur_finish.cu) for
+    CUDA tensors, its plain version for CPU tensors."""
+    if U.is_cuda:
+        return k5.schur_finish(U, W, vinv, rhs_p, rhs_l, cmask, n)
+    if U.device.type != "cpu":
+        raise ValueError(f"schur_step: no kernel for device {U.device}")
+    return k5.schur_finish_plain(U, W, vinv, rhs_p, rhs_l, cmask, n)
+
+
 def finish(contrib: Contribution, cmask, proj_w) -> Assembly:
     """Schur-complement the landmark blocks and apply the dim mask."""
-    N = contrib.U.shape[0]
-    L, lm, _ = contrib.V.shape
     vinv = block_diag_inv(contrib.V)
-    W3 = contrib.W.reshape(N, L, lm)
-    WVi = torch.einsum("nlk,lkj->nlj", W3, vinv).reshape(N, L * lm)
-    S = contrib.U - WVi @ contrib.W.T
-    rhs_sc = contrib.rhs_p - WVi @ contrib.rhs_l
-
-    S = S + torch.diag(torch.where(cmask, 0.0, 1e6).to(S.dtype))
-    rhs_sc = torch.where(cmask, rhs_sc, 0.0)
+    S, rhs_sc = schur_step(contrib.U, contrib.W, vinv, contrib.rhs_p,
+                           contrib.rhs_l, cmask)
     return Assembly(S=S, rhs_sc=rhs_sc, U=contrib.U, rhs_p=contrib.rhs_p,
                     W=contrib.W, V=contrib.V, vinv=vinv,
                     rhs_l=contrib.rhs_l, col_mask=cmask, cost=contrib.cost,

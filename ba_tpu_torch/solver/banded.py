@@ -42,7 +42,7 @@ and the product in one pass; the Cholesky and the triangular solves stay
 `torch.linalg`.  Its plan (`fleet_dense_plan`) holds the families-only
 grid and kernel 10's block table.
 
-Not ported: the sharded layout (`lm_offset`, queue 1 item 4) and
+Not ported: the sharded layout (`lm_offset`, queue 1, distribution) and
 `_effective_pcg_iters`' TPU-only clamp: the PCG count is
 `banded_pcg_iterations or 4`.
 """

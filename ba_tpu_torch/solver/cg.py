@@ -40,8 +40,9 @@ every `CG_CHECK_EVERY` (8) iterations to leave the loop: at most
 ceil(cg_max_iterations / 8) host syncs per build (12 at 100 iterations),
 and up to 7 masked iterations after convergence.
 
-Not ported here: a calibration block (K > 0 raises; ROADMAP.md queue 1
-item 1) and the sharded layout (`axis_name`, `lm_offset`; queue 1 item 4).
+Not ported here: a calibration block (K > 0 raises; ROADMAP.md queue 1,
+calibration on the block system) and the sharded layout (`axis_name`,
+`lm_offset`; queue 1, distribution).
 """
 
 from __future__ import annotations
@@ -248,7 +249,7 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     if K:
         raise NotImplementedError(
             "the block system with a calibration block is not ported yet "
-            "(ROADMAP.md queue 1 item 1)")
+            "(ROADMAP.md queue 1, calibration on the block system)")
     if plan is None:
         plan = block_plan(problem, config)
     dtype = problem.poses.t.dtype

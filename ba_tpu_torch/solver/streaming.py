@@ -387,7 +387,8 @@ class StreamingRing:
         copy; the pinned tensors are held, with an event recorded after
         their copies, until that event has completed: a pinned buffer
         freed or rewritten while its copy is queued would send other
-        bytes."""
+        bytes.  Rings that share one stream (`vins_stream.stream_many`)
+        each hold their own buffers and events; nothing here waits."""
         if self.device.type != "cuda":
             return [torch.from_numpy(b).to(self.device) for b in bufs]
         while self._inflight and self._inflight[0][0].query():

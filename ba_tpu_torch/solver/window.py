@@ -8,7 +8,7 @@ Port of `ba_tpu/solver/window.py`:
      slide's assembly plan serves the selection too);
   2. assemble their normal equations on the general path (plus the
      existing prior, folded in at the current estimate) and eliminate the
-     departing landmarks with the batched Schur step;
+     departing landmarks with the Schur step (`assemble.schur_step`, K5);
   3. Schur-complement the departing pose dims with a masked inverse, all
      at static shapes:
          B = Pd S Pd + (I - Pd) + eps*Pd
@@ -19,9 +19,11 @@ Port of `ba_tpu/solver/window.py`:
      can make the Schur difference slightly indefinite, and an indefinite
      prior makes the window cost unbounded below).
 
-The inverse is `torch.linalg.inv_ex`, which reports failure in a tensor
-and does not wait for the device.  `torch.linalg.eigh` has no such form:
-it checks its LAPACK info on the host, one host sync per marginalization.
+Steps 3 and 4 are `prior_step`: on the card one launch of K11
+(kernels/csrc/marginalize.cu), which inverts the departing block alone
+and clips by Jacobi rotations with its stop test on the device, so a
+marginalization makes no host sync.  On the CPU the plain version keeps
+ba_tpu's form (`inv_ex`, `eigh`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from ..core.problem import BAConfig, MargPrior, Problem
 from ..core.residuals import imu as imu_mod
+from ..kernels import marginalize as k11
 from ..utils.linalg import block_diag_inv
 from . import assemble as asm
 
@@ -55,6 +58,17 @@ def _select_residuals(problem: Problem, drop):
         & (drop[problem.imu.pose1] | drop[problem.imu.pose2]))
     return dataclasses.replace(problem, proj=proj, unary=unary,
                                binary=binary, imu=imu), lm_drop
+
+
+def prior_step(S, rhs, pd, eps: float):
+    """(H, g) of the prior from the departing system (S, rhs) and its
+    departing dims `pd`: K11 (kernels/csrc/marginalize.cu) for CUDA
+    tensors, its plain version for CPU tensors."""
+    if S.is_cuda:
+        return k11.marginalize_prior(S, rhs, pd, eps)[:2]
+    if S.device.type != "cpu":
+        raise ValueError(f"prior_step: no kernel for device {S.device}")
+    return k11.marginalize_prior_plain(S, rhs, pd, eps)
 
 
 def marginalize(problem: Problem, config: BAConfig, use_imu: bool, drop,
@@ -83,31 +97,12 @@ def marginalize(problem: Problem, config: BAConfig, use_imu: bool, drop,
     contrib = asm._add(contrib, asm.marg_contribution(sub, config, colm))
 
     # eliminate departing landmarks (only they carry residuals here)
-    L, lm, _ = contrib.V.shape
-    vinv = block_diag_inv(contrib.V)
-    W3 = contrib.W.reshape(-1, L, lm)
-    WVi = torch.einsum("nlk,lkj->nlj", W3, vinv).reshape(-1, L * lm)
-    S = (contrib.U - WVi @ contrib.W.T)[:n, :n]
-    rhs = (contrib.rhs_p - WVi @ contrib.rhs_l)[:n]
-
-    # Schur out departing pose dims via the masked-inverse trick
-    Pd = (drop.repeat_interleave(D) & cmask[:n]).to(dtype)
+    S, rhs = asm.schur_step(contrib.U, contrib.W, block_diag_inv(contrib.V),
+                            contrib.rhs_p, contrib.rhs_l, n=n)
+    # Schur out departing pose dims, symmetrize, clip to PSD
+    pd = drop.repeat_interleave(D) & cmask[:n]
     eps = 1e-9 if dtype == torch.float64 else 1e-5
-    B = (S * Pd[:, None] * Pd[None, :] + torch.diag(1.0 - Pd)
-         + eps * torch.diag(Pd))
-    Binv = torch.linalg.inv_ex(B).inverse
-    # only the d-block of B^-1 matters; zero the rest to avoid leakage
-    Binv = Binv * Pd[:, None] * Pd[None, :]
-    SP = S * Pd[None, :]
-    H_new = S - SP @ Binv @ SP.T
-    g_new = rhs - SP @ (Binv @ (rhs * Pd))
-    keep = 1.0 - Pd
-    H_new = H_new * keep[:, None] * keep[None, :]
-    g_new = g_new * keep
-    # PSD safeguard (module docstring); a no-op to roundoff in f64
-    H_new = 0.5 * (H_new + H_new.T)
-    evals, evecs = torch.linalg.eigh(H_new)
-    H_new = (evecs * torch.clamp(evals, min=0.0)[None, :]) @ evecs.T
+    H_new, g_new = prior_step(S, rhs, pd, eps)
 
     poses = problem.poses
     return MargPrior(H=H_new, g=g_new, lin_q=poses.q, lin_t=poses.t,

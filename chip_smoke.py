@@ -38,10 +38,18 @@ Phases, each of which exits non-zero when a check fails:
      landmarks, seed 7), build_problem(perturb 0.02, seed 8), W = 10, 2 GN
      iterations per slide), every keyframe through
      `StreamingRing.push(block=False)`: keyframes retired per second after
-     the first push, ms per slide, host syncs per push, kernel launches per
-     slide, the retired trajectory's ATE (at most twice the JAX package's
-     f64 CPU ATE at the same configuration) and finite costs; kernel 1 and
-     segsum against their plain versions at a slide's shapes;
+     the first push, ms per slide, host syncs per push (none: K11 has
+     replaced the `eigh` that made one), kernel launches per slide, the
+     retired trajectory's ATE (at most twice the JAX package's f64 CPU ATE
+     at the same configuration) and finite costs; kernel 1 and segsum
+     against their plain versions at a slide's shapes; stream_many: the
+     multi-stream server (`vins_stream.stream_many`, the app's --streams)
+     with 4 streams of that configuration (build seeds 8-11, capacities
+     from the 128-keyframe schedule), each pushing its first 40 keyframes
+     (reduced from 128 for the script's time): aggregate and per-stream
+     keyframes retired per second, ms per round, no host sync in a steady
+     push, exact launches, each stream's ATE under the same bound and its
+     outputs bit-identical to the same stream pushed alone;
  11. timings from CUDA events, at the flagship's shapes and at a slide's:
      each kernel per call (host launch cost included) and on the device
      (CUDA-graph replay), beside the launch floor (a one-element add,
@@ -69,8 +77,9 @@ Phases, each of which exits non-zero when a check fails:
      (banded grid + dense Cholesky), within a multiple of the same gap on
      an f32 CPU run of both at 256 poses; K7 and K9 timed as in 11, with
      torch.mv on the densified band as K9's library yardstick; K8 (cyclic
-     reduction on torch.linalg): its factor and one solve timed apart
-     beside their bounds (flops and bytes counted level by level);
+     reduction on torch.linalg): its factor and one solve timed apart,
+     with the host and on the device (CUDA-graph replay), beside their
+     bounds (flops and bytes counted level by level);
  15. cg_small: the matrix-free PCG solver (use_cg_solver) on the card
      against the CPU in f64 (simulate(24 poses, 72 landmarks)): one
      solve_reduced_cg step, one GN iteration with an active marginalization
@@ -127,11 +136,26 @@ Phases, each of which exits non-zero when a check fails:
      camera-IMU capture made from a seed (a 6 x 6 tag grid of 144 corners,
      300 frames at 20 Hz, IMU at 200 Hz, the linear camera), f32: the
      stages advance, the calibration improves, the mse per stage and the
-     seconds per solve_once.
+     seconds per solve_once;
+ 25. k5: K5 (schur_finish, the dense Schur step) against its plain version
+     at a flagship build's, a stream slide's build and marginalization's
+     and the self-calibration's shapes, f32 and f64, S exactly symmetric,
+     bit-identical between launches; k11: K11 (marginalize, the departing
+     dims' Schur complement and the PSD clip by Jacobi) against its plain
+     version at the stream slide's marginalization (n = 90), vins_window's
+     (apps/vins_window.py --poses 40: n = 360) and an indefinite n = 90
+     system, f32 and f64: its info flag (converged, finite), the smallest
+     eigenvalue of its f32 output, bit-identical between launches; both
+     timed as in 11 beside their bounds, plain versions and library
+     yardsticks (torch.matmul of W V^-1 by W^T; `eigh` and the clip
+     product).
 
 K2 launches are counted on every path (one (a) per build, one (b) per
-trial cost).  The last lines are the `kernels` JSON line, the card's name and power
-limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or when
+trial cost); K5 on every dense path (one per build, and one per
+marginalization), K11 once per marginalization, both none on the banded,
+PCG and fused-fleet solvers.  The last lines are the `kernels` JSON
+line, the card's name and power limit, and {"ok": true, "device":
+{...}}.  Without a CUDA device, or when
 `ba_tpu_torch` is not next to this script, it exits non-zero before
 printing a result.
 """
@@ -178,6 +202,24 @@ JAX_F64_ATE_M = 0.00126      # printed as 0.126 cm
 # build (segsum); K2 (a) per build, (b) per trial
 K1_PER_SLIDE, SEG_PER_SLIDE = 5, 3
 IMU_A_PER_SLIDE, IMU_B_PER_SLIDE = 3, 2
+# K5 per slide: the two GN builds and the marginalization's; K11 once
+K5_PER_SLIDE, K11_PER_SLIDE = 3, 1
+# the multi-stream server (apps/vins_stream.py --streams): M streams of the
+# serving configuration, build seeds 8 + m, capacities from the
+# 128-keyframe schedule; reduced: each stream pushes its first 40
+# keyframes (31 slides each, 124 in all) for the script's time
+STREAM_MANY = dict(streams=4, keyframes=40)
+# K5 against its plain version, relative to max(1, max |S|): the same
+# products summed in another order; K11 relative to ||H||_F: f64 the same
+# function by another algorithm, f32 a Jacobi solve and `eigh` rounding
+# differently (~n eps ||H||); K11's f32 output may have no eigenvalue below
+# -1e-6 ||H||_F
+TOL_K5 = {"float64": 1e-10, "float32": 1e-5}
+TOL_K11 = {"float64": 1e-10, "float32": 1e-4}
+K11_PSD_F32 = 1e-6
+# vins_window's marginalization (apps/vins_window.py --poses 40 --window
+# 10): the whole 40-pose problem, n = 360
+K11_WINDOW = dict(poses=40, lms=120)
 
 # the long trajectory (bench_roofline.py:26-44, --what band --poses 2048;
 # bench_scaling.py's bandsolve at P = 2048, 10 GN iterations)
@@ -589,8 +631,8 @@ def phase_small_reference():
 
 def _counters_zero():
     from ba_tpu_torch.kernels import (band_matvec, band_schur, fleet_schur,
-                                      imu_preint, reprojection, schur_matvec,
-                                      segsum)
+                                      imu_preint, marginalize, reprojection,
+                                      schur_finish, schur_matvec, segsum)
     from ba_tpu_torch.utils.sync import item
 
     reprojection.reprojection.launches = 0
@@ -602,6 +644,8 @@ def _counters_zero():
     schur_matvec.schur_matvec.launches = 0
     fleet_schur.fleet_w.launches = 0
     fleet_schur.fleet_epilogue.launches = 0
+    schur_finish.schur_finish.launches = 0
+    marginalize.marginalize_prior.launches = 0
     item.count = 0
 
 
@@ -698,6 +742,7 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
     secs = time.perf_counter() - t0
     k1, k2, reads = _counters()
     ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
 
     costs_h = costs.double().cpu()
     ate1 = _ate(p, sim)
@@ -706,7 +751,8 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
     say(f"GN solve_fixed({N_ITERS}) f32: cost {cost0:.6g} -> "
         f"{float(costs_h[-1]):.6g}, ATE {ate0:.6g} -> {ate1:.6g} m, "
         f"solver_ok at start/end {ok0}/{ok1}, kernel launches "
-        f"reprojection {k1} segsum {k2} imu_preint (a) {ia} (b) {ib}, "
+        f"reprojection {k1} segsum {k2} imu_preint (a) {ia} (b) {ib} "
+        f"schur_finish {k5} marginalize {k11}, "
         f"bit-identical to the warm-up run {torch.equal(costs, warm[1])}")
     check(bool(torch.isfinite(costs_h).all()) and _finite(p),
           "GN: non-finite values")
@@ -719,14 +765,16 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
           f"{N_ITERS} (one per build)")
     check((ia, ib) == (N_ITERS, N_ITERS), f"GN: imu_preint launches "
           f"({ia}, {ib}), expected one (a) per build, one (b) per trial")
+    check((k5, k11) == (N_ITERS, 0), f"GN: schur_finish, marginalize "
+          f"launches ({k5}, {k11}), expected ({N_ITERS}, 0)")
     kf = N_POSES * N_ITERS / secs
     say(f"[{smi}] GN solve_fixed({N_ITERS}): {secs * 1e3:.1f} ms, "
         f"{kf:.1f} kf/s; host syncs {syncs}: the plan's {n_plan_syncs} "
         f"once, then {(syncs - n_plan_syncs) / N_ITERS:.2f} per iteration "
         f"(counted reads {reads})")
     say("PHASE gn ok")
-    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, kf_s=kf,
-                syncs=syncs, iters=N_ITERS)
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
+                k11=k11, kf_s=kf, syncs=syncs, iters=N_ITERS)
 
 
 def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
@@ -749,6 +797,7 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     secs = time.perf_counter() - t0
     k1, k2, reads = _counters()
     ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
 
     ate1 = _ate(p, sim)
     # host reads: one for use_imu, then per iteration one per inner trial
@@ -758,7 +807,8 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     say(f"dogleg solve f32: {s.iterations} iterations ({trials} trials), "
         f"{s.result}, cost {s.initial_cost:.6g} -> {s.final_cost:.6g}, "
         f"ATE {ate0:.6g} -> {ate1:.6g} m, kernel launches reprojection "
-        f"{k1} segsum {k2} imu_preint (a) {ia} (b) {ib}, same as the warm-up "
+        f"{k1} segsum {k2} imu_preint (a) {ia} (b) {ib} schur_finish {k5} "
+        f"marginalize {k11}, same as the warm-up "
         f"run "
         f"{(s.iterations, s.final_cost) == (warm.iterations, warm.final_cost)}")
     check(s.is_good, f"dogleg: result {s.result}")
@@ -776,14 +826,17 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     check((ia, ib) == (s.iterations + 1, trials + 1),
           f"dogleg: imu_preint launches ({ia}, {ib}), expected "
           f"({s.iterations + 1}, {trials + 1})")
+    check((k5, k11) == (s.iterations, 0), f"dogleg: schur_finish, "
+          f"marginalize launches ({k5}, {k11}), expected "
+          f"({s.iterations}, 0): one K5 per build")
     kf = N_POSES * s.iterations / secs
     say(f"[{smi}] dogleg solve: {secs * 1e3:.1f} ms, {kf:.1f} kf/s; host "
         f"syncs {syncs}: the plan's {n_plan_syncs} once, then "
         f"{(syncs - n_plan_syncs) / s.iterations:.2f} per iteration "
         f"(counted reads {reads})")
     say("PHASE dogleg ok")
-    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, kf_s=kf,
-                syncs=syncs, iters=s.iterations)
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
+                k11=k11, kf_s=kf, syncs=syncs, iters=s.iterations)
 
 
 def _compare(pairs, what, tol):
@@ -818,16 +871,18 @@ def phase_general_small():
                          plan=plan)
         drop = torch.arange(p.poses.q.shape[0], device=dev) == 2
         m = window.marginalize(p, cfg, True, drop, plan)
-        out[dev] = (a, m, _counters())
+        out[dev] = (a, m, _counters()[:2] + _marg_counters())
     (ga, gm, counts), (ca, cm, _) = out["cuda"], out["cpu"]
     _compare([(n, getattr(ga, n), getattr(ca, n))
               for n in ("S", "rhs_sc", "cost", "U", "W", "V")]
              + [("marginalize H", gm.H, cm.H), ("marginalize g", gm.g, cm.g)],
              "general path, 12 poses f64", TOL_SMALL)
     say(f"general_small kernel launches on the card: reprojection "
-        f"{counts[0]} segsum {counts[1]}")
-    check(counts[:2] == (2, 2), f"general_small: launches {counts[:2]}, "
-          "expected one of each kernel per build (assemble, marginalize)")
+        f"{counts[0]} segsum {counts[1]} schur_finish {counts[2]} "
+        f"marginalize {counts[3]}")
+    check(counts == (2, 2, 2, 1), f"general_small: launches {counts}, "
+          "expected one of kernel 1, segsum and K5 per build (assemble, "
+          "marginalize) and one K11")
     say("PHASE general_small ok")
 
 
@@ -846,15 +901,18 @@ def phase_ring_small():
         sched = fixedlag.build_ring_schedule(prepare_landmarks(p, cfg), cfg,
                                              5, 4)
         _counters_zero()
-        out[dev] = fixedlag.run_ring(sched, cfg, True, 2) + (_counters(),)
+        out[dev] = fixedlag.run_ring(sched, cfg, True, 2) + (
+            _counters()[:2] + _marg_counters(),)
     (gc, go, counts), (cc, co, _) = out["cuda"], out["cpu"]
     _compare([(f"retired {k}", go[k], co[k]) for k in go]
              + [(f"final carry {n}", g, c)
                 for n, g, c in zip("qtvbx", gc[:5], cc[:5])]
              + [("final prior H", gc[5].H, cc[5].H)],
              "ring, 4 slides f64", TOL_SMALL)
-    check(counts[:2] == (4 * K1_PER_SLIDE, 4 * SEG_PER_SLIDE),
-          f"ring_small: launches {counts[:2]} over 4 slides")
+    want = (4 * K1_PER_SLIDE, 4 * SEG_PER_SLIDE, 4 * K5_PER_SLIDE,
+            4 * K11_PER_SLIDE)
+    check(counts == want, f"ring_small: launches {counts} over 4 slides, "
+          f"expected {want}")
     say("PHASE ring_small ok")
 
 
@@ -914,6 +972,7 @@ def phase_stream(smi):
     t_steady = time.perf_counter() - t0
     k1, k2, _ = _counters()
     ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
 
     n = len(outs)
     n_steady = n - 1
@@ -928,7 +987,8 @@ def phase_stream(smi):
         f"{n_steady} slides; host syncs per steady push min {min(syncs)} "
         f"max {max(syncs)} total {sum(syncs)}; kernel launches "
         f"reprojection {k1} ({k1 / n:.2f} per slide) segsum {k2} "
-        f"({k2 / n:.2f} per slide) imu_preint (a) {ia} (b) {ib}")
+        f"({k2 / n:.2f} per slide) imu_preint (a) {ia} (b) {ib} "
+        f"schur_finish {k5} marginalize {k11}")
     say(f"stream f32: retired-trajectory ATE {ate:.6g} m (bound "
         f"{2 * JAX_F64_ATE_M:g} m, twice the JAX f64 CPU ATE); last slide "
         f"cost {float(costs[-1]):.6g}; costs finite "
@@ -944,8 +1004,14 @@ def phase_stream(smi):
     check((ia, ib) == (IMU_A_PER_SLIDE * n, IMU_B_PER_SLIDE * n),
           f"stream: imu_preint launches ({ia}, {ib}), expected "
           f"({IMU_A_PER_SLIDE * n}, {IMU_B_PER_SLIDE * n})")
+    check((k5, k11) == (K5_PER_SLIDE * n, K11_PER_SLIDE * n),
+          f"stream: schur_finish, marginalize launches ({k5}, {k11}), "
+          f"expected ({K5_PER_SLIDE * n}, {K11_PER_SLIDE * n})")
+    check(max(syncs) == 0, f"stream: {max(syncs)} host syncs in a steady "
+          f"push (K11 replaced the eigh that made one)")
     say("PHASE stream ok")
-    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, slides=n,
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
+                k11=k11, slides=n,
                 kf_s=kf_s, ms_slide=ms_slide,
                 syncs_per_push=sum(syncs) / len(syncs), ate=ate,
                 last_cost=float(costs[-1])), sched, cfg
@@ -1367,6 +1433,7 @@ def phase_long(p, cfg, sim, smi):
     k1, k2, reads = _counters()
     k7, k9 = _band_counters()
     ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
     peak = torch.cuda.max_memory_allocated()
     costs_h = costs.double().cpu()
     ate1 = _ate(q, sim)
@@ -1392,6 +1459,8 @@ def phase_long(p, cfg, sim, smi):
     check((k1, k2, k7, k9) == want, f"long: launches {(k1, k2, k7, k9)}, "
           f"expected {want}")
     check((ia, ib) == (n, n), f"long: imu_preint launches ({ia}, {ib})")
+    check((k5, k11) == (0, 0), f"long: schur_finish, marginalize launches "
+          f"({k5}, {k11}) on the banded solver")
     check(syncs == plan_again, f"long: {syncs - plan_again} host syncs in "
           f"{n} iterations")
 
@@ -1428,6 +1497,7 @@ def phase_long(p, cfg, sim, smi):
           * gap_l, "long: the banded step is off the dense one")
     say("PHASE long ok")
     return dict(k1=k1, k2=k2, k7=k7, k9=k9, imu=ia + ib, imu_a=ia, imu_b=ib,
+                k5=k5, k11=k11,
                 kf_s=kf, ms_iter=secs * 1e3 / n,
                 peak_gib=peak / 2**30, peak_dense_gib=peak_d / 2**30,
                 syncs=syncs - plan_again, gap_p=got_p, gap_l=got_l)
@@ -1538,6 +1608,17 @@ def k8_timing(p, cfg, band_s, smi):
     s_bytes = (sum(3 * h for h in hs) + 1) * n * n * band_s.element_size()
     tf = event_ms(lambda: banded._bcr_factor(Dg, Eg), 5)
     ts = event_ms(lambda: banded._bcr_solve(levels, b, n_c), 10)
+    dev = {}
+    for key, fn, calls in (("factor", lambda: banded._bcr_factor(Dg, Eg), 2),
+                           ("solve", lambda: banded._bcr_solve(levels, b,
+                                                               n_c), 5)):
+        try:
+            dev[key] = graph_ms(fn, calls)
+        except RuntimeError as e:        # a library call refused capture
+            torch.cuda.synchronize()
+            say(f"K8 {key}: CUDA-graph capture failed ({str(e)[:200]}); its "
+                "device time is not measured")
+            dev[key] = None
     bf = max(f_bytes / HBM_BPS, f_flops / F32_FLOPS) * 1e3
     bs_ = max(s_bytes / HBM_BPS, s_flops / F32_FLOPS) * 1e3
 
@@ -1547,11 +1628,14 @@ def k8_timing(p, cfg, band_s, smi):
 
     say(f"[{smi}] K8 cyclic reduction on the long band ({n_c} -> {m} chunks "
         f"of {n} x {n}, {len(levels) - 1} levels): factor {tf:.4f} ms, one "
-        f"solve {ts:.4f} ms (CUDA events around 5 and 10 calls); bounds: "
+        f"solve {ts:.4f} ms (CUDA events around 5 and 10 calls); on the "
+        f"device (CUDA-graph replay) factor {dev['factor']} ms, solve "
+        f"{dev['solve']} ms; bounds: "
         f"factor {bf:.5f} ms ({f_flops:.4g} flop, {f_bytes} B; "
         f"{by(f_flops, f_bytes)}), solve {bs_:.5f} ms ({s_flops:.4g} flop, "
         f"{s_bytes} B; {by(s_flops, s_bytes)})")
-    return dict(factor_ms=tf, solve_ms=ts, factor_bound_ms=bf,
+    return dict(factor_ms=tf, solve_ms=ts, factor_device_ms=dev["factor"],
+                solve_device_ms=dev["solve"], factor_bound_ms=bf,
                 solve_bound_ms=bs_, factor_flops=f_flops,
                 factor_bytes=f_bytes, solve_flops=s_flops, solve_bytes=s_bytes)
 
@@ -1799,6 +1883,7 @@ def phase_cg(p, cfg, sim, smi):
     k1, k2, reads = _counters()
     k6 = _new_counters()[0]
     ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
     peak = torch.cuda.max_memory_allocated()
     costs_h = costs.double().cpu()
     ate1 = _ate(q, sim)
@@ -1830,6 +1915,8 @@ def phase_cg(p, cfg, sim, smi):
     check((k1, k2, k6) == want, f"cg: launches {(k1, k2, k6)}, expected "
           f"{want}")
     check((ia, ib) == (n, n), f"cg: imu_preint launches ({ia}, {ib})")
+    check((k5, k11) == (0, 0), f"cg: schur_finish, marginalize launches "
+          f"({k5}, {k11}) on the PCG solver")
     check(max(pcg_reads) <= max_reads, f"cg: {max(pcg_reads)} host reads in "
           "one PCG solve")
     check(syncs - plan_again == sum(pcg_reads) == reads,
@@ -1861,7 +1948,7 @@ def phase_cg(p, cfg, sim, smi):
           "cg: the PCG step is off the dense one")
     say("PHASE cg ok")
     return dict(k1=k1, k2=k2, k6=k6, imu=ia + ib, imu_a=ia, imu_b=ib,
-                kf_s=kf, ms_iter=secs * 1e3 / n,
+                k5=k5, k11=k11, kf_s=kf, ms_iter=secs * 1e3 / n,
                 peak_gib=peak / 2**30, cg_iters=its, syncs_per_build=pcg_reads,
                 gap_p=got_p, gap_l=got_l)
 
@@ -2124,6 +2211,7 @@ def phase_fleet(p, cfg, sim, windows, smi):
     k1, k2, reads = _counters()
     _, k10a, k10b = _new_counters()
     ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
     peak = torch.cuda.max_memory_allocated()
     costs_h = costs.double().cpu()
     after = _window_costs(q, windows, cfg, sim)
@@ -2153,6 +2241,8 @@ def phase_fleet(p, cfg, sim, windows, smi):
     check((k1, k2, k10a, k10b) == want, f"fleet: launches "
           f"{(k1, k2, k10a, k10b)}, expected {want}")
     check((ia, ib) == (n, n), f"fleet: imu_preint launches ({ia}, {ib})")
+    check((k5, k11) == (0, 0), f"fleet: schur_finish, marginalize launches "
+          f"({k5}, {k11}) on the dense fleet solve (kernel 10)")
     check(syncs == plan_again, f"fleet: {syncs - plan_again} host syncs in "
           f"{n} iterations")
 
@@ -2180,7 +2270,7 @@ def phase_fleet(p, cfg, sim, windows, smi):
           "fleet: fleet_size 4 and 1 disagree")
     say("PHASE fleet ok")
     return dict(k1=k1, k2=k2, k10=k10a + k10b, k10a=k10a, k10b=k10b,
-                imu=ia + ib, imu_a=ia, imu_b=ib, kf_s=kf,
+                imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5, k11=k11, kf_s=kf,
                 ms_iter=secs * 1e3 / n, peak_gib=peak / 2**30,
                 costs_after=[a[0] for a in after],
                 ate_after=[a[1] for a in after])
@@ -2658,6 +2748,7 @@ def phase_selfcal(p, cfg, sim, smi):
     secs = time.perf_counter() - t0
     k1, k2, reads = _counters()
     ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
     peak = torch.cuda.max_memory_allocated()
     err1 = _calib_errors(q, sim)
     its = s.iterations
@@ -2675,7 +2766,8 @@ def phase_selfcal(p, cfg, sim, smi):
         f"{err0[1]:.4g} -> {err1[1]:.4g} rad, T_vs translation error across "
         f"the turn axis {err0[2]:.4g} -> {err1[2]:.4g} m, along it (not "
         f"observable) {err0[3]:.4g} -> {err1[3]:.4g} m; kernel launches "
-        f"reprojection {k1} segsum {k2} imu_preint (a) {ia} (b) {ib}")
+        f"reprojection {k1} segsum {k2} imu_preint (a) {ia} (b) {ib} "
+        f"schur_finish {k5} marginalize {k11}")
     say(f"[{smi}] selfcal solve: {secs * 1e3:.1f} ms, {secs * 1e3 / its:.1f} "
         f"ms per iteration, {kf:.1f} kf/s ({N_POSES} x {its} / wall); peak "
         f"device memory {peak / 2**30:.3f} GiB; host syncs {syncs}, "
@@ -2691,9 +2783,12 @@ def phase_selfcal(p, cfg, sim, smi):
           f"expected {its + trials + 1}")
     check((ia, ib) == (its + 1, trials + 1), f"selfcal: imu_preint "
           f"launches ({ia}, {ib}), expected ({its + 1}, {trials + 1})")
+    check((k5, k11) == (its, 0), f"selfcal: schur_finish, marginalize "
+          f"launches ({k5}, {k11}), expected ({its}, 0): one K5 per build")
     say("PHASE selfcal ok")
-    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, kf_s=kf,
-                ms_iter=secs * 1e3 / its, iters=its, peak_gib=peak / 2**30,
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
+                k11=k11, kf_s=kf, ms_iter=secs * 1e3 / its, iters=its,
+                peak_gib=peak / 2**30,
                 syncs_per_iter=syncs / its, calib_err=err1,
                 cost_ratio=s.final_cost / s.initial_cost)
 
@@ -2849,8 +2944,9 @@ def phase_vicalib(smi):
         check(np.isfinite(mse), f"vicalib: mse {mse} at stage {stage}")
     k1, k2, _ = _counters()
     ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
     say(f"vicalib kernel launches: reprojection {k1} segsum {k2} imu_preint "
-        f"(a) {ia} (b) {ib}")
+        f"(a) {ia} (b) {ib} schur_finish {k5} marginalize {k11}")
     check([s["stage"] for s in stages] == [0, 1, 2]
           and cal.stage == STAGE_BIASES, "vicalib: the stages did not "
           f"advance ({[s['stage'] for s in stages]} -> {cal.stage})")
@@ -2859,9 +2955,417 @@ def phase_vicalib(smi):
     check(stages[-1]["mse"] < VICALIB["mse_bound"],
           f"vicalib: final mse {stages[-1]['mse']:.3g}")
     check(min(k1, k2, ia, ib) > 0, "vicalib: a kernel never launched")
+    check((k5, k11) == (k2, 0), f"vicalib: schur_finish, marginalize "
+          f"launches ({k5}, {k11}), expected ({k2}, 0): one K5 per build")
     say("PHASE vicalib ok")
-    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, stages=stages,
-                rows=rows)
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
+                k11=k11, stages=stages, rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# K5 (the dense Schur step), K11 (the marginalization prior) and the
+# multi-stream server
+
+
+def _marg_counters():
+    """(K5, K11) launches since `_counters_zero`."""
+    from ba_tpu_torch.kernels import marginalize, schur_finish
+
+    return (schur_finish.schur_finish.launches,
+            marginalize.marginalize_prior.launches)
+
+
+def _recording(module, name, run):
+    """Run `run()` with `module.name` wrapped to record its arguments;
+    returns the list of (args, kwargs) of its calls."""
+    seen = []
+    orig = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        seen.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, rec)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return seen
+
+
+def k5_cases(p32, cfg, s32, cfg_s, ps32, cfg_sc):
+    """(label, args, kwargs) of K5 at the main paths' shapes: a flagship
+    build, a stream slide's build and its marginalization (the leading
+    pose rows), a self-calibration build (K = 11)."""
+    import torch
+
+    from ba_tpu_torch.solver import assemble as asm
+    from ba_tpu_torch.solver import step, window
+
+    def build(p, c):
+        return lambda: asm.assemble(p, c, imu_eval=step._imu_eval(p, c, True,
+                                                                  True))
+
+    drop = torch.arange(s32.poses.q.shape[0], device=s32.poses.t.device) == 0
+    out = []
+    for label, run in (("flagship", build(p32, cfg)),
+                       ("stream slide", build(s32, cfg_s)),
+                       ("stream slide marginalization",
+                        lambda: window.marginalize(s32, cfg_s, True, drop)),
+                       ("selfcal", build(ps32, cfg_sc))):
+        (args, kwargs), = _recording(asm, "schur_step", run)
+        if len(args) > 5:                # finish passes the mask by place
+            args, kwargs = args[:5], dict(kwargs, cmask=args[5])
+        out.append((label, args, kwargs))
+    return out
+
+
+def phase_k5(cases):
+    """K5 against its plain version at each case's shapes in f32 and on an
+    f64 copy, relative to max(1, max |S|), S exactly symmetric, two
+    launches bit-identical.  K5 reads U's lower triangle: U is symmetric,
+    an f32 build's to the roundoff of its sums only (~1e-9 of max |S|), so
+    the f64 copy takes U's symmetric part."""
+    import torch
+
+    from ba_tpu_torch.kernels import schur_finish as k5
+
+    worst = 0.0
+    for label, args, kw in cases:
+        for dt in (torch.float32, torch.float64):
+            a = [t.to(dt) for t in args]
+            if dt == torch.float64:
+                a[0] = 0.5 * (a[0] + a[0].T)
+            got = k5.schur_finish(*a, **kw)
+            again = k5.schur_finish(*a, **kw)
+            want = k5.schur_finish_plain(*a, **kw)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(want[0].double().abs().max()))
+            err = max(float((g.double() - w.double()).abs().max())
+                      for g, w in zip(got, want))
+            same = all(torch.equal(g, h) for g, h in zip(got, again))
+            sym = torch.equal(got[0], got[0].T)
+            name = str(dt).split(".")[1]
+            N, K = a[0].shape[0], a[1].shape[1]
+            masked = kw.get("cmask") is not None
+            say(f"K5 schur_finish, {label} (N={N}, L*lm={K}, n="
+                f"{got[0].shape[0]}, mask {masked}) "
+                f"{name}: max abs err {err:.3e}, rel {err / scale:.3e} "
+                f"(tol {TOL_K5[name]:g}), symmetric {sym}, bit-identical "
+                f"{same}")
+            check(err <= TOL_K5[name] * scale and same and sym,
+                  f"K5 {label} {name}: rel err {err / scale:.3g}, "
+                  f"bit-identical {same}, symmetric {sym}")
+            if dt == torch.float32:
+                worst = max(worst, err)
+    say("PHASE k5 ok")
+    return worst
+
+
+def _random_departing(n, drop, seed, dtype):
+    """(S, rhs, pd) of an indefinite symmetric system whose Schur
+    complement keeps negative eigenvalues (the clip's work)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n + 5))
+    v = rng.standard_normal((n, 3))
+    S = (A @ A.T - 3.0 * v @ v.T) / n
+    pd = np.zeros(n, bool)
+    pd[list(drop)] = True
+    return (torch.as_tensor(0.5 * (S + S.T), dtype=dtype, device="cuda"),
+            torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                            device="cuda"),
+            torch.as_tensor(pd, device="cuda"))
+
+
+def window_problem():
+    """apps/vins_window.py --poses 40 --window 10 (its first
+    marginalization: 40 poses, n = 360): simulate(40, 120, seed 7),
+    build_problem(perturb 0.02, seed 8), f32, band width from the
+    problem."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver.assemble import band_width_of
+    from ba_tpu_torch.utils.tree import tree_map
+
+    sim = sv.simulate(n_poses=K11_WINDOW["poses"], n_lms=K11_WINDOW["lms"],
+                      seed=7)
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.02, seed=8)
+    p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
+    return p, dataclasses.replace(cfg, band_width=band_width_of(p))
+
+
+def k11_cases():
+    """(label, S, rhs, pd, eps) of K11: the serving stream's fourth slide's
+    marginalization (n = 90; the first two slides retire the two anchored
+    poses, which have no free dims), vins_window's first (n = 360), and an
+    indefinite n = 90 system with negative eigenvalues to clip."""
+    import torch
+
+    from ba_tpu_torch.apps.vins_stream import stream_problem
+    from ba_tpu_torch.solver import fixedlag, window
+
+    p, cfg = stream_problem(STREAM["poses"], STREAM["lms"])[:2]
+    sched = fixedlag.build_ring_schedule(p, cfg, STREAM["window"], 4)
+    seen = _recording(window, "prior_step", lambda: fixedlag.run_ring(
+        sched, cfg, True, STREAM["iters"]))
+    out = [("stream slide",) + tuple(seen[-1][0])]
+    pw, cfg_w = window_problem()
+    drop = torch.arange(pw.poses.q.shape[0], device=pw.poses.t.device) == 2
+    (args, _), = _recording(window, "prior_step",
+                            lambda: window.marginalize(pw, cfg_w, True, drop))
+    out.append(("vins_window",) + tuple(args))
+    out.append(("indefinite",) + _random_departing(90, range(9),
+                                                   0, torch.float32)
+               + (1e-5,))
+    return out
+
+
+def phase_k11(cases):
+    """K11 against its plain version in f32 and on an f64 copy, relative
+    to ||H||_F; its info flag; the output's smallest eigenvalue; two
+    launches bit-identical."""
+    import torch
+
+    from ba_tpu_torch.kernels import marginalize as k11
+
+    worst = 0.0
+    infos = {}
+    for label, S, rhs, pd, _ in cases:
+        for dt in (torch.float32, torch.float64):
+            eps = 1e-9 if dt == torch.float64 else 1e-5
+            a = (S.to(dt), rhs.to(dt), pd)
+            H, g, info = k11.marginalize_prior(*a, eps)
+            H2, g2, info2 = k11.marginalize_prior(*a, eps)
+            Hp, gp = k11.marginalize_prior_plain(*a, eps)
+            torch.cuda.synchronize()
+            name = str(dt).split(".")[1]
+            norm = float(torch.linalg.matrix_norm(Hp.double()))
+            err = max(float((H.double() - Hp.double()).abs().max()),
+                      float((g.double() - gp.double()).abs().max()))
+            gscale = max(1.0, float(gp.double().abs().max()))
+            lo_in = float(torch.linalg.eigvalsh(Hp.double()).min())
+            lo = float(torch.linalg.eigvalsh(H.double()).min())
+            inf = dict(zip(k11.INFO, info.tolist()))
+            same = torch.equal(H, H2) and torch.equal(g, g2) \
+                and torch.equal(info, info2)
+            say(f"K11 marginalize, {label} (n={S.shape[0]}, "
+                f"{inf['departing']} departing dims) {name}: max abs err "
+                f"{err:.3e}, rel to ||H||_F {err / max(norm, 1e-300):.3e} "
+                f"(tol {TOL_K11[name]:g}); info {inf}; smallest eigenvalue "
+                f"{lo / max(norm, 1e-300):.3e} ||H|| (plain "
+                f"{lo_in / max(norm, 1e-300):.3e}); symmetric "
+                f"{torch.equal(H, H.T)}, bit-identical {same}")
+            check(inf["ok"] == 1, f"K11 {label} {name}: info {inf}")
+            check(err <= TOL_K11[name] * max(norm, gscale) and same
+                  and torch.equal(H, H.T),
+                  f"K11 {label} {name}: err {err:.3g}, bit-identical {same}")
+            if dt == torch.float32:
+                check(lo >= -K11_PSD_F32 * norm, f"K11 {label}: smallest "
+                      f"eigenvalue {lo:.3g} below -{K11_PSD_F32:g} ||H||")
+                worst = max(worst, err)
+                infos[label] = inf
+    check(infos["indefinite"]["clipped"] > 0,
+          "K11: the indefinite case clipped nothing")
+    say("PHASE k11 ok")
+    return worst, infos
+
+
+def _k5_ops(N, n, K, lm):
+    """Floating-point operations K5's function needs: the symmetric
+    product (n (n + 1) / 2 entries of K multiply-adds), W V^-1 of the rows
+    (2 n K lm) and the rhs (2 n K)."""
+    return n * (n + 1) * K + 2 * n * K * lm + 2 * n * K
+
+
+def phase_timing_k5_k11(k5c, k11c, k11_info, floor_ms, smi):
+    """K5 at the flagship's, a stream slide's and the self-calibration's
+    shapes, and K11 at the slide's n = 90 and vins_window's n = 360, timed
+    as in phase 11 beside their bounds, plain versions and library
+    yardsticks: torch.matmul of W V^-1 by W^T (K5), `eigh` and the clip
+    product with its host sync (K11)."""
+    import torch
+
+    from ba_tpu_torch.kernels import marginalize as k11
+    from ba_tpu_torch.kernels import schur_finish as k5
+
+    rec5 = {}
+    for label, args, kw in k5c:
+        if label == "stream slide marginalization":
+            continue
+        U, W, vinv, rhs_p, rhs_l = args[:5]
+        N, K = U.shape[0], W.shape[1]
+        lm = vinv.shape[1]
+        out = k5.schur_finish(*args, **kw)
+        n = out[0].shape[0]
+        L = vinv.shape[0]
+        WVi = torch.einsum("nlk,lkj->nlj", W.reshape(N, L, lm),
+                           vinv).reshape(N, K)
+        ops = _k5_ops(N, n, K, lm)
+        nb = nbytes(U, W, vinv, rhs_p, rhs_l, kw.get("cmask"), *out)
+        bound = max(nb / HBM_BPS, ops / F32_FLOPS) * 1e3
+        by = "bytes" if nb / HBM_BPS >= ops / F32_FLOPS else "operations"
+        t = dict(ms=event_ms(lambda: k5.schur_finish(*args, **kw), 50),
+                 device_ms=graph_ms(lambda: k5.schur_finish(*args, **kw),
+                                    20),
+                 plain_ms=event_ms(
+                     lambda: k5.schur_finish_plain(*args, **kw), 10),
+                 library_ms=event_ms(lambda: torch.matmul(WVi, W.T), 50),
+                 library_device_ms=graph_ms(lambda: torch.matmul(WVi, W.T),
+                                            20))
+        nz = float((W != 0).double().mean())
+        say(f"[{smi}] K5 schur_finish, {label} (N={N}, L*lm={K}, W "
+            f"{nz:.1%} nonzero) f32: {t['ms']:.4f} ms per call "
+            f"({t['device_ms']:.4f} ms on the device, "
+            f"{bound / t['device_ms']:.1%} of the bound; launch floor "
+            f"{floor_ms:.4f} ms), plain {t['plain_ms']:.3f} ms, "
+            f"torch.matmul(W V^-1, W^T) {t['library_ms']:.4f} ms "
+            f"({t['library_device_ms']:.4f} ms on the device); bound "
+            f"{bound:.5f} ms ({by}: {nb} B, {ops:.4g} flop)")
+        rec5[label] = dict(bound_ms=bound, bound_by=by, flops=ops, bytes=nb,
+                           **t)
+
+    rec11 = {}
+    for label, S, rhs, pd, eps in k11c:
+        if label == "indefinite":
+            continue
+        n = S.shape[0]
+        inf = k11_info[label]
+        k = inf["departing"]
+        # the Jacobi rotations this input needed (12 n each: A's rows and
+        # columns as a symmetric matrix, V's columns), the departing block's
+        # inverse (2 k^3) and the Schur update of H and g (2 n^2 k + 2 n k)
+        ops = 12 * n * inf["rotations"] + 2 * k ** 3 + 2 * n * n * k \
+            + 2 * n * k
+        H, g, info = k11.marginalize_prior(S, rhs, pd, eps)
+        nb = nbytes(S, rhs, pd, H, g, info)
+        bound = max(nb / HBM_BPS, ops / F32_FLOPS) * 1e3
+        by = "bytes" if nb / HBM_BPS >= ops / F32_FLOPS else "operations"
+
+        def library():
+            Hs = 0.5 * (S + S.T)
+            evals, evecs = torch.linalg.eigh(Hs)
+            return (evecs * torch.clamp(evals, min=0.0)[None, :]) @ evecs.T
+
+        t = dict(ms=event_ms(lambda: k11.marginalize_prior(S, rhs, pd, eps),
+                             20),
+                 device_ms=graph_ms(
+                     lambda: k11.marginalize_prior(S, rhs, pd, eps), 5),
+                 plain_ms=event_ms(
+                     lambda: k11.marginalize_prior_plain(S, rhs, pd, eps), 10),
+                 library_ms=event_ms(library, 10))
+        say(f"[{smi}] K11 marginalize, {label} (n={n}, {k} departing dims, "
+            f"{inf['sweeps']} sweeps, {inf['rotations']} rotations, "
+            f"{inf['clipped']} clipped) f32: {t['ms']:.4f} ms per call "
+            f"({t['device_ms']:.4f} ms on the device, "
+            f"{bound / t['device_ms']:.2%} of the bound), plain (inv_ex, "
+            f"eigh) {t['plain_ms']:.3f} ms, eigh + clip {t['library_ms']:.4f} "
+            f"ms (host sync included); bound {bound:.5f} ms ({by}: {nb} B, "
+            f"{ops:.4g} flop)")
+        rec11[label] = dict(bound_ms=bound, bound_by=by, flops=ops, bytes=nb,
+                            **t)
+    say("PHASE timing (K5, K11) ok")
+    return rec5, rec11
+
+
+def phase_stream_many(smi):
+    """The multi-stream server at the serving configuration: M streams of
+    simulate(128, 2,048, seed 7) (build seeds 8 + m), W = 10, 2 GN
+    iterations, f32, capacities from the 128-keyframe schedule, each
+    stream pushing its first STREAM_MANY["keyframes"] keyframes through
+    `vins_stream.stream_many`: aggregate and per-stream keyframes retired
+    per second, ms per round, host syncs per steady push, each stream's
+    ATE; every stream bit-identical to the same stream pushed alone."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.apps.vins_stream import stream_many, stream_problem
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import fixedlag
+    from ba_tpu_torch.solver.streaming import RingCapacities, StreamingRing
+
+    M, G = STREAM_MANY["streams"], STREAM_MANY["keyframes"]
+    W = STREAM["window"]
+    t0 = time.perf_counter()
+    problems, sim = [], None
+    for m in range(M):
+        p, cfg, sim = stream_problem(STREAM["poses"], STREAM["lms"],
+                                     seed=8 + m)
+        problems.append(p)
+    sched = fixedlag.build_ring_schedule(problems[0], cfg, W,
+                                         STREAM["poses"] - W + 1)
+    caps = RingCapacities.from_schedule(sched)
+    say(f"stream_many: {M} streams, problems and capacities built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    syncs = []
+    orig = StreamingRing.push
+
+    def push(ring, block=True):
+        if ring._next_slide == 0:
+            return orig(ring, block)
+        out, n = _sync_count(lambda: orig(ring, block))
+        syncs.append(n)
+        return out
+
+    StreamingRing.push = push
+    try:
+        _counters_zero()
+        outs, t_steady, n_steady = stream_many(problems, cfg, W,
+                                               STREAM["iters"], caps,
+                                               keyframes=G)
+        k1, k2, _ = _counters()
+        ia, ib = _imu_counters()
+        k5, k11 = _marg_counters()
+    finally:
+        StreamingRing.push = orig
+    alone = [stream_many([p], cfg, W, STREAM["iters"], caps,
+                         keyframes=G)[0][0] for p in problems]
+    n_slides = G - W + 1
+    slides = M * n_slides
+    kf_s = n_steady / t_steady
+    ms_round = 1e3 * t_steady * M / n_steady
+    ates, same = [], []
+    for m in range(M):
+        t_est = np.stack([o["t"] for o in outs[m]]).astype(np.float64)
+        ates.append(sv.ate(None, t_est, None, sim.t_wv[:len(outs[m])]))
+        same.append(len(outs[m]) == len(alone[m]) == n_slides and all(
+            np.array_equal(o[key], a[key]) for o, a in zip(outs[m], alone[m])
+            for key in ("cost", "q", "t", "v", "b")))
+    costs = np.array([[o["cost"] for o in os_] for os_ in outs])
+    say(f"[{smi}] stream_many f32: {M} streams x {G} keyframes, "
+        f"{[len(o) for o in outs]} retired; steady state {kf_s:.3f} "
+        f"keyframes retired/s aggregate ({kf_s / M:.3f} per stream), "
+        f"{ms_round:.1f} ms per round of {M} slides "
+        f"({ms_round / M:.1f} ms per slide) over {n_steady} steady slides; "
+        f"host syncs per steady push min {min(syncs)} max {max(syncs)} total "
+        f"{sum(syncs)}; kernel launches reprojection {k1} segsum {k2} "
+        f"imu_preint (a) {ia} (b) {ib} schur_finish {k5} marginalize {k11}")
+    say(f"stream_many f32: ATE per stream " + ", ".join(
+        f"{a:.6g}" for a in ates) + f" m (bound {2 * JAX_F64_ATE_M:g} m); "
+        f"bit-identical to each stream pushed alone {same}; costs finite "
+        f"{bool(np.isfinite(costs).all())}")
+    check(all(len(o) == n_slides for o in outs),
+          f"stream_many: retired {[len(o) for o in outs]}, not {n_slides}")
+    check(all(same), f"stream_many: streams differ from alone: {same}")
+    check(bool(np.isfinite(costs).all()), "stream_many: non-finite costs")
+    check(max(ates) <= 2 * JAX_F64_ATE_M, f"stream_many: ATE {max(ates):.6g}")
+    check(max(syncs) == 0, f"stream_many: {max(syncs)} host syncs in a push")
+    want = (K1_PER_SLIDE * slides, SEG_PER_SLIDE * slides,
+            IMU_A_PER_SLIDE * slides, IMU_B_PER_SLIDE * slides,
+            K5_PER_SLIDE * slides, K11_PER_SLIDE * slides)
+    check((k1, k2, ia, ib, k5, k11) == want, f"stream_many: launches "
+          f"{(k1, k2, ia, ib, k5, k11)}, expected {want}")
+    say("PHASE stream_many ok")
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
+                k11=k11, kf_s=kf_s, ms_round=ms_round, slides=slides,
+                syncs_per_push=sum(syncs) / len(syncs), ates=ates,
+                streams=M, keyframes=G)
 
 
 def main():
@@ -2895,6 +3399,7 @@ def main():
     gn = phase_gn(p32, cfg, sim, smi, n_plan_syncs)
     dl = phase_dogleg(p32, cfg, sim, smi, n_plan_syncs)
     st, sched, cfg_s = phase_stream(smi)
+    sm = phase_stream_many(smi)
     s64, s32 = stream_slide(sched, cfg_s)
     err1s = phase_k1(s64, s32, cfg_s, "stream slide")
     err_imu.append(phase_imu(s64, cfg_s, "stream slide"))
@@ -2904,7 +3409,7 @@ def main():
     rec1, rec2 = phase_timing(p32, cfg, sums, smi)
     rec1s, rec2s = phase_timing(s32, cfg_s, sums_s, smi, "stream slide")
     rec_imu = phase_timing_imu(p32, cfg, rec1["floor_ms"], smi)
-    del s32, sums_s, sched
+    del sums_s, sched
 
     phase_banded_small()
     pl, cfg_l, sim_l = long_problem()
@@ -2944,13 +3449,20 @@ def main():
                             ("vicalib lm_size 3 linear K=11", pv, cfg_v)])
     del pv0, pv
     rec1c = phase_timing_k1_calib(ps32, cfg_sc, rec1["floor_ms"], smi)
+    k5c = k5_cases(p32, cfg, s32, cfg_s, ps32, cfg_sc)
+    err5 = phase_k5(k5c)
+    k11c = k11_cases()
+    err11, info11 = phase_k11(k11c)
+    rec5, rec11 = phase_timing_k5_k11(k5c, k11c, info11, rec1["floor_ms"],
+                                      smi)
+    del k5c, k11c, s32
     phase_selfcal_small()
     sc = phase_selfcal(ps32, cfg_sc, sim_sc, smi)
     vc = phase_vicalib(smi)
     t_new = time.perf_counter() - t_new
 
-    runs = dict(gn=gn, dogleg=dl, stream=st, long=lg, cg=cg, fleet=fl,
-                selfcal=sc, vicalib=vc)
+    runs = dict(gn=gn, dogleg=dl, stream=st, stream_many=sm, long=lg, cg=cg,
+                fleet=fl, selfcal=sc, vicalib=vc)
 
     def paths(key, names=tuple(runs)):
         out = {f"launches_{n}": runs[n][key] for n in names}
@@ -2996,12 +3508,27 @@ def main():
              launches_parts=dict(w=fl["k10a"], epilogue=fl["k10b"]),
              max_abs_err=max(err10),
              max_abs_err_parts=dict(w=err10[0], epilogue=err10[1]), **rec10),
+        dict(name="schur_finish", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/schur_finish.cu",
+             replaces="ba_tpu/solver/assemble.py:442", **paths("k5"),
+             launches_per_slide=st["k5"] / st["slides"], max_abs_err=err5,
+             **rec5["flagship"], stream_slide=rec5["stream slide"],
+             selfcal=rec5["selfcal"]),
+        dict(name="marginalize", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/marginalize.cu",
+             replaces="ba_tpu/solver/window.py:66", **paths("k11"),
+             launches_per_slide=st["k11"] / st["slides"], max_abs_err=err11,
+             **rec11["stream slide"], vins_window=rec11["vins_window"],
+             info=info11),
     ]
     say(f"[{smi}] kf/s: GN solve_fixed({N_ITERS}) {gn['kf_s']:.1f}, "
         f"dogleg solve {dl['kf_s']:.1f} ({dl['iters']} iterations); "
         f"stream {st['kf_s']:.3f} keyframes retired/s "
         f"({st['ms_slide']:.1f} ms per slide, "
-        f"{st['syncs_per_push']:.2f} host syncs per push); long GN "
+        f"{st['syncs_per_push']:.2f} host syncs per push); stream_many "
+        f"{sm['streams']} x {sm['keyframes']} keyframes {sm['kf_s']:.3f} "
+        f"keyframes retired/s aggregate ({sm['ms_round']:.1f} ms per round, "
+        f"{sm['syncs_per_push']:.2f} host syncs per push); long GN "
         f"{lg['kf_s']:.1f} kf/s ({lg['ms_iter']:.1f} ms per iteration, "
         f"peak {lg['peak_gib']:.3f} GiB); CG GN {cg['kf_s']:.1f} kf/s "
         f"({cg['ms_iter']:.1f} ms per iteration, peak {cg['peak_gib']:.3f} "

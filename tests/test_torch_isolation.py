@@ -1,9 +1,9 @@
 """The port stands alone: no file of `ba_tpu_torch/` (nor `chip_smoke.py`
 or `profile_port.py`) imports jax or ba_tpu, importing the port leaves jax
 out of sys.modules, each entry point (the builders, the converters, the
-streaming smoother, the calibration service and the three apps) raises
-when CUDA is absent and no device="cpu" is given, and `chip_smoke.py`
-fails without a card."""
+streaming smoother, the calibration service and the three apps, the
+multi-stream server among them) raises when CUDA is absent and no
+device="cpu" is given, and `chip_smoke.py` fails without a card."""
 
 import ast
 import subprocess
@@ -53,7 +53,9 @@ def test_importing_the_port_loads_no_jax():
             "ba_tpu_torch.kernels.fleet_schur",
             "ba_tpu_torch.apps.fleet_serve", "ba_tpu_torch.calib",
             "ba_tpu_torch.kernels.imu_preint",
-            "ba_tpu_torch.solver.linear"]
+            "ba_tpu_torch.solver.linear",
+            "ba_tpu_torch.kernels.schur_finish",
+            "ba_tpu_torch.kernels.marginalize"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'ba_tpu')]\n"
@@ -128,12 +130,15 @@ def test_entry_points_need_cuda_or_cpu(entry, monkeypatch):
 
 @pytest.mark.parametrize("app,args", [
     ("vins_stream", ["--poses", "7", "--lms", "28", "--window", "4"]),
+    ("vins_stream", ["--poses", "6", "--lms", "24", "--window", "4",
+                     "--streams", "2"]),
     ("vins_window", ["--poses", "7", "--lms", "28", "--window", "5",
                      "--ring"]),
     ("vins_window", ["--poses", "7", "--lms", "28", "--window", "6"]),
     ("fleet_serve", ["--vehicles", "2", "--poses", "6", "--lms", "20",
                      "--iters", "2"])],
-    ids=["vins_stream", "vins_window_ring", "vins_window", "fleet_serve"])
+    ids=["vins_stream", "vins_stream_many", "vins_window_ring",
+         "vins_window", "fleet_serve"])
 def test_apps_need_cuda_or_cpu(app, args, monkeypatch, capsys):
     """Each app raises without CUDA and runs on the CPU with --device cpu
     (tiny sizes: a few slides or marginalization steps)."""

@@ -1,5 +1,5 @@
-"""Kernels 1, K2 (imu_preint), segsum, 6, 7, 9 and 10 against their plain
-versions on the card.
+"""Kernels 1, K2 (imu_preint), segsum, K5 (schur_finish), 6, 7, 9, 10 and
+K11 (marginalize) against their plain versions on the card.
 
 These need an NVIDIA GPU with nvcc (marker `cuda`); elsewhere they skip.
 Run them on the card with `python -m pytest tests/test_torch_kernels_cuda.py
@@ -31,7 +31,14 @@ C9 and 1e-5 on the residual, relative to each output's own scale),
 bit-identical between launches; kernel 1 with the 11 calibration columns
 (FOV) and with XYZ landmarks (linear camera) matches its plain version at
 kernel 1's tolerances; three f32 GN iterations of a self-calibration scene
-launch each kernel once per build and trial.
+launch each kernel once per build and trial.  K5 (the dense Schur step)
+matches its plain version to 1e-10 (f64) and 1e-5 (f32) of max |S|, with
+the column mask, cut to the leading rows, at lm 3 and without landmark
+columns, S exactly symmetric; K11 (the marginalization prior) to 1e-10
+(f64) and 1e-4 (f32: Jacobi and `eigh` round differently) of ||H||_F at n
+= 90 to 360, its info flag set, its output PSD to 1e-6 ||H|| in f32; both
+bit-identical between launches and raising when they do not build; three
+steady f32 pushes of the streaming smoother make no host sync.
 """
 
 import dataclasses
@@ -655,3 +662,214 @@ def test_selfcal_gn_f32_on_the_card(cuda_selfcal):
     assert reprojection.reprojection.launches - k1 == 6
     assert imu_preint.imu_full.launches - ka == 3
     assert imu_preint.imu_residual.launches - kb == 3
+
+
+def _k5_inputs(p, cfg, dtype):
+    """(U, W, vinv, rhs_p, rhs_l, cmask) of one general-path build of `p`
+    before its Schur step, cast to `dtype`."""
+    from ba_tpu_torch.solver import assemble as asm
+    from ba_tpu_torch.solver import step
+    from ba_tpu_torch.utils.linalg import block_diag_inv
+
+    plan = asm.assembly_plan(p, cfg)
+    cmask = asm.col_mask(p, cfg)
+    c, _ = asm.contribution(p, cfg, step._imu_eval(p, cfg, True, True),
+                            cmask, plan)
+    c = asm._add(c, asm.marg_contribution(p, cfg, cmask.to(c.U.dtype)))
+    U, W, V, rhs_p, rhs_l = (t.to(dtype)
+                             for t in (c.U, c.W, c.V, c.rhs_p, c.rhs_l))
+    return U, W, block_diag_inv(V), rhs_p, rhs_l, cmask
+
+
+def _random_k5(N, L, lm, dtype):
+    rng = np.random.default_rng(N + L + lm)
+    U = rng.standard_normal((N, N))
+    W = rng.standard_normal((N, L * lm)) * (rng.random((N, L * lm)) < 0.1)
+    Vb = rng.standard_normal((L, lm, lm))
+    V = Vb @ np.swapaxes(Vb, 1, 2) + np.eye(lm)
+    from ba_tpu_torch.utils.linalg import block_diag_inv
+
+    t = [torch.as_tensor(a, dtype=dtype, device="cuda")
+         for a in (U + U.T, W, V, rng.standard_normal(N),
+                   rng.standard_normal(L * lm))]
+    return t[0], t[1], block_diag_inv(t[2]), t[3], t[4]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-5)])
+def test_schur_finish_kernel_matches_plain(cuda_problem, dtype, tol):
+    """K5 against its plain version relative to max |S|: a build's
+    system with its column mask, the leading rows only (marginalize),
+    XYZ landmarks (lm 3) and no landmark columns; S exactly symmetric,
+    two launches bit-identical."""
+    from ba_tpu_torch.kernels import schur_finish as k5
+
+    p, cfg = cuda_problem
+    U, W, vinv, rhs_p, rhs_l, cmask = _k5_inputs(p, cfg, dtype)
+    N = U.shape[0]
+    cases = [((U, W, vinv, rhs_p, rhs_l), dict(cmask=cmask)),
+             ((U, W, vinv, rhs_p, rhs_l), dict(n=N - 9)),
+             (_random_k5(200, 61, 3, dtype), dict(n=190)),
+             ((U, W[:, :0], vinv[:0], rhs_p, rhs_l[:0]),
+              dict(cmask=cmask))]
+    for args, kw in cases:
+        before = k5.schur_finish.launches
+        got = k5.schur_finish(*args, **kw)
+        again = k5.schur_finish(*args, **kw)
+        want = k5.schur_finish_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert k5.schur_finish.launches == before + 2
+        scale = max(1.0, float(want[0].abs().max()))
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)
+            assert float((g.double() - w.double()).abs().max()) \
+                <= tol * scale, kw
+        assert torch.equal(got[0], got[0].T)
+
+
+def _random_departing(n, drop, dtype, seed=0):
+    """(S, rhs, pd): an indefinite symmetric system whose Schur complement
+    keeps negative eigenvalues for the clip."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n + 5))
+    v = rng.standard_normal((n, 3))
+    S = (A @ A.T - 3.0 * v @ v.T) / n
+    pd = np.zeros(n, bool)
+    pd[list(drop)] = True
+    return (torch.as_tensor(0.5 * (S + S.T), dtype=dtype, device="cuda"),
+            torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                            device="cuda"),
+            torch.as_tensor(pd, device="cuda"))
+
+
+def _ring_departing(dtype):
+    """(S, rhs, pd) of the marginalization of a ring's first slide."""
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import fixedlag, window
+    from ba_tpu_torch.utils.tree import tree_map
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    sim = sv.simulate(n_poses=16, n_lms=64, seed=2)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=3,
+                               with_marg_prior=False, device="cuda")
+    p = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, p)
+    sched = fixedlag.build_ring_schedule(prepare_landmarks(p, cfg), cfg,
+                                         10, 1)
+    slide = fixedlag.slide_problem(sched.carry0,
+                                   fixedlag.slide_inputs(sched.inputs, 0),
+                                   sched.rig, sched.g_vec, sched.L_w)
+    seen = []
+    orig = window.prior_step
+
+    def record(S, rhs, pd, eps):
+        seen.append((S, rhs, pd))
+        return orig(S, rhs, pd, eps)
+
+    window.prior_step = record
+    try:
+        window.marginalize(slide, cfg, True,
+                           torch.arange(10, device="cuda") == 0)
+    finally:
+        window.prior_step = orig
+    return seen[0]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+def test_marginalize_kernel_matches_plain(dtype, tol):
+    """K11 against its plain version relative to ||H||_F: a ring slide's
+    departing system (n = 90), random indefinite ones with clipped
+    eigenvalues at n = 90, 91 (odd), 150 (A and V outside shared memory in
+    f64) and 360 (vins_window's n; outside in both), one and several
+    departing poses; info says converged and finite, the prior is PSD to
+    1e-6 ||H|| in f32, H exactly symmetric, relaunches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import marginalize as k11
+
+    eps = 1e-9 if dtype == torch.float64 else 1e-5
+    cases = [_ring_departing(dtype),
+             _random_departing(90, range(9), dtype),
+             _random_departing(91, list(range(9, 27)) + [90], dtype, 1),
+             _random_departing(150, range(60, 75), dtype, 2),
+             _random_departing(360, range(351, 360), dtype, 3)]
+    for S, rhs, pd in cases:
+        H, g, info = k11.marginalize_prior(S, rhs, pd, eps)
+        H2, g2, info2 = k11.marginalize_prior(S, rhs, pd, eps)
+        Hp, gp = k11.marginalize_prior_plain(S, rhs, pd, eps)
+        torch.cuda.synchronize()
+        n = S.shape[0]
+        inf = dict(zip(k11.INFO, info.tolist()))
+        assert inf["ok"] == 1 and inf["departing"] == int(pd.sum()), inf
+        assert torch.equal(H, H2) and torch.equal(g, g2) \
+            and torch.equal(info, info2)
+        assert torch.equal(H, H.T)
+        norm = float(torch.linalg.matrix_norm(Hp.double()))
+        assert float((H.double() - Hp.double()).abs().max()) <= tol * norm, n
+        assert float((g.double() - gp.double()).abs().max()) \
+            <= tol * max(1.0, float(gp.double().abs().max())), n
+        lo = float(torch.linalg.eigvalsh(H.double()).min())
+        assert lo >= -(1e-12 if dtype == torch.float64 else 1e-6) * norm, n
+
+
+def test_schur_finish_and_marginalize_build_failure_raises(monkeypatch,
+                                                           tmp_path):
+    """K5 and K11 raise on CUDA tensors when they do not build."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import build
+    from ba_tpu_torch.solver import assemble as asm
+    from ba_tpu_torch.solver import window
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "_nvcc", lambda: "false")
+    one = torch.ones((4, 4), device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        asm.schur_step(one, torch.ones((4, 2), device="cuda"),
+                       torch.ones((2, 1, 1), device="cuda"),
+                       torch.ones(4, device="cuda"),
+                       torch.ones(2, device="cuda"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        window.prior_step(one, torch.ones(4, device="cuda"),
+                          torch.arange(4, device="cuda") < 2, 1e-5)
+
+
+def test_stream_three_slides_f32_make_no_host_sync():
+    """Three steady f32 pushes of the streaming smoother read nothing back
+    from the card (PyTorch's sync debug mode raises on a synchronizing
+    call), each launching K5 three times (two GN builds and the
+    marginalization) and K11 once, and their outputs are finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.apps.vins_stream import (add_keyframe, stream_feed,
+                                               stream_problem)
+    from ba_tpu_torch.kernels import marginalize as k11
+    from ba_tpu_torch.kernels import schur_finish as k5
+    from ba_tpu_torch.solver import fixedlag
+    from ba_tpu_torch.solver.streaming import RingCapacities, StreamingRing
+
+    problem, cfg, _ = stream_problem(16, 96)
+    sched = fixedlag.build_ring_schedule(problem, cfg, 6, 11)
+    ring = StreamingRing(cfg, 6, problem.rig, problem.g_vec,
+                         RingCapacities.from_schedule(sched), use_imu=True,
+                         iters_per_slide=2, dtype=np.float32)
+    feed = stream_feed(problem)
+    for g in range(7):                   # the first two slides warm up
+        add_keyframe(ring, feed, g)
+        ring.push(block=False)
+    torch.cuda.synchronize()
+    a, b = k5.schur_finish.launches, k11.marginalize_prior.launches
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in range(7, 10):
+            add_keyframe(ring, feed, g)
+            outs.append(ring.push(block=False))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert k5.schur_finish.launches - a == 3 * 3
+    assert k11.marginalize_prior.launches - b == 3
+    assert all(bool(torch.isfinite(o["t"]).all()) and
+               bool(torch.isfinite(o["cost"])) for o in outs)
