@@ -17,6 +17,13 @@
                    marginalization)
   marginalize.py   K11: the departing dims' Schur complement into the
                    prior and its PSD clip (Jacobi), no host read
+  band_to_dense.py K5b: the dense symmetric matrix of a block band (the
+                   flagship's banded grid, `schur_on_band`)
+  chunk_tridiag.py K8a (`chunk_layout`): the Jacobi-scaled band and its
+                   chunk blocks in one launch; K8b (`bcr_factor`,
+                   `scan_factor`): the chunked block-tridiagonal factor by
+                   cyclic reduction or the scan; K8c (`bcr_solve`,
+                   `scan_solve`): its solves (the banded solver)
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises on a non-zero `cudaGetLastError()`, and
@@ -27,5 +34,8 @@ live beside the dispatch (`core/residuals/reprojection.py:evaluate_plain`,
 `solver/banded.py:band_schur_plain` and `band_matvec_plain`,
 `schur_matvec.schur_matvec_plain`, `fleet_schur.fleet_w_plain` and
 `fleet_epilogue_plain`, `schur_finish.schur_finish_plain`,
-`marginalize.marginalize_prior_plain`).
+`marginalize.marginalize_prior_plain`,
+`solver/assemble.py:band_to_dense_plain`, and `solver/banded.py`'s
+`jacobi_scaled` with `chunk_system` (K8a), `_bcr_factor` and `_factor`
+(K8b), `_bcr_solve` and `_solve_factored` (K8c)).
 """

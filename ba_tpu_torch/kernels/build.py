@@ -24,7 +24,8 @@ from pathlib import Path
 
 SOURCES = ("reprojection", "segsum", "band_schur", "band_matvec",
            "schur_matvec", "fleet_schur", "imu_preint", "schur_finish",
-           "marginalize")
+           "marginalize", "band_to_dense", "chunk_layout", "chunk_factor",
+           "chunk_solve")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 

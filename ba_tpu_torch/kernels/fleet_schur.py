@@ -84,10 +84,10 @@ def fleet_epilogue_plain(band, C, F: int, eps: float):
     """(Ss, scal): S = U_f - C per window, U_f the window's block of the
     band (P, B, D, D) densified, scal = rsqrt(max(diag S, 1e-12)),
     Ss = S scal_i scal_j + eps I."""
-    from ..solver.assemble import band_to_dense
+    from ..solver.assemble import band_to_dense_plain
 
     P, B, D, _ = band.shape
-    U = torch.stack([band_to_dense(b)
+    U = torch.stack([band_to_dense_plain(b)
                      for b in band.reshape(F, P // F, B, D, D)])
     S = U - C
     scal = torch.rsqrt(torch.clamp(torch.diagonal(S, dim1=-2, dim2=-1),

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from ..core import lie, robust
 from ..core.problem import BAConfig, Problem
 from ..core.residuals import prior, reprojection
+from ..kernels import band_to_dense as k5b
 from ..kernels import schur_finish as k5
 from ..kernels import segsum
 from ..utils.linalg import block_diag_inv
@@ -152,8 +153,18 @@ def _seg_sum_plain(v2, ids, nseg: int):
 
 def band_to_dense(band):
     """(P, B, D, D) block band (band[p, d] = block (p, p+d)) -> dense
-    symmetric (P*D, P*D) with no scatter: each block-row's strip is padded
-    by D so it lands on the block diagonals after a flat reshape."""
+    symmetric (P*D, P*D).  CUDA tensors go through K5b
+    (kernels/csrc/band_to_dense.cu), CPU tensors through
+    `band_to_dense_plain`."""
+    if band.is_cuda:
+        return k5b.band_to_dense(band)
+    return band_to_dense_plain(band)
+
+
+def band_to_dense_plain(band):
+    """The plain version of K5b, with no scatter: each block-row's strip is
+    padded by D so it lands on the block diagonals after a flat reshape; a
+    diagonal block rounds as (u + u^T) - u."""
     P, B, D, _ = band.shape
     Wd = P * D
     pd = (torch.arange(P, device=band.device)[:, None]

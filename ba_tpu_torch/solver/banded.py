@@ -15,17 +15,22 @@ the poses that co-observe a landmark, a span bounded by `band_width_of`.
      chunked block-tridiagonal system (chunks of >= B poses), by batched
      block cyclic reduction (`_bcr_factor`) or a sequential scan
      (`_factor`), and used as the preconditioner of a short PCG whose
-     products are kernel 9 (kernels/csrc/band_matvec.cu).
-     `schur_on_band`: the band is densified, the marginalization prior
-     added, and solved by one dense Cholesky (`banded_dense_solve`).
+     products are kernel 9 (kernels/csrc/band_matvec.cu).  On the card the
+     scaling and chunk layout, the factor and the solves are K8
+     (kernels/chunk_tridiag.py: K8a, K8b, K8c), on the CPU their plain
+     versions here (`jacobi_scaled`, `chunk_system`, `_bcr_factor`,
+     `_factor`, `_bcr_solve`, `_solve_factored`).
+     `schur_on_band`: the band is densified (K5b on the card), the
+     marginalization prior added, and solved by one dense Cholesky
+     (`banded_dense_solve`).
   3. Landmark back-substitution through the blocks (solver/cg.py).
 
-The dense Cholesky factors, triangular solves and batched products are
-`torch.linalg` / `torch.matmul` (cuSOLVER and cuBLAS on the card), which is
-what the JAX package leaves to XLA; the chunk layout is plain torch.  A
-failed Cholesky is reported by `cholesky_ex`'s info with no host read, and
-together with non-finite factors rejects the step (`ok == False`, a zero
-pose step), as the NaNs of `jnp.linalg.cholesky` do in ba_tpu.
+A failed chunk factor is flagged on the device (K8b) or by `cholesky_ex`'s
+info (the plain versions), with no host read, and together with non-finite
+factors rejects the step (`ok == False`, a zero pose step), as the NaNs of
+`jnp.linalg.cholesky` do in ba_tpu.  The dense Choleskys of
+`schur_on_band` and of the fleet stay `torch.linalg` (cuSOLVER), which is
+what the JAX package leaves to XLA.
 
 Every segment sum goes through segsum on a `BandPlan` built once per
 solve (`band_plan`): band_S is one launch of two groups (the 6x6 grid, with
@@ -57,6 +62,7 @@ import torch.nn.functional as F
 from ..core.problem import BAConfig, Problem
 from ..kernels import band_matvec as k9
 from ..kernels import band_schur as k7
+from ..kernels import chunk_tridiag as k8
 from ..kernels import fleet_schur as k10
 from ..kernels import segsum
 from . import assemble as asm
@@ -601,7 +607,8 @@ def jacobi_scaled(band):
     """(band_s, scal): the band of the system the PCG solves, Jacobi-scaled
     in band form, band_s[p,d,i,j] = s[p,i] band[p,d,i,j] s[p+d,j] with
     s = diag^-1/2, plus eps on the diagonal (1e-8 in f64, 1e-4 in f32: a
-    relative damping, as in `linear.solve_reduced`)."""
+    relative damping, as in `linear.solve_reduced`).  Plain version of
+    K8a's band_s and scal."""
     P, B, D, _ = band.shape
     dev = band.device
     diag = torch.diagonal(band[:, 0], dim1=-2, dim2=-1)        # (P, D)
@@ -609,25 +616,35 @@ def jacobi_scaled(band):
     up = (torch.arange(P, device=dev)[:, None]
           + torch.arange(B, device=dev)[None, :]).clamp(max=P - 1)
     band_s = band * scal[:, None, :, None] * scal[up][:, :, None, :]
-    eps = 1e-8 if band.dtype == torch.float64 else 1e-4
+    eps = _eps(band.dtype)
     eye = torch.eye(D, dtype=band.dtype, device=dev)
     band_s = torch.cat([band_s[:, :1] + eps * eye, band_s[:, 1:]], dim=1)
     return band_s, scal
 
 
-def chunk_system(band_s, config: BAConfig, P: int, D: int):
-    """(Dg, Eg, F, P_w, chunk, n_c): the chunked block-tridiagonal system
-    of a scaled band (`_chunk_windows`), per window of a fleet of F =
-    `config.fleet_size` windows when F > 1 divides P, else of one window:
-    n_c chunks of `chunk` >= B poses, each window padded with identity
-    diagonal blocks to n_c * chunk poses."""
-    B = band_s.shape[1]
+def _eps(dtype):
+    return 1e-8 if dtype == torch.float64 else 1e-4
+
+
+def chunk_geometry(config: BAConfig, P: int, B: int):
+    """(F, P_w, chunk, n_c): F = `config.fleet_size` windows when F > 1
+    divides P, else one; n_c chunks of `chunk` >= B poses per window of P_w
+    poses."""
     F_ = config.fleet_size if (config.fleet_size > 1
                                and P % config.fleet_size == 0) else 1
     P_w = P // F_
     # chunk size >= B makes the system block-tridiagonal in chunks
     chunk = max(B, min(P_w, config.banded_chunk or 16))
-    n_c = -(-P_w // chunk)
+    return F_, P_w, chunk, -(-P_w // chunk)
+
+
+def chunk_system(band_s, config: BAConfig, P: int, D: int):
+    """(Dg, Eg, F, P_w, chunk, n_c): the chunked block-tridiagonal system
+    of a scaled band (`_chunk_windows`), per window (`chunk_geometry`),
+    each window padded with identity diagonal blocks to n_c * chunk poses.
+    Plain version of K8a's Dg and Eg."""
+    B = band_s.shape[1]
+    F_, P_w, chunk, n_c = chunk_geometry(config, P, B)
     Pp_w = n_c * chunk
     bandF = band_s.reshape(F_, P_w, B, D, D)
     if Pp_w > P_w:
@@ -638,13 +655,57 @@ def chunk_system(band_s, config: BAConfig, P: int, D: int):
     return Dg, Eg, F_, P_w, chunk, n_c
 
 
+def chunk_layout(band, config: BAConfig, P: int, D: int, use_bcr: bool):
+    """(band_s, scal, Dg, Eg): the scaled band and its chunk blocks.  CUDA
+    tensors go through K8a in one launch, Dg and Eg already padded to a
+    power-of-two chunk count under cyclic reduction; CPU tensors through
+    `jacobi_scaled` and `chunk_system`."""
+    if band.is_cuda:
+        F_, _, chunk, n_c = chunk_geometry(config, P, band.shape[1])
+        m = k8.next_pow2(n_c) if use_bcr else n_c
+        return k8.chunk_layout(band, F_, chunk, m, _eps(band.dtype))
+    band_s, scal = jacobi_scaled(band)
+    Dg, Eg = chunk_system(band_s, config, P, D)[:2]
+    return band_s, scal, Dg, Eg
+
+
+def chunk_factor(Dg, Eg, use_bcr: bool):
+    """(factor, ok): cyclic reduction's levels or the scan's (C, M).  CUDA
+    tensors go through K8b, CPU tensors through `_bcr_factor` or
+    `_factor`."""
+    if use_bcr:
+        return (k8.bcr_factor if Dg.is_cuda else _bcr_factor)(Dg, Eg)
+    C, M, ok = (k8.scan_factor if Dg.is_cuda else _factor)(Dg, Eg)
+    return (C, M), ok
+
+
+def chunk_solve(factor, r, use_bcr: bool, n_c: int, chunk_dim: int):
+    """z (F, L) = S^-1 r for r (F, L), L <= n_c * chunk_dim, each window's
+    elements past L taken as zero.  CUDA tensors go through K8c (no pad, no
+    cut), CPU tensors through `_bcr_solve` or `_solve_factored`."""
+    if r.is_cuda:
+        if use_bcr:
+            return k8.bcr_solve(factor, r)
+        return k8.scan_solve(*factor, r)
+    L = r.shape[1]
+    rF = F.pad(r, (0, n_c * chunk_dim - L)).reshape(r.shape[0], n_c,
+                                                    chunk_dim)
+    if use_bcr:
+        z = _bcr_solve(factor, rF, n_c)
+    else:
+        z = _solve_factored(*factor, rF)
+    return z[:, :L]
+
+
 def banded_pcg_solve(band, rhs_sc, col_mask, config: BAConfig, P: int,
                      D: int):
     """Factor + solve the assembled band: Jacobi scaling, chunked
     block-tridiagonal Cholesky (or batched block cyclic reduction), short
     PCG.  With `config.fleet_size` F > 1 dividing P the band holds F
     independent windows, factorized as a leading batch dimension.  Returns
-    (delta_p, ok).
+    (delta_p, ok).  On the card the layout, the factor and the solves are
+    K8 (kernels/chunk_tridiag.py), the products kernel 9: no `torch.linalg`
+    call and no host read.
 
     The chunked factorization is exact in exact arithmetic, but in f32 the
     sequential chunk Schur complements lose digits, so the factor is the
@@ -653,25 +714,17 @@ def banded_pcg_solve(band, rhs_sc, col_mask, config: BAConfig, P: int,
     masked no-ops, with no host read.  `ok` also requires the residual not
     to exceed the rhs."""
     dtype = rhs_sc.dtype
-    band_s, scal = jacobi_scaled(band)
-    Dg, Eg, F_, P_w, chunk, n_c = chunk_system(band_s, config, P, D)
-    Pp_w = n_c * chunk
+    F_, P_w, chunk, n_c = chunk_geometry(config, P, band.shape[1])
     # log-depth batched cyclic reduction when the chunk chain is deep
     # enough; the 2-chunk system has nothing to gain
     use_bcr = config.banded_cyclic_reduction and n_c >= 4
-    if use_bcr:
-        levels, ok = _bcr_factor(Dg, Eg)
-    else:
-        C, M, ok = _factor(Dg, Eg)
+    band_s, scal, Dg, Eg = chunk_layout(band, config, P, D, use_bcr)
+    factor, ok = chunk_factor(Dg, Eg, use_bcr)
+    del Dg, Eg
 
     def precond(r):
-        rF = F.pad(r.reshape(F_, P_w * D), (0, (Pp_w - P_w) * D))
-        rF = rF.reshape(F_, n_c, chunk * D)
-        if use_bcr:
-            z = _bcr_solve(levels, rF, n_c)
-        else:
-            z = _solve_factored(C, M, rF)
-        return z[:, : P_w * D].reshape(-1)
+        return chunk_solve(factor, r.reshape(F_, P_w * D), use_bcr, n_c,
+                           chunk * D).reshape(-1)
 
     b = rhs_sc * scal.reshape(-1)
     x = torch.zeros_like(b)

@@ -56,11 +56,15 @@ Phases, each of which exits non-zero when a check fails:
      replayed the same way), its bound and its plain version; index_add_,
      segsum's library yardstick, both ways; the segment plans' one-off
      build; kf/s of both drivers and of the stream;
- 12. banded_small: the banded solvers on the card against the CPU in f64
-     (simulate(80 poses, 200 landmarks), four chunks): solve_reduced_banded
-     with cyclic reduction and with the scan, band_S and the step through
-     the grouped Schur form (forced), `schur_on_band` with an active
-     marginalization prior, and one dogleg `solve` on the banded solver;
+ 12. k5b: K5b (band_to_dense) on a flagship build's band against its
+     plain version, f32 and f64, equal element for element, bit-identical
+     relaunch, and timed (no library call computes it); banded_small: the
+     banded solvers on the card against the CPU in f64 (simulate(80 poses,
+     200 landmarks), four chunks): solve_reduced_banded with cyclic
+     reduction and with the scan (exact K8 launches, no torch.linalg factor
+     or triangular solve), band_S and the step through the grouped Schur
+     form (forced), `schur_on_band` with an active marginalization prior,
+     and one dogleg `solve` on the banded solver;
  13. the long trajectory of bench_roofline.py --what band --poses 2048:
      simulate(2,048 poses, 8,192 landmarks, seed 0), build_problem(perturb
      0.01, seed 1, no marginalization prior), f32, band width from the
@@ -68,18 +72,24 @@ Phases, each of which exits non-zero when a check fails:
      correction) against its plain version at full width in f32 and on an
      f64 copy, with padding W blocks, bit-identical relaunch; k9: kernel 9
      (band matvec) against its plain version on the scaled band and at 2,047
-     poses (not a multiple of its 8-pose blocks);
+     poses (not a multiple of its 8-pose blocks); k8: K8a (the chunk
+     layout) bit-identical to its plain version, K8b and K8c (factor and
+     solve, cyclic reduction and scan) against theirs, crossed both ways,
+     f32 and f64, with the backward error, and on a damped copy;
  14. long: GN solve_fixed(..., 10) of that trajectory: cost and ATE fall,
      everything finite, solver_ok at every iteration, exact launch counts
-     of all four kernels, no host sync per iteration (the one-off plans
+     of kernels 1, 7, 9, segsum, K2 and K8 (91 per iteration), no
+     torch.linalg factor or triangular solve, no host sync per iteration
+     (the one-off plans
      counted apart), kf/s, ms per iteration and peak device memory; the
      first iteration's step against the dense solve of the same build
      (banded grid + dense Cholesky), within a multiple of the same gap on
      an f32 CPU run of both at 256 poses; K7 and K9 timed as in 11, with
-     torch.mv on the densified band as K9's library yardstick; K8 (cyclic
-     reduction on torch.linalg): its factor and one solve timed apart,
-     with the host and on the device (CUDA-graph replay), beside their
-     bounds (flops and bytes counted level by level);
+     torch.mv on the densified band as K9's library yardstick; K8a, K8b
+     and one K8c solve timed apart, with the host and on the device
+     (CUDA-graph replay), beside their bounds (flops and bytes counted level
+     by level) and the old torch.linalg route (`library_ms`), and the device
+     operations of one iteration's K8 work both ways;
  15. cg_small: the matrix-free PCG solver (use_cg_solver) on the card
      against the CPU in f64 (simulate(24 poses, 72 landmarks)): one
      solve_reduced_cg step, one GN iteration with an active marginalization
@@ -153,7 +163,8 @@ Phases, each of which exits non-zero when a check fails:
 K2 launches are counted on every path (one (a) per build, one (b) per
 trial cost); K5 on every dense path (one per build, and one per
 marginalization), K11 once per marginalization, both none on the banded,
-PCG and fused-fleet solvers.  The last lines are the `kernels` JSON
+PCG and fused-fleet solvers; K5b once per dense build on the banded grid
+(gn, dogleg), none on the banded solver.  The last lines are the `kernels` JSON
 line, the card's name and power limit, and {"ok": true, "device":
 {...}}.  Without a CUDA device, or when
 `ba_tpu_torch` is not next to this script, it exits non-zero before
@@ -236,6 +247,26 @@ K2_PER_BANDED_BUILD, K7_PER_BUILD, K9_PER_BUILD = 5, 1, 4
 # max(1, max |plain|): the same products summed in another order
 TOL_K7 = {"float64": 1e-12, "float32": 1e-5}
 TOL_K9 = {"float64": 1e-12, "float32": 1e-5}
+# K8b and K8c against their plain versions on the long band, relative to
+# max(1, max |plain|), each factor (every level) and solve, the kernels'
+# and both crossed pairings (the kernels' factor with the plain solve and
+# the reverse).  The long system is ill-conditioned along its gauge
+# directions, so two exact orderings of one factorization differ there by
+# far more than roundoff: f64 1.7e-10 (factor) and 1.1e-9 (solve), f32
+# 4.4e-5 and 2.9e-4, while the plain factor with the kernels' solve reads
+# 5.3e-14 and 1.8e-6 (an H100).  The limits sit ~20x above those readings
+# and far below the O(1) of a broken kernel: TOL_K8_LONG_F64 for every
+# f64 difference, TOL_K8_LONG_F32 per kind in f32.  The normwise backward
+# error of the kernels' solves may be at most K8_RES_FACTOR times the
+# plain solve's in both dtypes: it is not dominated by the gauge.  And on
+# a damped copy of the long system (K8_DAMP added to the diagonal of every
+# real chunk, which bounds its condition number by the band's largest
+# eigenvalue + 1) every difference is held to TOL_K8_DAMPED, the card
+# tests' limits
+TOL_K8_LONG_F64 = 1e-8
+TOL_K8_LONG_F32 = {"factor": 1e-3, "solve": 5e-3, "plain factor": 5e-5}
+K8_RES_FACTOR, K8_DAMP = 4.0, 1.0
+TOL_K8_DAMPED = {"float64": 1e-12, "float32": 1e-4}
 # the long step may differ from the dense solve's by this multiple of the
 # same gap on an f32 CPU run of both at 256 poses: the gap lies along the
 # near-null gauge directions that the 4-iteration PCG does not converge
@@ -630,7 +661,8 @@ def phase_small_reference():
 
 
 def _counters_zero():
-    from ba_tpu_torch.kernels import (band_matvec, band_schur, fleet_schur,
+    from ba_tpu_torch.kernels import (band_matvec, band_schur, band_to_dense,
+                                      chunk_tridiag, fleet_schur,
                                       imu_preint, marginalize, reprojection,
                                       schur_finish, schur_matvec, segsum)
     from ba_tpu_torch.utils.sync import item
@@ -646,7 +678,77 @@ def _counters_zero():
     fleet_schur.fleet_epilogue.launches = 0
     schur_finish.schur_finish.launches = 0
     marginalize.marginalize_prior.launches = 0
+    band_to_dense.band_to_dense.launches = 0
+    for fn in K8_WRAPPERS:
+        getattr(chunk_tridiag, fn).launches = 0
     item.count = 0
+
+
+# K8's wrappers, each counting its own kernel launches
+K8_WRAPPERS = ("chunk_layout", "bcr_factor", "scan_factor", "bcr_solve",
+               "scan_solve")
+
+
+def _k8_counters():
+    """{wrapper: launches} of K8 since `_counters_zero`."""
+    from ba_tpu_torch.kernels import chunk_tridiag
+
+    return {fn: getattr(chunk_tridiag, fn).launches for fn in K8_WRAPPERS}
+
+
+def _k8_want(cfg, P, builds, solves_per_build=5):
+    """K8's launches for `builds` builds of the banded solver on a P-pose
+    problem: one layout, the factor's (two per cyclic-reduction level and
+    the base, or one scan) and the solves' (two per level and the base,
+    or two for the scan) per build."""
+    from ba_tpu_torch.kernels import chunk_tridiag
+    from ba_tpu_torch.solver import banded
+
+    _, _, _, n_c = banded.chunk_geometry(cfg, P, cfg.band_width)
+    want = dict.fromkeys(K8_WRAPPERS, 0)
+    want["chunk_layout"] = builds
+    if cfg.banded_cyclic_reduction and n_c >= 4:
+        lv = chunk_tridiag.next_pow2(n_c).bit_length() - 1
+        want["bcr_factor"] = builds * (2 * lv + 1)
+        want["bcr_solve"] = builds * solves_per_build * (2 * lv + 1)
+    else:
+        want["scan_factor"] = builds
+        want["scan_solve"] = builds * solves_per_build * 2
+    return want
+
+
+def _k5b_count():
+    """K5b launches since `_counters_zero`."""
+    from ba_tpu_torch.kernels import band_to_dense
+
+    return band_to_dense.band_to_dense.launches
+
+
+def _linalg_calls(run):
+    """(run(), calls of a torch.linalg factor or triangular solve made
+    during it): cholesky, cholesky_ex, solve_triangular, cholesky_solve."""
+    import torch
+
+    calls = [0]
+    saved = [(torch.linalg, n) for n in ("cholesky", "cholesky_ex",
+                                          "solve_triangular")]
+    saved.append((torch, "cholesky_solve"))
+    orig = [getattr(m, n) for m, n in saved]
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    for (m, n), fn in zip(saved, orig):
+        setattr(m, n, counting(fn))
+    try:
+        out = run()
+    finally:
+        for (m, n), fn in zip(saved, orig):
+            setattr(m, n, fn)
+    return out, calls[0]
 
 
 def _imu_counters():
@@ -743,6 +845,7 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
     k1, k2, reads = _counters()
     ia, ib = _imu_counters()
     k5, k11 = _marg_counters()
+    k5b = _k5b_count()
 
     costs_h = costs.double().cpu()
     ate1 = _ate(p, sim)
@@ -752,7 +855,7 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
         f"{float(costs_h[-1]):.6g}, ATE {ate0:.6g} -> {ate1:.6g} m, "
         f"solver_ok at start/end {ok0}/{ok1}, kernel launches "
         f"reprojection {k1} segsum {k2} imu_preint (a) {ia} (b) {ib} "
-        f"schur_finish {k5} marginalize {k11}, "
+        f"schur_finish {k5} marginalize {k11} band_to_dense {k5b}, "
         f"bit-identical to the warm-up run {torch.equal(costs, warm[1])}")
     check(bool(torch.isfinite(costs_h).all()) and _finite(p),
           "GN: non-finite values")
@@ -767,6 +870,8 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
           f"({ia}, {ib}), expected one (a) per build, one (b) per trial")
     check((k5, k11) == (N_ITERS, 0), f"GN: schur_finish, marginalize "
           f"launches ({k5}, {k11}), expected ({N_ITERS}, 0)")
+    check(k5b == N_ITERS, f"GN: {k5b} band_to_dense launches, expected "
+          f"{N_ITERS} (one per build on the banded grid)")
     kf = N_POSES * N_ITERS / secs
     say(f"[{smi}] GN solve_fixed({N_ITERS}): {secs * 1e3:.1f} ms, "
         f"{kf:.1f} kf/s; host syncs {syncs}: the plan's {n_plan_syncs} "
@@ -774,7 +879,7 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
         f"(counted reads {reads})")
     say("PHASE gn ok")
     return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
-                k11=k11, kf_s=kf, syncs=syncs, iters=N_ITERS)
+                k11=k11, k5b=k5b, kf_s=kf, syncs=syncs, iters=N_ITERS)
 
 
 def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
@@ -798,6 +903,7 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     k1, k2, reads = _counters()
     ia, ib = _imu_counters()
     k5, k11 = _marg_counters()
+    k5b = _k5b_count()
 
     ate1 = _ate(p, sim)
     # host reads: one for use_imu, then per iteration one per inner trial
@@ -808,7 +914,7 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
         f"{s.result}, cost {s.initial_cost:.6g} -> {s.final_cost:.6g}, "
         f"ATE {ate0:.6g} -> {ate1:.6g} m, kernel launches reprojection "
         f"{k1} segsum {k2} imu_preint (a) {ia} (b) {ib} schur_finish {k5} "
-        f"marginalize {k11}, same as the warm-up "
+        f"marginalize {k11} band_to_dense {k5b}, same as the warm-up "
         f"run "
         f"{(s.iterations, s.final_cost) == (warm.iterations, warm.final_cost)}")
     check(s.is_good, f"dogleg: result {s.result}")
@@ -829,6 +935,8 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     check((k5, k11) == (s.iterations, 0), f"dogleg: schur_finish, "
           f"marginalize launches ({k5}, {k11}), expected "
           f"({s.iterations}, 0): one K5 per build")
+    check(k5b == s.iterations, f"dogleg: {k5b} band_to_dense launches, "
+          f"expected {s.iterations} (one per build)")
     kf = N_POSES * s.iterations / secs
     say(f"[{smi}] dogleg solve: {secs * 1e3:.1f} ms, {kf:.1f} kf/s; host "
         f"syncs {syncs}: the plan's {n_plan_syncs} once, then "
@@ -836,7 +944,7 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
         f"(counted reads {reads})")
     say("PHASE dogleg ok")
     return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
-                k11=k11, kf_s=kf, syncs=syncs, iters=s.iterations)
+                k11=k11, k5b=k5b, kf_s=kf, syncs=syncs, iters=s.iterations)
 
 
 def _compare(pairs, what, tol):
@@ -1175,12 +1283,19 @@ def phase_banded_small():
                                    with_precond=False)
         _counters_zero()
         r = {}
-        for name, c in (("cyclic reduction", cfg),
-                        ("scan", dataclasses.replace(
-                            cfg, banded_cyclic_reduction=False))):
-            s = banded.solve_reduced_banded(p, c, bs, P, D)
+        cfgs = (("cyclic reduction", cfg),
+                ("scan", dataclasses.replace(cfg,
+                                             banded_cyclic_reduction=False)))
+        linalg = 0
+        for name, c in cfgs:
+            s, calls = _linalg_calls(
+                lambda: banded.solve_reduced_banded(p, c, bs, P, D))
+            linalg += calls
             r[f"{name} delta_p"], r[f"{name} delta_l"] = s.delta_p, s.delta_l
             r[f"{name} ok"] = s.ok
+        k8 = _k8_counters()
+        k8_want = {k: sum(_k8_want(c, P, 1)[k] for _, c in cfgs)
+                   for k in K8_WRAPPERS}
         old = banded._GROUPED_SP_MIN
         banded._GROUPED_SP_MIN = 0
         try:
@@ -1206,9 +1321,18 @@ def phase_banded_small():
                               max_iter=10)
         r["dogleg poses.t"] = pd.poses.t
         r["dogleg lms.x_w"] = pd.lms.x_w
-        out[dev] = (r, summ, counts)
-    (g, gs, counts), (c, cs, _) = out["cuda"], out["cpu"]
+        out[dev] = (r, summ, counts, k8, k8_want, linalg)
+    (g, gs, counts, k8, k8_want, linalg), (c, cs, *_) = (out["cuda"],
+                                                          out["cpu"])
     import torch
+
+    say(f"banded_small K8 launches on the card, cyclic reduction and scan "
+        f"solves: {k8} (expected {k8_want}); torch.linalg factor or "
+        f"triangular-solve calls {linalg}")
+    check(k8 == k8_want, f"banded_small: K8 launches {k8}, expected "
+          f"{k8_want}")
+    check(linalg == 0, f"banded_small: {linalg} torch.linalg factor or "
+          f"triangular-solve calls on the banded solver")
 
     _compare([(k, g[k], c[k]) for k in c]
              + [("dogleg final cost", torch.tensor(gs.final_cost),
@@ -1227,6 +1351,7 @@ def phase_banded_small():
     check(counts[0] >= 2 and counts[1] >= 3 * K9_PER_BUILD,
           f"banded_small: kernels 7/9 launched {counts} times")
     say("PHASE banded_small ok")
+    return dict(k8, k8=sum(k8.values()))
 
 
 def long_problem():
@@ -1317,14 +1442,15 @@ def phase_k7(p, cfg, bs, plan):
 def phase_k9(p, cfg, bs):
     """Kernel 9 against its plain version on the long build's scaled band
     (the matrix the PCG multiplies) and on its first 2,047 poses, f32 and
-    an f64 copy.  Returns (f32 max abs error, band_s, x)."""
+    an f64 copy.  Returns (f32 max abs error, the band, band_s, x)."""
     import numpy as np
     import torch
 
     from ba_tpu_torch.solver import banded
 
     P, D = p.poses.q.shape[0], cfg.pose_dim
-    band_s, _ = banded.jacobi_scaled(banded.band_S(p, cfg, bs, P, D))
+    band = banded.band_S(p, cfg, bs, P, D)
+    band_s, _ = banded.jacobi_scaled(band)
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(P * D),
                         dtype=band_s.dtype, device=band_s.device)
     worst = 0.0
@@ -1346,7 +1472,7 @@ def phase_k9(p, cfg, bs):
             if dt == "float32":
                 worst = max(worst, err)
     say("PHASE k9 ok")
-    return worst, band_s, x
+    return worst, band, band_s, x
 
 
 def _step_gap(a, b):
@@ -1416,8 +1542,11 @@ def phase_long(p, cfg, sim, smi):
         oks.append(res.solver_ok)
         return res
 
+    linalg = [0]
+
     def run():
-        out = step.solve_fixed(p, cfg, True, n)
+        out, linalg[0] = _linalg_calls(lambda: step.solve_fixed(p, cfg, True,
+                                                                n))
         torch.cuda.synchronize()
         return out
 
@@ -1434,6 +1563,8 @@ def phase_long(p, cfg, sim, smi):
     k7, k9 = _band_counters()
     ia, ib = _imu_counters()
     k5, k11 = _marg_counters()
+    k8, k5b = _k8_counters(), _k5b_count()
+    k8_want = _k8_want(cfg, p.poses.q.shape[0], n)
     peak = torch.cuda.max_memory_allocated()
     costs_h = costs.double().cpu()
     ate1 = _ate(q, sim)
@@ -1443,7 +1574,9 @@ def phase_long(p, cfg, sim, smi):
         f"{float(costs_h[-1]):.6g}, ATE {ate0:.6g} -> {ate1:.6g} m, "
         f"solver_ok at every iteration {all_ok}, kernel launches "
         f"reprojection {k1} segsum {k2} band_schur {k7} band_matvec {k9} "
-        f"imu_preint (a) {ia} (b) {ib}")
+        f"imu_preint (a) {ia} (b) {ib}; K8 {k8} ({sum(k8.values()) / n:g} "
+        f"per iteration), band_to_dense {k5b}; torch.linalg factor or "
+        f"triangular-solve calls {linalg[0]}")
     say(f"[{smi}] long GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
         f"{secs * 1e3 / n:.1f} ms per iteration, {kf:.1f} kf/s; peak device "
         f"memory {peak / 2**30:.3f} GiB; host syncs {syncs} (the plans' "
@@ -1461,6 +1594,11 @@ def phase_long(p, cfg, sim, smi):
     check((ia, ib) == (n, n), f"long: imu_preint launches ({ia}, {ib})")
     check((k5, k11) == (0, 0), f"long: schur_finish, marginalize launches "
           f"({k5}, {k11}) on the banded solver")
+    check(k8 == k8_want, f"long: K8 launches {k8}, expected {k8_want}")
+    check(k5b == 0, f"long: {k5b} band_to_dense launches on the banded "
+          f"solver")
+    check(linalg[0] == 0, f"long: {linalg[0]} torch.linalg factor or "
+          f"triangular-solve calls in {n} iterations")
     check(syncs == plan_again, f"long: {syncs - plan_again} host syncs in "
           f"{n} iterations")
 
@@ -1497,13 +1635,14 @@ def phase_long(p, cfg, sim, smi):
           * gap_l, "long: the banded step is off the dense one")
     say("PHASE long ok")
     return dict(k1=k1, k2=k2, k7=k7, k9=k9, imu=ia + ib, imu_a=ia, imu_b=ib,
-                k5=k5, k11=k11,
+                k5=k5, k11=k11, k8=k8, k5b=k5b,
                 kf_s=kf, ms_iter=secs * 1e3 / n,
                 peak_gib=peak / 2**30, peak_dense_gib=peak_d / 2**30,
                 syncs=syncs - plan_again, gap_p=got_p, gap_l=got_l)
 
 
-def phase_timing_band(p, cfg, bs, plan, band_s, x, floor_ms, smi):
+def phase_timing_band(p, cfg, bs, plan, band, band_s, x, k8_per_iter,
+                      floor_ms, smi):
     """Kernels 7 and 9 timed at full width beside their bounds, plain
     versions and (kernel 9) torch.mv on the densified band."""
     import torch
@@ -1569,27 +1708,101 @@ def phase_timing_band(p, cfg, bs, plan, band_s, x, floor_ms, smi):
                 plain_ms=t9["plain_ms"], bound_ms=b9, bound_by=by9,
                 library_ms=t9["library_ms"],
                 library_device_ms=t9["library_device_ms"])
-    rec8 = k8_timing(p, cfg, band_s, smi)
+    rec8 = k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi)
     say("PHASE timing (long) ok")
     return rec7, rec9, rec8
 
 
-def k8_timing(p, cfg, band_s, smi):
-    """The cyclic-reduction factor and one solve of K8 (torch.linalg) on
-    the long band, timed apart on the device (CUDA events around a loop of
-    calls; the factor's operations are a chain of batched cuSOLVER and
-    cuBLAS calls), beside their bounds: the flops of the factor and of one
-    solve counted level by level, and the bytes they must move."""
+def _device_ops(fn):
+    """Device operations (kernels, memsets, copies) that one call of `fn`
+    puts on the card, from torch.profiler; None when the profiler sees
+    none."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    except RuntimeError as e:
+        say(f"torch.profiler failed ({str(e)[:160]}); device operations not "
+            f"counted")
+        n = 0
+    return n or None
+
+
+def _timed(fn, calls, graph_calls):
+    """(ms per call with the host, device ms by CUDA-graph replay or None
+    when a call refuses capture)."""
     import torch
 
+    ms = event_ms(fn, calls)
+    try:
+        dev = graph_ms(fn, graph_calls)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        say(f"CUDA-graph capture failed ({str(e)[:160]}); device time not "
+            f"measured")
+        dev = None
+    return ms, dev
+
+
+def _bound(nbytes_, flops):
+    """(bound ms, what bounds it) at the H100's peaks."""
+    t_b, t_f = nbytes_ / HBM_BPS, flops / F32_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
+    """K8a, K8b and K8c (cyclic reduction) timed on the long build's band
+    in f32, beside their bounds and the old route (the plain layout and
+    the torch.linalg factor and solve, which is also their plain version):
+    ms per call with the host and on the device (CUDA-graph replay); the
+    factor's flops and one solve's bytes counted level by level; the
+    device operations of one GN iteration's K8 work (1 layout, 1 factor, 5
+    solves) both ways."""
+    import torch
+
+    from ba_tpu_torch.kernels import chunk_tridiag as k8
     from ba_tpu_torch.solver import banded
 
     P, D = p.poses.q.shape[0], cfg.pose_dim
-    Dg, Eg, F_, P_w, chunk, n_c = banded.chunk_system(band_s, cfg, P, D)
+    F_, P_w, chunk, n_c = banded.chunk_geometry(cfg, P, band.shape[1])
     n = chunk * D
-    levels, _ = banded._bcr_factor(Dg, Eg)
-    b = torch.ones((F_, n_c, n), dtype=band_s.dtype, device=band_s.device)
-    m = 1 << max(n_c - 1, 0).bit_length()
+    m = k8.next_pow2(n_c)
+    eps = banded._eps(band.dtype)
+    es = band.element_size()
+    bs, sc, Dg, Eg = k8.chunk_layout(band, F_, chunk, m, eps)
+    levels, _ = k8.bcr_factor(Dg, Eg)
+    r = torch.ones((F_, P_w * D), dtype=band.dtype, device=band.device)
+
+    def old_layout():
+        band_s, scal = banded.jacobi_scaled(band)
+        return band_s, scal, *banded.chunk_system(band_s, cfg, P, D)[:2]
+
+    _, _, Dg_o, Eg_o = old_layout()
+    levels_o, _ = banded._bcr_factor(Dg_o, Eg_o)
+    b_o = torch.ones((F_, n_c, n), dtype=band.dtype, device=band.device)
+
+    def old_iteration():
+        _, _, Dg_, Eg_ = old_layout()
+        lv, _ = banded._bcr_factor(Dg_, Eg_)
+        for _ in range(5):
+            banded._bcr_solve(lv, b_o, n_c)
+
+    def new_iteration():
+        lv, _ = k8.bcr_factor(*k8.chunk_layout(band, F_, chunk, m, eps)[2:])
+        for _ in range(5):
+            k8.bcr_solve(lv, r)
+
+    # bytes: each input read once, each output written once
+    a_bytes = nbytes(band, bs, sc, Dg, Eg)
+    a_bound, a_by = _bound(a_bytes, 4 * band.numel())
     # per level of m blocks, h = m / 2 eliminated: h Choleskys (n^3 / 3),
     # Dodd^-1 A^T and Dodd^-1 B (2 triangular solves of n columns each:
     # 2 n^3 apiece), B^T Z, A X and A Z (2 n^3 each); the base Cholesky
@@ -1598,46 +1811,290 @@ def k8_timing(p, cfg, band_s, smi):
         + n ** 3 / 3
     # it reads D and E of every level (m blocks each) and writes the kept
     # levels (the Cholesky factor, A, B: 3 h blocks) and the next D and E
-    f_bytes = sum((2 * 2 * h + 3 * h + 2 * h) * n * n for h in hs) \
-        * band_s.element_size()
+    f_bytes = sum((2 * 2 * h + 3 * h + 2 * h) * n * n for h in hs) * es
     # one solve: per level 2 triangular solves (u, x_odd: 2 n^2 flop each
     # with both halves), 4 block products with a vector (2 n^2 each) per
     # eliminated block; it reads the kept levels once
     s_flops = sum(h * (2 * 2 * n * n + 4 * 2 * n * n) for h in hs) \
         + 2 * n * n
-    s_bytes = (sum(3 * h for h in hs) + 1) * n * n * band_s.element_size()
-    tf = event_ms(lambda: banded._bcr_factor(Dg, Eg), 5)
-    ts = event_ms(lambda: banded._bcr_solve(levels, b, n_c), 10)
-    dev = {}
-    for key, fn, calls in (("factor", lambda: banded._bcr_factor(Dg, Eg), 2),
-                           ("solve", lambda: banded._bcr_solve(levels, b,
-                                                               n_c), 5)):
-        try:
-            dev[key] = graph_ms(fn, calls)
-        except RuntimeError as e:        # a library call refused capture
+    s_bytes = (sum(3 * h for h in hs) + 1) * n * n * es
+    f_bound, f_by = _bound(f_bytes, f_flops)
+    s_bound, s_by = _bound(s_bytes, s_flops)
+
+    ta = _timed(lambda: k8.chunk_layout(band, F_, chunk, m, eps), 20, 5)
+    ta_plain = event_ms(old_layout, 10)
+    tf = _timed(lambda: k8.bcr_factor(Dg, Eg), 5, 2)
+    tf_old = _timed(lambda: banded._bcr_factor(Dg_o, Eg_o), 5, 2)
+    ts = _timed(lambda: k8.bcr_solve(levels, r), 10, 5)
+    ts_old = _timed(lambda: banded._bcr_solve(levels_o, b_o, n_c), 10, 5)
+    ops_new, ops_old = _device_ops(new_iteration), _device_ops(old_iteration)
+
+    def dev(t):
+        return "not measured" if t is None else f"{t:.4f} ms"
+
+    def share(bound, t):
+        return "" if t is None else f", {bound / t:.1%} of the bound"
+
+    say(f"[{smi}] K8a chunk_layout on the long band (P={P}, F={F_}, chunk "
+        f"{chunk}, {n_c} -> {m} chunks of n={n}) f32: {ta[0]:.4f} ms per "
+        f"call ({dev(ta[1])} on the device{share(a_bound, ta[1])}); plain "
+        f"(jacobi_scaled + chunk_system, the old route) {ta_plain:.4f} ms; "
+        f"bound {a_bound:.5f} ms ({a_by}: {a_bytes} B); launch floor "
+        f"{floor_ms:.4f} ms")
+    say(f"[{smi}] K8b bcr_factor ({len(levels) - 1} levels, "
+        f"{2 * len(levels) - 1} launches) f32: {tf[0]:.4f} ms per call "
+        f"({dev(tf[1])} on the device{share(f_bound, tf[1])}); plain "
+        f"(_bcr_factor on torch.linalg, the old route) {tf_old[0]:.4f} ms "
+        f"({dev(tf_old[1])} on the device); bound {f_bound:.5f} ms ({f_by}: "
+        f"{f_flops:.4g} flop, {f_bytes} B)")
+    say(f"[{smi}] K8c bcr_solve ({2 * len(levels) - 1} launches) f32: "
+        f"{ts[0]:.4f} ms per call ({dev(ts[1])} on the device"
+        f"{share(s_bound, ts[1])}); plain (_bcr_solve on torch.linalg, the "
+        f"old route) {ts_old[0]:.4f} ms ({dev(ts_old[1])} on the device); "
+        f"bound {s_bound:.5f} ms ({s_by}: {s_flops:.4g} flop, {s_bytes} B)")
+    say(f"[{smi}] K8 work of one long GN iteration (1 layout, 1 factor, 5 "
+        f"solves): {k8_per_iter:g} kernel launches counted on the main "
+        f"path; device operations seen by the profiler: kernels "
+        f"{ops_new}, old route {ops_old}")
+    common = dict(floor_ms=floor_ms, device_ops_per_iteration=ops_new,
+                  old_route_device_ops_per_iteration=ops_old)
+    rec_a = dict(ms=ta[0], device_ms=ta[1], plain_ms=ta_plain,
+                 bound_ms=a_bound, bound_by=a_by, library_ms=None, **common)
+    rec_f = dict(ms=tf[0], device_ms=tf[1], plain_ms=tf_old[0],
+                 bound_ms=f_bound, bound_by=f_by, library_ms=tf_old[0],
+                 library_device_ms=tf_old[1], flops=f_flops,
+                 bytes=f_bytes, **common)
+    rec_s = dict(ms=ts[0], device_ms=ts[1], plain_ms=ts_old[0],
+                 bound_ms=s_bound, bound_by=s_by, library_ms=ts_old[0],
+                 library_device_ms=ts_old[1], flops=s_flops, bytes=s_bytes,
+                 **common)
+    return rec_a, rec_f, rec_s
+
+
+def _max_abs(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def _chunk_residual(Dg, Eg, x, b):
+    """Normwise backward error of x (F, m, n) for the chunk system (Dg,
+    Eg) and b, in f64: max |S x - b| / (max |S| n max |x| + max |b|), with
+    each diagonal block read from its lower triangle, as the factors read
+    it."""
+    import torch
+
+    Dg, Eg, x, b = (t.double() for t in (Dg, Eg, x, b))
+    Dg = torch.tril(Dg) + torch.tril(Dg, -1).mT
+    Sx = torch.einsum("fkij,fkj->fki", Dg, x)
+    Sx[:, :-1] += torch.einsum("fkij,fkj->fki", Eg[:, :-1], x[:, 1:])
+    Sx[:, 1:] += torch.einsum("fkji,fkj->fki", Eg[:, :-1], x[:, :-1])
+    scale = (max(float(Dg.abs().max()), float(Eg.abs().max())) * Dg.shape[-1]
+             * float(x.abs().max()) + float(b.abs().max()))
+    return float((Sx - b).abs().max()) / scale
+
+
+def _k8_pairs(Dg, Eg, r, n_c):
+    """K8b and K8c (cyclic reduction on Dg, Eg (F, 2^k, n, n) and the
+    scan on their first n_c chunks) against the plain versions, for the
+    rows r (F, L): {name: rel} of the factors (max over the levels), the
+    kernels' solve and the crossed pairings; the factors' ok flags;
+    whether two launches were bit-identical; the solutions (F, n_c, n) of
+    the kernels and the plain route."""
+    import torch
+    import torch.nn.functional as F
+
+    from ba_tpu_torch.kernels import chunk_tridiag as k8
+    from ba_tpu_torch.solver import banded
+
+    F_, n = Dg.shape[0], Dg.shape[-1]
+    Ds, Es = Dg[:, :n_c], Eg[:, :n_c]
+    L = r.shape[1]
+    b3 = F.pad(r, (0, n_c * n - L)).reshape(F_, n_c, n)
+    lv_k, ok_k = k8.bcr_factor(Dg, Eg)
+    lv_k2, _ = k8.bcr_factor(Dg, Eg)
+    lv_p, ok_p = banded._bcr_factor(Ds, Es)
+    x_p = banded._bcr_solve(lv_p, b3, n_c)[:, :L]
+    x_k = k8.bcr_solve(lv_k, r)
+    x_k2 = k8.bcr_solve(lv_k2, r)
+    x_kp = banded._bcr_solve(lv_k, b3, n_c)[:, :L]
+    x_pk = k8.bcr_solve(lv_p, r)
+    C_k, M_k, sok_k = k8.scan_factor(Ds, Es)
+    C_k2, M_k2, _ = k8.scan_factor(Ds, Es)
+    C_p, M_p, sok_p = banded._factor(Ds, Es)
+    y_p = banded._solve_factored(C_p, M_p, b3)[:, :L]
+    y_k = k8.scan_solve(C_k, M_k, r)
+    y_k2 = k8.scan_solve(C_k2, M_k2, r)
+    y_kp = banded._solve_factored(C_k, M_k, b3)[:, :L]
+    y_pk = k8.scan_solve(C_p, M_p, r)
+    torch.cuda.synchronize()
+    # A and B of a level are views of its input, so the factors differ in
+    # the Choleskys alone
+    f_rel = max(rel_err(lk[0], lp[0])[1]
+                for lk, lp in zip(lv_k[:-1], lv_p[:-1]))
+    rel = {"bcr factor": max(f_rel, rel_err(lv_k[-1], lv_p[-1])[1]),
+           "bcr solve": rel_err(x_k, x_p)[1],
+           "bcr kernel factor + plain solve": rel_err(x_kp, x_p)[1],
+           "bcr plain factor + kernel solve": rel_err(x_pk, x_p)[1],
+           "scan factor": max(rel_err(C_k, C_p)[1], rel_err(M_k, M_p)[1]),
+           "scan solve": rel_err(y_k, y_p)[1],
+           "scan kernel factor + plain solve": rel_err(y_kp, y_p)[1],
+           "scan plain factor + kernel solve": rel_err(y_pk, y_p)[1]}
+    same = (all(torch.equal(a[0], b[0]) for a, b in zip(lv_k[:-1],
+                                                       lv_k2[:-1]))
+            and torch.equal(lv_k[-1], lv_k2[-1]) and torch.equal(x_k, x_k2)
+            and torch.equal(C_k, C_k2) and torch.equal(M_k, M_k2)
+            and torch.equal(y_k, y_k2))
+    oks = [bool(o) for o in (ok_k, ok_p, sok_k, sok_p)]
+
+    def chunks(x):
+        return F.pad(x, (0, n_c * n - L)).reshape(F_, n_c, n)
+
+    sols = {k: chunks(v) for k, v in
+            dict(x_k=x_k, x_p=x_p, y_k=y_k, y_p=y_p).items()}
+    errs = dict(f=max(max(_max_abs(a[0], b[0]) for a, b in zip(
+        lv_k[:-1], lv_p[:-1])), _max_abs(lv_k[-1], lv_p[-1]),
+        _max_abs(C_k, C_p), _max_abs(M_k, M_p)),
+        s=max(_max_abs(x_pk, x_p), _max_abs(y_pk, y_p)))
+    return rel, oks, same, sols, b3, errs
+
+
+def phase_k8(p, cfg, band):
+    """K8 on the long build's band (P = 2,048, 86 -> 128 chunks of n =
+    216) against its plain versions on the card, in f32 and f64: K8a
+    bit-identical (cyclic reduction's padded layout and the scan's); K8b
+    and K8c (cyclic reduction and scan), crossed both ways, within
+    TOL_K8_LONG_F64 / TOL_K8_LONG_F32, their backward error within
+    K8_RES_FACTOR of the plain solve's, and on a damped copy within
+    TOL_K8_DAMPED; two launches bit-identical.  Returns the f32 max abs
+    errors of (K8a, K8b, K8c) against the plain versions."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.solver import banded
+
+    P, D = p.poses.q.shape[0], cfg.pose_dim
+    F_, P_w, chunk, n_c = banded.chunk_geometry(cfg, P, band.shape[1])
+    n = chunk * D
+    rhs = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (F_, P_w * D)), device=band.device)
+    errs = dict(a=0.0, f=0.0, s=0.0)
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        bd, r = band.to(dtype), rhs.to(dtype)
+        # K8a
+        bs_p, sc_p = banded.jacobi_scaled(bd)
+        Dg_p, Eg_p = banded.chunk_system(bs_p, cfg, P, D)[:2]
+        for bcr in (True, False):
+            out = banded.chunk_layout(bd, cfg, P, D, bcr)
+            again = banded.chunk_layout(bd, cfg, P, D, bcr)
             torch.cuda.synchronize()
-            say(f"K8 {key}: CUDA-graph capture failed ({str(e)[:200]}); its "
-                "device time is not measured")
-            dev[key] = None
-    bf = max(f_bytes / HBM_BPS, f_flops / F32_FLOPS) * 1e3
-    bs_ = max(s_bytes / HBM_BPS, s_flops / F32_FLOPS) * 1e3
+            same = [torch.equal(out[0], bs_p), torch.equal(out[1], sc_p),
+                    torch.equal(out[2][:, :n_c], Dg_p),
+                    torch.equal(out[3][:, :n_c], Eg_p)]
+            m = out[2].shape[1]
+            pad_ok = bool((out[2][:, n_c:] == torch.eye(
+                n, dtype=dtype, device=bd.device)).all()) and not bool(
+                out[3][:, n_c:].any())
+            rel = all(torch.equal(a, b) for a, b in zip(out, again))
+            say(f"K8a chunk_layout {dt} ({'cyclic reduction' if bcr else 'scan'}"
+                f", {n_c} -> {m} chunks): equal to the plain layout "
+                f"{all(same)} ({len(same)} outputs), identity pad chunks "
+                f"{pad_ok}, bit-identical relaunch {rel}")
+            check(all(same) and pad_ok and rel, f"K8a {dt}: differs")
+        # K8b, K8c on the long system
+        Dg, Eg = banded.chunk_layout(bd, cfg, P, D, True)[2:]
+        rel, oks, same, sols, b3, e = _k8_pairs(Dg, Eg, r, n_c)
+        say(f"K8b/K8c {dt} on the long band, rel: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel.items())
+            + f"; ok flags {oks}; bit-identical relaunch {same}")
+        check(all(oks) and same, f"K8 {dt}: a factor failed or relaunch "
+              f"differs")
+        if dt == "float64":
+            lim = dict.fromkeys(rel, TOL_K8_LONG_F64)
+        else:
+            lim = {k: TOL_K8_LONG_F32["factor"] if k.endswith("factor")
+                   else TOL_K8_LONG_F32["plain factor"] if "plain factor"
+                   in k else TOL_K8_LONG_F32["solve"] for k in rel}
+            errs.update(e)
+        bad = {k: v for k, v in rel.items() if not v <= lim[k]}
+        check(not bad, f"K8 {dt} on the long band: {bad} over {lim}")
+        res = {k: _chunk_residual(Dg[:, :n_c], Eg[:, :n_c], x, b3)
+               for k, x in sols.items()}
+        say(f"K8 {dt} backward error on the long band: cyclic reduction "
+            f"kernels {res['x_k']:.3e}, plain {res['x_p']:.3e}; scan kernels "
+            f"{res['y_k']:.3e}, plain {res['y_p']:.3e} (tol "
+            f"{K8_RES_FACTOR:g} x plain)")
+        check(res["x_k"] <= K8_RES_FACTOR * res["x_p"]
+              and res["y_k"] <= K8_RES_FACTOR * res["y_p"],
+              f"K8 {dt}: backward error {res}")
+        # K8b, K8c on the damped copy
+        Dd = Dg.clone()
+        Dd[:, :n_c] += K8_DAMP * torch.eye(n, dtype=dtype, device=bd.device)
+        rel, oks, same = _k8_pairs(Dd, Eg, r, n_c)[:3]
+        say(f"K8b/K8c {dt} on the long band + {K8_DAMP:g} I, rel: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f"; ok flags {oks}; bit-identical relaunch {same} (tol "
+            f"{TOL_K8_DAMPED[dt]:g})")
+        bad = {k: v for k, v in rel.items() if not v <= TOL_K8_DAMPED[dt]}
+        check(all(oks) and same and not bad, f"K8 {dt} damped: {bad}, ok "
+              f"{oks}, bit-identical {same}")
+    say("PHASE k8 ok")
+    return errs
 
-    def by(flops, nbytes_):
-        return "operations" if flops / F32_FLOPS >= nbytes_ / HBM_BPS \
-            else "bytes"
 
-    say(f"[{smi}] K8 cyclic reduction on the long band ({n_c} -> {m} chunks "
-        f"of {n} x {n}, {len(levels) - 1} levels): factor {tf:.4f} ms, one "
-        f"solve {ts:.4f} ms (CUDA events around 5 and 10 calls); on the "
-        f"device (CUDA-graph replay) factor {dev['factor']} ms, solve "
-        f"{dev['solve']} ms; bounds: "
-        f"factor {bf:.5f} ms ({f_flops:.4g} flop, {f_bytes} B; "
-        f"{by(f_flops, f_bytes)}), solve {bs_:.5f} ms ({s_flops:.4g} flop, "
-        f"{s_bytes} B; {by(s_flops, s_bytes)})")
-    return dict(factor_ms=tf, solve_ms=ts, factor_device_ms=dev["factor"],
-                solve_device_ms=dev["solve"], factor_bound_ms=bf,
-                solve_bound_ms=bs_, factor_flops=f_flops,
-                factor_bytes=f_bytes, solve_flops=s_flops, solve_bytes=s_bytes)
+def flagship_band(p32, cfg):
+    """The (P, B, D, D) band a flagship build densifies (K5b's input)."""
+    from ba_tpu_torch.solver import assemble as asm
+    from ba_tpu_torch.solver import step
+
+    seen = _recording(asm, "band_to_dense", lambda: step._build_and_solve(
+        p32, dataclasses.replace(cfg, use_dogleg=False), True))
+    check(len(seen) == 1, f"flagship build densified {len(seen)} bands")
+    return seen[0][0][0]
+
+
+def phase_k5b(band, floor_ms, smi):
+    """K5b against its plain version on a flagship build's band, f32 and
+    an f64 copy: equal element for element, two launches bit-identical;
+    then timed beside its bound and its plain version (no single library
+    call computes it).  Returns (f32 max abs error, timing record)."""
+    import torch
+
+    from ba_tpu_torch.kernels import band_to_dense as k5b
+    from ba_tpu_torch.solver import assemble as asm
+
+    P, B, D, _ = band.shape
+    asym = not torch.equal(band[:, 0], band[:, 0].mT)
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        bd = band.to(dtype)
+        a, b = k5b.band_to_dense(bd), k5b.band_to_dense(bd)
+        want = asm.band_to_dense_plain(bd)
+        torch.cuda.synchronize()
+        err = _max_abs(a, want)
+        say(f"K5b band_to_dense {dt} (P={P}, B={B}, D={D}; diagonal blocks "
+            f"not exactly symmetric {asym}): max abs err {err:.3e} (tol 0); "
+            f"bit-identical relaunch {torch.equal(a, b)}")
+        check(torch.equal(a, want) and torch.equal(a, b),
+              f"K5b {dt}: differs from its plain version or between "
+              f"launches")
+        if dtype == torch.float32:
+            worst = err
+    out = k5b.band_to_dense(band)
+    nb = nbytes(band, out)
+    bound, by = _bound(nb, out.numel())
+    ms, dev = _timed(lambda: k5b.band_to_dense(band), 200, 50)
+    check(dev is not None, "K5b: no device time")
+    plain = event_ms(lambda: asm.band_to_dense_plain(band), 50)
+    say(f"[{smi}] K5b band_to_dense, flagship band f32: {ms:.4f} ms per "
+        f"call ({dev:.4f} ms on the device, {bound / dev:.1%} of the "
+        f"bound); plain (pad/reshape) {plain:.4f} ms; bound {bound:.5f} ms "
+        f"({by}: {nb} B); no library call computes it; launch floor "
+        f"{floor_ms:.4f} ms")
+    say("PHASE k5b ok")
+    return worst, dict(ms=ms, device_ms=dev, floor_ms=floor_ms,
+                       plain_ms=plain, bound_ms=bound, bound_by=by,
+                       library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -3410,17 +3867,21 @@ def main():
     rec1s, rec2s = phase_timing(s32, cfg_s, sums_s, smi, "stream slide")
     rec_imu = phase_timing_imu(p32, cfg, rec1["floor_ms"], smi)
     del sums_s, sched
+    err5b, rec5b = phase_k5b(flagship_band(p32, cfg), rec1["floor_ms"], smi)
 
-    phase_banded_small()
+    bsm = phase_banded_small()
     pl, cfg_l, sim_l = long_problem()
     bs_l, plan_l = long_blocks(pl, cfg_l)
     err7 = phase_k7(pl, cfg_l, bs_l, plan_l)
-    err9, band_s, x_l = phase_k9(pl, cfg_l, bs_l)
+    err9, band_l, band_s, x_l = phase_k9(pl, cfg_l, bs_l)
+    err8 = phase_k8(pl, cfg_l, band_l)
     err_imu.append(phase_imu(pl, cfg_l, "long"))
     lg = phase_long(pl, cfg_l, sim_l, smi)
-    rec7, rec9, rec8 = phase_timing_band(pl, cfg_l, bs_l, plan_l, band_s,
-                                         x_l, rec1["floor_ms"], smi)
-    del pl, bs_l, plan_l, band_s, x_l
+    k8_iter = sum(lg["k8"].values()) / LONG["iters"]
+    rec7, rec9, (rec8a, rec8b, rec8c) = phase_timing_band(
+        pl, cfg_l, bs_l, plan_l, band_l, band_s, x_l, k8_iter,
+        rec1["floor_ms"], smi)
+    del pl, bs_l, plan_l, band_l, band_s, x_l
 
     phase_cg_small()
     pc, cfg_c, sim_c = cg_problem()
@@ -3520,6 +3981,35 @@ def main():
              launches_per_slide=st["k11"] / st["slides"], max_abs_err=err11,
              **rec11["stream slide"], vins_window=rec11["vins_window"],
              info=info11),
+        dict(name="band_to_dense", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/band_to_dense.cu",
+             replaces="ba_tpu/solver/assemble.py:159",
+             **paths("k5b", ("gn", "dogleg")), max_abs_err=err5b, **rec5b),
+        dict(name="chunk_layout", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/chunk_layout.cu",
+             replaces="ba_tpu/solver/banded.py:245",
+             launches=lg["k8"]["chunk_layout"],
+             launches_long=lg["k8"]["chunk_layout"],
+             launches_banded_small=bsm["chunk_layout"],
+             max_abs_err=err8["a"], **rec8a),
+        dict(name="chunk_factor", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/chunk_factor.cu",
+             replaces="ba_tpu/solver/banded.py:307",
+             launches=lg["k8"]["bcr_factor"] + lg["k8"]["scan_factor"],
+             launches_long=lg["k8"]["bcr_factor"] + lg["k8"]["scan_factor"],
+             launches_banded_small=dict(
+                 cyclic_reduction=bsm["bcr_factor"],
+                 scan=bsm["scan_factor"]),
+             max_abs_err=err8["f"], **rec8b),
+        dict(name="chunk_solve", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/chunk_solve.cu",
+             replaces="ba_tpu/solver/banded.py:369",
+             launches=lg["k8"]["bcr_solve"] + lg["k8"]["scan_solve"],
+             launches_long=lg["k8"]["bcr_solve"] + lg["k8"]["scan_solve"],
+             launches_banded_small=dict(
+                 cyclic_reduction=bsm["bcr_solve"],
+                 scan=bsm["scan_solve"]),
+             max_abs_err=err8["s"], **rec8c),
     ]
     say(f"[{smi}] kf/s: GN solve_fixed({N_ITERS}) {gn['kf_s']:.1f}, "
         f"dogleg solve {dl['kf_s']:.1f} ({dl['iters']} iterations); "
@@ -3533,8 +4023,8 @@ def main():
         f"peak {lg['peak_gib']:.3f} GiB); CG GN {cg['kf_s']:.1f} kf/s "
         f"({cg['ms_iter']:.1f} ms per iteration, peak {cg['peak_gib']:.3f} "
         f"GiB); fleet GN {fl['kf_s']:.1f} kf/s ({fl['ms_iter']:.1f} ms per "
-        f"iteration); K8 factor {rec8['factor_ms']:.3f} ms, solve "
-        f"{rec8['solve_ms']:.3f} ms; selfcal {sc['kf_s']:.1f} kf/s "
+        f"iteration); K8 layout {rec8a['ms']:.3f} ms, factor "
+        f"{rec8b['ms']:.3f} ms, solve {rec8c['ms']:.3f} ms; selfcal {sc['kf_s']:.1f} kf/s "
         f"({sc['ms_iter']:.1f} ms per iteration, {sc['iters']} iterations); "
         f"vicalib solve_once "
         + ", ".join(f"{x['secs']:.2f} s" for x in vc["stages"])

@@ -16,9 +16,10 @@ On the flagship problem of chip_smoke.py (128 keyframes, f32, band width
 
 With `--long`, instead, on chip_smoke.py's long trajectory (2,048
 keyframes, f32, band width 24, the banded solver) it prints the stages of
-one GN iteration (IMU, assemble_blocks, band_S with kernel 7, the chunk
-layout, the cyclic-reduction factor, the PCG wrap with kernel 9, the
-back-substitution, the Cauchy factor, the trial cost), the synchronizing
+one GN iteration (IMU, assemble_blocks, band_S with kernel 7, the
+scaling and chunk layout (K8a), the cyclic-reduction factor (K8b), the PCG
+wrap with kernel 9 and five solves (K8c), the back-substitution, the
+Cauchy factor, the trial cost), the synchronizing
 source lines of an iteration, and the device's busy share and kernel
 launches of one profiled iteration.
 
@@ -309,10 +310,10 @@ def _stages(which):
                (banded, "band_S", "band_S (segsum)"),
                (banded, "_band_schur_grouped", "  kernel 7"),
                (banded, "banded_pcg_solve", "factor + PCG, whole"),
-               (banded, "_chunk_windows", "  chunk layout"),
-               (banded, "_bcr_factor", "  cyclic-reduction factor"),
+               (banded, "chunk_layout", "  scaling and chunk layout (K8a)"),
+               (banded, "chunk_factor", "  cyclic-reduction factor (K8b)"),
                (banded, "band_matvec", "  kernel 9 (4 per iteration)"),
-               (banded, "_bcr_solve", "  cyclic-reduction solves (5)")]
+               (banded, "chunk_solve", "  cyclic-reduction solves (5, K8c)")]
     elif which == "cg":
         p, cfg, _ = chip_smoke.cg_problem()
         mid = [(cg, "assemble_blocks",

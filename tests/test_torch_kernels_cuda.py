@@ -1,5 +1,6 @@
-"""Kernels 1, K2 (imu_preint), segsum, K5 (schur_finish), 6, 7, 9, 10 and
-K11 (marginalize) against their plain versions on the card.
+"""Kernels 1, K2 (imu_preint), segsum, K5 (schur_finish), K5b
+(band_to_dense), 6, 7, K8 (chunk_tridiag), 9, 10 and K11 (marginalize)
+against their plain versions on the card.
 
 These need an NVIDIA GPU with nvcc (marker `cuda`); elsewhere they skip.
 Run them on the card with `python -m pytest tests/test_torch_kernels_cuda.py
@@ -38,7 +39,16 @@ columns, S exactly symmetric; K11 (the marginalization prior) to 1e-10
 (f64) and 1e-4 (f32: Jacobi and `eigh` round differently) of ||H||_F at n
 = 90 to 360, its info flag set, its output PSD to 1e-6 ||H|| in f32; both
 bit-identical between launches and raising when they do not build; three
-steady f32 pushes of the streaming smoother make no host sync.
+steady f32 pushes of the streaming smoother make no host sync.  K5b (band
+to dense) and K8a (the chunk layout) equal their plain versions element
+for element in f32 and f64; K8b and K8c (the chunked factor and solve, by
+cyclic reduction and by the scan) match theirs to 1e-12 (f64) and 1e-4
+(f32, the levels' Schur complements summed in another order), crossed
+both ways (the kernel's factor with the plain solve and the reverse), at
+F = 2 windows and n up to 216, bit-identical between launches; an
+indefinite block clears `ok` on the device; `banded_pcg_solve` on the
+card runs K8 and kernel 9 only, with no `torch.linalg` call and no host
+read.
 """
 
 import dataclasses
@@ -873,3 +883,245 @@ def test_stream_three_slides_f32_make_no_host_sync():
     assert k11.marginalize_prior.launches - b == 3
     assert all(bool(torch.isfinite(o["t"]).all()) and
                bool(torch.isfinite(o["cost"])) for o in outs)
+
+
+# ---- K5b (band to dense) and K8 (the chunked block-tridiagonal solver) ---
+
+
+def _spd_windows(rng, F, P_w, B, D):
+    """A band (F P_w, B, D, D) of F windows that do not couple, each the
+    blocks of J^T J + 0.1 I over a banded J, diagonal blocks made
+    non-symmetric by 1e-3."""
+    out = []
+    for _ in range(F):
+        N = P_w * D
+        J = np.zeros((N + B * D, N))
+        for p in range(P_w):
+            for d in range(min(B, P_w - p)):
+                J[p * D:(p + 1) * D, (p + d) * D:(p + d + 1) * D] = \
+                    rng.standard_normal((D, D))
+        S = J.T @ J + 0.1 * np.eye(N)
+        band = np.zeros((P_w, B, D, D))
+        for p in range(P_w):
+            for d in range(min(B, P_w - p)):
+                band[p, d] = S[p * D:(p + 1) * D, (p + d) * D:(p + d + 1) * D]
+        band[:, 0] += 1e-3 * rng.standard_normal((P_w, D, D))
+        out.append(band)
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("P,B,D", [(128, 24, 9), (37, 5, 6)])
+def test_band_to_dense_kernel_matches_plain(dtype, P, B, D):
+    """K5b equals its plain version element for element (the diagonal
+    blocks are not symmetric, so their rounding order shows), with blocks
+    past the last pose ignored; two launches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import band_to_dense as k5b
+    from ba_tpu_torch.solver import assemble as asm
+
+    rng = np.random.default_rng(P)
+    band = rng.standard_normal((P, B, D, D))
+    band = torch.as_tensor(band, dtype=dtype, device="cuda")
+    before = k5b.band_to_dense.launches
+    a = asm.band_to_dense(band)
+    b = asm.band_to_dense(band)
+    assert k5b.band_to_dense.launches == before + 2
+    want = asm.band_to_dense_plain(band)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bcr", [True, False], ids=["bcr", "scan"])
+def test_chunk_layout_kernel_matches_plain(dtype, bcr):
+    """K8a equals `jacobi_scaled` + `chunk_system` on the card bit for bit
+    (F = 2 windows of 23 poses in chunks of 5: two identity poses per
+    window; five chunks, padded to eight under cyclic reduction)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.core.problem import BAConfig
+    from ba_tpu_torch.kernels import chunk_tridiag as k8
+    from ba_tpu_torch.solver import banded
+
+    F, P_w, B, D, chunk = 2, 23, 4, 9, 5
+    band = torch.as_tensor(_spd_windows(np.random.default_rng(1), F, P_w, B,
+                                        D), dtype=dtype, device="cuda")
+    cfg = BAConfig(pose_dim=D, lm_size=1, fleet_size=F, banded_chunk=chunk)
+    bs_p, sc_p = banded.jacobi_scaled(band)
+    Dg_p, Eg_p, *_, n_c = banded.chunk_system(bs_p, cfg, F * P_w, D)
+    before = k8.chunk_layout.launches
+    bs, sc, Dg, Eg = banded.chunk_layout(band, cfg, F * P_w, D, bcr)
+    again = banded.chunk_layout(band, cfg, F * P_w, D, bcr)
+    assert k8.chunk_layout.launches == before + 2
+    torch.cuda.synchronize()
+    m = k8.next_pow2(n_c) if bcr else n_c
+    assert Dg.shape == (F, m, chunk * D, chunk * D)
+    for got, want in ((bs, bs_p), (sc, sc_p), (Dg[:, :n_c], Dg_p),
+                      (Eg[:, :n_c], Eg_p)):
+        assert torch.equal(got, want)
+    n = chunk * D
+    assert torch.equal(Dg[:, n_c:], torch.eye(n, dtype=dtype, device="cuda")
+                       .expand(F, m - n_c, n, n))
+    assert not bool(Eg[:, n_c:].any())
+    assert all(torch.equal(x, y) for x, y in zip(again, (bs, sc, Dg, Eg)))
+
+
+def _chunk_system(dtype, F, m, chunk, D=9, B=4, seed=0):
+    from ba_tpu_torch.core.problem import BAConfig
+    from ba_tpu_torch.solver import banded
+
+    band = torch.as_tensor(_spd_windows(np.random.default_rng(seed), F,
+                                        m * chunk, B, D), device="cuda")
+    cfg = BAConfig(pose_dim=D, lm_size=1, fleet_size=F, banded_chunk=chunk)
+    bs, _ = banded.jacobi_scaled(band)
+    Dg, Eg = banded.chunk_system(bs, cfg, F * m * chunk, D)[:2]
+    b = torch.as_tensor(np.random.default_rng(seed + 1).standard_normal(
+        (F, m, chunk * D)), device="cuda")
+    return Dg.to(dtype), Eg.to(dtype), b.to(dtype)
+
+
+# K8b and K8c against the plain versions, relative to max(1, max |plain|):
+# f64 the same factorization summed in another order; f32 through the
+# levels' Schur complements of this scaled system, whose f32 factors differ
+# by ~1e-6 (measured on a CPU rehearsal at n = 45), with 100x room
+TOL_K8 = {torch.float64: 1e-12, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("F,m,chunk", [(1, 8, 24), (2, 5, 5), (1, 4, 4)],
+                         ids=["m8-n216", "F2-m5-n45", "m4-n36"])
+def test_bcr_factor_and_solve_kernels_match_plain(dtype, F, m, chunk):
+    """K8b's cyclic reduction and K8c's solve against `_bcr_factor` and
+    `_bcr_solve`: every level's factor and the solve, each kernel's
+    factor with the plain solve and the plain factor with the kernel's
+    solve, bit-identical relaunches, no `torch.linalg` call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import chunk_tridiag as k8
+    from ba_tpu_torch.solver import banded
+
+    tol = TOL_K8[dtype]
+    Dg, Eg, b = _chunk_system(dtype, F, m, chunk)
+    lv_p, ok_p = banded._bcr_factor(Dg, Eg)
+    x_p = banded._bcr_solve(lv_p, b, m)
+    # the kernel takes the chunks padded to a power of two, as K8a lays
+    # them out and `_bcr_factor` pads them
+    n, m2 = Dg.shape[-1], k8.next_pow2(m)
+    eye = torch.eye(n, dtype=dtype, device="cuda").expand(F, m2 - m, n, n)
+    Dg2 = torch.cat([Dg, eye], dim=1)
+    Eg2 = torch.cat([Eg, Eg.new_zeros((F, m2 - m, n, n))], dim=1)
+    rows = b.reshape(F, m * n)
+    nf, ns = k8.bcr_factor.launches, k8.bcr_solve.launches
+    lv_k, ok_k = k8.bcr_factor(Dg2, Eg2)
+    x_k = k8.bcr_solve(lv_k, rows)
+    lv_k2, _ = k8.bcr_factor(Dg2, Eg2)
+    x_k2 = k8.bcr_solve(lv_k2, rows)
+    levels = len(lv_k) - 1
+    assert k8.bcr_factor.launches - nf == 2 * (2 * levels + 1)
+    assert k8.bcr_solve.launches - ns == 2 * (2 * levels + 1)
+    torch.cuda.synchronize()
+    assert bool(ok_p) and bool(ok_k)
+    for (c, A, B), (cp, Ap, Bp), (c2, _, _) in zip(lv_k[:-1], lv_p[:-1],
+                                                   lv_k2[:-1]):
+        assert _rel(c, cp) <= tol and _rel(A, Ap) <= tol
+        assert _rel(B, Bp) <= tol and torch.equal(c, c2)
+    assert _rel(lv_k[-1], lv_p[-1]) <= tol
+    assert torch.equal(x_k, x_k2)
+    assert _rel(x_k, x_p) <= tol
+    assert _rel(banded._bcr_solve(lv_k, b, m), x_p) <= tol
+    assert _rel(k8.bcr_solve(lv_p, rows), x_p) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("F,m,chunk", [(2, 3, 24), (1, 2, 5)],
+                         ids=["F2-m3-n216", "m2-n45"])
+def test_scan_factor_and_solve_kernels_match_plain(dtype, F, m, chunk):
+    """K8b's scan and K8c's scan solve against `_factor` and
+    `_solve_factored`, crossed both ways; bit-identical relaunches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import chunk_tridiag as k8
+    from ba_tpu_torch.solver import banded
+
+    tol = TOL_K8[dtype]
+    Dg, Eg, b = _chunk_system(dtype, F, m, chunk, seed=5)
+    C_p, M_p, ok_p = banded._factor(Dg, Eg)
+    x_p = banded._solve_factored(C_p, M_p, b)
+    rows = b.reshape(F, -1)
+    C, M, ok = k8.scan_factor(Dg, Eg)
+    C2, M2, _ = k8.scan_factor(Dg, Eg)
+    x = k8.scan_solve(C, M, rows)
+    torch.cuda.synchronize()
+    assert bool(ok_p) and bool(ok)
+    assert torch.equal(C, C2) and torch.equal(M, M2)
+    assert torch.equal(x, k8.scan_solve(C, M, rows))
+    assert _rel(C, C_p) <= tol and _rel(M, M_p) <= tol
+    assert _rel(x, x_p) <= tol
+    assert _rel(banded._solve_factored(C, M, b), x_p) <= tol
+    assert _rel(k8.scan_solve(C_p, M_p, rows), x_p) <= tol
+
+
+@pytest.mark.parametrize("bcr", [True, False], ids=["bcr", "scan"])
+def test_chunk_factor_kernel_flags_an_indefinite_block(bcr):
+    """An indefinite chunk gives ok == False on the device, as the plain
+    factor's `cholesky_ex` info does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import chunk_tridiag as k8
+    from ba_tpu_torch.solver import banded
+
+    Dg, Eg, _ = _chunk_system(torch.float64, 1, 4, 5, seed=2)
+    Dg[0, 1, 7, 7] = -50.0
+    if bcr:
+        assert not bool(k8.bcr_factor(Dg, Eg)[1])
+        assert not bool(banded._bcr_factor(Dg, Eg)[1])
+    else:
+        assert not bool(k8.scan_factor(Dg, Eg)[2])
+        assert not bool(banded._factor(Dg, Eg)[2])
+
+
+@pytest.mark.parametrize("F,bcr", [(1, True), (1, False), (2, True)],
+                         ids=["bcr", "scan", "F2-bcr"])
+def test_banded_pcg_solve_on_the_card_runs_k8_only(monkeypatch, F, bcr):
+    """`banded_pcg_solve` on CUDA tensors makes no `torch.linalg` call and
+    no host read: one K8a launch, the factor's launches, and 5 solves
+    (2 levels + 1 each way under cyclic reduction, 2 for the scan); its
+    f64 step equals the CPU's plain path to 1e-10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.core.problem import BAConfig
+    from ba_tpu_torch.kernels import chunk_tridiag as k8
+    from ba_tpu_torch.solver import banded
+
+    P_w, B, D = 38, 4, 9
+    band = torch.as_tensor(_spd_windows(np.random.default_rng(3), F, P_w,
+                                        B, D))
+    rhs = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        F * P_w * D))
+    mask = torch.ones(F * P_w * D, dtype=torch.bool)
+    cfg = BAConfig(pose_dim=D, lm_size=1, fleet_size=F, banded_chunk=8,
+                   banded_cyclic_reduction=bcr)
+    want, ok_w = banded.banded_pcg_solve(band, rhs, mask, cfg, F * P_w, D)
+    for name in ("cholesky_ex", "cholesky", "solve_triangular"):
+        monkeypatch.setattr(torch.linalg, name, None)
+    counts = (k8.chunk_layout.launches, k8.bcr_factor.launches,
+              k8.scan_factor.launches, k8.bcr_solve.launches,
+              k8.scan_solve.launches)
+    args = (band.cuda(), rhs.cuda(), mask.cuda(), cfg, F * P_w, D)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, ok = banded.banded_pcg_solve(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    moved = tuple(a - b for a, b in zip(
+        (k8.chunk_layout.launches, k8.bcr_factor.launches,
+         k8.scan_factor.launches, k8.bcr_solve.launches,
+         k8.scan_solve.launches), counts))
+    # 5 chunks of 8 poses: 8 under cyclic reduction, 3 levels
+    assert moved == ((1, 7, 0, 5 * 7, 0) if bcr else (1, 0, 1, 0, 5 * 2))
+    assert bool(ok) and bool(ok_w)
+    assert _rel(got.cpu(), want) <= 1e-10
