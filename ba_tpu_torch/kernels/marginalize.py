@@ -11,22 +11,32 @@ Design (csrc/marginalize.cu), one block, no host read: (a) the departing
 block (S_dd + eps I)^-1 inverted alone by Gauss-Jordan elimination with
 partial pivoting (the d-block of ba_tpu's masked inverse, exactly), then
 H = keep (S - S_:d X S_:d^T) keep and g = keep (rhs - S_:d X rhs_d),
-symmetrized; (b) the PSD projection by cyclic Jacobi in round-robin
-order, as H - sum of l v v^T over the negative eigenvalues, with a
-threshold stop test on the device.  `info` = (converged and finite,
-sweeps, clipped eigenvalues, departing dims, rotations) stays on the
-device: the serving path never reads it.
+symmetrized; (b) on the active dims only (rows of H not exactly zero), a
+PSD certificate first: a blocked Cholesky of H_aa + tau I in f64 (tau =
+1e-8 ||H||_F in f32, 1e-12 in f64; 32-column panels in shared memory, the
+triangle on the L2-resident workspace).  If every pivot is positive, H has no
+eigenvalue below -tau and is returned as it is: the clip would move it by
+at most sqrt(#neg) tau, an order of magnitude under the kernel's
+tolerances.  Only otherwise the PSD projection by cyclic Jacobi in
+round-robin order (a pair table per round, then A <- J^T A J one 2 x 2
+block per thread, two barriers a round), as H - sum of l v v^T over the
+negative eigenvalues, with a threshold stop test on the device.  `info` =
+(converged and finite, sweeps, clipped eigenvalues, departing dims,
+rotations, certified) stays on the device: the serving path never reads
+it.  On the certified branch sweeps, rotations and clipped are 0.
 
 `marginalize_prior_plain` is its plain PyTorch version (the body
 `window.marginalize` had: `inv_ex`, `eigh`); `solver/window.py:prior_step`
 takes it for CPU tensors.
 
-Bound on an H100: operations, ~12 n flops per Jacobi rotation (a few MFLOP
-at the slide's n = 90); one block runs it, so the rounds' barriers set
-its time.
+Bound on an H100: operations, n^3 / 3 for the certificate and ~12 n flops
+per Jacobi rotation (a few MFLOP at the slide's n = 90); one block runs
+it, so the chain of barriers sets its time: one per column of the factor,
+one or two per Jacobi round.
 
-Scope: float32 and float64, any n (A and V in shared memory up to n = 168
-in f32 and 119 in f64, in an L2-resident workspace above).
+Scope: float32 and float64, any n (with na active dims: the Jacobi's A
+and V^T in shared memory up to na = 168 in f32 and 119 in f64, A alone up
+to 238 and 168, the rest in the workspace).
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ _ARGTYPES = [_P, _P, _P, _I, ctypes.c_double, _I, _P, _P, _P, _P, _P]
 # Jacobi sweeps at most; the stop test ends it after ~5-10 (quadratic
 # convergence)
 MAX_SWEEPS = 30
-INFO = ("ok", "sweeps", "clipped", "departing", "rotations")
+INFO = ("ok", "sweeps", "clipped", "departing", "rotations", "certified")
 
 
 def marginalize_prior_plain(S, rhs, pd, eps: float):
@@ -82,7 +92,7 @@ def _fn(dtype):
 
 def marginalize_prior(S, rhs, pd, eps: float):
     """(H, g, info) of `marginalize_prior_plain` on CUDA tensors, one
-    launch of the kernel; `info` is an int32 (5,) device tensor (`INFO`)."""
+    launch of the kernel; `info` is an int32 (6,) device tensor (`INFO`)."""
     dev = S.device
     if not (S.is_cuda and rhs.device == dev and pd.device == dev):
         raise ValueError("marginalize kernel: S, rhs and pd must be on one "

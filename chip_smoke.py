@@ -147,18 +147,29 @@ Phases, each of which exits non-zero when a check fails:
      300 frames at 20 Hz, IMU at 200 Hz, the linear camera), f32: the
      stages advance, the calibration improves, the mse per stage and the
      seconds per solve_once;
- 25. k5: K5 (schur_finish, the dense Schur step) against its plain version
-     at a flagship build's, a stream slide's build and marginalization's
-     and the self-calibration's shapes, f32 and f64, S exactly symmetric,
-     bit-identical between launches; k11: K11 (marginalize, the departing
-     dims' Schur complement and the PSD clip by Jacobi) against its plain
-     version at the stream slide's marginalization (n = 90), vins_window's
-     (apps/vins_window.py --poses 40: n = 360) and an indefinite n = 90
-     system, f32 and f64: its info flag (converged, finite), the smallest
-     eigenvalue of its f32 output, bit-identical between launches; both
-     timed as in 11 beside their bounds, plain versions and library
-     yardsticks (torch.matmul of W V^-1 by W^T; `eigh` and the clip
-     product).
+ 25. k5: K5 (schur_finish, the Schur step) against its plain version at
+     a flagship build's, a stream slide's build and marginalization's and
+     the self-calibration's shapes, and on block-banded W whose tile pairs
+     are partly empty (the flagship's shape, and lm 3 at the slide's
+     cluster split), f32 and f64, S exactly symmetric, bit-identical
+     between launches, each line with its tiles, its empty tile pairs and
+     its cluster split; k11: K11 (marginalize, the departing dims' Schur
+     complement, the PSD certificate, and the clip by Jacobi where it
+     fails) against its plain version at the stream slide's
+     marginalization (n = 90), vins_window's (apps/vins_window.py --poses
+     40: n = 360), an indefinite n = 90 system, a PSD prior with a
+     singular kept block and masked dims, one eigenvalue at -0.1 tau and
+     at -10 tau (either side of the certificate), a PSD n = 360 prior and
+     indefinite systems at n = 168, 169 (either side of the shared-memory
+     limit of the Jacobi's A and V) and 360, f32 and f64: the branch each
+     takes (held where the case fixes it), its info flag (converged,
+     finite), the smallest eigenvalue of its f32 output, bit-identical
+     between launches; both timed as in 11 beside their bounds (K5's from
+     W's structurally nonzero products, the dense count beside it; K11's
+     with the certificate's na^3 / 3 and the rotations only where the
+     Jacobi ran), plain versions and library yardsticks (torch.matmul of
+     W V^-1 by W^T; `eigh` and the clip product); `stream` and
+     `stream_many` count the marginalizations the certificate settled.
 
 K2 launches are counted on every path (one (a) per build, one (b) per
 trial cost); K5 on every dense path (one per build, and one per
@@ -228,6 +239,10 @@ STREAM_MANY = dict(streams=4, keyframes=40)
 TOL_K5 = {"float64": 1e-10, "float32": 1e-5}
 TOL_K11 = {"float64": 1e-10, "float32": 1e-4}
 K11_PSD_F32 = 1e-6
+# K11's certificate shift tau / ||H||_F (csrc/marginalize.cu): the clip
+# may move a certified H by at most sqrt(#neg) tau, an order of magnitude
+# under the tolerances above
+K11_TAU = {"float32": 1e-8, "float64": 1e-12}
 # vins_window's marginalization (apps/vins_window.py --poses 40 --window
 # 10): the whole 40-pose problem, n = 360
 K11_WINDOW = dict(poses=40, lms=120)
@@ -1062,22 +1077,24 @@ def phase_stream(smi):
                          dtype=np.float32)
     outs, syncs = [], []
     _counters_zero()
-    t0 = time.perf_counter()
-    for g in range(STREAM["poses"]):
-        add_keyframe(ring, feed, g)
-        if outs:
-            out, n = _sync_count(lambda: ring.push(block=False))
-            syncs.append(n)
-        else:
-            out = ring.push(block=False)
+    with _K11Branches() as kb:
+        t0 = time.perf_counter()
+        for g in range(STREAM["poses"]):
+            add_keyframe(ring, feed, g)
+            if outs:
+                out, n = _sync_count(lambda: ring.push(block=False))
+                syncs.append(n)
+            else:
+                out = ring.push(block=False)
+                if out is not None:
+                    wait(dev)
+                    t_first = time.perf_counter() - t0
+                    t0 = time.perf_counter()
             if out is not None:
-                wait(dev)
-                t_first = time.perf_counter() - t0
-                t0 = time.perf_counter()
-        if out is not None:
-            outs.append(out)
-    wait(dev)
-    t_steady = time.perf_counter() - t0
+                outs.append(out)
+        wait(dev)
+        t_steady = time.perf_counter() - t0
+    branches = kb.read()
     k1, k2, _ = _counters()
     ia, ib = _imu_counters()
     k5, k11 = _marg_counters()
@@ -1097,6 +1114,10 @@ def phase_stream(smi):
         f"reprojection {k1} ({k1 / n:.2f} per slide) segsum {k2} "
         f"({k2 / n:.2f} per slide) imu_preint (a) {ia} (b) {ib} "
         f"schur_finish {k5} marginalize {k11}")
+    say(f"stream f32: K11's certificate settled {branches['certified']} "
+        f"of {branches['marginalizations']} marginalizations (the Jacobi "
+        f"clip ran on the rest, {branches['clipped']} of them clipping an "
+        f"eigenvalue); every info ok {branches['ok']}")
     say(f"stream f32: retired-trajectory ATE {ate:.6g} m (bound "
         f"{2 * JAX_F64_ATE_M:g} m, twice the JAX f64 CPU ATE); last slide "
         f"cost {float(costs[-1]):.6g}; costs finite "
@@ -1119,7 +1140,7 @@ def phase_stream(smi):
           f"push (K11 replaced the eigh that made one)")
     say("PHASE stream ok")
     return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
-                k11=k11, slides=n,
+                k11=k11, slides=n, k11_branches=branches,
                 kf_s=kf_s, ms_slide=ms_slide,
                 syncs_per_push=sum(syncs) / len(syncs), ate=ate,
                 last_cost=float(costs[-1])), sched, cfg
@@ -3474,7 +3495,64 @@ def k5_cases(p32, cfg, s32, cfg_s, ps32, cfg_sc):
         if len(args) > 5:                # finish passes the mask by place
             args, kwargs = args[:5], dict(kwargs, cmask=args[5])
         out.append((label, args, kwargs))
+    out.append(("banded W, partly empty tile pairs",
+                banded_k5(128, 9, 497, 1), {}))
+    out.append(("lm 3 at the slide's split", banded_k5(10, 9, 150, 3),
+                dict(cmask=torch.arange(90, device="cuda") % 7 != 3)))
     return out
+
+
+def banded_k5(P, D, L, lm, dtype=None, dense_rows=0, span=3, seed=0,
+              device="cuda"):
+    """(U, W, vinv, rhs_p, rhs_l) (f32 unless `dtype`) with a block-banded
+    W: landmark l seen by `span` consecutive poses of D rows, so distant
+    tile pairs share no landmark, and the `dense_rows` last rows nonzero
+    for every landmark (a calibration block).  The card tests take their
+    K5 inputs from here."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.utils.linalg import block_diag_inv
+
+    rng = np.random.default_rng(seed + P + L + lm)
+    N = P * D + dense_rows
+    U = rng.standard_normal((N, N))
+    W = np.zeros((N, L * lm))
+    for l in range(L):
+        p0 = int(rng.integers(0, P - span + 1))
+        W[p0 * D:(p0 + span) * D, l * lm:(l + 1) * lm] = \
+            rng.standard_normal((span * D, lm))
+    if dense_rows:
+        W[P * D:] = rng.standard_normal((dense_rows, L * lm))
+    Vb = rng.standard_normal((L, lm, lm))
+    V = Vb @ np.swapaxes(Vb, 1, 2) + np.eye(lm)
+    t = [torch.as_tensor(a, dtype=dtype or torch.float32, device=device)
+         for a in (U + U.T, W, V, rng.standard_normal(N),
+                   rng.standard_normal(L * lm))]
+    return t[0], t[1], block_diag_inv(t[2]), t[3], t[4]
+
+
+def _k5_work(W, n, lm, tile):
+    """The work K5's inputs need with `tile`-row tiles of S (W (N, L lm)
+    cut to n rows): (lower tile pairs, those with no common landmark,
+    flops of the structurally nonzero products).  A landmark with r
+    nonzero rows (some of its lm columns nonzero, rows < n) adds r (r + 1)
+    / 2 symmetric entries of lm multiply-adds, its rows' W V^-1 (r lm^2)
+    and their rhs terms (r lm)."""
+    import torch
+
+    L = W.shape[1] // lm
+    nb = -(-n // tile)
+    ntri = nb * (nb + 1) // 2
+    nz = (W[:n].reshape(n, L, lm) != 0).any(2)
+    empty = 0
+    if L:
+        tm = torch.stack([nz[i:i + tile].any(0) for i in range(0, n, tile)])
+        common = (tm[:, None, :] & tm[None, :, :]).any(2)
+        empty = int((~torch.tril(common)).sum()) - nb * (nb - 1) // 2
+    r = nz.sum(0).double()
+    flops = float((r * (r + 1) * lm + 2 * r * lm * lm + 2 * r * lm).sum())
+    return ntri, empty, flops
 
 
 def phase_k5(cases):
@@ -3505,8 +3583,14 @@ def phase_k5(cases):
             name = str(dt).split(".")[1]
             N, K = a[0].shape[0], a[1].shape[1]
             masked = kw.get("cmask") is not None
-            say(f"K5 schur_finish, {label} (N={N}, L*lm={K}, n="
-                f"{got[0].shape[0]}, mask {masked}) "
+            n, lm = got[0].shape[0], a[2].shape[1]
+            tile, cs = k5.schedule(n, a[2].shape[0], lm, a[1].device)
+            ntri, empty, _ = _k5_work(a[1], n, lm, tile)
+            walk = (f"walk split across a cluster of {cs}" if cs > 1
+                    else "walk unsplit")
+            say(f"K5 schur_finish, {label} (N={N}, L*lm={K}, n={n}, "
+                f"mask {masked}; {tile}-row tiles, "
+                f"{empty} of {ntri} tile pairs share no landmark, {walk}) "
                 f"{name}: max abs err {err:.3e}, rel {err / scale:.3e} "
                 f"(tol {TOL_K5[name]:g}), symmetric {sym}, bit-identical "
                 f"{same}")
@@ -3557,46 +3641,114 @@ def window_problem():
     return p, dataclasses.replace(cfg, band_width=band_width_of(p))
 
 
+def certificate_case(family, n, dt, seed=0, device="cuda"):
+    """(S, rhs, pd) of a K11 input family on `device` (the card tests and
+    the CPU certificate walk take theirs from here): `gauge`, PSD of rank
+    n - 4 (a singular kept block) with 9 departing and 6 masked dims;
+    `psd`, full rank with masked dims; `neg_in` / `neg_out`, no departing
+    dims and a PSD block beside one eigenvalue at -0.1 tau / -10 tau (tau
+    = K11_TAU[dt] ||H||_F, exact in f32 too: the block and the eigenvalue
+    are apart, a permutation mixes them); `indefinite`, no departing
+    dims."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pd = np.zeros(n, bool)
+    if family in ("gauge", "psd"):
+        B = rng.standard_normal((n, n - 4 if family == "gauge" else n + 5))
+        S = B @ B.T / n
+        masked = rng.choice(np.arange(9, n), 6, replace=False)
+        S[masked] = 0.0
+        S[:, masked] = 0.0
+        pd[:9] = True
+    elif family in ("neg_in", "neg_out"):
+        B = rng.standard_normal((n - 1, n + 4))
+        S = np.zeros((n, n))
+        S[:-1, :-1] = B @ B.T / n
+        S = (0.5 * (S + S.T)).astype(
+            np.float32 if dt == torch.float32 else np.float64)
+        S = S.astype(np.float64)
+        S[-1, -1] = (-0.1 if family == "neg_in" else -10.0) \
+            * K11_TAU[str(dt).split(".")[1]] * float(np.linalg.norm(S))
+        perm = rng.permutation(n)
+        S = S[perm][:, perm]
+    else:
+        A = rng.standard_normal((n, n + 5))
+        v = rng.standard_normal((n, 3))
+        S = (A @ A.T - 3.0 * v @ v.T) / n
+    S = 0.5 * (S + S.T)
+    return (torch.as_tensor(S, dtype=dt, device=device),
+            torch.as_tensor(rng.standard_normal(n), dtype=dt, device=device),
+            torch.as_tensor(pd, device=device))
+
+
 def k11_cases():
-    """(label, S, rhs, pd, eps) of K11: the serving stream's fourth slide's
-    marginalization (n = 90; the first two slides retire the two anchored
-    poses, which have no free dims), vins_window's first (n = 360), and an
-    indefinite n = 90 system with negative eigenvalues to clip."""
+    """(label, make, expect) of K11: make(dtype) gives (S, rhs, pd, eps),
+    expect {dtype name: certified} what the certificate must decide (a
+    missing dtype is a finding, printed).  The serving stream's fourth
+    slide's marginalization (n = 90; the first two slides retire the two
+    anchored poses, which have no free dims), vins_window's first (n =
+    360), an indefinite n = 90 system with negative eigenvalues to clip;
+    the certificate's families: a PSD prior with a singular kept block
+    and masked dims, one eigenvalue at -0.1 tau and at -10 tau, a PSD
+    n = 360 prior (the factor's first columns in the workspace); and
+    indefinite systems at n = 168 and 169 (A and V in shared memory in
+    f32, then in the workspace) and 360."""
     import torch
 
     from ba_tpu_torch.apps.vins_stream import stream_problem
     from ba_tpu_torch.solver import fixedlag, window
 
+    def cast(S, rhs, pd):
+        return lambda dt: (S.to(dt), rhs.to(dt), pd,
+                           1e-9 if dt == torch.float64 else 1e-5)
+
+    def family(name, n, seed=0):
+        return lambda dt: certificate_case(name, n, dt, seed) + (
+            1e-9 if dt == torch.float64 else 1e-5,)
+
     p, cfg = stream_problem(STREAM["poses"], STREAM["lms"])[:2]
     sched = fixedlag.build_ring_schedule(p, cfg, STREAM["window"], 4)
     seen = _recording(window, "prior_step", lambda: fixedlag.run_ring(
         sched, cfg, True, STREAM["iters"]))
-    out = [("stream slide",) + tuple(seen[-1][0])]
+    out = [("stream slide", cast(*seen[-1][0][:3]), {})]
     pw, cfg_w = window_problem()
     drop = torch.arange(pw.poses.q.shape[0], device=pw.poses.t.device) == 2
     (args, _), = _recording(window, "prior_step",
                             lambda: window.marginalize(pw, cfg_w, True, drop))
-    out.append(("vins_window",) + tuple(args))
-    out.append(("indefinite",) + _random_departing(90, range(9),
-                                                   0, torch.float32)
-               + (1e-5,))
+    out.append(("vins_window", cast(*args[:3]), {}))
+    out.append(("indefinite", cast(*_random_departing(90, range(9), 0,
+                                                      torch.float32)),
+                {"float32": 0, "float64": 0}))
+    both = {"float32": 1, "float64": 1}
+    neither = {"float32": 0, "float64": 0}
+    out += [("gauge (PSD, singular kept block, masked dims)",
+             family("gauge", 90), {"float64": 1}),
+            ("eigenvalue -0.1 tau", family("neg_in", 90), both),
+            ("eigenvalue -10 tau", family("neg_out", 90), neither),
+            ("PSD n=360", family("psd", 360), {"float64": 1}),
+            ("indefinite n=168", family("indefinite", 168), neither),
+            ("indefinite n=169", family("indefinite", 169), neither),
+            ("indefinite n=360", family("indefinite", 360), neither)]
     return out
 
 
 def phase_k11(cases):
-    """K11 against its plain version in f32 and on an f64 copy, relative
-    to ||H||_F; its info flag; the output's smallest eigenvalue; two
-    launches bit-identical."""
+    """K11 against its plain version in f32 and f64, relative to
+    ||H||_F; its info flag and branch (the certificate, or the Jacobi
+    clip), which must be the expected one where the case says; the
+    output's smallest eigenvalue; two launches bit-identical."""
     import torch
 
     from ba_tpu_torch.kernels import marginalize as k11
 
     worst = 0.0
     infos = {}
-    for label, S, rhs, pd, _ in cases:
+    for label, make, expect in cases:
         for dt in (torch.float32, torch.float64):
-            eps = 1e-9 if dt == torch.float64 else 1e-5
-            a = (S.to(dt), rhs.to(dt), pd)
+            S, rhs, pd, eps = make(dt)
+            a = (S, rhs, pd)
             H, g, info = k11.marginalize_prior(*a, eps)
             H2, g2, info2 = k11.marginalize_prior(*a, eps)
             Hp, gp = k11.marginalize_prior_plain(*a, eps)
@@ -3609,10 +3761,13 @@ def phase_k11(cases):
             lo_in = float(torch.linalg.eigvalsh(Hp.double()).min())
             lo = float(torch.linalg.eigvalsh(H.double()).min())
             inf = dict(zip(k11.INFO, info.tolist()))
+            active = int((H != 0).any(1).sum())
             same = torch.equal(H, H2) and torch.equal(g, g2) \
                 and torch.equal(info, info2)
+            branch = "certificate" if inf["certified"] else "Jacobi clip"
             say(f"K11 marginalize, {label} (n={S.shape[0]}, "
-                f"{inf['departing']} departing dims) {name}: max abs err "
+                f"{inf['departing']} departing dims, {active} active) "
+                f"{name}: branch {branch}; max abs err "
                 f"{err:.3e}, rel to ||H||_F {err / max(norm, 1e-300):.3e} "
                 f"(tol {TOL_K11[name]:g}); info {inf}; smallest eigenvalue "
                 f"{lo / max(norm, 1e-300):.3e} ||H|| (plain "
@@ -3622,30 +3777,93 @@ def phase_k11(cases):
             check(err <= TOL_K11[name] * max(norm, gscale) and same
                   and torch.equal(H, H.T),
                   f"K11 {label} {name}: err {err:.3g}, bit-identical {same}")
+            if name in expect:
+                check(inf["certified"] == expect[name],
+                      f"K11 {label} {name}: branch {branch}, expected "
+                      f"certified {expect[name]}")
+            if inf["certified"]:
+                check(inf["sweeps"] == inf["rotations"] == inf["clipped"]
+                      == 0, f"K11 {label} {name}: certified with {inf}")
             if dt == torch.float32:
                 check(lo >= -K11_PSD_F32 * norm, f"K11 {label}: smallest "
                       f"eigenvalue {lo:.3g} below -{K11_PSD_F32:g} ||H||")
                 worst = max(worst, err)
-                infos[label] = inf
+                infos[label] = dict(inf, active=active)
     check(infos["indefinite"]["clipped"] > 0,
           "K11: the indefinite case clipped nothing")
     say("PHASE k11 ok")
     return worst, infos
 
 
+class _K11Branches:
+    """While active, `kernels.marginalize.marginalize_prior` keeps the
+    info tensor of each K11 launch (on the device: nothing is read back
+    until `read`); its callers and its return value are unchanged."""
+
+    def __enter__(self):
+        from ba_tpu_torch.kernels import marginalize as k11
+
+        self.k11, self.infos = k11, []
+        self.orig = orig = k11.marginalize_prior
+        infos = self.infos
+
+        class Recording:
+            # the wrapper counts its launches on the module's attribute,
+            # which is this while active: the count goes on to `orig`
+            launches = property(lambda _: orig.launches,
+                                lambda _, v: setattr(orig, "launches", v))
+
+            def __call__(self, *args, **kwargs):
+                out = orig(*args, **kwargs)
+                infos.append(out[2])
+                return out
+
+        k11.marginalize_prior = Recording()
+        return self
+
+    def __exit__(self, *exc):
+        self.k11.marginalize_prior = self.orig
+
+    def read(self):
+        """(marginalizations, settled by the certificate, clipped by the
+        Jacobi branch, info all ok)."""
+        import torch
+
+        from ba_tpu_torch.kernels import marginalize as k11
+
+        if not self.infos:
+            return dict(marginalizations=0, certified=0, clipped=0, ok=True)
+        a = torch.stack(self.infos).cpu()
+        col = {k: a[:, i] for i, k in enumerate(k11.INFO)}
+        return dict(marginalizations=len(self.infos),
+                    certified=int(col["certified"].sum()),
+                    clipped=int((col["clipped"] > 0).sum()),
+                    ok=bool((col["ok"] == 1).all()))
+
+
 def _k5_ops(N, n, K, lm):
-    """Floating-point operations K5's function needs: the symmetric
-    product (n (n + 1) / 2 entries of K multiply-adds), W V^-1 of the rows
-    (2 n K lm) and the rhs (2 n K)."""
+    """Floating-point operations of K5's function as a dense product: the
+    symmetric product (n (n + 1) / 2 entries of K multiply-adds), W V^-1
+    of the rows (2 n K lm) and the rhs (2 n K); printed beside the
+    structurally nonzero count of `_k5_work`, which sets the bound."""
     return n * (n + 1) * K + 2 * n * K * lm + 2 * n * K
+
+
+# K5 timed at the main paths' shapes; K11 at the slide's n = 90 and
+# vins_window's n = 360 (whichever branch each takes), and on each branch
+# at both sizes: the Jacobi clip (indefinite inputs) and the certificate
+# (a PSD n = 360 prior)
+K5_TIMED = ("flagship", "stream slide", "selfcal")
+K11_TIMED = ("stream slide", "vins_window", "indefinite", "indefinite n=360",
+             "PSD n=360")
 
 
 def phase_timing_k5_k11(k5c, k11c, k11_info, floor_ms, smi):
     """K5 at the flagship's, a stream slide's and the self-calibration's
-    shapes, and K11 at the slide's n = 90 and vins_window's n = 360, timed
-    as in phase 11 beside their bounds, plain versions and library
-    yardsticks: torch.matmul of W V^-1 by W^T (K5), `eigh` and the clip
-    product with its host sync (K11)."""
+    shapes, and K11 at the K11_TIMED cases, timed as in phase 11 beside
+    their bounds, plain versions and library yardsticks: torch.matmul of
+    W V^-1 by W^T (K5), `eigh` and the clip product with its host sync
+    (K11)."""
     import torch
 
     from ba_tpu_torch.kernels import marginalize as k11
@@ -3653,7 +3871,7 @@ def phase_timing_k5_k11(k5c, k11c, k11_info, floor_ms, smi):
 
     rec5 = {}
     for label, args, kw in k5c:
-        if label == "stream slide marginalization":
+        if label not in K5_TIMED:
             continue
         U, W, vinv, rhs_p, rhs_l = args[:5]
         N, K = U.shape[0], W.shape[1]
@@ -3663,8 +3881,14 @@ def phase_timing_k5_k11(k5c, k11c, k11_info, floor_ms, smi):
         L = vinv.shape[0]
         WVi = torch.einsum("nlk,lkj->nlj", W.reshape(N, L, lm),
                            vinv).reshape(N, K)
-        ops = _k5_ops(N, n, K, lm)
-        nb = nbytes(U, W, vinv, rhs_p, rhs_l, kw.get("cmask"), *out)
+        tile, cs = k5.schedule(n, L, lm, W.device)
+        ntri, empty, ops = _k5_work(W, n, lm, tile)
+        dense_ops = _k5_ops(N, n, K, lm)
+        # what the function reads and writes: U's lower triangle and W's
+        # rows within the n x n cut, V^-1, rhs_p's n and rhs_l, the mask,
+        # S and rhs
+        nb = (n * (n + 1) // 2 + n * K + n) * U.element_size() \
+            + nbytes(vinv, rhs_l, kw.get("cmask"), *out)
         bound = max(nb / HBM_BPS, ops / F32_FLOPS) * 1e3
         by = "bytes" if nb / HBM_BPS >= ops / F32_FLOPS else "operations"
         t = dict(ms=event_ms(lambda: k5.schur_finish(*args, **kw), 50),
@@ -3677,28 +3901,35 @@ def phase_timing_k5_k11(k5c, k11c, k11_info, floor_ms, smi):
                                             20))
         nz = float((W != 0).double().mean())
         say(f"[{smi}] K5 schur_finish, {label} (N={N}, L*lm={K}, W "
-            f"{nz:.1%} nonzero) f32: {t['ms']:.4f} ms per call "
-            f"({t['device_ms']:.4f} ms on the device, "
+            f"{nz:.1%} nonzero; {tile}-row tiles, {empty} of {ntri} tile "
+            f"pairs empty, cluster split {cs}) f32: {t['ms']:.4f} ms per "
+            f"call ({t['device_ms']:.4f} ms on the device, "
             f"{bound / t['device_ms']:.1%} of the bound; launch floor "
             f"{floor_ms:.4f} ms), plain {t['plain_ms']:.3f} ms, "
             f"torch.matmul(W V^-1, W^T) {t['library_ms']:.4f} ms "
             f"({t['library_device_ms']:.4f} ms on the device); bound "
-            f"{bound:.5f} ms ({by}: {nb} B, {ops:.4g} flop)")
-        rec5[label] = dict(bound_ms=bound, bound_by=by, flops=ops, bytes=nb,
-                           **t)
+            f"{bound:.5f} ms ({by}: {nb} B, {ops:.4g} flop of structurally "
+            f"nonzero products; dense {dense_ops:.4g} flop)")
+        rec5[label] = dict(bound_ms=bound, bound_by=by, flops=ops,
+                           dense_flops=dense_ops, bytes=nb, tile=tile,
+                           cluster=cs, empty_tile_pairs=empty,
+                           tile_pairs=ntri, **t)
 
     rec11 = {}
-    for label, S, rhs, pd, eps in k11c:
-        if label == "indefinite":
+    for label, make, _ in k11c:
+        if label not in K11_TIMED:
             continue
+        S, rhs, pd, eps = make(torch.float32)
         n = S.shape[0]
         inf = k11_info[label]
-        k = inf["departing"]
-        # the Jacobi rotations this input needed (12 n each: A's rows and
-        # columns as a symmetric matrix, V's columns), the departing block's
-        # inverse (2 k^3) and the Schur update of H and g (2 n^2 k + 2 n k)
-        ops = 12 * n * inf["rotations"] + 2 * k ** 3 + 2 * n * n * k \
-            + 2 * n * k
+        k, na = inf["departing"], inf["active"]
+        # the departing block's inverse (2 k^3) and the Schur update of H
+        # and g (2 n^2 k + 2 n k); the certificate's Cholesky on the active
+        # block (na^3 / 3); the Jacobi rotations this input needed (12 na
+        # each: A's rows and columns as a symmetric matrix, V's columns),
+        # none on the certified branch
+        ops = 2 * k ** 3 + 2 * n * n * k + 2 * n * k + na ** 3 / 3 \
+            + 12 * na * inf["rotations"]
         H, g, info = k11.marginalize_prior(S, rhs, pd, eps)
         nb = nbytes(S, rhs, pd, H, g, info)
         bound = max(nb / HBM_BPS, ops / F32_FLOPS) * 1e3
@@ -3716,16 +3947,17 @@ def phase_timing_k5_k11(k5c, k11c, k11_info, floor_ms, smi):
                  plain_ms=event_ms(
                      lambda: k11.marginalize_prior_plain(S, rhs, pd, eps), 10),
                  library_ms=event_ms(library, 10))
+        branch = "certificate" if inf["certified"] else "Jacobi clip"
         say(f"[{smi}] K11 marginalize, {label} (n={n}, {k} departing dims, "
-            f"{inf['sweeps']} sweeps, {inf['rotations']} rotations, "
-            f"{inf['clipped']} clipped) f32: {t['ms']:.4f} ms per call "
-            f"({t['device_ms']:.4f} ms on the device, "
-            f"{bound / t['device_ms']:.2%} of the bound), plain (inv_ex, "
-            f"eigh) {t['plain_ms']:.3f} ms, eigh + clip {t['library_ms']:.4f} "
-            f"ms (host sync included); bound {bound:.5f} ms ({by}: {nb} B, "
-            f"{ops:.4g} flop)")
+            f"{na} active; branch {branch}: {inf['sweeps']} sweeps, "
+            f"{inf['rotations']} rotations, {inf['clipped']} clipped) f32: "
+            f"{t['ms']:.4f} ms per call ({t['device_ms']:.4f} ms on the "
+            f"device, {bound / t['device_ms']:.2%} of the bound), plain "
+            f"(inv_ex, eigh) {t['plain_ms']:.3f} ms, eigh + clip "
+            f"{t['library_ms']:.4f} ms (host sync included); bound "
+            f"{bound:.5f} ms ({by}: {nb} B, {ops:.4g} flop)")
         rec11[label] = dict(bound_ms=bound, bound_by=by, flops=ops, bytes=nb,
-                            **t)
+                            branch=branch, **t)
     say("PHASE timing (K5, K11) ok")
     return rec5, rec11
 
@@ -3773,9 +4005,11 @@ def phase_stream_many(smi):
     StreamingRing.push = push
     try:
         _counters_zero()
-        outs, t_steady, n_steady = stream_many(problems, cfg, W,
-                                               STREAM["iters"], caps,
-                                               keyframes=G)
+        with _K11Branches() as kb:
+            outs, t_steady, n_steady = stream_many(problems, cfg, W,
+                                                   STREAM["iters"], caps,
+                                                   keyframes=G)
+        branches = kb.read()
         k1, k2, _ = _counters()
         ia, ib = _imu_counters()
         k5, k11 = _marg_counters()
@@ -3803,6 +4037,10 @@ def phase_stream_many(smi):
         f"host syncs per steady push min {min(syncs)} max {max(syncs)} total "
         f"{sum(syncs)}; kernel launches reprojection {k1} segsum {k2} "
         f"imu_preint (a) {ia} (b) {ib} schur_finish {k5} marginalize {k11}")
+    say(f"stream_many f32: K11's certificate settled "
+        f"{branches['certified']} of {branches['marginalizations']} "
+        f"marginalizations ({branches['clipped']} clipped by the Jacobi "
+        f"branch); every info ok {branches['ok']}")
     say(f"stream_many f32: ATE per stream " + ", ".join(
         f"{a:.6g}" for a in ates) + f" m (bound {2 * JAX_F64_ATE_M:g} m); "
         f"bit-identical to each stream pushed alone {same}; costs finite "
@@ -3821,6 +4059,7 @@ def phase_stream_many(smi):
     say("PHASE stream_many ok")
     return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
                 k11=k11, kf_s=kf_s, ms_round=ms_round, slides=slides,
+                k11_branches=branches,
                 syncs_per_push=sum(syncs) / len(syncs), ates=ates,
                 streams=M, keyframes=G)
 
@@ -3980,7 +4219,11 @@ def main():
              replaces="ba_tpu/solver/window.py:66", **paths("k11"),
              launches_per_slide=st["k11"] / st["slides"], max_abs_err=err11,
              **rec11["stream slide"], vins_window=rec11["vins_window"],
-             info=info11),
+             indefinite=rec11["indefinite"],
+             indefinite_n360=rec11["indefinite n=360"],
+             psd_n360=rec11["PSD n=360"], info=info11,
+             certified=dict(stream=st["k11_branches"],
+                            stream_many=sm["k11_branches"])),
         dict(name="band_to_dense", route="cuda",
              source="ba_tpu_torch/kernels/csrc/band_to_dense.cu",
              replaces="ba_tpu/solver/assemble.py:159",

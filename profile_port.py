@@ -42,7 +42,19 @@ prints the stages of one `StreamingRing.push`, timed the same way over
 several slides after a warm-up: the host's table build and packing, the
 upload, the two builds with their solves, the two trial costs, the
 marginalization and the whole push; the synchronizing source lines of a
-push; and the device's busy share of a few profiled pushes.
+push; and the device's busy share of a few profiled pushes, with the
+busy time per push and K5's and K11's part of it.
+
+With `--k11-against FILE.cu`, instead, it builds FILE.cu (a K11 source of
+the same C interface, for example an earlier commit's
+`ba_tpu_torch/kernels/csrc/marginalize.cu` written out under `_archive/`)
+with the package's nvcc line and times it beside this tree's K11 on the
+indefinite inputs of chip_smoke.py's `k11` phase (n = 90, 169, 360; the
+Jacobi branch), each checked against the plain version first:
+
+    git show <commit>:ba_tpu_torch/kernels/csrc/marginalize.cu \
+        > _archive/marginalize_old.cu
+    python3 profile_port.py --k11-against _archive/marginalize_old.cu
 
 The device's busy time is the sum of the kernel and copy spans of the
 profiler's trace (written to a temporary directory in the checkout and
@@ -53,6 +65,7 @@ exits non-zero without one.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import json
 import sys
@@ -263,9 +276,13 @@ def slide_stage_times(smi, n_warm=3, n_slides=5):
             g += 1
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    busy = _busy_seconds(prof, "profile_slide.json")
+    busy, ks = _busy_seconds(prof, "profile_slide.json", kernels={
+        "K5 (schur_finish)": ("schur_mask_kernel", "schur_product_kernel"),
+        "K11 (marginalize)": ("marginalize_kernel",)})
     print(f"[{smi}] profiled 2 pushes: wall {wall * 1e3:.1f} ms (profiler "
-          f"on), device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.2f}%")
+          f"on), device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.2f}%"
+          f"; per push: device busy {busy / 2 * 1e3:.3f} ms, "
+          + ", ".join(f"{k} {v / 2 * 1e3:.4f} ms" for k, v in ks.items()))
 
 
 def _wrap(owner, name, label, sums, on):
@@ -418,8 +435,10 @@ def path_iteration(smi, which, n_iters=3):
     print(ka.table(sort_by=dev_key, row_limit=15))
 
 
-def _busy_seconds(prof, name, count=False):
-    """Sum of the kernel and copy spans of a profiler trace."""
+def _busy_seconds(prof, name, count=False, kernels=None):
+    """Sum of the kernel and copy spans of a profiler trace; with
+    `kernels` ({label: name fragments}), also the seconds of the kernels
+    whose names hold one of each label's fragments."""
     with tempfile.TemporaryDirectory(dir=chip_smoke.ROOT) as tmp:
         path = Path(tmp) / name
         prof.export_chrome_trace(str(path))
@@ -428,9 +447,86 @@ def _busy_seconds(prof, name, count=False):
     busy = 1e-6 * sum(e.get("dur", 0) for e in events
                       if e.get("cat") in ("kernel", "gpu_memcpy",
                                           "gpu_memset"))
+    if kernels is not None:
+        return busy, {label: 1e-6 * sum(
+            e.get("dur", 0) for e in events if e.get("cat") == "kernel"
+            and any(f in e.get("name", "") for f in frags))
+            for label, frags in kernels.items()}
     if count:
         return busy, sum(e.get("cat") == "kernel" for e in events)
     return busy
+
+
+def _build_other(src):
+    """ctypes library of the CUDA source `src`, built with the package's
+    nvcc line into its build directory."""
+    import hashlib
+    import subprocess
+
+    from ba_tpu_torch.kernels import build
+
+    src = Path(src).resolve()
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / f"libother-{digest}.so"
+    if not out.exists():
+        subprocess.run([build._nvcc(), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                        "-shared", "-Xcompiler", "-fPIC", "-o", str(out),
+                        str(src)], check=True)
+    return ctypes.CDLL(str(out))
+
+
+def k11_against(smi, src):
+    """This tree's K11 and the one of `src` on the indefinite inputs of
+    chip_smoke.py's k11 phase, f32 and f64: error against the plain
+    version, info, ms per call and device ms."""
+    import torch
+
+    from ba_tpu_torch.kernels import marginalize as k11
+
+    lib = _build_other(src)
+
+    def other(S, rhs, pd, eps):
+        fn = getattr(lib, {torch.float32: "ba_marginalize_f32",
+                           torch.float64: "ba_marginalize_f64"}[S.dtype])
+        fn.argtypes, fn.restype = k11._ARGTYPES, ctypes.c_int
+        n = S.shape[0]
+        H, g = torch.empty_like(S), torch.empty_like(rhs)
+        info = torch.zeros((len(k11.INFO),), dtype=torch.int32,
+                           device=S.device)
+        work = torch.empty((3 * n * n,), dtype=S.dtype, device=S.device)
+        rc = fn(S.data_ptr(), rhs.data_ptr(), pd.data_ptr(), n, float(eps),
+                k11.MAX_SWEEPS, work.data_ptr(), H.data_ptr(), g.data_ptr(),
+                info.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{src}: launch failed, CUDA error {rc}")
+        return H, g, info
+
+    cases = [("indefinite n=90", lambda dt: chip_smoke._random_departing(
+        90, range(9), 0, dt))]
+    cases += [(f"indefinite n={n}", lambda dt, n=n: chip_smoke
+               .certificate_case("indefinite", n, dt)) for n in (169, 360)]
+    for label, make in cases:
+        for dt in (torch.float32, torch.float64):
+            S, rhs, pd = make(dt)
+            eps = 1e-9 if dt == torch.float64 else 1e-5
+            Hp, gp = k11.marginalize_prior_plain(S, rhs, pd, eps)
+            norm = float(torch.linalg.matrix_norm(Hp.double()))
+            name = str(dt).split(".")[1]
+            for who, fn in (("this tree", k11.marginalize_prior),
+                            (str(src), other)):
+                H, g, info = fn(S, rhs, pd, eps)
+                torch.cuda.synchronize()
+                err = max(float((H.double() - Hp.double()).abs().max()),
+                          float((g.double() - gp.double()).abs().max()))
+                ms = chip_smoke.event_ms(lambda: fn(S, rhs, pd, eps), 3)
+                dev = chip_smoke.graph_ms(lambda: fn(S, rhs, pd, eps), 2,
+                                          reps=2)
+                print(f"[{smi}] K11 {label} {name}, {who}: {ms:.4f} ms per "
+                      f"call ({dev:.4f} ms on the device); rel err "
+                      f"{err / norm:.3e} (tol {chip_smoke.TOL_K11[name]:g});"
+                      f" info {info.tolist()}", flush=True)
 
 
 def main():
@@ -441,6 +537,9 @@ def main():
         return 1
     smi = chip_smoke.smi_line()
     chip_smoke.phase_build()
+    if "--k11-against" in sys.argv[1:]:
+        k11_against(smi, sys.argv[sys.argv.index("--k11-against") + 1])
+        return 0
     for which in ("long", "cg", "fleet", "selfcal"):
         if f"--{which}" in sys.argv[1:]:
             path_iteration(smi, which)

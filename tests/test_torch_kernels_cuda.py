@@ -35,9 +35,13 @@ kernel 1's tolerances; three f32 GN iterations of a self-calibration scene
 launch each kernel once per build and trial.  K5 (the dense Schur step)
 matches its plain version to 1e-10 (f64) and 1e-5 (f32) of max |S|, with
 the column mask, cut to the leading rows, at lm 3 and without landmark
-columns, S exactly symmetric; K11 (the marginalization prior) to 1e-10
-(f64) and 1e-4 (f32: Jacobi and `eigh` round differently) of ||H||_F at n
-= 90 to 360, its info flag set, its output PSD to 1e-6 ||H|| in f32; both
+columns, S exactly symmetric, on block-banded W whose distant tile pairs
+share no landmark (split across a cluster at N = 90, lm 1 and 3, and a
+dense calibration block), and a refused launch raises; K11 (the
+marginalization prior) to 1e-10 (f64) and 1e-4 (f32: Jacobi and `eigh`
+round differently) of ||H||_F at n = 90 to 360, its info flag set, its
+output PSD to 1e-6 ||H|| in f32, its PSD certificate settling exactly the
+inputs with no eigenvalue below -tau (-0.1 tau in, -10 tau out); both
 bit-identical between launches and raising when they do not build; three
 steady f32 pushes of the streaming smoother make no host sync.  K5b (band
 to dense) and K8a (the chunk layout) equal their plain versions element
@@ -56,6 +60,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+
+from chip_smoke import banded_k5, certificate_case
 
 pytestmark = pytest.mark.cuda
 
@@ -821,6 +827,128 @@ def test_marginalize_kernel_matches_plain(dtype, tol):
             <= tol * max(1.0, float(gp.double().abs().max())), n
         lo = float(torch.linalg.eigvalsh(H.double()).min())
         assert lo >= -(1e-12 if dtype == torch.float64 else 1e-6) * norm, n
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("P,L,lm,dense_rows,cut", [
+    (10, 448, 1, 0, 0),      # the slide's shape: 32-row tiles, split
+    (10, 150, 3, 0, 0),      # lm 3 at the slide's split
+    (10, 448, 1, 0, 9),      # the marginalization's leading rows
+    (40, 120, 1, 0, 0),      # n = 360: 32-row tiles, unsplit
+    (128, 497, 1, 0, 0),     # the flagship's shape: 64-row tiles
+    (128, 497, 1, 11, 0)])   # the self-calibration's dense rows
+def test_schur_finish_kernel_skips_empty_tile_pairs(dtype, tol, P, L, lm,
+                                                    dense_rows, cut):
+    """K5 on block-banded W (many tile pairs with no common landmark)
+    against its plain version relative to max |S|, split across a cluster
+    (N = 90) and not, lm 1 and 3, in f32 and f64, with and without the
+    column mask; S exactly symmetric, relaunches bit-identical, and U
+    given as a transposed view (read through its strides) the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import schur_finish as k5
+
+    args = banded_k5(P, 9, L, lm, dtype, dense_rows)
+    N = args[0].shape[0]
+    n = N - cut
+    masks = (None, torch.arange(n, device="cuda") % 7 != 3)
+    for cmask in masks:
+        got = k5.schur_finish(*args, cmask=cmask, n=n)
+        again = k5.schur_finish(*args, cmask=cmask, n=n)
+        want = k5.schur_finish_plain(*args, cmask=cmask, n=n)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(want[0].abs().max()))
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)
+            assert float((g.double() - w.double()).abs().max()) \
+                <= tol * scale, (N, L, lm)
+        assert torch.equal(got[0], got[0].T)
+        # U read through its strides: a transposed view gives the same bits
+        Ut = args[0].T.contiguous().T
+        assert not Ut.is_contiguous()
+        viewed = k5.schur_finish(Ut, *args[1:], cmask=cmask, n=n)
+        assert all(torch.equal(g, v) for g, v in zip(got, viewed))
+
+
+@pytest.mark.parametrize("n,L,lm,tile,split", [
+    (90, 448, 1, 32, True),        # the slide: 32-row tiles, split
+    (90, 150, 3, 32, True),        # lm 3 at the slide's split
+    (1152, 497, 1, 64, False)])    # the flagship: 64-row tiles fill the SMs
+def test_schur_finish_schedule_splits_only_when_tiles_leave_sms_idle(
+        n, L, lm, tile, split):
+    """The schedule the launch takes, as csrc/schur_finish.cu reports it:
+    the tile size and whether the walk is split across a cluster (of at
+    most 8 blocks, one per tile alone when unsplit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import schur_finish as k5
+
+    t, cs = k5.schedule(n, L, lm)
+    assert t == tile and (cs > 1) == split and 1 <= cs <= 8
+
+
+def test_schur_finish_refused_cluster_launch_raises(monkeypatch):
+    """A launch the card refuses (here a stand-in returning
+    cudaErrorInvalidClusterSize, 912) raises and is not counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import schur_finish as k5
+
+    args = banded_k5(10, 9, 448, 1, torch.float32)
+    monkeypatch.setattr(k5, "_fn", lambda dtype: (lambda *a: 912))
+    before = k5.schur_finish.launches
+    with pytest.raises(RuntimeError, match="CUDA error 912"):
+        k5.schur_finish(*args)
+    assert k5.schur_finish.launches == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("family,n,certifies", [
+    ("gauge", 90, {torch.float64: True}),
+    ("psd", 90, {torch.float64: True, torch.float32: True}),
+    ("neg_in", 90, {torch.float64: True, torch.float32: True}),
+    ("neg_out", 90, {torch.float64: False, torch.float32: False}),
+    ("psd", 360, {torch.float64: True}),     # the factor's first columns
+                                             # in the workspace
+    ("indefinite", 168, {torch.float64: False, torch.float32: False}),
+    ("indefinite", 169, {torch.float64: False, torch.float32: False})])
+def test_marginalize_kernel_certificate(dtype, tol, family, n, certifies):
+    """K11's branch: the certificate settles a PSD prior (a singular kept
+    block with masked dims in f64; one eigenvalue at -0.1 tau) with no
+    sweep, and hands one at -10 tau or an indefinite prior to the Jacobi
+    clip (A and V in shared memory at n = 168 in f32, in the workspace at
+    169); against the plain version relative to ||H||_F, PSD to 1e-6
+    ||H|| in f32, symmetric, relaunches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import marginalize as k11
+
+    S, rhs, pd = certificate_case(family, n, dtype)
+    eps = 1e-9 if dtype == torch.float64 else 1e-5
+    H, g, info = k11.marginalize_prior(S, rhs, pd, eps)
+    H2, g2, info2 = k11.marginalize_prior(S, rhs, pd, eps)
+    Hp, gp = k11.marginalize_prior_plain(S, rhs, pd, eps)
+    torch.cuda.synchronize()
+    inf = dict(zip(k11.INFO, info.tolist()))
+    assert inf["ok"] == 1 and inf["departing"] == int(pd.sum()), inf
+    want = certifies.get(dtype)
+    if want is not None:
+        assert inf["certified"] == int(want), inf
+    if inf["certified"]:
+        assert inf["sweeps"] == inf["rotations"] == inf["clipped"] == 0
+    else:
+        assert inf["clipped"] > 0 and inf["sweeps"] > 0, inf
+    assert torch.equal(H, H2) and torch.equal(g, g2) \
+        and torch.equal(info, info2)
+    assert torch.equal(H, H.T)
+    norm = float(torch.linalg.matrix_norm(Hp.double()))
+    assert float((H.double() - Hp.double()).abs().max()) <= tol * norm
+    assert float((g.double() - gp.double()).abs().max()) \
+        <= tol * max(1.0, float(gp.double().abs().max()))
+    lo = float(torch.linalg.eigvalsh(H.double()).min())
+    assert lo >= -(1e-12 if dtype == torch.float64 else 1e-6) * norm
 
 
 def test_schur_finish_and_marginalize_build_failure_raises(monkeypatch,
