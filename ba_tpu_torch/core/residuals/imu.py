@@ -15,9 +15,10 @@ of M measurements (padded steps have dt == 0 and pass the state through).
 Residual, res_dim 9 (pose_dim 9) or 15:
   r = [ log_decoupled(y_hat.t_wp, T_w2);  y_hat.v - v2;  b1 - b2 ]
 
-On the card `evaluate` goes through kernel K2 (kernels/csrc/imu_preint.cu,
-one launch with or without Jacobians); `full_plain` and `residual_plain`
-are its plain versions, which the CPU runs.  The whitening stays plain.
+On the card `evaluate` goes through kernel K2 (kernels/csrc/imu_preint.cu:
+one launch with or without Jacobians, the whitening included);
+`evaluate_plain` (`full_plain` or `residual_plain`, then `_whiten_from_c9`
+and `_whiten_pack`) is its plain version, which the CPU runs.
 """
 
 from __future__ import annotations
@@ -260,53 +261,48 @@ def residual_plain(problem, config):
     return torch.cat(parts, dim=-1), yt, yv
 
 
-def _full(problem, config):
-    """Kernel K2 (a) for a problem on the card, its plain version on the
-    CPU."""
-    if problem.imu.w.is_cuda:
-        from ...kernels import imu_preint
-
-        return imu_preint.imu_full(problem, config.pose_dim,
-                                   config.gyro_sigma**2,
-                                   config.accel_sigma**2)
-    return full_plain(problem, config)
-
-
-def _residual(problem, config):
-    """Kernel K2 (b) for a problem on the card, its plain version on the
-    CPU."""
-    if problem.imu.w.is_cuda:
-        from ...kernels import imu_preint
-
-        return imu_preint.imu_residual(problem, config.pose_dim)
-    return residual_plain(problem, config)
-
-
-def evaluate(problem, config, with_jacobians: bool = True,
-             c9=None) -> ImuEval:
-    """Residuals + Jacobians + information weighting for every IMU span:
-    kernel K2 on the card (one launch of (a) with Jacobians, one of (b)
-    without), its plain version on the CPU.  `c9` optionally supplies the
+def evaluate_plain(problem, config, with_jacobians: bool = True,
+                   c9=None) -> ImuEval:
+    """The plain version of kernel K2 (the CPU path): `full_plain` (with
+    Jacobians) or `residual_plain` (without), then the whitening
+    `_whiten_from_c9` and `_whiten_pack`.  `c9` optionally supplies the
     (Ni, 9, 9) residual covariance from a previous build, so cost-only
     evaluation (trial costs) skips the covariance propagation; without it
-    a cost-only evaluation takes (a)'s C9 (the Jacobian of `_c9`'s map
-    equals (a)'s Jy)."""
+    a cost-only evaluation takes `full_plain`'s C9 (the Jacobian of `_c9`'s
+    map equals its Jy)."""
     im = problem.imu
     dtype = problem.poses.t.dtype
     if not with_jacobians:
-        r, yt, yv = _residual(problem, config)
+        r, yt, yv = residual_plain(problem, config)
         if c9 is None:
-            c9 = _full(problem, config)[3]
+            c9 = full_plain(problem, config)[3]
         S = _whiten_from_c9(config, c9, im, dtype)
         return _whiten_pack(problem, config, r, None, None, S,
                             with_jacobians=False, y_t=yt, y_v=yv, c9=c9)
 
-    r, j1, j2, C9, yt, yv = _full(problem, config)
+    r, j1, j2, C9, yt, yv = full_plain(problem, config)
     if config.calculate_inertial_covariance_once:
         C9 = torch.where(problem.imu.c9_set, problem.imu.c9, C9)
     S = _whiten_from_c9(config, C9, im, dtype)
     return _whiten_pack(problem, config, r, j1, j2, S,
                         with_jacobians=True, y_t=yt, y_v=yv, c9=C9)
+
+
+def evaluate(problem, config, with_jacobians: bool = True,
+             c9=None) -> ImuEval:
+    """Residuals + Jacobians + information weighting for every IMU span:
+    on the card one launch of kernel K2 (a) with Jacobians, one of (b)
+    without (a cost-only evaluation that has no `c9` takes (a)'s first);
+    `evaluate_plain` on the CPU."""
+    if not problem.imu.w.is_cuda:
+        return evaluate_plain(problem, config, with_jacobians, c9)
+    from ...kernels import imu_preint
+
+    if with_jacobians:
+        return ImuEval(*imu_preint.imu_full(problem, config))
+    if c9 is None:
+        c9 = imu_preint.imu_full(problem, config, cov_once=False)[6]
+    return ImuEval(*imu_preint.imu_residual(problem, config, c9))
 
 
 def _whiten_from_c9(config, C9, im, dtype):

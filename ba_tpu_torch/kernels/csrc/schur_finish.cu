@@ -66,6 +66,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "tile_walk.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -174,34 +176,6 @@ __global__ void __launch_bounds__(THREADS)
     rhs_rows<T, LM>(W, K, vinv, rhs_p, rhs_l, cmask, n, b - nmask, rhs);
 }
 
-// a thread's patch of one staged column: PT contiguous values, read as
-// 16-byte (or 8-byte) vectors
-__device__ __forceinline__ void ld_patch(const float* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-__device__ __forceinline__ void ld_patch(const float* p, float (&v)[2]) {
-  const float2 x = *reinterpret_cast<const float2*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-}
-__device__ __forceinline__ void ld_patch(const double* p, double (&v)[4]) {
-  const double2 x = reinterpret_cast<const double2*>(p)[0];
-  const double2 y = reinterpret_cast<const double2*>(p)[1];
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = y.x;
-  v[3] = y.y;
-}
-__device__ __forceinline__ void ld_patch(const double* p, double (&v)[2]) {
-  const double2 x = *reinterpret_cast<const double2*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-}
-
 template <typename T, int LM, int TILE>
 __global__ void __launch_bounds__(THREADS)
     schur_product_kernel(const T* __restrict__ U, int su0, int su1,
@@ -299,68 +273,15 @@ __global__ void __launch_bounds__(THREADS)
   // the landmarks lst[0, cnt), in order, staged a step ahead; ends with a
   // barrier
   auto walk = [&](int cnt) {
-    const int nsteps = (cnt + TL - 1) / TL;
-    if (nsteps == 0) {
-      __syncthreads();
-      return;
-    }
-    load(0, cnt);
-    store(0);
-    __syncthreads();
-    for (int s = 0; s < nsteps; ++s) {
-      const int buf = s & 1;
-      if (s + 1 < nsteps) load(s + 1, cnt);
-      if (busy) {
-#pragma unroll
-        for (int c = 0; c < TL * LM; ++c) {
-          T av[PT], bv[PT];
-          ld_patch(&stage[buf][0][c][ty * PT], av);
-          ld_patch(&stage[buf][1][c][tx * PT], bv);
-#pragma unroll
-          for (int a = 0; a < PT; ++a)
-#pragma unroll
-            for (int b = 0; b < PT; ++b)
-              acc[a][b] = fma(av[a], bv[b], acc[a][b]);
-        }
-      }
-      if (s + 1 < nsteps) store(buf ^ 1);
-      __syncthreads();
-    }
+    ba::tile::walk<TL * LM>(cnt, TL, busy, tx, ty, stage, acc, load, store);
   };
 
   if (cs == 1) {
     // the landmarks set in both tiles' masks, 1024 at a time, listed by
     // warp 0
     for (int w0 = 0; w0 < LW; w0 += 32) {
-      if (warp == 0) {
-        const int w = w0 + lane;
-        unsigned cw = 0;
-        if (w < LW) {
-          unsigned mi = 0, mj = 0;
-#pragma unroll
-          for (int u = 0; u < RPT; ++u) {
-            if (bi * RPT + u < nR)
-              mi |= mask[static_cast<long long>(bi * RPT + u) * LW + w];
-            if (bj * RPT + u < nR)
-              mj |= mask[static_cast<long long>(bj * RPT + u) * LW + w];
-          }
-          cw = mi & mj;
-        }
-        const int c = __popc(cw);
-        int incl = c;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int y = __shfl_up_sync(0xffffffffu, incl, o);
-          if (lane >= o) incl += y;
-        }
-        int at = incl - c;
-        while (cw) {
-          const int bit = __ffs(cw) - 1;
-          cw &= cw - 1;
-          lst[at++] = w * 32 + bit;
-        }
-        if (lane == 31) ctl[0] = incl;
-      }
+      if (warp == 0)
+        ba::tile::list_shared<RPT>(mask, nR, LW, bi, bj, w0, lane, lst, ctl);
       __syncthreads();
       walk(ctl[0]);
     }

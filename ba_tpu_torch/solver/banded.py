@@ -39,12 +39,11 @@ the pair rows on the pair path, and the IMU grid).
 A fused fleet of F equal windows (`core/problem.py:concat_problems`,
 `config.fleet_size`) whose windows are small enough takes
 `solve_reduced_fleet_dense`: each window's U densified off the
-families-only band, its Schur complement by one batched product through
-dense W operands, and one batched Cholesky.  Kernel 10
-(kernels/csrc/fleet_schur.cu) writes the W operands from the build's W
-blocks and, after the `torch.bmm`, forms the scaled system from the band
-and the product in one pass; the Cholesky and the triangular solves stay
-`torch.linalg`.  Its plan (`fleet_dense_plan`) holds the families-only
+families-only band, and one batched Cholesky.  Kernel 10
+(kernels/csrc/fleet_schur.cu) forms each window's scaled Schur system
+straight from the build's W blocks and the band, walking only the
+landmarks each tile's rows and columns share (no dense W operand, no
+`bmm`); the Cholesky and the triangular solves stay `torch.linalg`.  Its plan (`fleet_dense_plan`) holds the families-only
 grid and kernel 10's block table.
 
 Not ported: the sharded layout (`lm_offset`, queue 1, distribution) and
@@ -503,7 +502,7 @@ def fleet_band(bs: cg_mod.BlockSystem, config: BAConfig, P: int, D: int,
                plan: FleetPlan):
     """U of a fused fleet on the (P, B, D, D) band grid, from the residual
     families only (one kernel-2 launch on `plan.grid`), masked dims as
-    identity rows: the band kernel 10 (b) densifies per window."""
+    identity rows: the band kernel 10 reads U from, window by window."""
     B = config.band_width
     band = _band_self_cross(bs, P, B, D, plan).reshape(P, B, D, D)
     pd = (torch.arange(P, device=band.device)[:, None]
@@ -520,13 +519,12 @@ def solve_reduced_fleet_dense(problem: Problem, config: BAConfig,
     of F equal windows (which never couple).
 
       * U comes off the families-only band grid, masked dims as identity
-        rows, and is densified window by window inside kernel 10 (b);
-      * the Schur correction is one batched product
-        C = (V^-1 W)_T^T W_T over each window's dense (L_w lm, n_w)
-        operands, which kernel 10 (a) writes from the build's W blocks;
-      * kernel 10 (b) forms S = U_f - C, its Jacobi scaling and the eps
-        damping; one batched `cholesky_ex`, two triangular solves and one
-        refinement step, as `linear.solve_reduced` per window.
+        rows;
+      * kernel 10 forms each window's S = U_f - W V^-1 W^T straight from
+        the build's W blocks (each tile walking the landmarks its rows and
+        columns share, U read from the band), its Jacobi scaling and the
+        eps damping; one batched `cholesky_ex`, two triangular solves and
+        one refinement step, as `linear.solve_reduced` per window.
 
     `ok` is the factorization's info and finiteness, with no host read; a
     failed factor gives a zero pose step."""
@@ -538,16 +536,12 @@ def solve_reduced_fleet_dense(problem: Problem, config: BAConfig,
         plan = fleet_dense_plan(problem, config)
     band = fleet_band(bs, config, P, D, plan)
     eps = 1e-8 if dtype == torch.float64 else 1e-4
-    idx = problem.pidx
     if band.is_cuda:
-        W_T, WVi_T = k10.fleet_w(bs.wb, bs.vinv, plan.table, F_, D)
-        C = torch.bmm(WVi_T.mT, W_T)
-        Ss, scal = k10.fleet_epilogue(band, C, F_, eps)
+        Ss, scal = k10.fleet_schur(bs.wb, bs.vinv, plan.table, band, F_, eps)
     else:
-        W_T, WVi_T = k10.fleet_w_plain(bs.wb, bs.vinv, idx.wb_pose,
-                                       idx.wb_lm, F_, P, D)
-        C = torch.bmm(WVi_T.mT, W_T)
-        Ss, scal = k10.fleet_epilogue_plain(band, C, F_, eps)
+        idx = problem.pidx
+        Ss, scal = k10.fleet_schur_plain(bs.wb, bs.vinv, idx.wb_pose,
+                                         idx.wb_lm, band, F_, eps)
     c, ok = _chol(Ss)
     rhsF = (bs.rhs_sc * scal.reshape(-1)).reshape(F_, n_w)
     x = _cho_solve_b(c, rhsF)

@@ -13,10 +13,16 @@ Phases, each of which exits non-zero when a check fails:
   3. kernel 1 (reprojection) against its plain version, f64 and f32, with
      and without Jacobians, at the flagship rows and at a row count that is
      not a multiple of the kernel's 32-row blocks; k2: K2 (imu_preint, the
-     IMU preintegration) (a) with Jacobians and (b) without against its
-     plain version at the flagship's spans, f32 and f64, bit-identical
-     between launches (also at a stream slide's, the long trajectory's and
-     the self-calibration's 15-dim spans, below);
+     IMU preintegration with its whitening) against the plain evaluation
+     (`evaluate_plain`) at the flagship's spans, f32 and f64: (a) with
+     Jacobians, (b) without from a given C9, and (a) then (b) without one,
+     the whitened r, j1, j2, err_sq and the C9 used, bit-identical between
+     launches; again under imu_rotation_only with conditioning edges and
+     robust weights below 1, and with a cached covariance
+     (calculate_inertial_covariance_once) and invalid spans (also at a
+     stream slide's, the long trajectory's, the PCG's, the fleet's, the
+     self-calibration's 15-dim and the calibration service's spans,
+     below);
   4. segsum (grouped segmented block sum) against its plain version on
      the seven sums of one flagship build, all in one launch over the
      build's segment plans, plus out-of-range ids and a segment of 2,100
@@ -114,16 +120,20 @@ Phases, each of which exits non-zero when a check fails:
      windows (apps/fleet_serve.py's route): 4 x build_problem(perturb 0.01,
      seeds 1-4) of simulate(128, 512, seed 0), f32, concat_problems, band
      width from the fused problem, use_banded_solver, fleet_size 4; k10:
-     kernel 10 (a) and (b) against their plain versions, f32 and f64, with
-     padding W blocks, bit-identical relaunch; fleet: GN solve_fixed(...,
+     kernel 10 (the scaled per-window Schur system from the W blocks)
+     against its plain version (`fleet_schur_plain`), f32 and f64, with
+     padding W blocks, and with lm 3 on the fleet's table, Ss exactly
+     symmetric, bit-identical relaunch; fleet: GN solve_fixed(...,
      25) on solve_reduced_fleet_dense, 0 host syncs per iteration, exact
      launch counts of kernel 1, segsum and kernel 10, every window's cost
      and ATE
      fall, one iteration against fleet_size 1 (the chunked banded path),
      kf/s and ms per iteration;
  20. kernels 6 and 10 timed as in 11: torch.mv on the dense S of the same
-     CG build is K6's library yardstick, one index_put_ into a zeroed W_T
-     K10 (a)'s; the dense fleet solve's bmm, cholesky_ex and triangular
+     CG build is K6's library yardstick, torch.bmm of the dense W operands
+     (the product kernel 10 replaces) K10's, with K10's bound counted from
+     the products over shared landmarks and its device memory beside the
+     plain route's; the dense fleet solve's cholesky_ex and triangular
      solves timed apart;
  21. the full-width self-calibration (the flagship sequence under the
      reference's fullest template configuration <R,1,15,5,true>: pose_dim
@@ -172,7 +182,8 @@ Phases, each of which exits non-zero when a check fails:
      `stream_many` count the marginalizations the certificate settled.
 
 K2 launches are counted on every path (one (a) per build, one (b) per
-trial cost); K5 on every dense path (one per build, and one per
+trial cost; phase 11 counts one device operation per IMU evaluation, its
+whitening included); K5 on every dense path (one per build, and one per
 marginalization), K11 once per marginalization, both none on the banded,
 PCG and fused-fleet solvers; K5b once per dense build on the banded grid
 (gn, dogleg), none on the banded solver.  The last lines are the `kernels` JSON
@@ -689,8 +700,7 @@ def _counters_zero():
     band_schur.band_schur.launches = 0
     band_matvec.band_matvec.launches = 0
     schur_matvec.schur_matvec.launches = 0
-    fleet_schur.fleet_w.launches = 0
-    fleet_schur.fleet_epilogue.launches = 0
+    fleet_schur.fleet_schur.launches = 0
     schur_finish.schur_finish.launches = 0
     marginalize.marginalize_prior.launches = 0
     band_to_dense.band_to_dense.launches = 0
@@ -2123,12 +2133,11 @@ def phase_k5b(band, floor_ms, smi):
 
 
 def _new_counters():
-    """(kernel 6, kernel 10 (a), kernel 10 (b)) launches since
-    `_counters_zero`."""
+    """(kernel 6, kernel 10) launches since `_counters_zero`."""
     from ba_tpu_torch.kernels import fleet_schur, schur_matvec
 
     return (schur_matvec.schur_matvec.launches,
-            fleet_schur.fleet_w.launches, fleet_schur.fleet_epilogue.launches)
+            fleet_schur.fleet_schur.launches)
 
 
 def phase_cg_small():
@@ -2491,18 +2500,17 @@ def phase_fleet_small():
                       f"{kind} delta_l": built.step.delta_l,
                       f"{kind} ok": built.step.ok, f"{kind} costs": costs,
                       f"{kind} poses.t": q.poses.t})
-            paths[f"{kind} launches"] = _new_counters()[1:]
+            paths[f"{kind} launches"] = _new_counters()[1]
         out[dev] = (r, paths)
     (g, paths), (c, cpaths) = out["cuda"], out["cpu"]
     say(f"fleet_small paths {paths['dense']} / {paths['banded']} (CPU "
-        f"{cpaths['dense']} / {cpaths['banded']}); fleet_schur launches on "
-        f"the card (a, b): dense {paths['dense launches']}, banded "
+        f"{cpaths['dense']} / {cpaths['banded']}); fleet_schur calls on "
+        f"the card: dense {paths['dense launches']}, banded "
         f"{paths['banded launches']}")
     check((paths["dense"], paths["banded"]) == ("fleet_dense", "banded")
           == (cpaths["dense"], cpaths["banded"]),
           "fleet_small: not the two fleet branches")
-    check(paths["dense launches"] == (3, 3)
-          and paths["banded launches"] == (0, 0),
+    check(paths["dense launches"] == 3 and paths["banded launches"] == 0,
           "fleet_small: kernel 10 launches off")
     _compare([(k, g[k], c[k]) for k in c], "fleet, 2 x 12 poses f64",
              TOL_SMALL)
@@ -2543,30 +2551,87 @@ def fleet_blocks(p, cfg):
     return bs, plan
 
 
-def _fleet_operands(p, cfg, bs, plan):
-    """(band, C, eps) that kernel 10 (b) takes in one build of the fused
-    fleet, C from kernel 10 (a)."""
+def fleet_inputs(F, lm, P_w=24, L_w=40, D=9, span=2, pad=5, masked=True,
+                 seed=0, device="cpu"):
+    """(wb, vinv, wb_pose, wb_lm, band), random f64 inputs of kernel 10 for
+    F windows: W blocks of landmarks each seen by the poses within `span`
+    of its own (distant tile pairs share no landmark), `pad` padding
+    blocks (landmark id L), the landmarks' SPD inverses, and each window's
+    SPD U on a full-width band, with the masked dims (pose 3, dims 0-2) as
+    identity rows and zero W rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    P, L = F * P_w, F * L_w
+    poses, lms = [], []
+    for f in range(F):
+        for l in range(L_w):
+            c = l * P_w // L_w
+            for p in range(max(0, c - span), min(P_w, c + span + 1)):
+                poses.append(f * P_w + p)
+                lms.append(f * L_w + l)
+    poses += list(rng.integers(0, P, pad))
+    lms += [L] * pad
+    wb_pose = torch.tensor(poses, dtype=torch.int32)
+    wb_lm = torch.tensor(lms, dtype=torch.int32)
+    wb = torch.as_tensor(rng.standard_normal((len(poses), 6, lm)))
+    A = rng.standard_normal((L, lm, lm))
+    vinv = torch.as_tensor(A @ A.transpose(0, 2, 1) + np.eye(lm))
+    n_w = P_w * D
+    keep = np.ones(n_w, bool)
+    if masked:
+        keep[3 * D:3 * D + 3] = False
+        wb[(wb_pose % P_w == 3) & (wb_lm < L), :3] = 0.0
+    band = torch.zeros((P, P_w, D, D), dtype=torch.float64)
+    for f in range(F):
+        G = rng.standard_normal((n_w, n_w))
+        U = G @ G.T + n_w * np.eye(n_w)
+        U[~keep] = 0.0
+        U[:, ~keep] = 0.0
+        U[~keep, ~keep] = 1.0
+        for p in range(P_w):
+            for d in range(P_w - p):
+                band[f * P_w + p, d] = torch.as_tensor(
+                    U[p * D:(p + 1) * D, (p + d) * D:(p + d + 1) * D])
+    return tuple(t.to(device) for t in (wb, vinv, wb_pose, wb_lm, band))
+
+
+def _k10_work(table, F, D, lm):
+    """(operations, the products' count) of kernel 10's Schur step on the
+    plan `table` (P, L_w): for every lower element (i, j) of a window,
+    2 lm multiply-adds per landmark rows i and j share, and 2 lm^2 per
+    (row, landmark) for W V^-1; and 4 per element for the scaling."""
+    import torch
+
+    P, L_w = table.shape
+    P_w, n_w = P // F, (P // F) * D
+    has = (table >= 0).to(torch.float64).reshape(F, P_w, 1, L_w).expand(
+        F, P_w, 6, L_w)
+    Hw = torch.zeros((F, P_w, D, L_w), dtype=torch.float64,
+                     device=table.device)
+    Hw[:, :, :6] = has
+    Hw = Hw.reshape(F, n_w, L_w)
+    shared = torch.tril(Hw @ Hw.mT).sum()
+    rows_lms = Hw.sum()
+    ops = 2 * lm * float(shared) + 2 * lm * lm * float(rows_lms) \
+        + 4 * F * n_w * (n_w + 1) / 2
+    return ops, float(shared)
+
+
+def phase_k10(p, cfg, bs, plan):
+    """Kernel 10 against its plain version (`fleet_schur_plain`) at the
+    fleet's shapes, f32 and an f64 copy, with padding W blocks; and with
+    XYZ-sized landmarks (lm 3, random W blocks and inverses on the fleet's
+    table); Ss exactly symmetric and equal to the plain version's on the
+    lower triangle (the one the Cholesky reads: the plain version's upper
+    triangle keeps the band's diagonal blocks' rounding asymmetry), two
+    launches bit-identical.  Returns the f32 max abs errors (the fleet's
+    own W blocks, lm 3)."""
     import torch
 
     from ba_tpu_torch.kernels import fleet_schur as k10
     from ba_tpu_torch.solver import banded
-
-    P, D = p.poses.q.shape[0], cfg.pose_dim
-    band = banded.fleet_band(bs, cfg, P, D, plan.fleet)
-    W_T, WVi_T = k10.fleet_w(bs.wb, bs.vinv, plan.fleet.table,
-                             cfg.fleet_size, D)
-    eps = 1e-8 if band.dtype == torch.float64 else 1e-4
-    return band, torch.bmm(WVi_T.mT, W_T), eps
-
-
-def phase_k10(p, cfg, bs, plan):
-    """Kernel 10 (a) and (b) against their plain versions at the fleet
-    shapes, f32 and an f64 copy, (a) with padding W blocks; two launches
-    bit-identical.  Returns ((a) f32 max abs error, (b) f32 max abs
-    error)."""
-    import torch
-
-    from ba_tpu_torch.kernels import fleet_schur as k10
 
     P, L, D, F = (p.poses.q.shape[0], p.lms.x.shape[0], cfg.pose_dim,
                   cfg.fleet_size)
@@ -2576,41 +2641,56 @@ def phase_k10(p, cfg, bs, plan):
         pad, dtype=torch.int32, device=dev) % P])
     wb_lm = torch.cat([idx.wb_lm, torch.full((pad,), L, dtype=torch.int32,
                                              device=dev)])
-    Wb_p = torch.cat([bs.wb, torch.full((pad, 6, 1), 1e3, device=dev)])
     table = k10.fleet_plan(wb_pose, wb_lm, P, L, F)
-    band, C, _ = _fleet_operands(p, cfg, bs, plan)
-    worst = [0.0, 0.0]
-    for dtype in (torch.float32, torch.float64):
-        dt = str(dtype).replace("torch.", "")
-        Wb, vinv = Wb_p.to(dtype), bs.vinv.to(dtype)
-        a = k10.fleet_w(Wb, vinv, table, F, D)
-        b = k10.fleet_w(Wb, vinv, table, F, D)
-        want = k10.fleet_w_plain(Wb.double(), vinv.double(), wb_pose, wb_lm,
-                                 F, P, D)
-        eps = 1e-8 if dtype == torch.float64 else 1e-4
-        bd, Cd = band.to(dtype), C.to(dtype)
-        x = k10.fleet_epilogue(bd, Cd, F, eps)
-        y = k10.fleet_epilogue(bd, Cd, F, eps)
-        want_e = k10.fleet_epilogue_plain(bd.double(), Cd.double(), F, eps)
-        torch.cuda.synchronize()
-        for part, got, again, ref in (("(a) W_T", a[0], b[0], want[0]),
-                                      ("(a) WVi_T", a[1], b[1], want[1]),
-                                      ("(b) Ss", x[0], y[0], want_e[0]),
-                                      ("(b) scal", x[1], y[1], want_e[1])):
-            err, rel = rel_err(got, ref)
-            same = bool(torch.equal(got, again))
-            say(f"kernel 10 {dt} {part} {tuple(got.shape)} (Nw={Wb.shape[0]}"
-                f" with {pad} padding blocks): max abs err {err:.3e} rel "
-                f"{rel:.3e} (tol {TOL_K10[dt]:g}); bit-identical relaunch "
-                f"{same}")
-            check(rel <= TOL_K10[dt], f"kernel 10 {dt} {part}: rel {rel:.3g}")
-            check(same, f"kernel 10 {dt} {part}: two launches differ")
-            if dt == "float32":
-                i = 0 if part.startswith("(a)") else 1
-                worst[i] = max(worst[i], err)
-        del want, want_e, a, b, x, y
+    band = banded.fleet_band(bs, cfg, P, D, plan.fleet)
+    g = torch.Generator(device="cpu").manual_seed(10)
+    W3 = torch.randn((wb_pose.shape[0], 6, 3), generator=g,
+                     dtype=torch.float64)
+    A = torch.randn((L, 3, 3), generator=g, dtype=torch.float64)
+    V3 = 1e-3 * (A @ A.mT + torch.eye(3, dtype=torch.float64))
+    cases = [("lm 1", torch.cat([bs.wb, torch.full((pad, 6, 1), 1e3,
+                                                   device=dev)]), bs.vinv),
+             ("lm 3", W3.to(dev), V3.to(dev))]
+    worst = {}
+    for lab, Wb_c, vinv_c in cases:
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).replace("torch.", "")
+            Wb, vinv, bd = Wb_c.to(dtype), vinv_c.to(dtype), band.to(dtype)
+            eps = 1e-8 if dtype == torch.float64 else 1e-4
+            x = k10.fleet_schur(Wb, vinv, table, bd, F, eps)
+            y = k10.fleet_schur(Wb, vinv, table, bd, F, eps)
+            want = k10.fleet_schur_plain(Wb.double(), vinv.double(),
+                                         wb_pose, wb_lm, bd.double(), F, eps)
+            torch.cuda.synchronize()
+            sym = bool(torch.equal(x[0], x[0].mT))
+            # the band's diagonal blocks carry the build's rounding
+            # asymmetry, which the plain route's upper triangle keeps; the
+            # kernel mirrors the lower one, which the Cholesky reads
+            asym = float((want[0] - want[0].mT).abs().max())
+            say(f"kernel 10 {lab} {dt}: plain Ss asymmetric by {asym:.3e}; "
+                "compared on the lower triangle")
+            for part, got, again, ref in (
+                    ("Ss", torch.tril(x[0]), torch.tril(y[0]),
+                     torch.tril(want[0])),
+                    ("scal", x[1], y[1], want[1])):
+                err, rel = rel_err(got, ref)
+                same = bool(torch.equal(got, again))
+                say(f"kernel 10 {lab} {dt} {part} {tuple(got.shape)} "
+                    f"(Nw={Wb.shape[0]} with {pad} padding blocks): max abs "
+                    f"err {err:.3e} rel {rel:.3e} (tol {TOL_K10[dt]:g}); "
+                    f"bit-identical relaunch {same}"
+                    + (f"; Ss exactly symmetric {sym}" if part == "Ss"
+                       else ""))
+                check(rel <= TOL_K10[dt], f"kernel 10 {lab} {dt} {part}: "
+                      f"rel {rel:.3g}")
+                check(same, f"kernel 10 {lab} {dt} {part}: two launches "
+                      "differ")
+                if dt == "float32":
+                    worst[lab] = max(worst.get(lab, 0.0), err)
+            check(sym, f"kernel 10 {lab} {dt}: Ss is not symmetric")
+            del want, x, y
     say("PHASE k10 ok")
-    return worst
+    return worst["lm 1"], worst["lm 3"]
 
 
 def _window_state(fused, w, v, P_w, L_w):
@@ -2687,7 +2767,7 @@ def phase_fleet(p, cfg, sim, windows, smi):
         step.gn_iteration, banded.solve_reduced_fleet_dense = (orig_gn,
                                                                orig_fd)
     k1, k2, reads = _counters()
-    _, k10a, k10b = _new_counters()
+    _, k10 = _new_counters()
     ia, ib = _imu_counters()
     k5, k11 = _marg_counters()
     peak = torch.cuda.max_memory_allocated()
@@ -2702,7 +2782,7 @@ def phase_fleet(p, cfg, sim, windows, smi):
                     for b, a in zip(before, after))
         + f"; solver_ok at every iteration {all_ok}; dense fleet solves "
         f"{len(solves)}; kernel launches reprojection {k1} segsum {k2} "
-        f"fleet_schur (a) {k10a} (b) {k10b} imu_preint (a) {ia} (b) {ib}")
+        f"fleet_schur {k10} imu_preint (a) {ia} (b) {ib}")
     say(f"[{smi}] fleet GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
         f"{secs * 1e3 / n:.1f} ms per iteration, {kf:.1f} kf/s "
         f"({FLEET['vehicles']} x {FLEET['poses']} x {n} / wall); peak device "
@@ -2715,9 +2795,9 @@ def phase_fleet(p, cfg, sim, windows, smi):
           "fleet: a window's cost or ATE did not fall")
     check(len(oks) == n and all_ok, "fleet: solver_ok failed")
     check(len(solves) == n, f"fleet: {len(solves)} dense fleet solves")
-    want = (2 * n, K2_PER_FLEET_BUILD * n, n, n)
-    check((k1, k2, k10a, k10b) == want, f"fleet: launches "
-          f"{(k1, k2, k10a, k10b)}, expected {want}")
+    want = (2 * n, K2_PER_FLEET_BUILD * n, n)
+    check((k1, k2, k10) == want, f"fleet: launches {(k1, k2, k10)}, "
+          f"expected {want}")
     check((ia, ib) == (n, n), f"fleet: imu_preint launches ({ia}, {ib})")
     check((k5, k11) == (0, 0), f"fleet: schur_finish, marginalize launches "
           f"({k5}, {k11}) on the dense fleet solve (kernel 10)")
@@ -2747,7 +2827,7 @@ def phase_fleet(p, cfg, sim, windows, smi):
           and dt_ <= FLEET_VS_BANDED["poses_t"],
           "fleet: fleet_size 4 and 1 disagree")
     say("PHASE fleet ok")
-    return dict(k1=k1, k2=k2, k10=k10a + k10b, k10a=k10a, k10b=k10b,
+    return dict(k1=k1, k2=k2, k10=k10,
                 imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5, k11=k11, kf_s=kf,
                 ms_iter=secs * 1e3 / n, peak_gib=peak / 2**30,
                 costs_after=[a[0] for a in after],
@@ -2758,7 +2838,8 @@ def phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f,
                           floor_ms, smi):
     """Kernels 6 and 10 timed at full width beside their bounds, plain
     versions and library yardsticks (torch.mv on the dense S of the same CG
-    build; one index_put_ of the W blocks into a zeroed W_T), and the
+    build; torch.bmm of the dense W operands, the product kernel 10
+    replaces), kernel 10's device memory beside the plain route's, and the
     library parts of the dense fleet solve timed apart."""
     import torch
 
@@ -2811,91 +2892,77 @@ def phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f,
                 library_device_ms=t6["library_device_ms"])
 
     # kernel 10
+    from ba_tpu_torch.solver import banded
+
     P, L, D, F = (pf.poses.q.shape[0], pf.lms.x.shape[0], cfg_f.pose_dim,
                   cfg_f.fleet_size)
     idx = pf.pidx
     table = plan_f.fleet.table
-    band, C, eps = _fleet_operands(pf, cfg_f, bs_f, plan_f)
+    band = banded.fleet_band(bs_f, cfg_f, P, D, plan_f.fleet)
+    eps = 1e-4
     Wb, vinv = bs_f.wb, bs_f.vinv
-    W_T, WVi_T = k10.fleet_w(Wb, vinv, table, F, D)
-    Ss, scal = k10.fleet_epilogue(band, C, F, eps)
+    lm = vinv.shape[1]
+    Ss, scal = k10.fleet_schur(Wb, vinv, table, band, F, eps)
 
-    def w_call():
-        return k10.fleet_w(Wb, vinv, table, F, D)
+    def k10_call():
+        return k10.fleet_schur(Wb, vinv, table, band, F, eps)
 
-    def e_call():
-        return k10.fleet_epilogue(band, C, F, eps)
+    # the library yardstick: the batched product the kernel replaces, on
+    # the dense operands of the plain route (built once, outside the
+    # timing)
+    W_T, WVi_T = k10.fleet_w_plain(Wb, vinv, idx.wb_pose, idx.wb_lm, F, P, D)
 
-    # the library yardstick of (a): one index_put_ of the kept blocks'
-    # entries into a zeroed W_T (the indices built once, outside the timing)
-    kept = table[table >= 0].long()
-    cell = torch.nonzero(table >= 0)[:, 0]
-    lg, pl = cell // (P // F), cell % (P // F)
-    c6 = torch.arange(6, device=Wb.device)
-    rows = (lg % (L // F))[:, None].expand(-1, 6).reshape(-1)
-    cols = (pl[:, None] * D + c6[None]).reshape(-1)
-    win = (lg // (L // F))[:, None].expand(-1, 6).reshape(-1)
-    vals = Wb[kept, :, 0].reshape(-1)
+    def lib_call():
+        return torch.bmm(WVi_T.mT, W_T)
 
-    def lib_w():
-        return torch.zeros_like(W_T).index_put_((win, rows, cols), vals)
-
-    check(torch.equal(lib_w(), W_T), "kernel 10 (a): index_put_ yardstick "
-          "differs")
-    ba_bytes = nbytes(Wb, vinv, table, W_T, WVi_T)
-    ba_flops = 2 * int(kept.numel()) * 6
-    bb_bytes = nbytes(band, C, Ss, scal)
-    bb_flops = 4 * C.numel()
-    b10a = max(ba_bytes / HBM_BPS, ba_flops / F32_FLOPS) * 1e3
-    b10b = max(bb_bytes / HBM_BPS, bb_flops / F32_FLOPS) * 1e3
-    by10 = "bytes" if (ba_bytes + bb_bytes) / HBM_BPS >= (
-        ba_flops + bb_flops) / F32_FLOPS else "operations"
-    ta = dict(ms=event_ms(w_call, 100), device_ms=graph_ms(w_call, 20),
-              plain_ms=event_ms(lambda: k10.fleet_w_plain(
-                  Wb, vinv, idx.wb_pose, idx.wb_lm, F, P, D), 10),
-              library_ms=event_ms(lib_w, 50),
-              library_device_ms=graph_ms(lib_w, 20))
-    tb = dict(ms=event_ms(e_call, 100), device_ms=graph_ms(e_call, 20),
-              plain_ms=event_ms(lambda: k10.fleet_epilogue_plain(
-                  band, C, F, eps), 10))
+    b10_bytes = nbytes(Wb, vinv, table, band, Ss, scal)
+    b10_flops, shared = _k10_work(table, F, D, lm)
+    b10, by10 = _bound(b10_bytes, b10_flops)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    k10_call()
+    torch.cuda.synchronize()
+    peak_k = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    k10.fleet_schur_plain(Wb, vinv, idx.wb_pose, idx.wb_lm, band, F, eps)
+    torch.cuda.synchronize()
+    peak_p = torch.cuda.max_memory_allocated() - base
+    t10 = dict(ms=event_ms(k10_call, 100), device_ms=graph_ms(k10_call, 20),
+               plain_ms=event_ms(lambda: k10.fleet_schur_plain(
+                   Wb, vinv, idx.wb_pose, idx.wb_lm, band, F, eps), 10),
+               library_ms=event_ms(lib_call, 50),
+               library_device_ms=graph_ms(lib_call, 20))
     c_ex = torch.linalg.cholesky_ex(Ss)[0]
     rhs = torch.ones_like(scal)
     lib = dict(
-        bmm_ms=graph_ms(lambda: torch.bmm(WVi_T.mT, W_T), 20),
         cholesky_ms=graph_ms(lambda: torch.linalg.cholesky_ex(Ss), 10),
         solves_ms=graph_ms(lambda: torch.linalg.solve_triangular(
             c_ex.mT, torch.linalg.solve_triangular(
                 c_ex, rhs[..., None], upper=False), upper=True), 20))
     n_w = (P // F) * D
-    lib["bmm_bound_ms"] = 2 * F * n_w * n_w * (L // F) / F32_FLOPS * 1e3
+    lib["bmm_bound_ms"] = 2 * F * n_w * n_w * (L // F) * lm / F32_FLOPS * 1e3
     lib["cholesky_bound_ms"] = F * n_w ** 3 / 3 / F32_FLOPS * 1e3
+    dense = 2 * F * n_w * n_w * (L // F) * lm
     say(f"[{smi}] kernel 10 fleet_schur, fused fleet (F={F}, n_w={n_w}, "
-        f"L_w={L // F}, Nw={Wb.shape[0]}) f32: (a) W operands "
-        f"{ta['ms']:.4f} ms per call ({ta['device_ms']:.4f} ms on the device,"
-        f" {b10a / ta['device_ms']:.1%} of the bound {b10a:.5f} ms: "
-        f"{ba_bytes} B); plain {ta['plain_ms']:.4f} ms; index_put_ into a "
-        f"zeroed W_T {ta['library_ms']:.4f} ms ({ta['library_device_ms']:.4f}"
-        f" ms on the device); (b) scaled Schur system {tb['ms']:.4f} ms per "
-        f"call ({tb['device_ms']:.4f} ms on the device, "
-        f"{b10b / tb['device_ms']:.1%} of the bound {b10b:.5f} ms: "
-        f"{bb_bytes} B); plain {tb['plain_ms']:.4f} ms; launch floor "
-        f"{floor_ms:.4f} ms")
-    say(f"[{smi}] dense fleet solve's library parts on the device: bmm "
-        f"C = WVi_T^T W_T {lib['bmm_ms']:.4f} ms (bound "
-        f"{lib['bmm_bound_ms']:.4f} ms of f32 operations), cholesky_ex "
-        f"{lib['cholesky_ms']:.4f} ms (bound {lib['cholesky_bound_ms']:.4f} "
-        f"ms), two triangular solves {lib['solves_ms']:.4f} ms")
-    # no one library call computes (a) and (b): the index_put_ yardstick
-    # of (a) alone stands in parts.w
-    rec10 = dict(ms=ta["ms"] + tb["ms"],
-                 device_ms=ta["device_ms"] + tb["device_ms"],
-                 floor_ms=floor_ms, plain_ms=ta["plain_ms"] + tb["plain_ms"],
-                 bound_ms=b10a + b10b, bound_by=by10,
-                 library_ms=None, library_device_ms=None,
-                 parts=dict(w=dict(ta, bound_ms=b10a, bytes=ba_bytes),
-                            epilogue=dict(tb, bound_ms=b10b, bytes=bb_bytes,
-                                          library_ms=None)),
-                 library_parts=lib)
+        f"L_w={L // F}, Nw={Wb.shape[0]}) f32: {t10['ms']:.4f} ms per call "
+        f"({t10['device_ms']:.4f} ms on the device, two launches, "
+        f"{b10 / t10['device_ms']:.1%} of the bound {b10:.5f} ms, {by10}: "
+        f"{b10_bytes} B, {b10_flops:.4g} flop over {shared:.4g} shared "
+        f"(row, row, landmark) triples, the dense product {dense:.4g}); "
+        f"plain route (dense W operands, bmm, epilogue) "
+        f"{t10['plain_ms']:.4f} ms; torch.bmm(WVi_T^T, W_T) on the dense "
+        f"operands {t10['library_ms']:.4f} ms ({t10['library_device_ms']:.4f}"
+        f" ms on the device, bound {lib['bmm_bound_ms']:.4f} ms of f32 "
+        f"operations); device memory beyond the inputs: kernel "
+        f"{peak_k / 2**20:.1f} MiB, plain route {peak_p / 2**20:.1f} MiB; "
+        f"launch floor {floor_ms:.4f} ms")
+    say(f"[{smi}] dense fleet solve's library parts on the device: "
+        f"cholesky_ex {lib['cholesky_ms']:.4f} ms (bound "
+        f"{lib['cholesky_bound_ms']:.4f} ms), two triangular solves "
+        f"{lib['solves_ms']:.4f} ms")
+    rec10 = dict(t10, floor_ms=floor_ms, bound_ms=b10, bound_by=by10,
+                 bytes=b10_bytes, flops=b10_flops, peak_mib=peak_k / 2**20,
+                 plain_peak_mib=peak_p / 2**20, library_parts=lib)
     say("PHASE timing (cg, fleet) ok")
     return rec6, rec10
 
@@ -2911,45 +2978,123 @@ def _imu_scale(p):
                float(p.poses.v.double().abs().max()))
 
 
-def phase_imu(p, cfg, label):
-    """K2 (a) and (b) against their plain versions on the spans of `p`, in
-    f32 and on an f64 copy, bit-identical between launches.  Returns the
-    f32 max abs error (of the residuals and the Jacobians and C9)."""
+def imu_option_cases(p64, cfg):
+    """[(label, f64 problem, config)]: the flagship's spans under the
+    evaluation's options: imu_rotation_only with conditioning edges and
+    robust weights below 1; calculate_inertial_covariance_once with a set
+    cache, and invalid spans."""
     import torch
 
     from ba_tpu_torch.core.residuals import imu
-    from ba_tpu_torch.kernels import imu_preint
+
+    im = p64.imu
+    Ni = im.weight.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    weight = (0.2 + 0.8 * torch.rand(Ni, generator=g, dtype=torch.float64)
+              ).to(im.weight.device)
+    cond = torch.zeros(Ni, dtype=torch.bool, device=im.cond.device)
+    cond[::5] = True
+    rot = dataclasses.replace(p64, imu=dataclasses.replace(
+        im, weight=weight, cond=cond))
+    cfg_rot = dataclasses.replace(cfg, imu_rotation_only=True)
+    c9 = imu.evaluate_plain(p64, cfg, True).c9
+    valid = im.valid.clone()
+    valid[1::4] = False
+    once = dataclasses.replace(p64, imu=dataclasses.replace(
+        im, c9=1.3 * c9, c9_set=torch.ones((), dtype=torch.bool,
+                                            device=c9.device), valid=valid))
+    cfg_once = dataclasses.replace(cfg,
+                                   calculate_inertial_covariance_once=True)
+    return [("rotation-only, conditioning edges, weights < 1", rot,
+             cfg_rot),
+            ("cached covariance, invalid spans", once, cfg_once)]
+
+
+def _imu_allowance(q, cfg, want, dt):
+    """{field: allowed |kernel - plain|, broadcast to the field's shape}
+    at TOL_IMU: the Jacobians and C9 to their own max |plain|; the states
+    y_t, y_v to the state scale; the whitened residual to the state scale
+    carried through the plain whitening factor (each row's sum of |S|), and
+    err_sq to what that residual bound allows (2 |r| d + d^2 per span)."""
+    from ba_tpu_torch.core.residuals import imu
+
+    tol = TOL_IMU[dt]
+    scale = _imu_scale(q)
+    S = imu._whiten_from_c9(cfg, want.c9, q.imu, want.r.dtype).double()
+    rb = tol["r"] * scale * S.abs().sum(-1)                  # (Ni, R)
+    rw = want.r.double().abs()
+    out = dict(r=rb, y_t=tol["r"] * scale, y_v=tol["r"] * scale,
+               err_sq=(2 * rw * rb + rb * rb).sum(-1))
+    for name in ("j1", "j2", "c9"):
+        out[name] = tol["j"] * max(1e-300,
+                                   float(getattr(want, name).double().abs()
+                                         .max()))
+    return out
+
+
+# spans of several of K2 (a)'s 16-step chunks: 100 and 200 IMU samples
+# between keyframes (a 200 Hz IMU with keyframes 0.5 s and 1 s apart)
+IMU_LONG_SPANS = (100, 200)
+
+
+def long_span_problem(imu_per_span, device="cuda"):
+    """(f64 problem, config): 12 keyframes at pose_dim 15 whose spans hold
+    `imu_per_span` steps, the biases moved off zero."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig
+    from ba_tpu_torch.io import simulate_vins as sv
+
+    cfg = BAConfig(pose_dim=15)
+    sim = sv.simulate(n_poses=12, n_lms=80, seed=21,
+                      imu_per_span=imu_per_span)
+    p = sv.build_problem(sim, cfg, perturb=0.01, seed=22, device=device)[0]
+    b = p.poses.b + 0.01 * torch.arange(6, dtype=p.poses.b.dtype,
+                                        device=p.poses.b.device)
+    return dataclasses.replace(p, poses=dataclasses.replace(p.poses, b=b)), cfg
+
+
+def phase_imu(p, cfg, label):
+    """K2 against its plain version (`evaluate_plain`) on the spans of `p`,
+    in f32 and on an f64 copy: with Jacobians ((a), the whitened r, j1, j2,
+    err_sq and the C9 used), without them from a given C9 ((b)) and without
+    one ((a), then (b)); bit-identical between launches.  Returns the f32
+    max abs error over the fields."""
+    import torch
+
+    from ba_tpu_torch.core.residuals import imu
     from ba_tpu_torch.utils.tree import tree_map
 
     worst = 0.0
     for dt in ("float32", "float64"):
         dtype = getattr(torch, dt)
         q = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, p)
-        var = (cfg.gyro_sigma**2, cfg.accel_sigma**2)
-        a1 = imu_preint.imu_full(q, cfg.pose_dim, *var)
-        a2 = imu_preint.imu_full(q, cfg.pose_dim, *var)
-        b1 = imu_preint.imu_residual(q, cfg.pose_dim)
-        b2 = imu_preint.imu_residual(q, cfg.pose_dim)
-        wa, wb = imu.full_plain(q, cfg), imu.residual_plain(q, cfg)
-        torch.cuda.synchronize()
-        scale = _imu_scale(q)
-        for part, names, got, again, want in (
-                ("(a)", ("r", "j1", "j2", "c9", "y_t", "y_v"), a1, a2, wa),
-                ("(b)", ("r", "y_t", "y_v"), b1, b2, wb)):
-            for name, g, g2, w in zip(names, got, again, want):
-                err = float((g.double() - w.double()).abs().max())
-                own = name in ("j1", "j2", "c9")
-                ref = (max(1e-300, float(w.double().abs().max())) if own
-                       else scale)
-                tol = TOL_IMU[dt]["j" if own else "r"]
-                same = bool(torch.equal(g, g2))
-                say(f"K2 imu_preint {part} {label} {dt} Ni={w.shape[0]} "
-                    f"{name:3s} {tuple(w.shape)}: max abs err {err:.3e} rel "
-                    f"{err / ref:.3e} (tol {tol:g} of "
-                    f"{'its max' if own else 'the state scale'} {ref:.3g});"
-                    f" bit-identical relaunch {same}")
-                check(err <= tol * ref, f"K2 {part} {label} {dt} {name}: "
-                      f"rel err {err / ref:.3g} > {tol:g}")
+        c9 = imu.evaluate_plain(q, cfg, True).c9
+        for part, call, plain in (
+                ("(a)", lambda: imu.evaluate(q, cfg, True),
+                 lambda: imu.evaluate_plain(q, cfg, True)),
+                ("(b) given C9", lambda: imu.evaluate(q, cfg, False, c9),
+                 lambda: imu.evaluate_plain(q, cfg, False, c9)),
+                ("(a)+(b) no C9", lambda: imu.evaluate(q, cfg, False),
+                 lambda: imu.evaluate_plain(q, cfg, False))):
+            got, again, want = call(), call(), plain()
+            torch.cuda.synchronize()
+            allow = _imu_allowance(q, cfg, want, dt)
+            for name in ("r", "j1", "j2", "err_sq", "y_t", "y_v", "c9"):
+                g, w = getattr(got, name), getattr(want, name)
+                diff = (g.double() - w.double()).abs()
+                err = float(diff.max()) if diff.numel() else 0.0
+                lim = torch.as_tensor(allow[name], dtype=torch.float64,
+                                      device=diff.device)
+                ratio = float(torch.where(diff == 0, 0.0, diff / lim).max()
+                              ) if diff.numel() else 0.0
+                same = bool(torch.equal(g, getattr(again, name)))
+                say(f"K2 imu_preint {part} {label} {dt} {name:6s} "
+                    f"{tuple(w.shape)}: max abs err {err:.3e}, "
+                    f"{ratio:.3g} of the allowance at TOL_IMU {dt}; "
+                    f"bit-identical relaunch {same}")
+                check(ratio <= 1.0, f"K2 {part} {label} {dt} {name}: "
+                      f"{ratio:.3g} of its allowance")
                 check(same, f"K2 {part} {label} {dt} {name}: two launches "
                       "differ")
                 if dt == "float32":
@@ -2958,49 +3103,98 @@ def phase_imu(p, cfg, label):
     return worst
 
 
-def phase_timing_imu(p, cfg, floor_ms, smi, label="flagship"):
-    """K2 (a) and (b) timed at one path's spans beside their bounds and
-    their plain versions; no PyTorch call computes them."""
-    from ba_tpu_torch.core.residuals import imu
-    from ba_tpu_torch.kernels import imu_preint
+# floating-point operations of K2's whitening per span (by the formulas of
+# csrc/imu_preint.cu): the blocked factor and its inverse of the 9 x 9
+# C9 (~360), then S r, S j1, S j2: 2 R^2 + 4 R^2 D
+K2_WHITEN_FLOPS = 360
 
-    var = (cfg.gyro_sigma**2, cfg.accel_sigma**2)
+
+def _k2_flops(Ni, steps, R, D, jacobians):
+    whiten = K2_WHITEN_FLOPS + 2 * R * R + (4 * R * R * D if jacobians
+                                             else 0)
+    if jacobians:
+        return (K2A_FLOPS_PER_STEP * steps
+                + (K2A_FLOPS_PER_SPAN + whiten) * Ni)
+    return K2B_FLOPS_PER_STEP * steps + (K2B_FLOPS_PER_SPAN + whiten) * Ni
+
+
+def phase_timing_imu(p, cfg, floor_ms, smi, label="flagship"):
+    """K2 (a) and (b) timed at one path's spans beside their bounds
+    (the whitening's operations and bytes included) and the plain
+    evaluation; no PyTorch call computes them.  Counts the device
+    operations of one evaluation: one K2 launch, where the plain
+    whitening after the kernel took a hundred and more."""
+    from ba_tpu_torch.core.residuals import imu
+
     D = cfg.pose_dim
+    R = 15 if cfg.bias_in_state else 9
+    c9 = imu.evaluate(p, cfg, True).c9
 
     def a_call():
-        return imu_preint.imu_full(p, D, *var)
+        return imu.evaluate(p, cfg, True)
 
     def b_call():
-        return imu_preint.imu_residual(p, D)
+        return imu.evaluate(p, cfg, False, c9)
+
+    e0 = a_call()
+
+    def plain_whitening():
+        # the parent's route after its K2 launch: the plain whitening and
+        # packing of the unwhitened outputs (here of same-shaped ones)
+        S = imu._whiten_from_c9(cfg, e0.c9, p.imu, e0.r.dtype)
+        return imu._whiten_pack(p, cfg, e0.r, e0.j1, e0.j2, S, True,
+                                e0.y_t, e0.y_v, e0.c9)
 
     im, poses = p.imu, p.poses
     Ni, M = im.time.shape
     steps = int(((im.time[:, 1:] - im.time[:, :-1]) > 0).sum())
     ins = nbytes(poses.q, poses.t, poses.v, poses.b, im.pose1, im.pose2,
-                 im.w, im.a, im.time, p.g_vec)
-    a_bytes, b_bytes = ins + nbytes(*a_call()), ins + nbytes(*b_call())
-    a_flops = K2A_FLOPS_PER_STEP * steps + K2A_FLOPS_PER_SPAN * Ni
-    b_flops = K2B_FLOPS_PER_STEP * steps + K2B_FLOPS_PER_SPAN * Ni
+                 im.w, im.a, im.time, p.g_vec, im.weight, im.valid, im.cond,
+                 im.c9_set)
+    if cfg.calculate_inertial_covariance_once and bool(im.c9_set):
+        ins += nbytes(im.c9)
+    a_out, b_out = a_call(), b_call()
+    a_bytes = ins + nbytes(*a_out)
+    b_bytes = ins + nbytes(c9) + nbytes(b_out.r, b_out.j1, b_out.j2,
+                                         b_out.err_sq, b_out.y_t, b_out.y_v)
+    a_flops = _k2_flops(Ni, steps, R, D, True)
+    b_flops = _k2_flops(Ni, steps, R, D, False)
+    ops_a, ops_b = _device_ops(a_call), _device_ops(b_call)
+    ops_whiten = _device_ops(plain_whitening)
+    whiten_t = dict(ms=event_ms(plain_whitening, 20),
+                    device_ms=graph_ms(plain_whitening, 10))
+    say(f"K2 device operations per IMU evaluation ({label}): with "
+        f"Jacobians {ops_a}, without from a given C9 {ops_b}; the parent's "
+        f"route made one K2 launch and then the plain whitening and packing"
+        f": {ops_whiten} more device operations, {whiten_t['ms']:.4f} ms "
+        f"per evaluation ({whiten_t['device_ms']:.4f} ms on the device)")
+    check(ops_a == 1 and ops_b == 1, f"K2: {ops_a} and {ops_b} device "
+          "operations per evaluation, expected 1")
     out = {}
     for part, call, nb, nf, plain in (
-            ("full", a_call, a_bytes, a_flops, lambda: imu.full_plain(p, cfg)),
+            ("full", a_call, a_bytes, a_flops,
+             lambda: imu.evaluate_plain(p, cfg, True)),
             ("residual", b_call, b_bytes, b_flops,
-             lambda: imu.residual_plain(p, cfg))):
+             lambda: imu.evaluate_plain(p, cfg, False, c9))):
         bound = max(nb / HBM_BPS, nf / F32_FLOPS) * 1e3
         by = "bytes" if nb / HBM_BPS >= nf / F32_FLOPS else "operations"
         out[part] = dict(ms=event_ms(call, 200), device_ms=graph_ms(call, 50),
                          plain_ms=event_ms(plain, 5), bound_ms=bound,
                          bound_by=by, bytes=nb, flops=nf)
+    out["full"]["device_ops"] = ops_a
+    out["residual"]["device_ops"] = ops_b
+    out["full"]["plain_whitening"] = dict(whiten_t, device_ops=ops_whiten)
     a, b = out["full"], out["residual"]
     say(f"[{smi}] K2 imu_preint, {label} ({Ni} spans x {M} slots, {steps} "
-        f"steps, D={D}) f32: (a) with Jacobians {a['ms']:.4f} ms per call "
-        f"({a['device_ms']:.4f} ms on the device, "
+        f"steps, D={D}) f32, whitened: (a) with Jacobians {a['ms']:.4f} ms "
+        f"per call ({a['device_ms']:.4f} ms on the device, "
         f"{a['bound_ms'] / a['device_ms']:.1%} of the bound "
         f"{a['bound_ms']:.5f} ms, {a['bound_by']}: {a['bytes']} B, "
-        f"{a['flops']} flop), plain {a['plain_ms']:.3f} ms; (b) residual "
-        f"{b['ms']:.4f} ms per call ({b['device_ms']:.4f} ms on the device, "
-        f"bound {b['bound_ms']:.5f} ms, {b['bound_by']}), plain "
-        f"{b['plain_ms']:.3f} ms; launch floor {floor_ms:.4f} ms")
+        f"{a['flops']} flop), plain evaluation {a['plain_ms']:.3f} ms; (b) "
+        f"residual {b['ms']:.4f} ms per call ({b['device_ms']:.4f} ms on the "
+        f"device, {b['bound_ms'] / b['device_ms']:.1%} of the bound "
+        f"{b['bound_ms']:.5f} ms, {b['bound_by']}), plain {b['plain_ms']:.3f}"
+        f" ms; launch floor {floor_ms:.4f} ms")
     say(f"PHASE timing k2 ({label}) ok")
     rec = dict(ms=a["ms"] + b["ms"], device_ms=a["device_ms"] + b["device_ms"],
                floor_ms=floor_ms, plain_ms=a["plain_ms"] + b["plain_ms"],
@@ -4085,6 +4279,11 @@ def main():
     p64, p32, cfg, sim = flagship()
     err1 = phase_k1(p64, p32, cfg)
     err_imu = [phase_imu(p64, cfg, "flagship")]
+    for label, q, cfg_q in imu_option_cases(p64, cfg):
+        err_imu.append(phase_imu(q, cfg_q, label))
+    for n in IMU_LONG_SPANS:
+        err_imu.append(phase_imu(*long_span_problem(n),
+                                 f"spans of {n + 1} slots"))
     del p64
     sums = capture_build_sums(p32, cfg)
     err2 = phase_segsum(sums)
@@ -4205,9 +4404,7 @@ def main():
              source="ba_tpu_torch/kernels/csrc/fleet_schur.cu",
              replaces="ba_tpu/solver/banded.py:498", launches=fl["k10"],
              launches_fleet=fl["k10"],
-             launches_parts=dict(w=fl["k10a"], epilogue=fl["k10b"]),
-             max_abs_err=max(err10),
-             max_abs_err_parts=dict(w=err10[0], epilogue=err10[1]), **rec10),
+             max_abs_err=err10[0], max_abs_err_lm3=err10[1], **rec10),
         dict(name="schur_finish", route="cuda",
              source="ba_tpu_torch/kernels/csrc/schur_finish.cu",
              replaces="ba_tpu/solver/assemble.py:442", **paths("k5"),

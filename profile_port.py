@@ -56,6 +56,19 @@ Jacobi branch), each checked against the plain version first:
         > _archive/marginalize_old.cu
     python3 profile_port.py --k11-against _archive/marginalize_old.cu
 
+With `--solves`, instead, it times chip_smoke.py's two flagship solves,
+GN-25 (`solve_fixed`) and the dogleg `solve` (f32, at most 25 iterations),
+five times each after a warm-up, and prints each run's iterations, its
+cost-only IMU evaluations (K2 (b) launches: one per trial, one for the
+error breakdown), its wall time, its keyframes per second and its wall
+time per IMU evaluation.  To set it beside an earlier tree's (unpacked
+under `_archive/`, which git ignores), run this file from that tree's
+root, so that `chip_smoke` and the package resolve there:
+
+    cd _archive/parent && python3 -c "import runpy, sys; \
+        sys.argv = ['profile_port.py', '--solves']; \
+        runpy.run_path('../../profile_port.py', run_name='__main__')"
+
 The device's busy time is the sum of the kernel and copy spans of the
 profiler's trace (written to a temporary directory in the checkout and
 deleted once read: two iterations make ~80 MB).  Needs one CUDA device;
@@ -315,7 +328,7 @@ def _stages(which):
     from ba_tpu_torch.solver import banded, cg, step
 
     imu = (step, "_imu_eval", lambda p, c, u, jac, c9=None:
-           "IMU evaluate with Jacobians (K2 (a))" if jac
+           "IMU evaluate with Jacobians (K2 (a), whitened)" if jac
            else "  IMU evaluate without Jacobians (trial, K2 (b))")
     tail = [(cg, "back_substitute_blocks", "back-substitution (segsum)"),
             (cg, "cauchy_factor", "Cauchy factor (segsum)"),
@@ -358,8 +371,8 @@ def _stages(which):
                (banded, "solve_reduced_fleet_dense", "dense fleet solve, "
                 "whole (with the back-substitution)"),
                (banded, "_band_self_cross", "  families' band (segsum)"),
-               (fleet_schur, "fleet_w", "  kernel 10 (a)"),
-               (fleet_schur, "fleet_epilogue", "  kernel 10 (b)"),
+               (fleet_schur, "fleet_schur", "  kernel 10 (the scaled Schur "
+                "system)"),
                (banded, "_chol", "  batched cholesky_ex"),
                (banded, "_cho_solve_b", "  triangular solves (2 x 2)")]
     return p, cfg, [imu] + mid + tail
@@ -529,6 +542,40 @@ def k11_against(smi, src):
                       f" info {info.tolist()}", flush=True)
 
 
+def solve_times(smi, n_solves=5):
+    """GN-25 and the dogleg solve on the flagship: n_solves timed runs of
+    each after a warm-up."""
+    import torch
+
+    from ba_tpu_torch.kernels import imu_preint
+    from ba_tpu_torch.solver import step
+
+    _, p, cfg, _ = chip_smoke.flagship()
+    n = chip_smoke.N_ITERS
+    for name, run in (
+            ("GN-25", lambda: step.solve_fixed(
+                p, dataclasses.replace(cfg, use_dogleg=False), True, n)),
+            ("dogleg", lambda: step.solve(
+                p, dataclasses.replace(cfg, use_dogleg=True), max_iter=n))):
+        run()
+        torch.cuda.synchronize()
+        for k in range(n_solves):
+            ia = imu_preint.imu_full.launches
+            ib = imu_preint.imu_residual.launches
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            iters = n if name == "GN-25" else out[1].iterations
+            na = imu_preint.imu_full.launches - ia
+            nb = imu_preint.imu_residual.launches - ib
+            print(f"[{smi}] {name} run {k}: {iters} iterations, K2 (a) "
+                  f"{na} (b) {nb}, {secs * 1e3:.1f} ms, "
+                  f"{chip_smoke.N_POSES * iters / secs:.1f} kf/s, "
+                  f"{secs * 1e3 / (na + nb):.2f} ms per IMU evaluation",
+                  flush=True)
+
+
 def main():
     import torch
 
@@ -539,6 +586,9 @@ def main():
     chip_smoke.phase_build()
     if "--k11-against" in sys.argv[1:]:
         k11_against(smi, sys.argv[sys.argv.index("--k11-against") + 1])
+        return 0
+    if "--solves" in sys.argv[1:]:
+        solve_times(smi)
         return 0
     for which in ("long", "cg", "fleet", "selfcal"):
         if f"--{which}" in sys.argv[1:]:

@@ -23,13 +23,14 @@ another order), bit-identical between launches; a kernel that does not
 build raises; three f32 GN iterations of the banded solver run through all
 four kernels.  Kernel 6 (the projection rows of the matrix-free Schur
 product, with landmarks merged into one of more rows than a warp's
-lanes) and kernel 10 (the fleet's W operands, with padding W blocks, and
-its scaled Schur system) match their plain versions to 1e-12 (f64) and 1e-5 (f32),
-bit-identical between launches; three f32 GN iterations run on the PCG
-solver and on the dense fleet solve.  K2 (a) and (b) match their plain
-versions at pose_dim 9 and 15 (f64 1e-11, f32 2e-4 on the Jacobians and
-C9 and 1e-5 on the residual, relative to each output's own scale),
-bit-identical between launches; kernel 1 with the 11 calibration columns
+lanes) and kernel 10 (the fleet's scaled Schur system from its W blocks,
+with padding W blocks; and random windows at lm 0, 1 and 3, F up to 4,
+with masked dims) match their plain versions to 1e-12 (f64) and 1e-5
+(f32), bit-identical between launches, Ss exactly symmetric; three f32 GN iterations run on the PCG
+solver and on the dense fleet solve.  K2's whitened outputs match the plain
+evaluation at pose_dim 9 and 15 within chip_smoke.py's TOL_IMU
+allowances, bit-identical between launches, and one IMU evaluation is one
+device operation; kernel 1 with the 11 calibration columns
 (FOV) and with XYZ landmarks (linear camera) matches its plain version at
 kernel 1's tolerances; three f32 GN iterations of a self-calibration scene
 launch each kernel once per build and trial.  K5 (the dense Schur step)
@@ -470,10 +471,11 @@ def cuda_fleet():
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_fleet_schur_kernels_match_plain(cuda_fleet, dtype, tol):
-    """Kernel 10 (a) with padding W blocks (landmark id L) that must be
-    dropped, and (b) on the fleet's band and product, against their plain
-    versions; two launches bit-identical."""
+def test_fleet_schur_kernel_matches_plain(cuda_fleet, dtype, tol):
+    """Kernel 10 on the fleet's W blocks, with padding W blocks (landmark
+    id L) that the plan drops, against `fleet_schur_plain` on the lower
+    triangle; Ss exactly symmetric, two launches bit-identical, one call
+    counted each."""
     from ba_tpu_torch.kernels import fleet_schur as k10
     from ba_tpu_torch.solver import banded
 
@@ -489,26 +491,52 @@ def test_fleet_schur_kernels_match_plain(cuda_fleet, dtype, tol):
                                       device="cuda")]).to(dtype)
     vinv = bs.vinv.to(dtype)
     table = k10.fleet_plan(wb_pose, wb_lm, P, L, F)
-    before = k10.fleet_w.launches
-    a = k10.fleet_w(Wb, vinv, table, F, D)
-    b = k10.fleet_w(Wb, vinv, table, F, D)
-    assert k10.fleet_w.launches == before + 2
-    want = k10.fleet_w_plain(Wb.double(), vinv.double(), wb_pose, wb_lm, F,
-                             P, D)
-    torch.cuda.synchronize()
-    for x, y, w in zip(a, b, want):
-        assert torch.equal(x, y)
-        assert _rel(x, w) <= tol
-
     band = banded.fleet_band(bs, cfg, P, D, plan.fleet).to(dtype)
-    C = torch.bmm(a[1].mT, a[0])
     eps = 1e-8 if dtype == torch.float64 else 1e-4
-    before = k10.fleet_epilogue.launches
-    x = k10.fleet_epilogue(band, C, F, eps)
-    y = k10.fleet_epilogue(band, C, F, eps)
-    assert k10.fleet_epilogue.launches == before + 2
-    want = k10.fleet_epilogue_plain(band.double(), C.double(), F, eps)
+    before = k10.fleet_schur.launches
+    x = k10.fleet_schur(Wb, vinv, table, band, F, eps)
+    y = k10.fleet_schur(Wb, vinv, table, band, F, eps)
+    assert k10.fleet_schur.launches == before + 2
+    want = k10.fleet_schur_plain(Wb.double(), vinv.double(), wb_pose, wb_lm,
+                                 band.double(), F, eps)
     torch.cuda.synchronize()
+    assert torch.equal(x[0], x[0].mT)
+    # on the lower triangle, which the Cholesky reads: the plain version's
+    # upper one keeps the band's diagonal blocks' rounding asymmetry
+    for g, h, w in zip((torch.tril(x[0]), x[1]), (torch.tril(y[0]), y[1]),
+                       (torch.tril(want[0]), want[1])):
+        assert torch.equal(g, h)
+        assert _rel(g, w) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("F,lm", [(1, 1), (2, 3), (4, 1), (4, 3), (2, 0)])
+def test_fleet_schur_kernel_windows_lm_and_masked_dims(dtype, tol, F, lm):
+    """Kernel 10 on random windows whose distant tile pairs share no
+    landmark, with masked dims and padding blocks, at lm 0, 1 and 3 and
+    F = 1, 2 and 4, against its plain version."""
+    from chip_smoke import fleet_inputs
+
+    from ba_tpu_torch.kernels import fleet_schur as k10
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    wb, vinv, wb_pose, wb_lm, band = fleet_inputs(F, max(lm, 1),
+                                                  device="cuda")
+    if lm == 0:
+        wb, vinv = wb[:, :, :0], vinv[:, :0, :0]
+    P, L = band.shape[0], vinv.shape[0]
+    table = k10.fleet_plan(wb_pose, wb_lm, P, L, F)
+    x = k10.fleet_schur(wb.to(dtype).contiguous(),
+                        vinv.to(dtype).contiguous(), table, band.to(dtype),
+                        F, 1e-8)
+    y = k10.fleet_schur(wb.to(dtype).contiguous(),
+                        vinv.to(dtype).contiguous(), table, band.to(dtype),
+                        F, 1e-8)
+    want = k10.fleet_schur_plain(wb, vinv, wb_pose, wb_lm, band, F, 1e-8)
+    torch.cuda.synchronize()
+    assert torch.equal(x[0], x[0].mT)
     for g, h, w in zip(x, y, want):
         assert torch.equal(g, h)
         assert _rel(g, w) <= tol
@@ -541,8 +569,7 @@ def test_cg_and_fleet_gn_f32_on_the_card(cuda_band_problem, cuda_fleet,
         matvecs.append(res.matvecs)
         return res
 
-    n6, n10 = k6.schur_matvec.launches, k10.fleet_w.launches
-    n10e = k10.fleet_epilogue.launches
+    n6, n10 = k6.schur_matvec.launches, k10.fleet_schur.launches
     cg.pcg_solve = record
     try:
         _, costs, _ = step.solve_fixed(p, cfg, True, 3)
@@ -553,28 +580,12 @@ def test_cg_and_fleet_gn_f32_on_the_card(cuda_band_problem, cuda_fleet,
     assert float(costs[-1]) < float(costs[0]), costs
     assert k6.schur_matvec.launches - n6 == sum(matvecs)
     assert len(matvecs) == (3 if path == "cg" else 0)
-    assert k10.fleet_w.launches - n10 == (3 if path == "fleet_dense" else 0)
-    assert k10.fleet_epilogue.launches - n10e == k10.fleet_w.launches - n10
+    assert k10.fleet_schur.launches - n10 == (3 if path == "fleet_dense"
+                                             else 0)
 
 
 # ---------------------------------------------------------------------------
 # K2 (imu_preint) and kernel 1's self-calibration and XYZ variants
-
-# K2 against its plain version, relative to max |plain| of each output (C9
-# is ~1e-6): f64 the same operations summed in another order; f32 through
-# ~10 dependent RK4 steps and the 10 x 10 products (the H100 showed f32
-# <= 4e-7, f64 <= 6e-16 in chip_smoke.py)
-TOL_K2 = {torch.float64: dict(r=1e-11, j=1e-11, c9=1e-11),
-          torch.float32: dict(r=1e-5, j=2e-4, c9=2e-4)}
-
-
-def _rel_own(a, b):
-    assert a.shape == b.shape
-    if b.numel() == 0:
-        return 0.0
-    return float((a.double() - b.double()).abs().max()) / max(
-        1e-300, float(b.double().abs().max()))
-
 
 @pytest.fixture(scope="module")
 def cuda_selfcal():
@@ -608,29 +619,71 @@ def cuda_selfcal():
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("pose_dim", [9, 15])
 def test_imu_preint_kernels_match_plain(cuda_selfcal, dtype, pose_dim):
-    from ba_tpu_torch.core.residuals import imu
-    from ba_tpu_torch.kernels import imu_preint
-    from ba_tpu_torch.utils.tree import tree_map
-
+    """K2's whitened outputs against the plain evaluation, with Jacobians
+    ((a)), without them from a given C9 ((b)) and without one ((a) then
+    (b)), within chip_smoke.py's TOL_IMU allowances; bit-identical between
+    launches."""
     p, cfg = cuda_selfcal
     cfg = dataclasses.replace(cfg, pose_dim=pose_dim)
+    _check_imu_against_plain(p, cfg, dtype)
+
+
+def _check_imu_against_plain(p, cfg, dtype):
+    from chip_smoke import _imu_allowance
+
+    from ba_tpu_torch.core.residuals import imu
+    from ba_tpu_torch.utils.tree import tree_map
+
     p = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, p)
-    tol = TOL_K2[dtype]
-    got = imu_preint.imu_full(p, pose_dim, cfg.gyro_sigma**2,
-                              cfg.accel_sigma**2)
-    again = imu_preint.imu_full(p, pose_dim, cfg.gyro_sigma**2,
-                                cfg.accel_sigma**2)
-    want = imu.full_plain(p, cfg)
-    torch.cuda.synchronize()
-    for name, g, a, w in zip(("r", "j", "j", "c9", "r", "r"), got, again,
-                             want):
-        assert _rel_own(g, w) <= tol[name], name
-        assert torch.equal(g, a), name
-    got = imu_preint.imu_residual(p, pose_dim)
-    want = imu.residual_plain(p, cfg)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert _rel(g, w) <= tol["r"]
+    dt = str(dtype).replace("torch.", "")
+    c9 = imu.evaluate_plain(p, cfg, True).c9
+    for args in ((True,), (False, c9), (False,)):
+        got = imu.evaluate(p, cfg, *args)
+        again = imu.evaluate(p, cfg, *args)
+        want = imu.evaluate_plain(p, cfg, *args)
+        torch.cuda.synchronize()
+        allow = _imu_allowance(p, cfg, want, dt)
+        for name in want._fields:
+            g, w = getattr(got, name), getattr(want, name)
+            assert torch.equal(g, getattr(again, name)), name
+            lim = torch.as_tensor(allow[name], dtype=torch.float64,
+                                  device=g.device)
+            assert bool(((g.double() - w.double()).abs() <= lim).all()), \
+                (args[0], name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("imu_per_span", [100, 200])
+def test_imu_preint_long_spans_match_plain(dtype, imu_per_span):
+    """K2 on spans of 101 and 201 slots, seven and thirteen of (a)'s
+    16-step chunks, against the plain evaluation as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import long_span_problem
+
+    p, cfg = long_span_problem(imu_per_span)
+    assert p.imu.time.shape[1] == imu_per_span + 1
+    _check_imu_against_plain(p, cfg, dtype)
+
+
+@pytest.mark.parametrize("with_jacobians", [True, False])
+def test_imu_evaluation_is_one_launch(cuda_selfcal, with_jacobians):
+    """One IMU evaluation on the card is one device operation: K2, with
+    the whitening in its epilogue."""
+    from chip_smoke import _device_ops
+
+    from ba_tpu_torch.core.residuals import imu
+    from ba_tpu_torch.kernels import imu_preint
+
+    p, cfg = cuda_selfcal
+    c9 = imu.evaluate(p, cfg, True).c9
+    args = (True,) if with_jacobians else (False, c9)
+    n = (imu_preint.imu_full.launches, imu_preint.imu_residual.launches)
+    imu.evaluate(p, cfg, *args)
+    moved = (imu_preint.imu_full.launches - n[0],
+             imu_preint.imu_residual.launches - n[1])
+    assert moved == ((1, 0) if with_jacobians else (0, 1))
+    assert _device_ops(lambda: imu.evaluate(p, cfg, *args)) == 1
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
