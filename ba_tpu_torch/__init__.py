@@ -2,22 +2,32 @@
 
 The JAX package `ba_tpu` stays the reference; this package mirrors its
 layout module for module (core/, core/residuals/, io/, solver/, utils/) and
-adds kernels/ with the hand-written CUDA kernels of its paths:
+adds kernels/ with the hand-written CUDA kernels of its paths, one
+source each in kernels/csrc/ (`kernels/build.py:SOURCES`):
 
-  kernels/csrc/reprojection.cu  reprojection residual + closed-form
-                                Jacobians (the retired Pallas kernel),
-                                with self-calibration's columns
-  kernels/csrc/imu_preint.cu    IMU preintegration with Jacobians and
-                                covariance, and without (K2)
-  kernels/csrc/segsum.cu        grouped deterministic segmented block sum
-                                (the normal-equation sums of a build)
-  kernels/csrc/band_schur.cu    grouped banded Schur correction (the
-                                long-trajectory banded solver)
-  kernels/csrc/band_matvec.cu   symmetric block-band product (its PCG)
-  kernels/csrc/schur_matvec.cu  the projection rows of the matrix-free
-                                Schur product (the PCG solver)
-  kernels/csrc/fleet_schur.cu   W operands and scaled Schur system of a
-                                fused vehicle fleet
+  reprojection.cu  reprojection residual + closed-form Jacobians (the
+                   retired Pallas kernel), with self-calibration's columns
+  imu_preint.cu    IMU preintegration with Jacobians and covariance, and
+                   without, whitened in the epilogue (K2)
+  segsum.cu        grouped deterministic segmented block sum (the
+                   normal-equation sums of a build)
+  band_schur.cu    grouped banded Schur correction (the long-trajectory
+                   banded solver, kernel 7)
+  band_matvec.cu   symmetric block-band product (its PCG, kernel 9)
+  schur_matvec.cu  the projection rows of the matrix-free Schur product
+                   (the PCG solver, kernel 6)
+  fleet_schur.cu   the scaled per-window Schur system of a fused vehicle
+                   fleet, straight from the W blocks (kernel 10)
+  schur_finish.cu  the dense Schur step S = U - W V^-1 W^T and its rhs (K5)
+  marginalize.cu   the marginalization prior, its PSD certificate and
+                   Jacobi clip (K11)
+  band_to_dense.cu the dense symmetric matrix of a block band (K5b)
+  chunk_layout.cu  the Jacobi-scaled band and its chunk blocks (K8a)
+  chunk_factor.cu  the chunked block-tridiagonal factor: cyclic reduction
+                   with explicit triangular inverses, or the scan (K8b)
+  chunk_solve.cu   its solves: mat-vecs under cyclic reduction (K8c)
+
+(with the shared headers dual_lie.cuh, tile_walk.cuh and chunk_blas.cuh).
 
 Every kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; a CUDA tensor goes through the kernel or

@@ -22,8 +22,9 @@
   chunk_tridiag.py K8a (`chunk_layout`): the Jacobi-scaled band and its
                    chunk blocks in one launch; K8b (`bcr_factor`,
                    `scan_factor`): the chunked block-tridiagonal factor by
-                   cyclic reduction or the scan; K8c (`bcr_solve`,
-                   `scan_solve`): its solves (the banded solver)
+                   cyclic reduction with explicit triangular inverses, or
+                   the scan; K8c (`bcr_solve`, `scan_solve`): its solves,
+                   mat-vecs only under cyclic reduction (the banded solver)
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises on a non-zero `cudaGetLastError()`, and
@@ -35,7 +36,9 @@ live beside the dispatch (`core/residuals/reprojection.py:evaluate_plain`,
 `schur_matvec.schur_matvec_plain`, `fleet_schur.fleet_schur_plain`,
 `schur_finish.schur_finish_plain`,
 `marginalize.marginalize_prior_plain`,
-`solver/assemble.py:band_to_dense_plain`, and `solver/banded.py`'s
-`jacobi_scaled` with `chunk_system` (K8a), `_bcr_factor` and `_factor`
-(K8b), `_bcr_solve` and `_solve_factored` (K8c)).
+`solver/assemble.py:band_to_dense_plain`, `solver/banded.py`'s
+`jacobi_scaled` with `chunk_system` (K8a), `_factor` and
+`_solve_factored` (the scan), and `chunk_tridiag.bcr_factor_plain` and
+`bcr_solve_plain` (cyclic reduction; the solver's CPU path keeps
+`_bcr_factor` and `_bcr_solve`, ba_tpu's representation)).
 """

@@ -13,22 +13,32 @@ and one before it (5 per build).
       scal and the chunk blocks Dg, Eg, bit-identical to the plain sequence
       `banded.jacobi_scaled` + `banded.chunk_system` (+ `_bcr_factor`'s
       identity padding).  Bound: bytes.
-  K8b `bcr_factor`, `scan_factor` (csrc/chunk_factor.cu): cyclic reduction
-      in two launches per level plus one for the base block, or the scan in
-      one launch, on blocked Choleskys and triangular solves whose panels
-      pass through shared memory (any n).  Same contracts as the plain
-      `banded._bcr_factor` (levels = [(c, A, B), ..., c0], ok) and
-      `banded._factor` (C, M, ok); `ok` is set on the device.  Bound:
-      operations.
-  K8c `bcr_solve`, `scan_solve` (csrc/chunk_solve.cu): one launch per
-      level down and up plus the base, or two for the scan; they read the
-      factor as K8b or the plain factor left it, so either factor pairs
-      with either solve.  Bound: latency, then bytes.
+  K8b `bcr_factor` (csrc/chunk_factor.cu): cyclic reduction with explicit
+      triangular inverses.  Per level, for each eliminated chunk k, Li_k =
+      chol(Dodd_k)^-1 (one block per chunk, the serial part), W_k = Li_k
+      A_k^T and V_k = Li_k B_k, then D'_k = (D_2k - V_{k-1}^T V_{k-1}) -
+      W_k^T W_k and E'_k = -W_k^T V_k (32 x 32 tiles spread over the card):
+      three launches a level and one for the base block's Li0.  The
+      levels are [(Li, W, V), ..., Li0]; chunks past the layout's real
+      ones (`live`) are identity with zero couplings and are skipped.
+      Bound: operations (6.7 n^3 per eliminated chunk).
+  K8c `bcr_solve` (csrc/chunk_solve.cu): mat-vecs only, the rows of every
+      product split over blocks: down t_k = Li_k b_odd, b'_k = (b_2k -
+      V_{k-1}^T t_{k-1}) - W_k^T t_k; up x_odd = Li_k^T ((t_k - W_k x_k) -
+      V_k x_{k+1}); two launches a level each way and two for the base.
+      Bound: bytes.
+  `scan_factor`, `scan_solve` (the same sources): the sequential scan, one
+      launch for the factor and two per solve, same contracts as the plain
+      `banded._factor` (C, M, ok) and `_solve_factored`.
 
-Products are exact f32 FMA (no tensor core, so TF32 never enters).  The
-plain versions are `solver/banded.py`'s (`jacobi_scaled`, `chunk_system`,
-`_bcr_factor`, `_factor`, `_bcr_solve`, `_solve_factored`); the solver
-takes them for CPU tensors.  Float32 and float64, any chunk size.
+Products are exact FMA in the working type (no tensor core, so TF32 never
+enters).  `bcr_factor_plain` and `bcr_solve_plain` here compute the
+kernels' representation in their order of sums (each product summed over
+its inner index in order); the tests and chip_smoke.py compare the
+kernels with them, and x = S^-1 b with the solver's plain `_bcr_solve`.
+The solver takes its plain path (`jacobi_scaled`, `chunk_system`,
+`_bcr_factor`, `_factor`, `_bcr_solve`, `_solve_factored`) for CPU
+tensors.  Float32 and float64, any chunk size.
 """
 
 from __future__ import annotations
@@ -46,16 +56,22 @@ _D = ctypes.c_double
 _ARGTYPES = {
     ("chunk_layout", "ba_chunk_layout"): [_P, _I, _I, _I, _I, _I, _I, _D, _P,
                                           _P, _P, _P, _P],
-    ("chunk_factor", "ba_bcr_eliminate"): [_P, _I, _I, _I, _P, _P, _P],
-    ("chunk_factor", "ba_bcr_reduce"): [_P, _P, _P, _I, _I, _I, _P, _P, _P,
-                                        _P],
-    ("chunk_factor", "ba_bcr_base"): [_P, _I, _I, _P, _P, _P],
+    ("chunk_factor", "ba_bcr_chol_inv"): [_P, _I, _I, _I, _I, _I, _I, _P, _P,
+                                          _P, _P],
+    ("chunk_factor", "ba_bcr_products"): [_P, _I, _P, _I, _I, _I, _I, _P, _P,
+                                          _P],
+    ("chunk_factor", "ba_bcr_reduce"): [_P, _I, _P, _P, _I, _I, _I, _I, _I,
+                                        _P, _P, _P],
     ("chunk_factor", "ba_scan_factor"): [_P, _P, _I, _I, _I, _P, _P, _P, _P,
                                          _P],
-    ("chunk_solve", "ba_bcr_down"): [_P, _P, _P, _L, _L, _I, _I, _I, _P, _P],
-    ("chunk_solve", "ba_bcr_base_solve"): [_P, _P, _I, _I, _P, _P],
-    ("chunk_solve", "ba_bcr_up"): [_P, _P, _P, _L, _L, _P, _I, _I, _I, _P,
-                                   _L, _L, _P],
+    ("chunk_solve", "ba_bcr_down_t"): [_P, _P, _L, _L, _I, _I, _I, _I, _P,
+                                       _P],
+    ("chunk_solve", "ba_bcr_down_b"): [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
+                                       _I, _P, _P],
+    ("chunk_solve", "ba_bcr_up_y"): [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                     _P],
+    ("chunk_solve", "ba_bcr_up_x"): [_P, _P, _P, _I, _I, _I, _I, _I, _P, _L,
+                                     _L, _P],
     ("chunk_solve", "ba_scan_solve"): [_P, _P, _P, _L, _L, _I, _I, _I, _P,
                                        _P, _L, _L, _P],
 }
@@ -128,56 +144,172 @@ def _blocks(Dg, Eg, what):
     return Dg.contiguous(), Eg.contiguous()
 
 
-def _reduce_workspace(Dg):
-    """An empty tensor of the elements `ba_bcr_reduce` needs in device
-    memory at the top level of Dg (F, m, n, n), or None when its strips
-    sit in shared memory."""
+TS = 32        # csrc/chunk_factor.cu's panel width
+
+
+def _level_counts(r: int):
+    """(h, rn, nv) of a cyclic-reduction level of r chunks that are not
+    padding: h eliminated, rn kept, and the nv = rn - 1 couplings V_k (and
+    E'_k) that a later step reads (V_{h-1} of an even r couples into
+    padding)."""
+    h = r // 2
+    return h, r - h, r - h - 1
+
+
+def _top(m: int, live):
+    """The top level's chunks that are not padding, for m chunks of which
+    those at or past `live` are identity with zero couplings: the coupling
+    of chunk live - 1 may still reach chunk live."""
+    live = m if live is None else int(live)
+    if not 1 <= live <= m:
+        raise ValueError(f"bcr_factor: live {live} outside [1, {m}]")
+    return min(m, live + 1)
+
+
+def level_sizes(levels) -> list:
+    """[r_0, ..., 1]: the chunks of each level of a cyclic-reduction factor
+    (Li and W hold h of them, V rn - 1, r = h + rn)."""
+    rs = [1]
+    for Li, _, V in reversed(levels[:-1]):
+        rs.insert(0, Li.shape[-3] + V.shape[-3] + 1)
+    return rs
+
+
+def _seq_mm(A, B):
+    """A (..., p, q) @ B (..., q, r), each element summed over q in order
+    (a multiply, then an add: the kernels' FMA rounds once)."""
+    acc = A.new_zeros(A.shape[:-1] + B.shape[-1:])
+    for t in range(A.shape[-1]):
+        acc = acc + A[..., :, t, None] * B[..., t, None, :]
+    return acc
+
+
+def _seq_mv(M, v):
+    return _seq_mm(M, v[..., None])[..., 0]
+
+
+def chol_inv_plain(S):
+    """(Li, bad): Li = chol(S)^-1 of the lower triangle of S (..., n, n),
+    by `bcr_chol_inv`'s sweep over panels of TS columns in its order of
+    sums: per panel the diagonal tile's Cholesky and inverse in one
+    unblocked sweep, the panel's rows of the inverse, L_TJ = S_TJ Li_JJ^T,
+    the trailing update by L_TJ, and -L_TJ Li_JJ.  bad (...) marks a
+    non-positive or non-finite pivot or a non-finite entry."""
+    n = S.shape[-1]
+    M = torch.tril(S)
+    bad = torch.zeros(S.shape[:-2], dtype=torch.bool, device=S.device)
+    for j0 in range(0, n, TS):
+        j1 = min(n, j0 + TS)
+        G = M[..., j0:j1, j0:j1].clone()
+        for j in range(j1 - j0):
+            d = G[..., j, j]
+            bad = bad | ~(d > 0) | ~torch.isfinite(d)
+            rs = 1 / torch.sqrt(d)
+            l = G[..., j + 1:, j] * rs[..., None]
+            u = G[..., j, :j] * rs[..., None]
+            G[..., j + 1:, :j] = G[..., j + 1:, :j] - l[..., :, None] * u[
+                ..., None, :]
+            G[..., j + 1:, j + 1:] = G[..., j + 1:, j + 1:] - torch.tril(
+                l[..., :, None] * l[..., None, :])
+            G[..., j + 1:, j] = -(l * rs[..., None])
+            G[..., j, :j] = u
+            G[..., j, j] = rs
+        M[..., j0:j1, :j0] = _seq_mm(G, M[..., j0:j1, :j0])
+        M[..., j0:j1, j0:j1] = G
+        if j1 < n:
+            LT = _seq_mm(M[..., j1:, j0:j1], G.mT)
+            acc = _seq_mm(LT, torch.cat([M[..., j0:j1, :j0], LT.mT], -1))
+            M[..., j1:, :j0] = M[..., j1:, :j0] - acc[..., :j0]
+            M[..., j1:, j1:] = M[..., j1:, j1:] - torch.tril(acc[..., j0:])
+            M[..., j1:, j0:j1] = -_seq_mm(LT, G)
+    return M, bad | ~torch.isfinite(M).all(-1).all(-1)
+
+
+def bcr_factor_plain(Dg, Eg, live=None):
+    """`bcr_factor`'s representation, in its order of sums: for Dg, Eg (F,
+    m, n, n), chunks at or past `live` (default m) identity with zero
+    couplings.  A level of r chunks that are not padding eliminates the
+    odd ones, k < h: Li_k = chol(D_{2k+1})^-1, W_k = Li_k E_{2k}^T, V_k =
+    Li_k E_{2k+1} (k < nv); the kept D'_k = (D_2k - V_{k-1}^T V_{k-1}) -
+    W_k^T W_k (lower triangle read), E'_k = -W_k^T V_k.  Returns (levels,
+    ok): levels = [(Li, W, V), ..., Li0], Li and W (F, h, n, n), V (F, nv,
+    n, n), Li0 (F, n, n); ok a bool tensor."""
     F_, m, n, _ = Dg.shape
-    fn = getattr(build.load("chunk_factor"), "ba_bcr_reduce_workspace_" + {
-        torch.float32: "f32", torch.float64: "f64"}[Dg.dtype])
+    r = _top(m, live)
+    D, E = Dg[:, :r], Eg[:, :r]
+    bad = torch.zeros((), dtype=torch.bool, device=Dg.device)
+    levels = []
+    while r > 1:
+        h, rn, nv = _level_counts(r)
+        Li, b_ = chol_inv_plain(D[:, 1:2 * h:2])
+        W = _seq_mm(Li, E[:, 0:2 * h:2].mT)
+        V = _seq_mm(Li[:, :nv], E[:, 1:2 * nv:2])
+        Dn = D[:, 0:2 * rn:2].clone()
+        Dn[:, 1:nv + 1] = Dn[:, 1:nv + 1] - _seq_mm(V.mT, V)
+        Dn[:, :h] = Dn[:, :h] - _seq_mm(W.mT, W)
+        E = -_seq_mm(W[:, :nv].mT, V)
+        bad = bad | b_.any()
+        levels.append((Li, W, V))
+        D, r = Dn, rn
+    Li0, b_ = chol_inv_plain(D[:, 0])
+    levels.append(Li0)
+    return levels, ~(bad | b_.any())
+
+
+def _aligned(t):
+    """t contiguous at a 16-byte address (the kernels' vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _chol_inv_ws(Dg, h):
+    """The workspace `ba_bcr_chol_inv` stages a panel in when shared memory
+    has no room for it (h blocks of the windows of Dg (F, m, n, n))."""
+    fn = build.load("chunk_factor").ba_bcr_chol_inv_workspace
     if fn.argtypes is None:
         fn.argtypes = [_I, _I, _I]
         fn.restype = _L
-    size = fn(F_, m, n)
-    return Dg.new_empty((size,)) if size else None
+    return Dg.new_empty((fn(Dg.shape[0], h, Dg.shape[-1]),))
 
 
-def bcr_factor(Dg, Eg):
-    """`banded._bcr_factor` on CUDA tensors (F, m, n, n), m a power of two
-    (`chunk_layout` pads to it): per level one eliminate and one reduce
-    launch, and one launch for the base block.  Returns (levels, ok),
-    levels = [(c, A, B), ..., c0] outer to inner, A and B views of the
-    level's couplings; ok a device bool."""
+def bcr_factor(Dg, Eg, live=None):
+    """K8b on CUDA tensors Dg, Eg (F, m, n, n), the chunks at or past
+    `live` (default m) identity with zero couplings as `chunk_layout` pads
+    them: three launches a level (Li, then W and V, then the next level's
+    D and E) and one for the base block.  Returns (levels, ok) as
+    `bcr_factor_plain`; ok a device bool."""
     Dg, Eg = _blocks(Dg, Eg, "bcr_factor")
     F_, m, n, _ = Dg.shape
-    if m != next_pow2(m):
-        raise ValueError(f"bcr_factor kernel: {m} chunks, not a power of "
-                         f"two")
+    r = _top(m, live)
     fail = torch.zeros((1,), dtype=torch.int32, device=Dg.device)
     dt = Dg.dtype
     levels = []
-    D, E = Dg, Eg
-    ws = _reduce_workspace(Dg) if m > 1 else None
-    while m > 1:
-        h = m // 2
-        c = Dg.new_empty((F_, h, n, n))
-        _call("chunk_factor", "ba_bcr_eliminate", dt, D.data_ptr(), F_, m, n,
-              c.data_ptr(), fail.data_ptr())
-        Dn = Dg.new_empty((F_, h, n, n))
-        En = Dg.new_empty((F_, h, n, n)) if h > 1 else None
-        _call("chunk_factor", "ba_bcr_reduce", dt, D.data_ptr(),
-              E.data_ptr(), c.data_ptr(), F_, m, n,
-              None if ws is None else ws.data_ptr(), Dn.data_ptr(),
-              None if En is None else En.data_ptr())
-        bcr_factor.launches += 2
-        levels.append((c, E[:, 0::2], E[:, 1::2]))
-        D, E = Dn, En
-        m = h
-    c0 = Dg.new_empty((F_, n, n))
-    _call("chunk_factor", "ba_bcr_base", dt, D.data_ptr(), F_, n,
-          c0.data_ptr(), fail.data_ptr())
+    D, E, mD, mE = Dg, Eg, m, m
+    while r > 1:
+        h, rn, nv = _level_counts(r)
+        Li = Dg.new_empty((F_, h, n, n))
+        W = Dg.new_empty((F_, h, n, n))
+        V = Dg.new_empty((F_, nv, n, n))
+        Dn = Dg.new_empty((F_, rn, n, n))
+        En = Dg.new_empty((F_, nv, n, n))
+        _call("chunk_factor", "ba_bcr_chol_inv", dt, D.data_ptr(), mD, 1, 2,
+              h, F_, n, Li.data_ptr(), _chol_inv_ws(Dg, h).data_ptr(),
+              fail.data_ptr())
+        _call("chunk_factor", "ba_bcr_products", dt, E.data_ptr(), mE,
+              Li.data_ptr(), h, nv, F_, n, W.data_ptr(),
+              V.data_ptr() if nv else None)
+        _call("chunk_factor", "ba_bcr_reduce", dt, D.data_ptr(), mD,
+              W.data_ptr(), V.data_ptr() if nv else None, h, nv, rn, F_, n,
+              Dn.data_ptr(), En.data_ptr() if nv else None)
+        bcr_factor.launches += 3
+        levels.append((Li, W, V))
+        D, E, mD, mE, r = Dn, En, rn, nv, rn
+    Li0 = Dg.new_empty((F_, n, n))
+    _call("chunk_factor", "ba_bcr_chol_inv", dt, D.data_ptr(), mD, 0, 1, 1,
+          F_, n, Li0.data_ptr(), _chol_inv_ws(Dg, 1).data_ptr(),
+          fail.data_ptr())
     bcr_factor.launches += 1
-    levels.append(c0)
+    levels.append(Li0)
     return levels, fail[0] == 0
 
 
@@ -204,74 +336,91 @@ def _rows(b, F_, what):
     return b.contiguous()
 
 
-def _couplings(A, B):
-    """The level's couplings as one (F, 2h, n, n) row-major tensor whose
-    even chunks are A and odd chunks B: the tensor A is a view of when the
-    factor came from `bcr_factor`, else an interleaved copy."""
-    F_, h, n, _ = A.shape
-    nn = n * n
-    if (A.stride() == (2 * h * nn, 2 * nn, n, 1) and B.stride() == A.stride()
-            and B.data_ptr() == A.data_ptr() + nn * A.element_size()):
-        return A
-    return torch.stack([A, B], dim=2).reshape(F_, 2 * h, n, n)
+def bcr_solve_plain(levels, b):
+    """x = S^-1 b through `bcr_factor`'s levels for b (F, L) (elements past
+    L read as zero), in `bcr_solve`'s order of terms: down t_k = Li_k
+    b_{2k+1}, b'_k = (b_2k - V_{k-1}^T t_{k-1}) - W_k^T t_k; the base x_0 =
+    Li0^T Li0 b_0; up y_k = (t_k - W_k x_k) - V_k x_{k+1}, x_{2k+1} =
+    Li_k^T y_k, x_{2k} = x_k."""
+    F_, L = b.shape
+    n = levels[-1].shape[-1]
+    rs = level_sizes(levels)
+    bl = torch.nn.functional.pad(b, (0, rs[0] * n - L)).reshape(F_, rs[0], n)
+    ts = []
+    for (Li, W, V), r in zip(levels[:-1], rs):
+        h, rn, nv = _level_counts(r)
+        t = _seq_mv(Li, bl[:, 1:2 * h:2])
+        bn = bl[:, 0:2 * rn:2].clone()
+        bn[:, 1:nv + 1] = bn[:, 1:nv + 1] - _seq_mv(V.mT, t[:, :nv])
+        bn[:, :h] = bn[:, :h] - _seq_mv(W.mT, t)
+        ts.append(t)
+        bl = bn
+    Li0 = levels[-1]
+    x = _seq_mv(Li0.mT, _seq_mv(Li0, bl[:, 0]))[:, None]
+    for (Li, W, V), t, r in reversed(list(zip(levels[:-1], ts, rs))):
+        h, rn, nv = _level_counts(r)
+        y = t - _seq_mv(W, x[:, :h])
+        y[:, :nv] = y[:, :nv] - _seq_mv(V, x[:, 1:nv + 1])
+        xn = b.new_empty((F_, r, n))
+        xn[:, 0::2] = x
+        xn[:, 1::2] = _seq_mv(Li.mT, y)
+        x = xn
+    return x.reshape(F_, -1)[:, :L]
 
 
 def bcr_solve(levels, b):
-    """x = S^-1 b through the cyclic-reduction levels for b (F, L): chunk
-    k of window f is b[f, k n:(k + 1) n], the elements past L read as zero
-    and x (F, L) keeps the first L.  One launch per level down, one for the
-    base, one per level up."""
-    c0 = levels[-1]
-    F_, n, _ = c0.shape
-    _check("bcr_solve", c0, b, *(t for lv in levels[:-1] for t in lv))
+    """x = S^-1 b through `bcr_factor`'s levels for b (F, L): chunk k of
+    window f is b[f, k n:(k + 1) n], the elements past L read as zero and x
+    (F, L) keeps the first L.  Two launches a level down (t = Li b_odd,
+    then b'), two for the base, two a level up (y, then x_odd = Li^T y and
+    the interleave)."""
+    Li0 = levels[-1]
+    F_, n, _ = Li0.shape
+    _check("bcr_solve", Li0, b, *(t for lv in levels[:-1] for t in lv))
     b = _rows(b, F_, "bcr_solve")
     L = b.shape[1]
-    top = len(levels) - 1                  # reduction levels
-    m_pad = 2 ** top
-    if L > m_pad * n:
+    rs = level_sizes(levels)
+    if L > rs[0] * n:
         raise ValueError(f"bcr_solve kernel: {L} elements per window, the "
-                         f"levels hold {m_pad * n}")
+                         f"levels hold {rs[0] * n}")
     dt = b.dtype
-    c0 = c0.contiguous()
-    if top == 0:                           # one chunk: the base alone
-        bb = torch.nn.functional.pad(b, (0, n - L))
-        x = torch.empty_like(bb)
-        _call("chunk_solve", "ba_bcr_base_solve", dt, c0.data_ptr(),
-              bb.data_ptr(), F_, n, x.data_ptr())
-        bcr_solve.launches += 1
-        return x[:, :L]
+    lv = [tuple(_aligned(t) for t in level) for level in levels[:-1]]
+    Li0 = _aligned(Li0)
     x = torch.empty_like(b)
-    lv_c = [c.contiguous() for c, _, _ in levels[:-1]]
-    lv_e = [_couplings(A, B) for _, A, B in levels[:-1]]
-    # b (row 0) and x (row 1) of every inner level, (F, m_l, n) each
-    sizes = [m_pad >> lv for lv in range(1, top + 1)]
-    work = b.new_empty((2, F_ * sum(sizes) * n))
-    bufs, o = [], 0
-    for s in sizes:
-        bufs.append((work[0, o: o + F_ * s * n], work[1, o: o + F_ * s * n]))
-        o += F_ * s * n
-
-    def level(lv, row):         # (tensor, row stride, valid) of level lv
-        if lv == 0:
-            return (b, x)[row], L, L
-        m = sizes[lv - 1]
-        return bufs[lv - 1][row], m * n, m * n
-
-    for lv in range(top):
-        bt, ld, valid = level(lv, 0)
-        _call("chunk_solve", "ba_bcr_down", dt, lv_c[lv].data_ptr(),
-              lv_e[lv].data_ptr(), bt.data_ptr(), ld, valid, F_,
-              m_pad >> lv, n, bufs[lv][0].data_ptr())
-    _call("chunk_solve", "ba_bcr_base_solve", dt, c0.data_ptr(),
-          bufs[top - 1][0].data_ptr(), F_, n, bufs[top - 1][1].data_ptr())
-    for lv in reversed(range(top)):
-        bt, ld, valid = level(lv, 0)
-        xt, x_ld, x_valid = level(lv, 1)
-        _call("chunk_solve", "ba_bcr_up", dt, lv_c[lv].data_ptr(),
-              lv_e[lv].data_ptr(), bt.data_ptr(), ld, valid,
-              bufs[lv][1].data_ptr(), F_, m_pad >> lv, n, xt.data_ptr(),
-              x_ld, x_valid)
-    bcr_solve.launches += 2 * top + 1
+    ts = []
+    bl, ld = b, L
+    valid = L
+    for (Li, W, V), r in zip(lv, rs):
+        h, rn, nv = _level_counts(r)
+        t = b.new_empty((F_, h, n))
+        bn = b.new_empty((F_, rn, n))
+        _call("chunk_solve", "ba_bcr_down_t", dt, Li.data_ptr(),
+              bl.data_ptr(), ld, valid, 1, h, F_, n, t.data_ptr())
+        _call("chunk_solve", "ba_bcr_down_b", dt, W.data_ptr(),
+              V.data_ptr() if nv else None, t.data_ptr(), bl.data_ptr(), ld,
+              valid, h, nv, rn, F_, n, bn.data_ptr())
+        ts.append(t)
+        bl, ld, valid = bn, rn * n, rn * n
+    tb = b.new_empty((F_, 1, n))
+    _call("chunk_solve", "ba_bcr_down_t", dt, Li0.data_ptr(), bl.data_ptr(),
+          ld, valid, 0, 1, F_, n, tb.data_ptr())
+    xk = x if not lv else b.new_empty((F_, 1, n))
+    out_ld = L if not lv else n
+    _call("chunk_solve", "ba_bcr_up_x", dt, Li0.data_ptr(), tb.data_ptr(),
+          None, 0, 1, 0, F_, n, xk.data_ptr(), out_ld, out_ld)
+    for li in reversed(range(len(lv))):
+        (Li, W, V), t, r = lv[li], ts[li], rs[li]
+        h, rn, nv = _level_counts(r)
+        y = b.new_empty((F_, h, n))
+        _call("chunk_solve", "ba_bcr_up_y", dt, W.data_ptr(),
+              V.data_ptr() if nv else None, t.data_ptr(), xk.data_ptr(), h,
+              nv, rn, F_, n, y.data_ptr())
+        out = x if li == 0 else b.new_empty((F_, r, n))
+        out_ld = L if li == 0 else r * n
+        _call("chunk_solve", "ba_bcr_up_x", dt, Li.data_ptr(), y.data_ptr(),
+              xk.data_ptr(), 1, h, rn, F_, n, out.data_ptr(), out_ld, out_ld)
+        xk = out
+    bcr_solve.launches += 4 * len(lv) + 2
     return x
 
 

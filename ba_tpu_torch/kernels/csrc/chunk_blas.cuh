@@ -1,5 +1,6 @@
-// Block-level dense routines of K8, the chunked block-tridiagonal factor and
-// solve (chunk_factor.cu, chunk_solve.cu).  Every routine is called by all
+// Block-level dense routines of K8's sequential scan (chunk_factor.cu's
+// scan_factor, chunk_solve.cu's scan_solve), and the shared-memory
+// grants of every K8 kernel.  Every routine is called by all
 // THREADS threads of one block and works on row-major matrices through
 // generic pointers, with panels and tiles of TS rows passing through shared
 // memory.  The kernels hold a matrix they update in shared memory when it
@@ -362,13 +363,6 @@ __device__ void gemv(const T* M, int n, bool trans, const T* x, T* y) {
     y[j] = s;
   }
   __syncthreads();
-}
-
-// x <- (L L^T)^-1 x
-template <typename T>
-__device__ void cho_solve(const T* L, int n, T* x, Tiles<T>& sm) {
-  trsv(L, n, x, sm);
-  trsv_t(L, n, x, sm);
 }
 
 // Whether `kernel` may take `bytes` of dynamic shared memory beside

@@ -17,9 +17,10 @@ the poses that co-observe a landmark, a span bounded by `band_width_of`.
      (`_factor`), and used as the preconditioner of a short PCG whose
      products are kernel 9 (kernels/csrc/band_matvec.cu).  On the card the
      scaling and chunk layout, the factor and the solves are K8
-     (kernels/chunk_tridiag.py: K8a, K8b, K8c), on the CPU their plain
-     versions here (`jacobi_scaled`, `chunk_system`, `_bcr_factor`,
-     `_factor`, `_bcr_solve`, `_solve_factored`).
+     (kernels/chunk_tridiag.py: K8a, K8b, K8c; cyclic reduction there
+     keeps explicit triangular inverses), on the CPU the plain versions
+     here (`jacobi_scaled`, `chunk_system`, `_bcr_factor`, `_factor`,
+     `_bcr_solve`, `_solve_factored`).
      `schur_on_band`: the band is densified (K5b on the card), the
      marginalization prior added, and solved by one dense Cholesky
      (`banded_dense_solve`).
@@ -663,12 +664,16 @@ def chunk_layout(band, config: BAConfig, P: int, D: int, use_bcr: bool):
     return band_s, scal, Dg, Eg
 
 
-def chunk_factor(Dg, Eg, use_bcr: bool):
-    """(factor, ok): cyclic reduction's levels or the scan's (C, M).  CUDA
-    tensors go through K8b, CPU tensors through `_bcr_factor` or
-    `_factor`."""
+def chunk_factor(Dg, Eg, use_bcr: bool, n_c: int):
+    """(factor, ok): cyclic reduction's levels or the scan's (C, M) of the
+    n_c real chunks.  CUDA tensors go through K8b (chunks past n_c are
+    K8a's identity padding, which the kernels skip; the levels hold
+    explicit inverses, see kernels/chunk_tridiag.py), CPU tensors through
+    `_bcr_factor` or `_factor`."""
     if use_bcr:
-        return (k8.bcr_factor if Dg.is_cuda else _bcr_factor)(Dg, Eg)
+        if Dg.is_cuda:
+            return k8.bcr_factor(Dg, Eg, live=n_c)
+        return _bcr_factor(Dg, Eg)
     C, M, ok = (k8.scan_factor if Dg.is_cuda else _factor)(Dg, Eg)
     return (C, M), ok
 
@@ -713,7 +718,7 @@ def banded_pcg_solve(band, rhs_sc, col_mask, config: BAConfig, P: int,
     # enough; the 2-chunk system has nothing to gain
     use_bcr = config.banded_cyclic_reduction and n_c >= 4
     band_s, scal, Dg, Eg = chunk_layout(band, config, P, D, use_bcr)
-    factor, ok = chunk_factor(Dg, Eg, use_bcr)
+    factor, ok = chunk_factor(Dg, Eg, use_bcr, n_c)
     del Dg, Eg
 
     def precond(r):

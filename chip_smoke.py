@@ -80,11 +80,13 @@ Phases, each of which exits non-zero when a check fails:
      (band matvec) against its plain version on the scaled band and at 2,047
      poses (not a multiple of its 8-pose blocks); k8: K8a (the chunk
      layout) bit-identical to its plain version, K8b and K8c (factor and
-     solve, cyclic reduction and scan) against theirs, crossed both ways,
-     f32 and f64, with the backward error, and on a damped copy;
+     solve, cyclic reduction with explicit inverses against its plain
+     versions and x = S^-1 b against the torch.linalg route; the scan
+     crossed both ways), f32 and f64, with the backward error, and on a
+     damped copy;
  14. long: GN solve_fixed(..., 10) of that trajectory: cost and ATE fall,
      everything finite, solver_ok at every iteration, exact launch counts
-     of kernels 1, 7, 9, segsum, K2 and K8 (91 per iteration), no
+     of kernels 1, 7, 9, segsum, K2 and K8 (173 per iteration), no
      torch.linalg factor or triangular solve, no host sync per iteration
      (the one-off plans
      counted apart), kf/s, ms per iteration and peak device memory; the
@@ -94,8 +96,10 @@ Phases, each of which exits non-zero when a check fails:
      torch.mv on the densified band as K9's library yardstick; K8a, K8b
      and one K8c solve timed apart, with the host and on the device
      (CUDA-graph replay), beside their bounds (flops and bytes counted level
-     by level) and the old torch.linalg route (`library_ms`), and the device
-     operations of one iteration's K8 work both ways;
+     by level over the chunks that are not padding; PR 8's count beside)
+     and the old torch.linalg route (`library_ms`), the device ms of each
+     level's eliminate, products, down and up steps (`k8_level_split`),
+     and the device operations of one iteration's K8 work both ways;
  15. cg_small: the matrix-free PCG solver (use_cg_solver) on the card
      against the CPU in f64 (simulate(24 poses, 72 landmarks)): one
      solve_reduced_cg step, one GN iteration with an active marginalization
@@ -274,15 +278,19 @@ K2_PER_BANDED_BUILD, K7_PER_BUILD, K9_PER_BUILD = 5, 1, 4
 TOL_K7 = {"float64": 1e-12, "float32": 1e-5}
 TOL_K9 = {"float64": 1e-12, "float32": 1e-5}
 # K8b and K8c against their plain versions on the long band, relative to
-# max(1, max |plain|), each factor (every level) and solve, the kernels'
-# and both crossed pairings (the kernels' factor with the plain solve and
-# the reverse).  The long system is ill-conditioned along its gauge
-# directions, so two exact orderings of one factorization differ there by
-# far more than roundoff: f64 1.7e-10 (factor) and 1.1e-9 (solve), f32
-# 4.4e-5 and 2.9e-4, while the plain factor with the kernels' solve reads
-# 5.3e-14 and 1.8e-6 (an H100).  The limits sit ~20x above those readings
-# and far below the O(1) of a broken kernel: TOL_K8_LONG_F64 for every
-# f64 difference, TOL_K8_LONG_F32 per kind in f32.  The normwise backward
+# max(1, max |plain|): the kernels' factor (every level's Li, W, V) and
+# solve against `bcr_factor_plain` / `bcr_solve_plain`, the kernels' solve
+# on the plain factor against the plain solve, the solution x = S^-1 b
+# against the solver's plain `_bcr_solve` (torch.linalg), and the scan's
+# kernels and both crossed pairings (the kernels' factor with the plain
+# solve and the reverse) against `_factor` / `_solve_factored`.  The
+# long system is ill-conditioned along its gauge directions, so two exact
+# orderings of one factorization differ there by far more than roundoff:
+# f64 1.7e-10 (factor) and 1.1e-9 (solve), f32 4.4e-5 and 2.9e-4, while
+# the plain factor with the kernels' solve read 5.3e-14 and 1.8e-6 (an
+# H100, PR 8's kernels).  The limits sit ~20x above those readings and far
+# below the O(1) of a broken kernel: TOL_K8_LONG_F64 for every f64
+# difference, TOL_K8_LONG_F32 per kind in f32.  The normwise backward
 # error of the kernels' solves may be at most K8_RES_FACTOR times the
 # plain solve's in both dtypes: it is not dominated by the gauge.  And on
 # a damped copy of the long system (K8_DAMP added to the diagonal of every
@@ -723,9 +731,9 @@ def _k8_counters():
 
 def _k8_want(cfg, P, builds, solves_per_build=5):
     """K8's launches for `builds` builds of the banded solver on a P-pose
-    problem: one layout, the factor's (two per cyclic-reduction level and
-    the base, or one scan) and the solves' (two per level and the base,
-    or two for the scan) per build."""
+    problem: one layout, the factor's (three per cyclic-reduction level and
+    one for the base, or one scan) and the solves' (four per level and two
+    for the base, or two for the scan) per build."""
     from ba_tpu_torch.kernels import chunk_tridiag
     from ba_tpu_torch.solver import banded
 
@@ -734,8 +742,8 @@ def _k8_want(cfg, P, builds, solves_per_build=5):
     want["chunk_layout"] = builds
     if cfg.banded_cyclic_reduction and n_c >= 4:
         lv = chunk_tridiag.next_pow2(n_c).bit_length() - 1
-        want["bcr_factor"] = builds * (2 * lv + 1)
-        want["bcr_solve"] = builds * solves_per_build * (2 * lv + 1)
+        want["bcr_factor"] = builds * (3 * lv + 1)
+        want["bcr_solve"] = builds * solves_per_build * (4 * lv + 2)
     else:
         want["scan_factor"] = builds
         want["scan_solve"] = builds * solves_per_build * 2
@@ -1789,13 +1797,134 @@ def _bound(nbytes_, flops):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+# K8's kernels by stage, PR 8's names and this tree's (k8_level_split)
+K8_STAGES = {"bcr_eliminate": "eliminate", "bcr_base": "eliminate",
+             "bcr_chol_inv": "eliminate", "bcr_reduce": "products",
+             "bcr_products": "products", "bcr_down": "down",
+             "bcr_down_t": "down", "bcr_down_b": "down",
+             "bcr_base_solve": "base", "bcr_up": "up", "bcr_up_y": "up",
+             "bcr_up_x": "up"}
+
+
+def _kernel_spans(fn, calls):
+    """[(name, device ms)] of the K8 cyclic-reduction kernels that `calls`
+    calls of fn launch, in launch order, from a profiler trace."""
+    import re
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = Path(tmp) / "k8.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    spans = []
+    for e in sorted((e for e in events if e.get("cat") == "kernel"),
+                    key=lambda e: e["ts"]):
+        m = re.search(r"bcr_[a-z_]+", e.get("name", ""))
+        if m and m.group(0) in K8_STAGES:
+            spans.append((m.group(0), e["dur"] * 1e-3))
+    return spans
+
+
+def k8_level_split(factor, solve, lv, calls=3):
+    """Device ms of one cyclic-reduction factor and one solve of lv levels
+    by level and stage (mean over `calls` calls each, from profiler
+    traces): the factor's `eliminate` (the level's Cholesky: PR 8's
+    bcr_eliminate, this tree's bcr_chol_inv) and `products` (the rest of
+    the level) per level, its base block; the solve's `down` and `up` per
+    level and its base.  Works on PR 8's kernels and this tree's alike: a
+    factor call is lv + 1 eliminate launches, each with the products after
+    it; a solve call is (2 lv + 1) k launches, k a step's (2 for this
+    tree's, 1 for PR 8's), down levels, the base, then up levels."""
+    f = _kernel_spans(factor, calls)
+    s = _kernel_spans(solve, calls)
+    # factor: tokens [eliminate ms, products ms]; a call is lv tokens with
+    # products and the base's without (a trace may hold a call's tail from
+    # before it started)
+    tok = []
+    for name, ms in f:
+        if K8_STAGES[name] == "eliminate":
+            tok.append([ms, 0.0])
+        elif tok:
+            tok[-1][1] += ms
+    fc = [tok[i - lv:i + 1] for i in range(lv, len(tok))
+          if tok[i][1] == 0.0 and all(t[1] > 0.0 for t in tok[i - lv:i])]
+    # solve: k launches a step (2 for this tree's, 1 for PR 8's): lv down
+    # steps, the base, lv up steps, found where the stages match
+    k = 2 if any(name in ("bcr_down_t", "bcr_up_y") for name, _ in s) else 1
+    want = (["down"] * (2 * lv + 1) + ["up"] * (2 * lv + 1) if k == 2
+            else ["down"] * lv + ["base"] + ["up"] * lv)
+    ns, sc, i = len(want), [], 0
+    while i + ns <= len(s):
+        if [K8_STAGES[name] for name, _ in s[i:i + ns]] == want:
+            sc.append([ms for _, ms in s[i:i + ns]])
+            i += ns
+        else:
+            i += 1
+    if not fc or not sc:
+        raise RuntimeError(f"k8_level_split: {len(f)} factor and {len(s)} "
+                           f"solve kernels for {calls} calls of {lv} levels")
+
+    def mean(rows):
+        return [sum(r[i] for r in rows) / len(rows)
+                for i in range(len(rows[0]))]
+
+    elim = mean([[e for e, _ in c] for c in fc])
+    prod = mean([[q for _, q in c] for c in fc])
+    down = mean([[sum(c[i * k:(i + 1) * k]) for i in range(lv)]
+                 for c in sc])
+    base = mean([[sum(c[lv * k:(lv + 1) * k])] for c in sc])[0]
+    up = mean([[sum(c[(lv + 1 + i) * k:(lv + 2 + i) * k])
+                for i in range(lv)][::-1] for c in sc])
+    return dict(eliminate=elim[:lv], products=prod[:lv],
+                base_eliminate=elim[lv], down=down, up=up, base_solve=base,
+                factor_total=sum(elim) + sum(prod),
+                solve_total=sum(down) + sum(up) + base,
+                calls=(len(fc), len(sc)))
+
+
+def k8_work(rs, n, es):
+    """(factor flops, factor bytes, solve flops, solve bytes) of this
+    tree's cyclic reduction over levels of rs = [r_0, ..., 1] chunks that
+    are not padding: per level h = r // 2 eliminated, nv = r - h - 1 V
+    blocks; the Cholesky and inverse 2 n^3 / 3 each eliminated chunk, W n^3
+    (Li is lower), V n^3, V^T V and W^T W n^3 each (lower triangles), E'
+    2 n^3; bytes each input read once and each output written once.  The
+    solve reads Li's lower triangle, W and V of every level once, two
+    flops an element each way."""
+    ff = fb = sf = sb = 0
+    tri = n * (n + 1) // 2
+    for r in rs[:-1]:
+        h, nv = r // 2, r - r // 2 - 1
+        rn = r - h
+        ff += h * (2 / 3 + 2) * n ** 3 + nv * 4 * n ** 3
+        fb += (r + max(r - 1, 0) + 2 * h + nv + rn + nv) * n * n * es
+        sb += (h * (tri + n * n) + nv * n * n) * es
+        sf += 4 * (h * (tri + n * n) + nv * n * n)
+    ff += 2 / 3 * n ** 3
+    fb += 2 * n * n * es
+    sb += tri * es
+    sf += 4 * tri
+    return ff, fb, sf, sb
+
+
 def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
     """K8a, K8b and K8c (cyclic reduction) timed on the long build's band
-    in f32, beside their bounds and the old route (the plain layout and
-    the torch.linalg factor and solve, which is also their plain version):
-    ms per call with the host and on the device (CUDA-graph replay); the
-    factor's flops and one solve's bytes counted level by level; the
-    device operations of one GN iteration's K8 work (1 layout, 1 factor, 5
+    in f32, beside their bounds, the plain versions and the old route
+    (`_bcr_factor` / `_bcr_solve` on torch.linalg): ms per call with the
+    host and on the device (CUDA-graph replay); the work counted level by
+    level over the chunks that are not padding, with PR 8's count beside;
+    the device ms of each level's stages (`k8_level_split`); the device
+    operations of one GN iteration's K8 work (1 layout, 1 factor, 5
     solves) both ways."""
     import torch
 
@@ -1809,7 +1938,7 @@ def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
     eps = banded._eps(band.dtype)
     es = band.element_size()
     bs, sc, Dg, Eg = k8.chunk_layout(band, F_, chunk, m, eps)
-    levels, _ = k8.bcr_factor(Dg, Eg)
+    levels, _ = k8.bcr_factor(Dg, Eg, live=n_c)
     r = torch.ones((F_, P_w * D), dtype=band.dtype, device=band.device)
 
     def old_layout():
@@ -1818,6 +1947,7 @@ def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
 
     _, _, Dg_o, Eg_o = old_layout()
     levels_o, _ = banded._bcr_factor(Dg_o, Eg_o)
+    levels_n, _ = k8.bcr_factor_plain(Dg, Eg, live=n_c)
     b_o = torch.ones((F_, n_c, n), dtype=band.dtype, device=band.device)
 
     def old_iteration():
@@ -1827,37 +1957,36 @@ def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
             banded._bcr_solve(lv, b_o, n_c)
 
     def new_iteration():
-        lv, _ = k8.bcr_factor(*k8.chunk_layout(band, F_, chunk, m, eps)[2:])
+        lv, _ = k8.bcr_factor(*k8.chunk_layout(band, F_, chunk, m, eps)[2:],
+                              live=n_c)
         for _ in range(5):
             k8.bcr_solve(lv, r)
 
     # bytes: each input read once, each output written once
     a_bytes = nbytes(band, bs, sc, Dg, Eg)
     a_bound, a_by = _bound(a_bytes, 4 * band.numel())
-    # per level of m blocks, h = m / 2 eliminated: h Choleskys (n^3 / 3),
-    # Dodd^-1 A^T and Dodd^-1 B (2 triangular solves of n columns each:
-    # 2 n^3 apiece), B^T Z, A X and A Z (2 n^3 each); the base Cholesky
-    hs = [m >> (k + 1) for k in range(len(levels) - 1)]
-    f_flops = sum(h * (n ** 3 / 3 + 4 * n ** 3 + 6 * n ** 3) for h in hs) \
-        + n ** 3 / 3
-    # it reads D and E of every level (m blocks each) and writes the kept
-    # levels (the Cholesky factor, A, B: 3 h blocks) and the next D and E
-    f_bytes = sum((2 * 2 * h + 3 * h + 2 * h) * n * n for h in hs) * es
-    # one solve: per level 2 triangular solves (u, x_odd: 2 n^2 flop each
-    # with both halves), 4 block products with a vector (2 n^2 each) per
-    # eliminated block; it reads the kept levels once
-    s_flops = sum(h * (2 * 2 * n * n + 4 * 2 * n * n) for h in hs) \
-        + 2 * n * n
-    s_bytes = (sum(3 * h for h in hs) + 1) * n * n * es
+    rs = k8.level_sizes(levels)
+    f_flops, f_bytes, s_flops, s_bytes = (x * F_ for x in k8_work(rs, n, es))
     f_bound, f_by = _bound(f_bytes, f_flops)
     s_bound, s_by = _bound(s_bytes, s_flops)
+    # PR 8's count: every level of m chunks, h = m / 2 Choleskys (n^3 / 3),
+    # two triangular solves of n columns each way (4 n^3), three products
+    # (6 n^3); it read and wrote 3 h blocks of factor, D and E
+    hs = [m >> (k + 1) for k in range(len(rs) - 1)]
+    f_old = F_ * (sum(h * (n ** 3 / 3 + 4 * n ** 3 + 6 * n ** 3)
+                      for h in hs) + n ** 3 / 3)
+    s_old = F_ * (sum(3 * h for h in hs) + 1) * n * n * es
 
     ta = _timed(lambda: k8.chunk_layout(band, F_, chunk, m, eps), 20, 5)
     ta_plain = event_ms(old_layout, 10)
-    tf = _timed(lambda: k8.bcr_factor(Dg, Eg), 5, 2)
+    tf = _timed(lambda: k8.bcr_factor(Dg, Eg, live=n_c), 5, 2)
+    tf_plain = event_ms(lambda: k8.bcr_factor_plain(Dg, Eg, live=n_c), 1)
     tf_old = _timed(lambda: banded._bcr_factor(Dg_o, Eg_o), 5, 2)
     ts = _timed(lambda: k8.bcr_solve(levels, r), 10, 5)
+    ts_plain = event_ms(lambda: k8.bcr_solve_plain(levels_n, r), 1)
     ts_old = _timed(lambda: banded._bcr_solve(levels_o, b_o, n_c), 10, 5)
+    split = k8_level_split(lambda: k8.bcr_factor(Dg, Eg, live=n_c),
+                           lambda: k8.bcr_solve(levels, r), len(levels) - 1)
     ops_new, ops_old = _device_ops(new_iteration), _device_ops(old_iteration)
 
     def dev(t):
@@ -1866,23 +1995,35 @@ def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
     def share(bound, t):
         return "" if t is None else f", {bound / t:.1%} of the bound"
 
+    def row(xs):
+        return " ".join(f"{x:.4f}" for x in xs)
+
     say(f"[{smi}] K8a chunk_layout on the long band (P={P}, F={F_}, chunk "
         f"{chunk}, {n_c} -> {m} chunks of n={n}) f32: {ta[0]:.4f} ms per "
         f"call ({dev(ta[1])} on the device{share(a_bound, ta[1])}); plain "
         f"(jacobi_scaled + chunk_system, the old route) {ta_plain:.4f} ms; "
         f"bound {a_bound:.5f} ms ({a_by}: {a_bytes} B); launch floor "
         f"{floor_ms:.4f} ms")
-    say(f"[{smi}] K8b bcr_factor ({len(levels) - 1} levels, "
-        f"{2 * len(levels) - 1} launches) f32: {tf[0]:.4f} ms per call "
-        f"({dev(tf[1])} on the device{share(f_bound, tf[1])}); plain "
-        f"(_bcr_factor on torch.linalg, the old route) {tf_old[0]:.4f} ms "
-        f"({dev(tf_old[1])} on the device); bound {f_bound:.5f} ms ({f_by}: "
-        f"{f_flops:.4g} flop, {f_bytes} B)")
-    say(f"[{smi}] K8c bcr_solve ({2 * len(levels) - 1} launches) f32: "
+    say(f"[{smi}] K8b bcr_factor ({len(levels) - 1} levels of {rs} chunks "
+        f"that are not padding, {3 * (len(levels) - 1) + 1} launches) f32: "
+        f"{tf[0]:.4f} ms per call ({dev(tf[1])} on the device"
+        f"{share(f_bound, tf[1])}); plain (bcr_factor_plain) {tf_plain:.1f}"
+        f" ms; old route (_bcr_factor on torch.linalg) {tf_old[0]:.4f} ms "
+        f"({dev(tf_old[1])} on the device); bound {f_bound:.5f} ms ({f_by}:"
+        f" {f_flops:.4g} flop, {f_bytes} B; PR 8's count {f_old:.4g} flop)")
+    say(f"[{smi}] K8c bcr_solve ({4 * (len(levels) - 1) + 2} launches) f32: "
         f"{ts[0]:.4f} ms per call ({dev(ts[1])} on the device"
-        f"{share(s_bound, ts[1])}); plain (_bcr_solve on torch.linalg, the "
-        f"old route) {ts_old[0]:.4f} ms ({dev(ts_old[1])} on the device); "
-        f"bound {s_bound:.5f} ms ({s_by}: {s_flops:.4g} flop, {s_bytes} B)")
+        f"{share(s_bound, ts[1])}); plain (bcr_solve_plain) "
+        f"{ts_plain:.1f} ms; old route (_bcr_solve on torch.linalg) "
+        f"{ts_old[0]:.4f} ms ({dev(ts_old[1])} on the device); bound "
+        f"{s_bound:.5f} ms ({s_by}: {s_flops:.4g} flop, {s_bytes} B; PR 8's "
+        f"count {s_old} B)")
+    say(f"[{smi}] K8 device ms by level (profiler, mean of 3 calls), "
+        f"levels 0..{len(levels) - 2}: factor eliminate {row(split['eliminate'])}"
+        f", base {split['base_eliminate']:.4f}; factor products "
+        f"{row(split['products'])}; solve down {row(split['down'])}, base "
+        f"{split['base_solve']:.4f}, up {row(split['up'])}; sums factor "
+        f"{split['factor_total']:.4f}, solve {split['solve_total']:.4f}")
     say(f"[{smi}] K8 work of one long GN iteration (1 layout, 1 factor, 5 "
         f"solves): {k8_per_iter:g} kernel launches counted on the main "
         f"path; device operations seen by the profiler: kernels "
@@ -1891,14 +2032,15 @@ def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
                   old_route_device_ops_per_iteration=ops_old)
     rec_a = dict(ms=ta[0], device_ms=ta[1], plain_ms=ta_plain,
                  bound_ms=a_bound, bound_by=a_by, library_ms=None, **common)
-    rec_f = dict(ms=tf[0], device_ms=tf[1], plain_ms=tf_old[0],
+    rec_f = dict(ms=tf[0], device_ms=tf[1], plain_ms=tf_plain,
                  bound_ms=f_bound, bound_by=f_by, library_ms=tf_old[0],
                  library_device_ms=tf_old[1], flops=f_flops,
-                 bytes=f_bytes, **common)
-    rec_s = dict(ms=ts[0], device_ms=ts[1], plain_ms=ts_old[0],
+                 bytes=f_bytes, flops_pr8_count=f_old,
+                 levels=split, **common)
+    rec_s = dict(ms=ts[0], device_ms=ts[1], plain_ms=ts_plain,
                  bound_ms=s_bound, bound_by=s_by, library_ms=ts_old[0],
                  library_device_ms=ts_old[1], flops=s_flops, bytes=s_bytes,
-                 **common)
+                 bytes_pr8_count=s_old, **common)
     return rec_a, rec_f, rec_s
 
 
@@ -1924,12 +2066,16 @@ def _chunk_residual(Dg, Eg, x, b):
 
 
 def _k8_pairs(Dg, Eg, r, n_c):
-    """K8b and K8c (cyclic reduction on Dg, Eg (F, 2^k, n, n) and the
-    scan on their first n_c chunks) against the plain versions, for the
-    rows r (F, L): {name: rel} of the factors (max over the levels), the
-    kernels' solve and the crossed pairings; the factors' ok flags;
-    whether two launches were bit-identical; the solutions (F, n_c, n) of
-    the kernels and the plain route."""
+    """K8b and K8c (cyclic reduction on Dg, Eg (F, 2^k, n, n), n_c real
+    chunks, and the scan on those) for the rows r (F, L): {name: rel} of
+    the kernels' factor (max over every level's Li, W, V and Li0) and solve
+    against `bcr_factor_plain` / `bcr_solve_plain`, of the kernels' solve
+    on the plain factor against the plain solve, of x = S^-1 b against
+    the solver's plain `_bcr_solve`, and of the scan crossed both ways
+    with `_factor` / `_solve_factored`; the factors' ok flags; whether two
+    launches were bit-identical; the solutions (F, n_c, n) of the kernels
+    and of the plain `_bcr_solve` and `_solve_factored`; the max abs errors
+    of the factors and solves against their plain versions."""
     import torch
     import torch.nn.functional as F
 
@@ -1940,14 +2086,15 @@ def _k8_pairs(Dg, Eg, r, n_c):
     Ds, Es = Dg[:, :n_c], Eg[:, :n_c]
     L = r.shape[1]
     b3 = F.pad(r, (0, n_c * n - L)).reshape(F_, n_c, n)
-    lv_k, ok_k = k8.bcr_factor(Dg, Eg)
-    lv_k2, _ = k8.bcr_factor(Dg, Eg)
-    lv_p, ok_p = banded._bcr_factor(Ds, Es)
-    x_p = banded._bcr_solve(lv_p, b3, n_c)[:, :L]
+    lv_k, ok_k = k8.bcr_factor(Dg, Eg, live=n_c)
+    lv_k2, _ = k8.bcr_factor(Dg, Eg, live=n_c)
     x_k = k8.bcr_solve(lv_k, r)
     x_k2 = k8.bcr_solve(lv_k2, r)
-    x_kp = banded._bcr_solve(lv_k, b3, n_c)[:, :L]
-    x_pk = k8.bcr_solve(lv_p, r)
+    lv_n, ok_n = k8.bcr_factor_plain(Dg, Eg, live=n_c)
+    x_n = k8.bcr_solve_plain(lv_n, r)
+    x_nk = k8.bcr_solve(lv_n, r)
+    lv_p, ok_p = banded._bcr_factor(Ds, Es)
+    x_p = banded._bcr_solve(lv_p, b3, n_c)[:, :L]
     C_k, M_k, sok_k = k8.scan_factor(Ds, Es)
     C_k2, M_k2, _ = k8.scan_factor(Ds, Es)
     C_p, M_p, sok_p = banded._factor(Ds, Es)
@@ -1957,34 +2104,36 @@ def _k8_pairs(Dg, Eg, r, n_c):
     y_kp = banded._solve_factored(C_k, M_k, b3)[:, :L]
     y_pk = k8.scan_solve(C_p, M_p, r)
     torch.cuda.synchronize()
-    # A and B of a level are views of its input, so the factors differ in
-    # the Choleskys alone
-    f_rel = max(rel_err(lk[0], lp[0])[1]
-                for lk, lp in zip(lv_k[:-1], lv_p[:-1]))
-    rel = {"bcr factor": max(f_rel, rel_err(lv_k[-1], lv_p[-1])[1]),
-           "bcr solve": rel_err(x_k, x_p)[1],
-           "bcr kernel factor + plain solve": rel_err(x_kp, x_p)[1],
-           "bcr plain factor + kernel solve": rel_err(x_pk, x_p)[1],
+
+    def blocks(levels):
+        return [t for lv in levels[:-1] for t in lv if t.numel()] + [
+            levels[-1]]
+
+    rel = {"bcr factor": max(rel_err(a, b)[1] for a, b in zip(
+               blocks(lv_k), blocks(lv_n))),
+           "bcr solve": rel_err(x_k, x_n)[1],
+           "bcr plain factor + kernel solve": rel_err(x_nk, x_n)[1],
+           "bcr x = S^-1 b": rel_err(x_k, x_p)[1],
            "scan factor": max(rel_err(C_k, C_p)[1], rel_err(M_k, M_p)[1]),
            "scan solve": rel_err(y_k, y_p)[1],
            "scan kernel factor + plain solve": rel_err(y_kp, y_p)[1],
            "scan plain factor + kernel solve": rel_err(y_pk, y_p)[1]}
-    same = (all(torch.equal(a[0], b[0]) for a, b in zip(lv_k[:-1],
-                                                       lv_k2[:-1]))
-            and torch.equal(lv_k[-1], lv_k2[-1]) and torch.equal(x_k, x_k2)
+    same = (all(torch.equal(a, b) for a, b in zip(blocks(lv_k),
+                                                  blocks(lv_k2)))
+            and torch.equal(x_k, x_k2)
             and torch.equal(C_k, C_k2) and torch.equal(M_k, M_k2)
             and torch.equal(y_k, y_k2))
-    oks = [bool(o) for o in (ok_k, ok_p, sok_k, sok_p)]
+    oks = [bool(o) for o in (ok_k, ok_n, ok_p, sok_k, sok_p)]
 
     def chunks(x):
         return F.pad(x, (0, n_c * n - L)).reshape(F_, n_c, n)
 
     sols = {k: chunks(v) for k, v in
             dict(x_k=x_k, x_p=x_p, y_k=y_k, y_p=y_p).items()}
-    errs = dict(f=max(max(_max_abs(a[0], b[0]) for a, b in zip(
-        lv_k[:-1], lv_p[:-1])), _max_abs(lv_k[-1], lv_p[-1]),
-        _max_abs(C_k, C_p), _max_abs(M_k, M_p)),
-        s=max(_max_abs(x_pk, x_p), _max_abs(y_pk, y_p)))
+    errs = dict(f=max(max(_max_abs(a, b) for a, b in zip(
+        blocks(lv_k), blocks(lv_n))), _max_abs(C_k, C_p),
+        _max_abs(M_k, M_p)),
+        s=max(_max_abs(x_nk, x_n), _max_abs(y_pk, y_p)))
     return rel, oks, same, sols, b3, errs
 
 
@@ -1992,10 +2141,12 @@ def phase_k8(p, cfg, band):
     """K8 on the long build's band (P = 2,048, 86 -> 128 chunks of n =
     216) against its plain versions on the card, in f32 and f64: K8a
     bit-identical (cyclic reduction's padded layout and the scan's); K8b
-    and K8c (cyclic reduction and scan), crossed both ways, within
-    TOL_K8_LONG_F64 / TOL_K8_LONG_F32, their backward error within
-    K8_RES_FACTOR of the plain solve's, and on a damped copy within
-    TOL_K8_DAMPED; two launches bit-identical.  Returns the f32 max abs
+    and K8c by cyclic reduction against `bcr_factor_plain` /
+    `bcr_solve_plain` and x = S^-1 b against `_bcr_solve`, the scan
+    crossed both ways, within TOL_K8_LONG_F64 / TOL_K8_LONG_F32, their
+    backward error within K8_RES_FACTOR of the plain solve's, and on a
+    damped copy within TOL_K8_DAMPED; two launches bit-identical.  Returns
+    the f32 max abs
     errors of (K8a, K8b, K8c) against the plain versions."""
     import numpy as np
     import torch

@@ -56,6 +56,19 @@ Jacobi branch), each checked against the plain version first:
         > _archive/marginalize_old.cu
     python3 profile_port.py --k11-against _archive/marginalize_old.cu
 
+With `--k8-levels [TREE]`, instead, it times K8b's cyclic-reduction
+factor and one K8c solve on a system of the long trajectory's shape (one
+window of 86 real chunks of n = 216 padded to 128, f32, made from a seed
+on the card): device ms of a whole factor and a whole solve (CUDA-graph
+replay) and of each level's eliminate, products, down and up steps
+(chip_smoke.k8_level_split, from profiler traces).  With TREE (an
+earlier tree unpacked under `_archive/`), the package is imported from
+there, so PR 8's kernels are timed the same way in the same call:
+
+    git archive <commit> | tar -x -C _archive/parent
+    python3 profile_port.py --k8-levels _archive/parent
+    python3 profile_port.py --k8-levels
+
 With `--solves`, instead, it times chip_smoke.py's two flagship solves,
 GN-25 (`solve_fixed`) and the dogleg `solve` (f32, at most 25 iterations),
 five times each after a warm-up, and prints each run's iterations, its
@@ -89,6 +102,15 @@ import warnings
 from pathlib import Path
 
 import chip_smoke
+
+# `--k8-levels TREE` times the package of TREE: it goes first on the path
+# before anything imports ba_tpu_torch
+K8_TREE = None
+if "--k8-levels" in sys.argv[1:]:
+    _i = sys.argv.index("--k8-levels") + 1
+    if _i < len(sys.argv) and not sys.argv[_i].startswith("--"):
+        K8_TREE = sys.argv[_i]
+        sys.path.insert(0, str(Path(K8_TREE).resolve()))
 
 N_STAGE_ITERS = 5
 N_PROFILE_ITERS = 2
@@ -542,6 +564,60 @@ def k11_against(smi, src):
                       f" info {info.tolist()}", flush=True)
 
 
+def k8_system(n_c=86, chunk=24, D=9, seed=0):
+    """(Dg, Eg, rows, n_c): one window of the long trajectory's chunk shape
+    (n_c real chunks of n = chunk D, padded with identity chunks and zero
+    couplings to a power of two, as K8a lays them out), f32 on the card:
+    symmetric diagonal blocks made dominant, couplings ~0.05, from a seed;
+    rows (1, n_c n - 3) of ones."""
+    import torch
+
+    n = chunk * D
+    m = 1 << (n_c - 1).bit_length()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Dg = 0.05 * torch.randn((1, m, n, n), generator=g, device="cuda")
+    Dg = Dg + Dg.mT + (0.1 * n + 2.0) * torch.eye(n, device="cuda")
+    Eg = 0.05 * torch.randn((1, m, n, n), generator=g, device="cuda")
+    Dg[:, n_c:] = torch.eye(n, device="cuda")
+    Eg[:, n_c:] = 0.0
+    return Dg, Eg, torch.ones((1, n_c * n - 3), device="cuda"), n_c
+
+
+def k8_levels(smi, tree):
+    """K8b and K8c of the package first on sys.path (this tree's, or
+    TREE's) on `k8_system`: device ms of a factor and a solve, and their
+    split by level and stage."""
+    import inspect
+
+    from ba_tpu_torch.kernels import chunk_tridiag as k8
+
+    Dg, Eg, rows, n_c = k8_system()
+    kw = ({"live": n_c} if "live" in inspect.signature(
+        k8.bcr_factor).parameters else {})
+    levels, ok = k8.bcr_factor(Dg, Eg, **kw)
+    x = k8.bcr_solve(levels, rows)
+    who = tree or "this tree"
+    print(f"[{smi}] K8 on the long trajectory's shape ({who}): ok "
+          f"{bool(ok)}, x finite {bool(x.isfinite().all())}", flush=True)
+    tf = chip_smoke.graph_ms(lambda: k8.bcr_factor(Dg, Eg, **kw), 3)
+    ts = chip_smoke.graph_ms(lambda: k8.bcr_solve(levels, rows), 10)
+    split = chip_smoke.k8_level_split(lambda: k8.bcr_factor(Dg, Eg, **kw),
+                                      lambda: k8.bcr_solve(levels, rows),
+                                      len(levels) - 1)
+
+    def row(xs):
+        return " ".join(f"{v:.4f}" for v in xs)
+
+    print(f"[{smi}] K8 ({who}) device ms: factor {tf:.4f}, solve {ts:.4f} "
+          f"(CUDA-graph replay); by level (profiler, mean of 3 calls), "
+          f"factor eliminate {row(split['eliminate'])}, base "
+          f"{split['base_eliminate']:.4f}; factor products "
+          f"{row(split['products'])}; solve down {row(split['down'])}, "
+          f"base {split['base_solve']:.4f}, up {row(split['up'])}; sums "
+          f"factor {split['factor_total']:.4f}, solve "
+          f"{split['solve_total']:.4f}", flush=True)
+
+
 def solve_times(smi, n_solves=5):
     """GN-25 and the dogleg solve on the flagship: n_solves timed runs of
     each after a warm-up."""
@@ -583,6 +659,9 @@ def main():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
     smi = chip_smoke.smi_line()
+    if "--k8-levels" in sys.argv[1:]:
+        k8_levels(smi, K8_TREE)
+        return 0
     chip_smoke.phase_build()
     if "--k11-against" in sys.argv[1:]:
         k11_against(smi, sys.argv[sys.argv.index("--k11-against") + 1])
@@ -593,6 +672,8 @@ def main():
     for which in ("long", "cg", "fleet", "selfcal"):
         if f"--{which}" in sys.argv[1:]:
             path_iteration(smi, which)
+            if which == "long":
+                k8_levels(smi, None)
             return 0
     _, p, cfg, _ = chip_smoke.flagship()
     cfg = dataclasses.replace(cfg, use_dogleg=False)

@@ -15,14 +15,25 @@ seed.
     scaling itself is held to 2 ulps: XLA's rsqrt and torch's round
     differently on some inputs, so ba_tpu's sequence then runs from the
     port's scaling.
-  * K8b and K8c: a torch walk of the kernels' per-block order (the blocked
-    right-looking Cholesky in 32-column panels, the blocked triangular
-    solves, cyclic reduction's level split with the shifted T1 and the
-    solve's down and up passes, the scan's steps) against ba_tpu's
-    `_bcr_factor`, `_bcr_solve`, `_factor` and `_solve_factored`, to 1e-12
-    relative: m = 4, 5 (padded to 8) and 8 chunks, n = 18 (one panel) and
-    n = 45 and 72 (several), F = 1 and 2 windows; an indefinite block sets
-    the failure flag where ba_tpu's factor is non-finite.
+  * K8b and K8c in ba_tpu's representation: a torch walk of a blocked
+    order (the right-looking Cholesky in 32-column panels, the blocked
+    triangular solves, cyclic reduction's level split with the shifted T1
+    and the solve's down and up passes, the scan's steps, which are the
+    scan kernels') against ba_tpu's `_bcr_factor`, `_bcr_solve`, `_factor`
+    and `_solve_factored`, to 1e-12 relative: m = 4, 5 (padded to 8) and 8
+    chunks, n = 18 (one panel) and n = 45 and 72 (several), F = 1 and 2
+    windows; an indefinite block sets the failure flag where ba_tpu's
+    factor is non-finite.
+  * K8b and K8c with explicit triangular inverses (the cyclic-reduction
+    kernels): `bcr_factor_plain` / `bcr_solve_plain` on K8a's padded layout
+    against ba_tpu's `_bcr_factor` / `_bcr_solve` in f64, x = S^-1 b to
+    1e-10 and every level reconstructed (Li, W, V, the next D' and E') to
+    1e-12, at m = 4, 5, 8 and 11 chunks, n = 18, 45 and 72, F = 1 and 2; a
+    torch walk of the kernels' tile, panel and level order, padding
+    skipped, equal to the plain versions bit for bit; the indefinite-block
+    flag; and in f32 the solve's normwise backward error within
+    K8_RES_FACTOR (4) of `_bcr_solve`'s on a Jacobi-scaled band with eps =
+    1e-4.
 """
 
 import jax
@@ -410,3 +421,336 @@ def test_k8_walk_flags_an_indefinite_block(scan):
         j_ok = bool(jband._bcr_factor(jnp.asarray(Dg[0].numpy()),
                                       jnp.asarray(Eg[0].numpy()))[1])
     assert not ok and not j_ok
+
+
+# ---- K8b / K8c with explicit triangular inverses (the kernels of
+# csrc/chunk_factor.cu and csrc/chunk_solve.cu) --------------------------
+
+
+def _padded(Dg, Eg):
+    """Dg, Eg (F, m, n, n) padded to a power of two with identity chunks and
+    zero couplings, as K8a lays them out."""
+    F, m, n, _ = Dg.shape
+    m2 = k8.next_pow2(m)
+    eye = torch.eye(n, dtype=Dg.dtype).expand(F, m2 - m, n, n)
+    return (torch.cat([Dg, eye], 1),
+            torch.cat([Eg, Eg.new_zeros((F, m2 - m, n, n))], 1))
+
+
+def _ba_tpu_bcr(Dg, Eg, b):
+    """ba_tpu's `_bcr_factor` levels and `_bcr_solve` of each window."""
+    m = Dg.shape[1]
+    f = jax.vmap(lambda d, e: jband._bcr_factor(d, e))
+    levels, ok = f(jnp.asarray(Dg.numpy()), jnp.asarray(Eg.numpy()))
+    x = jax.vmap(lambda lv, r: jband._bcr_solve(lv, r, m))(
+        levels, jnp.asarray(b.numpy()))
+    return levels, ok, np.asarray(x)
+
+
+@pytest.mark.parametrize("F,m,chunk,D", [(1, 4, 6, 3), (2, 5, 5, 9),
+                                         (1, 8, 8, 9), (1, 11, 8, 9),
+                                         (2, 11, 6, 3)],
+                         ids=["m4-n18", "F2-m5-n45", "m8-n72", "m11-n72",
+                              "F2-m11-n18"])
+def test_bcr_plain_matches_ba_tpu(F, m, chunk, D):
+    """`bcr_factor_plain` on K8a's padded layout (live = m) and
+    `bcr_solve_plain` against ba_tpu's `_bcr_factor` and `_bcr_solve` in
+    f64: x = S^-1 b to 1e-10; and every level reconstructed to 1e-12: Li_k
+    ba_tpu's chol(Dodd_k)^-1, c_k W_k = A_k^T, c_k V_k = B_k, E'_k = -W_k^T
+    V_k ba_tpu's next couplings, and the next level's D'_k = (D_2k -
+    V_{k-1}^T V_{k-1}) - W_k^T W_k (built up from Dg) ba_tpu's c c^T."""
+    Dg, Eg, b = _chunks(np.random.default_rng(10 * F + m), F, m, chunk, D,
+                        B=3)
+    n = chunk * D
+    j_levels, j_ok, j_x = _ba_tpu_bcr(Dg, Eg, b)
+    levels, ok = k8.bcr_factor_plain(*_padded(Dg, Eg), live=m)
+    assert bool(ok) and bool(jnp.all(j_ok))
+    assert len(levels) == len(j_levels)
+    x = k8.bcr_solve_plain(levels, b.reshape(F, m * n))
+    assert_rel(x, j_x.reshape(F, -1), 1e-10, "x = S^-1 b")
+    eye = torch.eye(n, dtype=Dg.dtype)
+    D = torch.cat([Dg, eye.expand(F, k8.next_pow2(m) - m, n, n)], 1)
+    rs = k8.level_sizes(levels)
+    assert rs[0] == min(k8.next_pow2(m), m + 1)
+    for li, ((Li, W, V), r) in enumerate(zip(levels[:-1], rs)):
+        h, nv = Li.shape[1], V.shape[1]
+        jc, jA, jB = (torch.as_tensor(np.array(t)) for t in j_levels[li])
+        c = jc[:, :h]
+        assert_rel(Li @ c, eye.expand_as(Li), 1e-12, f"level {li} Li c")
+        assert_rel(c @ W, jA[:, :h].mT, 1e-12, f"level {li} c W")
+        assert_rel(c[:, :nv] @ V, jB[:, :nv], 1e-12, f"level {li} c V")
+        rn = r - h
+        Dn = D[:, 0:2 * rn:2].clone()
+        Dn[:, 1:nv + 1] -= V.mT @ V
+        Dn[:, :h] -= W.mT @ W
+        En = -(W[:, :nv].mT @ V)
+        nxt = j_levels[li + 1]
+        if li + 1 < len(levels) - 1:
+            na, nb = (torch.as_tensor(np.array(t)) for t in nxt[1:])
+            assert_rel(En[:, 0::2], na[:, :len(range(0, nv, 2))], 1e-12,
+                       f"level {li} E' even")
+            assert_rel(En[:, 1::2], nb[:, :len(range(1, nv, 2))], 1e-12,
+                       f"level {li} E' odd")
+            cn = torch.as_tensor(np.array(nxt[0]))[:, :rn // 2]
+            got = torch.tril(Dn[:, 1::2])
+        else:
+            cn = torch.as_tensor(np.array(nxt))[:, None]
+            got = torch.tril(Dn[:, :1])
+        assert_rel(got, torch.tril(cn @ cn.mT), 1e-12, f"level {li} D'")
+        D = Dn
+    assert_rel(levels[-1] @ torch.as_tensor(np.array(j_levels[-1])),
+               eye.expand(F, n, n), 1e-12, "Li0 c0")
+
+
+def _chol_inv_walk(S):
+    """`bcr_chol_inv`'s schedule for one block: per panel of TS columns
+    the diagonal tile swept row by row (lane i owning row i), the panel
+    U over P (rows J of the inverse) and over T (L_TJ^T) in groups of 8
+    outputs, then the trailing rows in groups of 4, each over its columns
+    [0, i] (-acc over J, M - acc elsewhere); sums in the kernel's order."""
+    n = S.shape[-1]
+    M = torch.tril(S)
+    bad = False
+    for j0 in range(0, n, TS):
+        j1 = min(n, j0 + TS)
+        nb = j1 - j0
+        G = [M[j0 + i, j0:j1].clone() for i in range(nb)]
+        for j in range(nb):
+            d = G[j][j]
+            bad |= not bool(d > 0) or not bool(torch.isfinite(d))
+            rs = 1 / torch.sqrt(d)
+            w = [G[x][j] * rs if x > j else G[j][x] * rs if x < j else rs
+                 for x in range(nb)]
+            for i in range(j + 1, nb):
+                for k in range(i + 1):
+                    G[i][k] = -(w[i] * rs) if k == j else G[i][k] - w[i] * w[k]
+            for k in range(j):
+                G[j][k] = w[k]
+            G[j][j] = rs
+        Ljj = torch.tril(torch.stack(G))
+        U = M.new_zeros((nb, n))
+        U[:, j0:j1] = Ljj
+        for e in range(j0 + n - j1):             # column of P or row of T
+            rowsj = e < j0
+            i = e if rowsj else j1 + e - j0
+            for a0 in range(0, nb, 8):
+                acc = M.new_zeros(min(8, nb - a0))
+                for t in range(min(nb, a0 + 8)):
+                    y = M[j0 + t, i] if rowsj else M[i, j0 + t]
+                    for q in range(len(acc)):
+                        if a0 + q >= t:
+                            acc[q] = acc[q] + Ljj[a0 + q, t] * y
+                U[a0:a0 + len(acc), i] = acc
+        M[j0:j1, :j0] = U[:, :j0]
+        M[j0:j1, j0:j1] = Ljj
+        for i0 in range(j1, n, 4):
+            rows = slice(i0, min(n, i0 + 4))
+            cols = min(n, i0 + 4)
+            acc = M.new_zeros((rows.stop - i0, cols))
+            for t in range(TS):
+                acc = acc + U[t, rows, None] * U[t, None, :cols]
+            for q in range(rows.stop - i0):
+                i = i0 + q
+                M[i, j0:j1] = -acc[q, j0:j1]
+                M[i, :j0] = M[i, :j0] - acc[q, :j0]
+                M[i, j1:i + 1] = M[i, j1:i + 1] - acc[q, j1:i + 1]
+    return M, bad or not bool(torch.isfinite(M).all())
+
+
+def _tile_mm(A, B, n, r0, c0, t_end):
+    """A 32 x 32 output tile of A (n, n) @ B (n, n) over t < t_end, summed
+    over t in order (`tile_mm`)."""
+    r1, c1 = min(n, r0 + TS), min(n, c0 + TS)
+    acc = A.new_zeros((r1 - r0, c1 - c0))
+    for t in range(t_end):
+        acc = acc + A[r0:r1, t, None] * B[None, t, c0:c1]
+    return acc
+
+
+def _bcr_factor_walk_inv(Dg, Eg, live):
+    """K8b's schedule, one window: per level the chunks that are not padding
+    (r = live + 1 at the top, halved up), Li_k per block, W_k and V_k per
+    32 x 32 tile (a tile of Li's rows stopping at its last row, V_k only
+    for k < rn - 1), then the lower tiles of D'_k (the V term for 1 <= k
+    <= nv, the W term for k < h) and the tiles of E'_k for k < nv."""
+    m, n = Dg.shape[0], Dg.shape[-1]
+    r = min(m, live + 1)
+    D, E = Dg, Eg
+    tiles = [(ti * TS, tj * TS) for ti in range(-(-n // TS))
+             for tj in range(-(-n // TS))]
+    levels, bad = [], False
+    while r > 1:
+        h, rn = r // 2, r - r // 2
+        nv = rn - 1
+        Li = torch.zeros((h, n, n), dtype=Dg.dtype)
+        for k in range(h):
+            Li[k], b_ = _chol_inv_walk(D[2 * k + 1])
+            bad |= b_
+        W = torch.empty((h, n, n), dtype=Dg.dtype)
+        V = torch.empty((nv, n, n), dtype=Dg.dtype)
+        for k in range(h):
+            for r0, c0 in tiles:
+                t_end = min(n, r0 + TS)
+                W[k, r0:r0 + TS, c0:c0 + TS] = _tile_mm(
+                    Li[k], E[2 * k].T, n, r0, c0, t_end)
+                if k < nv:
+                    V[k, r0:r0 + TS, c0:c0 + TS] = _tile_mm(
+                        Li[k], E[2 * k + 1], n, r0, c0, t_end)
+        Dn = torch.zeros((rn, n, n), dtype=Dg.dtype)
+        En = torch.zeros((nv, n, n), dtype=Dg.dtype)
+        for k in range(rn):
+            for r0, c0 in tiles:
+                blk = (slice(r0, r0 + TS), slice(c0, c0 + TS))
+                if r0 >= c0:
+                    acc = D[2 * k][blk]
+                    if 1 <= k <= nv:
+                        acc = acc - _tile_mm(V[k - 1].T, V[k - 1], n, r0,
+                                             c0, n)
+                    if k < h:
+                        acc = acc - _tile_mm(W[k].T, W[k], n, r0, c0, n)
+                    Dn[k][blk] = acc
+                if k < nv:
+                    En[k][blk] = -_tile_mm(W[k].T, V[k], n, r0, c0, n)
+        levels.append((Li, W, V))
+        D, E, r = Dn, En, rn
+    Li0, b_ = _chol_inv_walk(D[0])
+    levels.append(Li0)
+    return levels, not (bad or b_)
+
+
+def _bcr_solve_walk_inv(levels, b):
+    """K8c's schedule, one window: down t_k = Li_k b_{2k+1} by rows (each
+    stopping at the diagonal), b'_k by columns; the base; up y_k by rows
+    (the V term for k < nv), then x_odd = Li_k^T y_k by columns from the
+    diagonal down and the interleave; chunks past r read as zero."""
+    n = levels[-1].shape[-1]
+    rs = k8.level_sizes([tuple(t[None] for t in lv) for lv in levels[:-1]]
+                        + [levels[-1][None]])
+
+    def row(Mx, v, i, stop):              # sum_{t < stop} Mx[i, t] v[t]
+        s = torch.zeros((), dtype=b.dtype)
+        for t in range(stop):
+            s = s + Mx[i, t] * v[t]
+        return s
+
+    def col(Mx, v, i, start):             # sum_{t >= start} Mx[t, i] v[t]
+        s = torch.zeros((), dtype=b.dtype)
+        for t in range(n):
+            if t >= start:
+                s = s + Mx[t, i] * v[t]
+        return s
+
+    L = b.shape[0]
+    bl = torch.nn.functional.pad(b, (0, rs[0] * n - L)).reshape(rs[0], n)
+    ts = []
+    for (Li, W, V), r in zip(levels[:-1], rs):
+        h, rn = r // 2, r - r // 2
+        nv = rn - 1
+        t = torch.stack([torch.stack([row(Li[k], bl[2 * k + 1], i, i + 1)
+                                      for i in range(n)]) for k in range(h)])
+        bn = bl[0:2 * rn:2].clone()
+        for k in range(rn):
+            for i in range(n):
+                v = col(V[k - 1], t[k - 1], i, 0) if 1 <= k <= nv else 0.0
+                w = col(W[k], t[k], i, 0) if k < h else 0.0
+                bn[k, i] = (bl[2 * k, i] - v) - w
+        ts.append(t)
+        bl = bn
+    Li0 = levels[-1]
+    t0 = torch.stack([row(Li0, bl[0], i, i + 1) for i in range(n)])
+    x = torch.stack([col(Li0, t0, i, i) for i in range(n)])[None]
+    for (Li, W, V), t, r in reversed(list(zip(levels[:-1], ts, rs))):
+        h, rn = r // 2, r - r // 2
+        nv = rn - 1
+        xn = torch.empty((r, n), dtype=b.dtype)
+        xn[0::2] = x
+        for k in range(h):
+            y = torch.stack([
+                (t[k, i] - row(W[k], x[k], i, n))
+                - (row(V[k], x[k + 1], i, n) if k < nv else 0.0)
+                for i in range(n)])
+            xn[2 * k + 1] = torch.stack([col(Li[k], y, i, i)
+                                         for i in range(n)])
+        x = xn
+    return x.reshape(-1)[:L]
+
+
+@pytest.mark.parametrize("F,m,chunk,D", [(1, 4, 6, 3), (2, 5, 5, 9),
+                                         (1, 3, 12, 3)],
+                         ids=["m4-n18", "F2-m5-n45", "m3-n36"])
+def test_k8_inverse_walk_is_the_plain_version_bit_for_bit(F, m, chunk, D):
+    """A torch walk of the new kernels' tile, panel and level order,
+    padding skipped, equals `bcr_factor_plain` and `bcr_solve_plain`
+    bit for bit (f64) on K8a's padded layout."""
+    Dg, Eg, b = _chunks(np.random.default_rng(m * chunk), F, m, chunk, D,
+                        B=3)
+    Dp, Ep = _padded(Dg, Eg)
+    n = chunk * D
+    L = m * n - 2
+    rows = b.reshape(F, -1)[:, :L]
+    levels, ok = k8.bcr_factor_plain(Dp, Ep, live=m)
+    x = k8.bcr_solve_plain(levels, rows)
+    assert bool(ok)
+    for w in range(F):
+        wl, wok = _bcr_factor_walk_inv(Dp[w], Ep[w], m)
+        assert wok
+        for (Li, W, V), (pLi, pW, pV) in zip(wl[:-1], levels[:-1]):
+            assert torch.equal(Li, pLi[w]) and torch.equal(W, pW[w])
+            assert torch.equal(V, pV[w])
+        assert torch.equal(wl[-1], levels[-1][w])
+        assert torch.equal(_bcr_solve_walk_inv(wl, rows[w]), x[w])
+
+
+def test_k8_inverse_flags_an_indefinite_block():
+    """An indefinite block clears `ok` in `bcr_factor_plain` and in the
+    walk, where ba_tpu's factor is non-finite (as
+    `test_k8_walk_flags_an_indefinite_block` has it for the old order)."""
+    Dg, Eg, _ = _chunks(np.random.default_rng(2), 1, 4, 6, 3, B=3)
+    Dg[0, 1, 4, 4] = -50.0
+    assert not bool(k8.bcr_factor_plain(Dg, Eg)[1])
+    assert not _bcr_factor_walk_inv(Dg[0], Eg[0], 4)[1]
+    assert not bool(jband._bcr_factor(jnp.asarray(Dg[0].numpy()),
+                                      jnp.asarray(Eg[0].numpy()))[1])
+
+
+def _residual(Dg, Eg, x, b):
+    """Normwise backward error of x (F, m, n) for the chunk system (f64):
+    max |S x - b| / (max |S| n max |x| + max |b|) (chip_smoke.py's
+    `_chunk_residual`)."""
+    Dg, Eg, x, b = (t.double() for t in (Dg, Eg, x, b))
+    Dg = torch.tril(Dg) + torch.tril(Dg, -1).mT
+    Sx = torch.einsum("fkij,fkj->fki", Dg, x)
+    Sx[:, :-1] += torch.einsum("fkij,fkj->fki", Eg[:, :-1], x[:, 1:])
+    Sx[:, 1:] += torch.einsum("fkji,fkj->fki", Eg[:, :-1], x[:, :-1])
+    scale = (max(float(Dg.abs().max()), float(Eg.abs().max())) * Dg.shape[-1]
+             * float(x.abs().max()) + float(b.abs().max()))
+    return float((Sx - b).abs().max()) / scale
+
+
+# chip_smoke.py's K8_RES_FACTOR: the new solve's backward error may be at
+# most this multiple of the old plain solve's
+K8_RES_FACTOR = 4.0
+
+
+@pytest.mark.parametrize("F,m,chunk", [(1, 11, 8), (2, 5, 5)],
+                         ids=["m11-n72", "F2-m5-n45"])
+def test_k8_inverse_f32_backward_error(F, m, chunk):
+    """In f32, on a Jacobi-scaled band with eps = 1e-4 on its diagonal (the
+    solver's f32 layout), the explicit-inverse solve's normwise backward
+    error is at most K8_RES_FACTOR times `_bcr_solve`'s."""
+    D = 9
+    rng = np.random.default_rng(F * m)
+    band = np.concatenate([_band(rng, m * chunk, 3, D) for _ in range(F)])
+    cfg = BAConfig(pose_dim=D, lm_size=1, fleet_size=F, banded_chunk=chunk)
+    band_s, _ = tband.jacobi_scaled(torch.as_tensor(band))
+    band_s[:, 0] += 1e-4 * torch.eye(D, dtype=band_s.dtype)
+    Dg, Eg = tband.chunk_system(band_s, cfg, F * m * chunk, D)[:2]
+    b = torch.as_tensor(rng.standard_normal((F, m, chunk * D)))
+    Dg, Eg, b = Dg.float(), Eg.float(), b.float()
+    levels, ok = k8.bcr_factor_plain(*_padded(Dg, Eg), live=m)
+    x = k8.bcr_solve_plain(levels, b.reshape(F, -1)).reshape(b.shape)
+    old = tband._bcr_solve(tband._bcr_factor(Dg, Eg)[0], b, m).reshape(
+        b.shape)
+    assert bool(ok)
+    res_new, res_old = (_residual(Dg, Eg, v, b) for v in (x, old))
+    assert res_new <= K8_RES_FACTOR * res_old, (res_new, res_old)

@@ -47,11 +47,12 @@ bit-identical between launches and raising when they do not build; three
 steady f32 pushes of the streaming smoother make no host sync.  K5b (band
 to dense) and K8a (the chunk layout) equal their plain versions element
 for element in f32 and f64; K8b and K8c (the chunked factor and solve, by
-cyclic reduction and by the scan) match theirs to 1e-12 (f64) and 1e-4
-(f32, the levels' Schur complements summed in another order), crossed
-both ways (the kernel's factor with the plain solve and the reverse), at
-F = 2 windows and n up to 216, bit-identical between launches; an
-indefinite block clears `ok` on the device; `banded_pcg_solve` on the
+cyclic reduction with explicit triangular inverses and by the scan) match
+their plain versions to 1e-12 (f64) and 1e-4 (f32, the levels' Schur
+complements summed in another order), every level's Li, W and V, and x =
+S^-1 b the solver's plain `_bcr_solve`, at F = 2 windows, n up to 216 and
+padded chunk counts, bit-identical between launches; an indefinite block
+clears `ok` on the device; `banded_pcg_solve` on the
 card runs K8 and kernel 9 only, with no `torch.linalg` call and no host
 read.
 """
@@ -1172,13 +1173,15 @@ TOL_K8 = {torch.float64: 1e-12, torch.float32: 1e-4}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("F,m,chunk", [(1, 8, 24), (2, 5, 5), (1, 4, 4)],
-                         ids=["m8-n216", "F2-m5-n45", "m4-n36"])
+@pytest.mark.parametrize("F,m,chunk", [(1, 8, 24), (2, 5, 5), (1, 4, 4),
+                                       (1, 11, 24)],
+                         ids=["m8-n216", "F2-m5-n45", "m4-n36", "m11-n216"])
 def test_bcr_factor_and_solve_kernels_match_plain(dtype, F, m, chunk):
-    """K8b's cyclic reduction and K8c's solve against `_bcr_factor` and
-    `_bcr_solve`: every level's factor and the solve, each kernel's
-    factor with the plain solve and the plain factor with the kernel's
-    solve, bit-identical relaunches, no `torch.linalg` call."""
+    """K8b's cyclic reduction and K8c's solve against `bcr_factor_plain`
+    and `bcr_solve_plain` (every level's Li, W and V, the base Li0, the
+    solve, and the kernel's solve on the plain factor) on K8a's padding to
+    a power of two with `live` = m, and x = S^-1 b against the solver's
+    plain `_bcr_solve`; exact launch counts, bit-identical relaunches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ba_tpu_torch.kernels import chunk_tridiag as k8
@@ -1186,34 +1189,37 @@ def test_bcr_factor_and_solve_kernels_match_plain(dtype, F, m, chunk):
 
     tol = TOL_K8[dtype]
     Dg, Eg, b = _chunk_system(dtype, F, m, chunk)
-    lv_p, ok_p = banded._bcr_factor(Dg, Eg)
-    x_p = banded._bcr_solve(lv_p, b, m)
+    x_p = banded._bcr_solve(banded._bcr_factor(Dg, Eg)[0], b, m)
     # the kernel takes the chunks padded to a power of two, as K8a lays
-    # them out and `_bcr_factor` pads them
+    # them out
     n, m2 = Dg.shape[-1], k8.next_pow2(m)
     eye = torch.eye(n, dtype=dtype, device="cuda").expand(F, m2 - m, n, n)
     Dg2 = torch.cat([Dg, eye], dim=1)
     Eg2 = torch.cat([Eg, Eg.new_zeros((F, m2 - m, n, n))], dim=1)
     rows = b.reshape(F, m * n)
+    lv_p, ok_p = k8.bcr_factor_plain(Dg2, Eg2, live=m)
+    x_pn = k8.bcr_solve_plain(lv_p, rows)
     nf, ns = k8.bcr_factor.launches, k8.bcr_solve.launches
-    lv_k, ok_k = k8.bcr_factor(Dg2, Eg2)
+    lv_k, ok_k = k8.bcr_factor(Dg2, Eg2, live=m)
     x_k = k8.bcr_solve(lv_k, rows)
-    lv_k2, _ = k8.bcr_factor(Dg2, Eg2)
+    lv_k2, _ = k8.bcr_factor(Dg2, Eg2, live=m)
     x_k2 = k8.bcr_solve(lv_k2, rows)
     levels = len(lv_k) - 1
-    assert k8.bcr_factor.launches - nf == 2 * (2 * levels + 1)
-    assert k8.bcr_solve.launches - ns == 2 * (2 * levels + 1)
+    assert levels == m2.bit_length() - 1
+    assert k8.bcr_factor.launches - nf == 2 * (3 * levels + 1)
+    assert k8.bcr_solve.launches - ns == 2 * (4 * levels + 2)
     torch.cuda.synchronize()
     assert bool(ok_p) and bool(ok_k)
-    for (c, A, B), (cp, Ap, Bp), (c2, _, _) in zip(lv_k[:-1], lv_p[:-1],
-                                                   lv_k2[:-1]):
-        assert _rel(c, cp) <= tol and _rel(A, Ap) <= tol
-        assert _rel(B, Bp) <= tol and torch.equal(c, c2)
+    for lk, lp, l2 in zip(lv_k[:-1], lv_p[:-1], lv_k2[:-1]):
+        for got, want, again in zip(lk, lp, l2):
+            assert got.shape == want.shape
+            assert _rel(got, want) <= tol and torch.equal(got, again)
     assert _rel(lv_k[-1], lv_p[-1]) <= tol
+    assert torch.equal(lv_k[-1], lv_k2[-1])
     assert torch.equal(x_k, x_k2)
+    assert _rel(x_k, x_pn) <= tol
+    assert _rel(k8.bcr_solve(lv_p, rows), x_pn) <= tol
     assert _rel(x_k, x_p) <= tol
-    assert _rel(banded._bcr_solve(lv_k, b, m), x_p) <= tol
-    assert _rel(k8.bcr_solve(lv_p, rows), x_p) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -1258,6 +1264,7 @@ def test_chunk_factor_kernel_flags_an_indefinite_block(bcr):
     Dg[0, 1, 7, 7] = -50.0
     if bcr:
         assert not bool(k8.bcr_factor(Dg, Eg)[1])
+        assert not bool(k8.bcr_factor_plain(Dg, Eg)[1])
         assert not bool(banded._bcr_factor(Dg, Eg)[1])
     else:
         assert not bool(k8.scan_factor(Dg, Eg)[2])
@@ -1302,7 +1309,8 @@ def test_banded_pcg_solve_on_the_card_runs_k8_only(monkeypatch, F, bcr):
         (k8.chunk_layout.launches, k8.bcr_factor.launches,
          k8.scan_factor.launches, k8.bcr_solve.launches,
          k8.scan_solve.launches), counts))
-    # 5 chunks of 8 poses: 8 under cyclic reduction, 3 levels
-    assert moved == ((1, 7, 0, 5 * 7, 0) if bcr else (1, 0, 1, 0, 5 * 2))
+    # 5 chunks of 8 poses: 8 under cyclic reduction, 3 levels (3 launches
+    # a level and the base in the factor, 4 a level and 2 in a solve)
+    assert moved == ((1, 10, 0, 5 * 14, 0) if bcr else (1, 0, 1, 0, 5 * 2))
     assert bool(ok) and bool(ok_w)
     assert _rel(got.cpu(), want) <= 1e-10
