@@ -15,7 +15,7 @@ source each in kernels/csrc/ (`kernels/build.py:SOURCES`):
                    banded solver, kernel 7)
   band_matvec.cu   symmetric block-band product (its PCG, kernel 9)
   schur_matvec.cu  the projection rows of the matrix-free Schur product
-                   (the PCG solver, kernel 6)
+                   and their landmark-sorted pack (the PCG solver, kernel 6)
   fleet_schur.cu   the scaled per-window Schur system of a fused vehicle
                    fleet, straight from the W blocks (kernel 10)
   schur_finish.cu  the dense Schur step S = U - W V^-1 W^T and its rhs (K5)

@@ -9,7 +9,8 @@
   band_schur.py    kernel 7: grouped banded Schur correction
   band_matvec.py   kernel 9: symmetric block-band product
   schur_matvec.py  kernel 6: the projection family's share of the
-                   matrix-free Schur product (the PCG solver)
+                   matrix-free Schur product (the PCG solver), one thread
+                   per row over records its pack lays out once per build
   fleet_schur.py   kernel 10: the scaled per-window Schur system of a
                    fused fleet, from the W blocks
   schur_finish.py  K5: the dense Schur step S = U - W V^-1 W^T and its
@@ -33,7 +34,9 @@ live beside the dispatch (`core/residuals/reprojection.py:evaluate_plain`,
 `core/residuals/imu.py:evaluate_plain`,
 `solver/assemble.py:_seg_sum_plain`, `segsum.plan_walk`,
 `solver/banded.py:band_schur_plain` and `band_matvec_plain`,
-`schur_matvec.schur_matvec_plain`, `fleet_schur.fleet_schur_plain`,
+`schur_matvec.schur_matvec_plain` (and, in the kernels' order,
+`schur_pack_plain`, `schur_matvec_sorted_plain`),
+`fleet_schur.fleet_schur_plain`,
 `schur_finish.schur_finish_plain`,
 `marginalize.marginalize_prior_plain`,
 `solver/assemble.py:band_to_dense_plain`, `solver/banded.py`'s

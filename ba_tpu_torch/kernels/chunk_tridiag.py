@@ -12,7 +12,11 @@ and one before it (5 per build).
   K8a `chunk_layout` (csrc/chunk_layout.cu): one launch writes band_s,
       scal and the chunk blocks Dg, Eg, bit-identical to the plain sequence
       `banded.jacobi_scaled` + `banded.chunk_system` (+ `_bcr_factor`'s
-      identity padding).  Bound: bytes.
+      identity padding).  One block per (window, chunk, row pose) tile
+      stages the scales of the poses around it, its pose's band row and
+      the blocks its Dg rows mirror, then writes its rows 16 bytes a store;
+      a padding chunk's tiles write identity and zero rows.  Bound:
+      bytes.
   K8b `bcr_factor` (csrc/chunk_factor.cu): cyclic reduction with explicit
       triangular inverses.  Per level, for each eliminated chunk k, Li_k =
       chol(Dodd_k)^-1 (one block per chunk, the serial part), W_k = Li_k

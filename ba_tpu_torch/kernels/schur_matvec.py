@@ -6,45 +6,123 @@ its applies `_u_apply` (:123), `_wt_apply` (:103) and `_w_apply` (:111):
 per-row einsums, a segment sum by landmark (W^T x), a gather of
 z = V^-1 W^T x back to the rows, and segment sums by pose, each through
 device memory.  It runs once per PCG iteration of the matrix-free solver
-(`solver/cg.py:solve_reduced_cg`, up to `cg_max_iterations` per build).
+(`solver/cg.py:pcg_solve`, up to `cg_max_iterations` per build).
 
-Design (csrc/schur_matvec.cu): one warp per landmark over the landmark CSR
-of the block plan (`BlockPlan.V`, built once per solve).  Each warp forms
-u_n = J_m x + J_r x of its rows, sums j_l^T u_n in a fixed order (no
-atomics), takes z_l = V_l^-1 of the sum, and writes J_m^T w_n and J_r^T w_n
-with w_n = u_n - j_l z_l: the first 2 Nr rows of the block plan's rhs
-order, which segsum then sums by pose with the other families' rows.
-U x and -W V^-1 W^T x of the projection family are one pass; W^T x never
-goes to device memory.  Bit-identical from launch to launch.
+Design (csrc/schur_matvec.cu): rows, not landmarks, are the unit of work.
+A `SchurPlan`, built once per solve with no host read, sorts the rows by
+landmark (the block plan's V order) and cuts them into tiles of whole
+landmarks; `schur_pack`, once per build, copies the row blocks into that
+order as 16-byte-aligned records [J_m | J_r | j_l | pad]; `schur_matvec`
+then reads each record once (16-byte loads), keeps u_n = J_m x + J_r x in
+a register, sums j_l^T u_n by landmark in row order (no atomics, so two
+launches are bit-identical), takes z_l = V_l^-1 of the sum and writes
+[J_m^T w_n, J_r^T w_n], w_n = u_n - j_l z_l, for row n of the sorted
+order (16-byte stores).  Segsum sums those rows by pose on the block
+plan's `s_rhs` (the plan's `out_pose`, then the unary and binary rows).
+Landmark sizes 0 (w_n = u_n), 1 and 3; float32 and float64.
 
-`schur_matvec_plain` is its plain PyTorch version (the CPU path of
-`solver/cg.py` takes it).
+Plain versions: `schur_matvec_plain` (row order, summed by landmark with
+`index_add_`) is the CPU path of `solver/cg.py`; `schur_pack_plain` and
+`schur_matvec_sorted_plain` compute the kernels' outputs in their order
+(the tests and chip_smoke.py hold the kernels against them).
 
-Bound on an H100: bytes (~14 MB at the long CG configuration, 85,823 rows
-in f32: ~4.2 us at 3.35 TB/s).
-
-Scope: inverse-depth landmarks (lm_size 1), pose width D >= 6, float32 and
-float64.  Other landmark sizes raise on the card (ROADMAP.md queue 1, the
-kernel variants).
+Bound on an H100: bytes (~14.1 MB a product at the PCG configuration,
+85,823 rows in f32, counting the 24 + 2 lm values and 3 ids a row needs:
+~4.2 us at 3.35 TB/s; the padded records and int4 ids the route reads
+come to ~15.2 MB).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
+from .segsum import segment_csr
+
+ROWS, H = 256, 224   # csrc/schur_matvec.cu: threads a block, tile window
+LM_SIZES = (0, 1, 3)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I, _I, _I, _P, _P]
+_PACK_ARGTYPES = [_I, _P, _P, _P, _P, _I, _P, _P]
+_ARGTYPES = [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P]
+
+
+class SchurPlan(NamedTuple):
+    """The static row order of the kernels, built once per solve."""
+
+    perm: torch.Tensor    # (Nr,) int32: the rows stably sorted by landmark,
+    #                       out-of-range landmark ids last
+    ids: torch.Tensor     # (Nr, 4) int32 per sorted row: pose, ref, group
+    #                       (a landmark's rows, or one row whose landmark
+    #                       is out of range), landmark (-1 out of range)
+    tiles: torch.Tensor   # (ceil(Nr / H) + 1,) int32: tile t is rows
+    #                       [tiles[t], tiles[t + 1]), the groups that start
+    #                       in rows [t H, (t + 1) H)
+    out_pose: torch.Tensor  # (2 Nr,) int64: the pose each output row of
+    #                         `schur_matvec` (flattened (Nr, 2, 6) to
+    #                         (2 Nr, 6)) is summed into
+
+
+class SchurPack(NamedTuple):
+    """The row blocks of one build in the plan's order."""
+
+    rows: torch.Tensor    # (Nr, record_width(lm, dtype))
+    lm: int
+
+
+def schur_plan(pose, ref, lm, L: int, perm=None) -> SchurPlan:
+    """The plan of rows with ids pose, ref, lm (Nr,) over L landmarks, on
+    their device, with no host read; `perm`, when given, is the stable
+    landmark sort of the rows (a `segsum.SegPlan` of lm's)."""
+    lm = lm.long()
+    dev = lm.device
+    if perm is None:
+        perm = segment_csr(lm, L)[0]
+    perm = perm.long()
+    key = torch.where((lm >= 0) & (lm < L), lm, L)[perm]
+    Nr = key.shape[0]
+    r = torch.arange(Nr, device=dev)
+    start = (r == 0) | (key != torch.roll(key, 1)) | (key == L)
+    group = torch.cumsum(start, 0) - 1
+    # the first group start at or past each row: a reverse running minimum
+    nxt = torch.where(start, r, Nr)
+    nxt = torch.flip(torch.cummin(torch.flip(nxt, [0]), 0).values, [0])
+    t = torch.arange(-(-Nr // H), device=dev) * H
+    tiles = torch.cat([nxt[t], torch.full((1,), Nr, device=dev)])
+    ids = torch.stack([pose.long()[perm], ref.long()[perm], group,
+                       torch.where(key < L, key, -1)], dim=1)
+    return SchurPlan(perm.int(), ids.int().contiguous(), tiles.int(),
+                     ids[:, :2].reshape(-1))
+
+
+def record_width(lm: int, dtype) -> int:
+    """Values of a packed record: J_m, J_r (24), j_l (2 lm), padded to a
+    multiple of 16 bytes."""
+    u = 16 // dtype.itemsize
+    return -(-(24 + 2 * lm) // u) * u
+
+
+def schur_pack_plain(j_m, j_r, j_l, plan: SchurPlan, lm: int) -> SchurPack:
+    """The records of `schur_pack`: [J_m | J_r | j_l | 0] of each row in
+    the plan's order."""
+    Nr = j_m.shape[0]
+    cols = [j_m.reshape(Nr, 12), j_r.reshape(Nr, 12)]
+    if lm:
+        cols.append(j_l.reshape(Nr, 2 * lm))
+    rows = torch.cat(cols, dim=1)
+    rows = torch.nn.functional.pad(
+        rows, (0, record_width(lm, j_m.dtype) - rows.shape[1]))
+    return SchurPack(rows[plan.perm.long()], lm)
 
 
 def schur_matvec_plain(j_m, j_r, j_l, pose, ref, lm, vinv, x, D: int):
-    """The rows kernel 6 writes, (2 Nr, 6): [J_m^T w; J_r^T w] with
-    w = u - j_l V^-1 (sum by landmark of j_l^T u), u = J_m x[pose] +
-    J_r x[ref]; x (P * D,), vinv (L, lm, lm)."""
+    """The projection rows of the Schur product in row order, (2 Nr, 6):
+    [J_m^T w; J_r^T w] with w = u - j_l V^-1 (sum by landmark of j_l^T u),
+    u = J_m x[pose] + J_r x[ref]; x (P * D,), vinv (L, lm, lm)."""
     X = x.reshape(-1, D)[:, :6]
     u = (torch.einsum("nik,nk->ni", j_m, X[pose])
          + torch.einsum("nik,nk->ni", j_r, X[ref]))
@@ -57,65 +135,147 @@ def schur_matvec_plain(j_m, j_r, j_l, pose, ref, lm, vinv, x, D: int):
                       torch.einsum("nik,ni->nk", j_r, w)])
 
 
-def _fn(dtype):
+def schur_matvec_sorted_plain(pack: SchurPack, plan: SchurPlan, vinv, x,
+                              D: int):
+    """The rows `schur_matvec` writes, (Nr, 2, 6), in its order: row i of
+    the plan's order, each landmark's j_l^T u summed over its rows first to
+    last.  Reads the longest group's length from the device."""
+    W, lm = pack
+    Nr = W.shape[0]
+    jm = W[:, :12].reshape(Nr, 2, 6)
+    jr = W[:, 12:24].reshape(Nr, 2, 6)
+    pose, ref, group, lmid = plan.ids.long().unbind(1)
+    X = x.reshape(-1, D)[:, :6]
+    u = (torch.einsum("nik,nk->ni", jm, X[pose])
+         + torch.einsum("nik,nk->ni", jr, X[ref]))
+    w = u
+    if lm and Nr:
+        jl = W[:, 24:24 + 2 * lm].reshape(Nr, 2, lm)
+        t = torch.einsum("nil,ni->nl", jl, u)
+        G = int(group[-1]) + 1
+        first = torch.zeros(G, dtype=torch.long, device=W.device)
+        first.scatter_reduce_(0, group, torch.arange(Nr, device=W.device),
+                              "amin", include_self=False)
+        count = torch.bincount(group, minlength=G)
+        acc = t.new_zeros((G, lm))
+        for j in range(int(count.max())):
+            row = torch.clamp(first + j, max=Nr - 1)
+            acc = acc + torch.where((j < count)[:, None], t[row], 0.0)
+        glm = lmid[first]
+        z = torch.einsum("gij,gj->gi", vinv[glm.clamp(min=0)], acc)
+        z = torch.where((glm >= 0)[:, None], z, 0.0)
+        w = u - torch.einsum("nil,nl->ni", jl, z[group])
+    return torch.stack([torch.einsum("nik,ni->nk", jm, w),
+                        torch.einsum("nik,ni->nk", jr, w)], dim=1)
+
+
+def _fn(name, dtype, argtypes):
     lib = build.load("schur_matvec")
-    name = {torch.float32: "ba_schur_matvec_f32",
-            torch.float64: "ba_schur_matvec_f64"}[dtype]
-    fn = getattr(lib, name)
+    suffix = {torch.float32: "_f32", torch.float64: "_f64"}[dtype]
+    fn = getattr(lib, name + suffix)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def schur_matvec(j_m, j_r, j_l, pose, ref, vinv, x, perm, offsets, D: int,
-                 out=None):
-    """The rows of `schur_matvec_plain`, (2 Nr, 6), from one launch of the
-    CUDA kernel.  `perm`/`offsets` are the landmark CSR of the rows (a
-    `segsum.SegPlan` of the ids proj.lm); `pose`/`ref` int32 (Nr,), the
-    block plan's `pose_ref`; `out`, when given, is a contiguous (2 Nr, 6)
-    tensor the rows are written into."""
+def _aligned(t):
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def _check_lm(lm):
+    if lm not in LM_SIZES:
+        raise NotImplementedError(
+            f"schur_matvec kernel covers landmark sizes {LM_SIZES}, not {lm}")
+
+
+def schur_pack(j_m, j_r, j_l, plan: SchurPlan, lm: int) -> SchurPack:
+    """The records of `schur_pack_plain` from one launch of the pack
+    kernel: j_m, j_r (Nr, 2, 6) and, for lm > 0, j_l (Nr, 2, lm) in row
+    order, on one CUDA device."""
+    _check_lm(lm)
     Nr = j_m.shape[0]
-    L = vinv.shape[0]
-    floats = (j_m, j_r, j_l, vinv, x)
+    floats = (j_m, j_r) + ((j_l,) if lm else ())
+    if not all(t.is_cuda and t.device == j_m.device
+               for t in floats + (plan.perm,)):
+        raise ValueError("schur_pack kernel: all tensors must be on one "
+                         "CUDA device")
+    if j_m.dtype not in (torch.float32, torch.float64) \
+            or any(t.dtype != j_m.dtype for t in floats):
+        raise TypeError("schur_pack kernel: unsupported dtypes "
+                        f"{[t.dtype for t in floats]}")
+    if j_m.shape != (Nr, 2, 6) or j_r.shape != (Nr, 2, 6) \
+            or (lm and j_l.shape != (Nr, 2, lm)):
+        raise ValueError(f"schur_pack kernel: J_m, J_r must be (Nr, 2, 6) "
+                         f"and j_l (Nr, 2, {lm})")
+    if plan.perm.dtype != torch.int32 or plan.perm.shape != (Nr,):
+        raise ValueError("schur_pack kernel: the plan was built for another "
+                         "row count")
+    rows = torch.empty((Nr, record_width(lm, j_m.dtype)), dtype=j_m.dtype,
+                       device=j_m.device)
+    src = [t.contiguous() for t in floats]
+    jl_ptr = src[2].data_ptr() if lm else None
+    if Nr == 0:
+        return SchurPack(rows, lm)
+    stream = torch.cuda.current_stream(j_m.device).cuda_stream
+    rc = _fn("ba_schur_pack", j_m.dtype, _PACK_ARGTYPES)(
+        lm, src[0].data_ptr(), src[1].data_ptr(), jl_ptr,
+        plan.perm.contiguous().data_ptr(), Nr, rows.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"schur_pack kernel launch failed: CUDA error {rc}")
+    schur_pack.launches += 1
+    return SchurPack(rows, lm)
+
+
+schur_pack.launches = 0
+
+
+def schur_matvec(pack: SchurPack, plan: SchurPlan, vinv, x, D: int,
+                 out=None):
+    """The rows of `schur_matvec_sorted_plain`, (Nr, 2, 6), from one launch
+    of the CUDA kernel; vinv (L, lm, lm) (not read at lm 0), x (P * D,);
+    `out`, when given, is a contiguous (Nr, 2, 6) tensor the rows are
+    written into."""
+    W, lm = pack
+    _check_lm(lm)
+    Nr = W.shape[0]
+    floats = (W, vinv, x)
     if not all(t.is_cuda and t.device == x.device
-               for t in floats + (pose, ref, perm, offsets)):
+               for t in floats + (plan.ids, plan.tiles)):
         raise ValueError("schur_matvec kernel: all tensors must be on one "
                          "CUDA device")
     if x.dtype not in (torch.float32, torch.float64) \
             or any(t.dtype != x.dtype for t in floats):
         raise TypeError("schur_matvec kernel: unsupported dtypes "
                         f"{[t.dtype for t in floats]}")
-    if j_l.shape[1:] != (2, 1) or vinv.shape[1:] != (1, 1):
-        raise NotImplementedError(
-            "schur_matvec kernel covers inverse-depth landmarks (lm_size 1): "
-            f"j_l {tuple(j_l.shape)}, vinv {tuple(vinv.shape)} (ROADMAP.md "
-            "queue 1, the kernel variants)")
-    if j_m.shape != (Nr, 2, 6) or j_r.shape != (Nr, 2, 6) \
-            or j_l.shape[0] != Nr:
-        raise ValueError("schur_matvec kernel: J_m, J_r must be (Nr, 2, 6) "
-                         "and j_l (Nr, 2, 1)")
-    if pose.dtype != torch.int32 or ref.dtype != torch.int32 \
-            or pose.shape != (Nr,) or ref.shape != (Nr,):
-        raise ValueError("schur_matvec kernel: pose and ref must be int32 "
-                         "(Nr,)")
-    if perm.dtype != torch.int32 or offsets.dtype != torch.int32 \
-            or perm.shape != (Nr,) or offsets.shape != (L + 1,):
-        raise ValueError("schur_matvec kernel: the landmark CSR was built "
-                         "for another row or landmark count")
+    if W.shape != (Nr, record_width(lm, x.dtype)) or not _aligned(W):
+        raise ValueError("schur_matvec kernel: the pack must be a contiguous, "
+                         f"16-byte-aligned (Nr, {record_width(lm, x.dtype)})"
+                         " tensor")
+    if lm and (vinv.dim() != 3 or vinv.shape[1:] != (lm, lm)):
+        raise ValueError(f"schur_matvec kernel: vinv must be (L, {lm}, {lm})"
+                         f", not {tuple(vinv.shape)}")
+    if plan.ids.dtype != torch.int32 or plan.ids.shape != (Nr, 4) \
+            or not _aligned(plan.ids) or plan.tiles.dtype != torch.int32 \
+            or plan.tiles.shape != (-(-Nr // H) + 1,):
+        raise ValueError("schur_matvec kernel: the plan was built for "
+                         "another row count")
     if D < 6 or x.dim() != 1 or x.shape[0] % D:
         raise ValueError(f"schur_matvec kernel: x must be (P * {D},)")
     if out is None:
-        out = torch.empty((2 * Nr, 6), dtype=x.dtype, device=x.device)
-    elif out.shape != (2 * Nr, 6) or out.dtype != x.dtype \
-            or out.device != x.device or not out.is_contiguous():
-        raise ValueError("schur_matvec kernel: out must be a contiguous "
-                         f"({2 * Nr}, 6) tensor")
-    args = [t.contiguous() for t in (j_m, j_r, j_l, pose, ref, vinv, x,
-                                     perm, offsets)]
+        out = torch.empty((Nr, 2, 6), dtype=x.dtype, device=x.device)
+    elif out.shape != (Nr, 2, 6) or out.dtype != x.dtype \
+            or out.device != x.device or not _aligned(out):
+        raise ValueError("schur_matvec kernel: out must be a contiguous, "
+                         f"16-byte-aligned ({Nr}, 2, 6) tensor")
+    if Nr == 0:
+        return out
+    vinv, x = vinv.contiguous(), x.contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _fn(x.dtype)(*[t.data_ptr() for t in args], L, Nr, D,
-                      out.data_ptr(), stream)
+    rc = _fn("ba_schur_matvec", x.dtype, _ARGTYPES)(
+        lm, W.data_ptr(), plan.ids.data_ptr(),
+        plan.tiles.contiguous().data_ptr(), plan.tiles.shape[0] - 1,
+        vinv.data_ptr(), x.data_ptr(), D, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"schur_matvec kernel launch failed: CUDA error "
                            f"{rc}")

@@ -26,10 +26,13 @@ again in `band_S` and in the preconditioner.
 
 A Schur product (`s_matvec`) is two launches on the card: kernel 6
 (kernels/csrc/schur_matvec.cu) writes the projection rows of U x - W V^-1
-W^T x straight into the rhs order of the plan, one warp per landmark, and
-segsum sums them by pose with the unary, binary and IMU rows; the prior,
-the damping and the masked identity stay plain torch, as does the
-block-Jacobi preconditioner (`_precond`, a batched D x D product).
+W^T x, one thread per row in the landmark-sorted order of the plan's
+`schur`, from the records `schur_pack` lays out once per build (the
+block system's `pack`, in `assemble_blocks`), and segsum sums them by pose
+on `s_rhs` with the unary, binary and IMU rows; the prior, the damping and
+the masked identity stay plain torch, as does the block-Jacobi
+preconditioner (`_precond`, a batched D x D product).  The CPU path keeps
+the row order (`schur_matvec_plain` on `rhs`).
 
 The PCG loop (`pcg_solve`) replaces ba_tpu's `lax.while_loop` by a Python
 loop whose iterations are masked once the residual test fails
@@ -83,10 +86,14 @@ class BlockPlan(NamedTuple):
     band: Optional[object]    # banded.BandPlan of band_S, or None
     fleet: Optional[object]   # banded.FleetPlan of the dense fleet solve,
     #                           or None
-    pose_ref: torch.Tensor    # (2, Nr) int32: the projection rows' pose
-    #                           and ref ids, kernel 6's
     windows: int = 1          # independent pose windows of a fused fleet's
     #                           banded solve (step._reduced_path)
+    schur: Optional[k6.SchurPlan] = None  # kernel 6's row order: the
+    #                           projection rows sorted by landmark, cut into
+    #                           tiles (the CG path on the card), or None
+    s_rhs: Optional[segsum.SegPlan] = None  # (P) rows [schur.out_pose,
+    #                           unary, binary 1, binary 2]: the Schur product
+    #                           on the card, or None
 
 
 class BlockSystem(NamedTuple):
@@ -126,15 +133,20 @@ class BlockSystem(NamedTuple):
     # the port's additions
     wb: torch.Tensor          # (Nw, 6, lm) W blocks
     plan: BlockPlan
+    pack: Optional[k6.SchurPack] = None   # kernel 6's records of the build
+    #                           (`k6.schur_pack`) when the plan has `schur`
+    #                           and the blocks lie on the card
 
 
 def block_plan(problem: Problem, config: BAConfig, band: bool = False,
-               fleet: bool = False, windows: int = 1) -> BlockPlan:
+               fleet: bool = False, windows: int = 1,
+               schur: bool = False) -> BlockPlan:
     """The plans of the sums through a block system of `problem`, on its
     device, with no host read; with `band`, also band_S's
     (`banded.band_plan`), with `fleet` those of the dense fleet solve
-    (`banded.fleet_dense_plan`); `windows` as `step._reduced_path` found
-    it.  Build it once per solve."""
+    (`banded.fleet_dense_plan`), with `schur` kernel 6's row order and the
+    segsum plan of its rows (the CG path on the card); `windows` as
+    `step._reduced_path` found it.  Build it once per solve."""
     ids = asm.sum_ids(problem, config)
     P = problem.poses.q.shape[0]
     Nr = problem.proj.pose.shape[0]
@@ -148,13 +160,19 @@ def block_plan(problem: Problem, config: BAConfig, band: bool = False,
             band_plan = banded.band_plan(problem, config, ids)
         if fleet:
             fleet_plan = banded.fleet_dense_plan(problem, config, ids)
-    pose_ref = ids["rhs"][0][: 2 * Nr]
+    rhs_ids = ids["rhs"][0]
+    k6_plan = s_rhs = None
+    if schur:
+        k6_plan = k6.schur_plan(rhs_ids[:Nr], rhs_ids[Nr: 2 * Nr],
+                                problem.proj.lm, ids["V"][1],
+                                plans["V"].perm)
+        s_rhs = segsum.build_plan(
+            torch.cat([k6_plan.out_pose, rhs_ids[2 * Nr:]]), P)
     return BlockPlan(**plans,
-                     wz=segsum.build_plan(pose_ref, P),
+                     wz=segsum.build_plan(rhs_ids[: 2 * Nr], P),
                      wb_pose=segsum.build_plan(problem.pidx.wb_pose, P),
-                     band=band_plan, fleet=fleet_plan,
-                     pose_ref=pose_ref.to(torch.int32).reshape(2, Nr),
-                     windows=windows)
+                     band=band_plan, fleet=fleet_plan, windows=windows,
+                     schur=k6_plan, s_rhs=s_rhs)
 
 
 def _seg2_rows(j1, j2, u1, u2):
@@ -244,14 +262,18 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     preconditioner of S (the banded solvers do not need it).  Returns
     (BlockSystem, marg_H): marg_H is the masked dense marginalization prior
     curvature, or None when the problem carries no prior.  `plan` is the
-    solve's `block_plan`; without one, the build makes its own."""
+    solve's `block_plan`; without one, the build makes its own (with
+    kernel 6's on the card when `with_precond`, as the CG path's).  On the
+    card a plan with `schur` lays out kernel 6's records (`pack`, one
+    launch)."""
     D, K, P, L, lm, N = asm.dims(problem, config)
     if K:
         raise NotImplementedError(
             "the block system with a calibration block is not ported yet "
             "(ROADMAP.md queue 1, calibration on the block system)")
+    on_card = problem.poses.t.is_cuda
     if plan is None:
-        plan = block_plan(problem, config)
+        plan = block_plan(problem, config, schur=with_precond and on_card)
     dtype = problem.poses.t.dtype
     cmask = asm.col_mask(problem, config)
     colm6 = asm.col_mask(problem, config, 6).to(dtype)
@@ -310,6 +332,9 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
         rhs_p = rhs_p + (H @ delta + marg.g * on) * colmD
         cost = cost + delta @ H @ delta + 2.0 * (marg.g * on) @ delta
 
+    pack = None
+    if on_card and plan.schur is not None:    # kernel 6's records
+        pack = k6.schur_pack(pb.j_m, pb.j_r, pb.j_l, plan.schur, lm)
     bs = BlockSystem(pj=pb, ju=ju, u_pose=u_pose, jb1=jb1, jb2=jb2, b1=b1,
                      b2=b2, ji1=ji1, ji2=ji2, i1=i1, i2=i2, V=V, vinv=vinv,
                      rhs_l=rhs_l.reshape(-1), rhs_p=rhs_p, rhs_sc=rhs_p,
@@ -318,7 +343,7 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
                                            device=cmD.device),
                      minv_cal=None,
                      dscale=torch.ones((N,), dtype=dtype, device=cmD.device),
-                     cost=cost, proj_w=pb.w, wb=Wb, plan=plan)
+                     cost=cost, proj_w=pb.w, wb=Wb, plan=plan, pack=pack)
 
     # Schur-reduced rhs: W V^-1 rhs_l, with the preconditioner's sums in
     # the same launch
@@ -388,26 +413,27 @@ def cauchy_factor(bs: BlockSystem, marg_H, P, D, K=0):
 
 
 def _s_groups(bs: BlockSystem, xm, P, D):
-    """The rows of (U - W V^-1 W^T) x in one buffer on `plan.rhs` (the
-    projection rows from kernel 6 on the card, `schur_matvec_plain` on the
-    CPU, written in place; then the unary and binary rows), and the IMU
-    group on `plan.imu_rhs`."""
+    """The rows of (U - W V^-1 W^T) x in one buffer (the projection rows,
+    written in place, then the unary and binary rows), with its plan, and
+    the IMU group on `plan.imu_rhs`.  On the card the projection rows come
+    from kernel 6 on the build's `pack` in the order of `plan.s_rhs`; on
+    the CPU from `schur_matvec_plain` in the order of `plan.rhs`."""
     pj = bs.pj
     Nr = pj.j_m.shape[0]
     xp = xm[: P * D]
     rows, imu = _pose_rows(bs, xp.reshape(P, D))
     buf = xm.new_empty((2 * Nr + rows.shape[0], 6))
     if xm.is_cuda:
-        pose_ref = bs.plan.pose_ref
-        k6.schur_matvec(pj.j_m, pj.j_r, pj.j_l, pose_ref[0], pose_ref[1],
-                        bs.vinv, xp, bs.plan.V.perm, bs.plan.V.offsets, D,
-                        out=buf[: 2 * Nr])
+        k6.schur_matvec(bs.pack, bs.plan.schur, bs.vinv, xp, D,
+                        out=buf[: 2 * Nr].view(Nr, 2, 6))
+        plan = bs.plan.s_rhs
     else:
         buf[: 2 * Nr] = k6.schur_matvec_plain(pj.j_m, pj.j_r, pj.j_l,
                                               pj.pose, pj.ref, pj.lm,
                                               bs.vinv, xp, D)
+        plan = bs.plan.rhs
     buf[2 * Nr:] = rows
-    return [(buf, bs.plan.rhs)] + ([imu] if imu is not None else [])
+    return [(buf, plan)] + ([imu] if imu is not None else [])
 
 
 def s_matvec(bs: BlockSystem, x, P, D, K, lam, marg_H=None):

@@ -235,7 +235,8 @@ def solve_plan(problem: Problem, config: BAConfig):
     """The segment plans of every build of a solve, on the problem's
     device: a `cg.BlockPlan` for the block-system paths (with band_S's
     plan on the banded ones, the dense fleet solve's on "fleet_dense",
-    none for CG, and the banded fleet axis's window count), else the
+    kernel 6's for CG on the card, and the banded fleet axis's window
+    count), else the
     `AssemblyPlan` of the dense solve.  No host read, except one for a
     fused fleet's rows (`_fleet_split`).  Build it once per solve."""
     path, windows = _reduced_path(problem, config)
@@ -243,7 +244,8 @@ def solve_plan(problem: Problem, config: BAConfig):
         return assembly_plan(problem, config)
     return cg_mod.block_plan(problem, config,
                              band=path in ("banded", "schur_on_band"),
-                             fleet=path == "fleet_dense", windows=windows)
+                             fleet=path == "fleet_dense", windows=windows,
+                             schur=path == "cg" and problem.poses.t.is_cuda)
 
 
 def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,

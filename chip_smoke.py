@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port `ba_tpu_torch` on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent TREE]
+
+With `--parent TREE` (an earlier commit unpacked with `git archive` under
+`_archive/`), phases 14 and 20 also time that tree's K8a and kernel 6 on
+the same inputs, loaded beside this tree's package.
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -108,15 +112,20 @@ Phases, each of which exits non-zero when a check fails:
      simulate(1,024 poses, 4,096 landmarks, seed 0), build_problem(perturb
      0.01, seed 1, no marginalization prior), f32, band width 0,
      cg_max_iterations 100, cg_tolerance 1e-5; k6: kernel 6 (the projection
-     rows of the Schur product) against its plain version at those shapes
-     in f32 and on an f64 copy, again with 8 landmarks merged into one of
-     more rows than a warp, bit-identical relaunch;
+     rows of the Schur product, in the landmark-sorted order) and its pack
+     (the build's row blocks in that order) against their plain versions at
+     those shapes in f32 and on an f64 copy, again with 8 landmarks merged
+     into one of more rows than a warp, and on the same problem with XYZ
+     landmarks (lm_size 3), bit-identical relaunch, the rows summed by pose
+     against the row-order route; the packed route whole (`s_matvec` on
+     the card) against the row-order route's S x at both landmark sizes;
  17. cg: GN solve_fixed(..., 10) of that problem: cost and ATE fall,
      solver_ok at every iteration, PCG iterations per build, host syncs per
      build (at most ceil(100 / 8)), exact launch counts of kernel 1,
-     segsum and kernel 6, kf/s, ms per iteration, peak memory; the first step against the
-     dense solve of the same build (banded grid + dense Cholesky) within a
-     multiple of the same gap on an f32 CPU run at 256 poses;
+     segsum, kernel 6 and its pack (one per build), kf/s, ms per
+     iteration, peak memory; the first step against the dense solve of
+     the same build (banded grid + dense Cholesky) within a multiple of
+     the same gap on an f32 CPU run at 256 poses;
  18. fleet_small: both fleet branches on the card against the CPU in f64 (2
      windows of 12 poses: the dense fleet solve, and the banded solver with
      a fleet axis when the landmark count is odd);
@@ -138,7 +147,8 @@ Phases, each of which exits non-zero when a check fails:
      (the product kernel 10 replaces) K10's, with K10's bound counted from
      the products over shared landmarks and its device memory beside the
      plain route's; the dense fleet solve's cholesky_ex and triangular
-     solves timed apart;
+     solves timed apart; kernel 6's pack (per build), segsum's launch in a
+     Schur product and the whole product timed apart;
  21. the full-width self-calibration (the flagship sequence under the
      reference's fullest template configuration <R,1,15,5,true>: pose_dim
      15, inverse depth, the 5 FOV intrinsics and the 6 T_vs tangents,
@@ -310,6 +320,7 @@ STEP_GAP_POSES, STEP_GAP_FACTOR = 256, 3.0
 # default size (:18-62; band width left at 0), 10 GN iterations
 CG = dict(poses=1024, lms=4096, iters=10, max_it=100, tol=1e-5)
 CG_EXPECTED = dict(P=1024, L=4076, Nr=85823, Nw=89896, Ni=1023)
+CG_XYZ_ROWS = dict(Nr=89899, Nw=89899)     # the same problem at lm_size 3
 # kernel launches per CG build besides the PCG's Schur products (one kernel 6
 # and one segsum each): segsum twice in assemble_blocks, once for the
 # Cauchy factor, once for the landmark back-substitution
@@ -365,6 +376,10 @@ VICALIB = dict(seed=0, tags=6, tag=0.088, gap=0.0264, frames=300,
                imu_hz=200.0, imu_per_frame=10, mse_bound=1e-2)
 VICALIB_EXPECTED = dict(rows=43200)
 TRUE_CAM = (250.0, 245.0, 320.0, 240.0)
+
+# an earlier tree (`--parent TREE`) whose kernel 6 and K8a the timings run
+# beside this tree's
+PARENT = None
 
 # H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores
@@ -468,6 +483,24 @@ def graph_ms(fn, n, reps=5):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def parent_package(tree):
+    """The package `ba_tpu_torch` of an earlier tree (a `git archive` of
+    a commit unpacked under `_archive/`), loaded beside this tree's as
+    `ba_tpu_torch_parent` (its kernels build into its own `_build/`), so
+    that both trees' kernels are timed in one process."""
+    import importlib.util
+
+    name = "ba_tpu_torch_parent"
+    if name not in sys.modules:
+        root = Path(tree).resolve() / "ba_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            name, root / "__init__.py", submodule_search_locations=[str(root)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
 
 
 # ---------------------------------------------------------------------------
@@ -708,6 +741,7 @@ def _counters_zero():
     band_schur.band_schur.launches = 0
     band_matvec.band_matvec.launches = 0
     schur_matvec.schur_matvec.launches = 0
+    schur_matvec.schur_pack.launches = 0
     fleet_schur.fleet_schur.launches = 0
     schur_finish.schur_finish.launches = 0
     marginalize.marginalize_prior.launches = 0
@@ -1979,6 +2013,16 @@ def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
 
     ta = _timed(lambda: k8.chunk_layout(band, F_, chunk, m, eps), 20, 5)
     ta_plain = event_ms(old_layout, 10)
+    parent = None
+    if PARENT is not None:
+        import importlib
+
+        parent_package(PARENT)
+        pk8 = importlib.import_module("ba_tpu_torch_parent.kernels."
+                                      "chunk_tridiag")
+        tpar = _timed(lambda: pk8.chunk_layout(band, F_, chunk, m, eps), 20,
+                      5)
+        parent = dict(ms=tpar[0], device_ms=tpar[1])
     tf = _timed(lambda: k8.bcr_factor(Dg, Eg, live=n_c), 5, 2)
     tf_plain = event_ms(lambda: k8.bcr_factor_plain(Dg, Eg, live=n_c), 1)
     tf_old = _timed(lambda: banded._bcr_factor(Dg_o, Eg_o), 5, 2)
@@ -1998,12 +2042,15 @@ def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
     def row(xs):
         return " ".join(f"{x:.4f}" for x in xs)
 
+    vs = (f"; the parent's kernel {parent['ms']:.4f} ms per call "
+          f"({dev(parent['device_ms'])} on the device)" if parent
+          else "; the parent's kernel not timed (no --parent)")
     say(f"[{smi}] K8a chunk_layout on the long band (P={P}, F={F_}, chunk "
         f"{chunk}, {n_c} -> {m} chunks of n={n}) f32: {ta[0]:.4f} ms per "
-        f"call ({dev(ta[1])} on the device{share(a_bound, ta[1])}); plain "
-        f"(jacobi_scaled + chunk_system, the old route) {ta_plain:.4f} ms; "
-        f"bound {a_bound:.5f} ms ({a_by}: {a_bytes} B); launch floor "
-        f"{floor_ms:.4f} ms")
+        f"call ({dev(ta[1])} on the device{share(a_bound, ta[1])}){vs}; "
+        f"plain (jacobi_scaled + chunk_system, the old route) "
+        f"{ta_plain:.4f} ms; bound {a_bound:.5f} ms ({a_by}: {a_bytes} B); "
+        f"launch floor {floor_ms:.4f} ms")
     say(f"[{smi}] K8b bcr_factor ({len(levels) - 1} levels of {rs} chunks "
         f"that are not padding, {3 * (len(levels) - 1) + 1} launches) f32: "
         f"{tf[0]:.4f} ms per call ({dev(tf[1])} on the device"
@@ -2031,7 +2078,8 @@ def k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi):
     common = dict(floor_ms=floor_ms, device_ops_per_iteration=ops_new,
                   old_route_device_ops_per_iteration=ops_old)
     rec_a = dict(ms=ta[0], device_ms=ta[1], plain_ms=ta_plain,
-                 bound_ms=a_bound, bound_by=a_by, library_ms=None, **common)
+                 bound_ms=a_bound, bound_by=a_by, library_ms=None,
+                 parent=parent, **common)
     rec_f = dict(ms=tf[0], device_ms=tf[1], plain_ms=tf_plain,
                  bound_ms=f_bound, bound_by=f_by, library_ms=tf_old[0],
                  library_device_ms=tf_old[1], flops=f_flops,
@@ -2284,11 +2332,13 @@ def phase_k5b(band, floor_ms, smi):
 
 
 def _new_counters():
-    """(kernel 6, kernel 10) launches since `_counters_zero`."""
+    """(kernel 6, kernel 10, kernel 6's pack) launches since
+    `_counters_zero`."""
     from ba_tpu_torch.kernels import fleet_schur, schur_matvec
 
     return (schur_matvec.schur_matvec.launches,
-            fleet_schur.fleet_schur.launches)
+            fleet_schur.fleet_schur.launches,
+            schur_matvec.schur_pack.launches)
 
 
 def phase_cg_small():
@@ -2326,13 +2376,13 @@ def phase_cg_small():
                   "prior GN poses.t": g.problem.poses.t,
                   "prior GN lms.x": g.problem.lms.x,
                   "prior GN ok": g.solver_ok})
-        k6 = _new_counters()[0]
+        k6, _, k6p = _new_counters()
         pd, summ = step.solve(raw, dataclasses.replace(cfg, use_dogleg=True),
                               max_iter=10)
         r["dogleg poses.t"] = pd.poses.t
         r["dogleg lms.x_w"] = pd.lms.x_w
-        out[dev] = (r, summ, k6)
-    (g, gs, k6), (c, cs, _) = out["cuda"], out["cpu"]
+        out[dev] = (r, summ, (k6, k6p))
+    (g, gs, (k6, k6p)), (c, cs, _) = out["cuda"], out["cpu"]
     _compare([(k, g[k], c[k]) for k in c]
              + [("dogleg final cost", torch.tensor(gs.final_cost),
                  torch.tensor(cs.final_cost))],
@@ -2343,16 +2393,18 @@ def phase_cg_small():
     say(f"cg_small dogleg: {gs.iterations} iterations, {gs.result}, cost "
         f"{gs.initial_cost:.6g} -> {gs.final_cost:.6g} (CPU {cs.iterations}, "
         f"{cs.result}); schur_matvec launches on the card before the dogleg "
-        f"{k6}")
+        f"{k6}, schur_pack {k6p}")
     check(path == (cs.iterations, cs.result, cs.inner_iterations),
           "cg_small: dogleg took another path on the card")
     check(gs.final_cost < gs.initial_cost, "cg_small: dogleg cost")
-    check(k6 > 0, "cg_small: kernel 6 never launched")
+    check(k6 > 0 and k6p == 2, f"cg_small: kernel 6 launched {k6} times, "
+          f"its pack {k6p} (one per PCG build)")
     say("PHASE cg_small ok")
 
 
-def cg_problem():
-    """(f32 problem, config, SimData) of the PCG configuration, prepared."""
+def cg_problem(lm_size=1):
+    """(f32 problem, config, SimData) of the PCG configuration, prepared;
+    lm_size 3 makes its landmarks XYZ points."""
     import torch
 
     from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
@@ -2360,7 +2412,7 @@ def cg_problem():
     from ba_tpu_torch.utils.tree import tree_map
 
     t0 = time.perf_counter()
-    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False,
+    cfg = BAConfig(pose_dim=9, lm_size=lm_size, use_dogleg=False,
                    use_cg_solver=True, cg_max_iterations=CG["max_it"],
                    cg_tolerance=CG["tol"])
     sim = sv.simulate(n_poses=CG["poses"], n_lms=CG["lms"], seed=0)
@@ -2370,9 +2422,11 @@ def cg_problem():
     sizes = dict(P=p.poses.q.shape[0], L=p.lms.x.shape[0],
                  Nr=p.proj.z.shape[0], Nw=p.pidx.wb_pose.shape[0],
                  Ni=int(p.imu.valid.sum()))
-    say(f"CG problem {sizes} on {p.poses.q.device} "
+    say(f"CG problem (lm_size {lm_size}) {sizes} on {p.poses.q.device} "
         f"({time.perf_counter() - t0:.2f} s)")
-    check(sizes == CG_EXPECTED, f"CG sizes {sizes} != {CG_EXPECTED}")
+    # XYZ landmarks keep their reference observations as rows
+    want = CG_EXPECTED if lm_size == 1 else dict(CG_EXPECTED, **CG_XYZ_ROWS)
+    check(sizes == want, f"CG sizes {sizes} != {want}")
     return prepare_landmarks(p, cfg), cfg, sim
 
 
@@ -2385,56 +2439,126 @@ def cg_blocks(p, cfg):
     return bs
 
 
-def phase_k6(p, cfg, bs):
-    """Kernel 6 against its plain version at the CG shapes, f32 and an f64
-    copy; again with the rows of the first 8 landmarks given to landmark 0
-    (the simulator's landmarks have at most 23 rows, this one more than a
-    warp's 32 lanes); two launches bit-identical.  Returns (f32 max abs
-    error, x)."""
+def phase_k6(p, cfg, bs, p3, cfg3, bs3):
+    """Kernel 6 and its pack against their plain versions at the CG shapes,
+    f32 and an f64 copy: the CG build; again with the rows of the first 8
+    landmarks given to landmark 0 (the simulator's landmarks have at most
+    23 rows, this one more than a warp's 32 lanes); the XYZ-landmark CG
+    build (lm 3).  The pack equal element for element, the rows against
+    `schur_matvec_sorted_plain` and, summed by pose, against the row-order
+    `schur_matvec_plain`, two launches bit-identical; then the packed route
+    whole (`cg.s_matvec` on the card: pack, kernel 6, segsum on the sorted
+    plan) against the CPU path's S x (row order, plain sums) in f64.
+    Returns (f32 max abs errors of the rows and of the pack, x)."""
     import numpy as np
     import torch
 
     from ba_tpu_torch.kernels import schur_matvec as k6
-    from ba_tpu_torch.kernels import segsum
+    from ba_tpu_torch.solver import cg
 
     P, D = p.poses.q.shape[0], cfg.pose_dim
-    pj, V = bs.pj, bs.plan.V
-    pose, ref = bs.plan.pose_ref
+    pj = bs.pj
     merged = torch.where(pj.lm < 8, 0, pj.lm)
-    cases = (("CG build", pj.lm, V),
-             ("8 landmarks merged", merged, segsum.build_plan(merged,
-                                                              V.nseg)))
+    cases = (("CG build", bs, pj.lm, 1),
+             ("8 landmarks merged", bs, merged, 1),
+             ("XYZ-landmark CG build", bs3, bs3.pj.lm, 3))
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(P * D),
                         dtype=torch.float32, device=bs.wb.device)
-    worst = 0.0
-    for what, lm, plan in cases:
-        longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
-        if what != "CG build":
+    worst = worst_pack = 0.0
+    for what, b_, lm, lm_size in cases:
+        q = b_.pj
+        L = b_.vinv.shape[0]
+        plan = k6.schur_plan(q.pose, q.ref, lm, L)
+        longest = int(torch.bincount(lm.long()).max())
+        tile_rows = int((plan.tiles[1:] - plan.tiles[:-1]).max())
+        if what.startswith("8"):
             check(longest > 32, "k6: the merged landmark fits one warp")
         for dtype in (torch.float32, torch.float64):
             dt = str(dtype).replace("torch.", "")
-            args = [t.to(dtype) for t in (pj.j_m, pj.j_r, pj.j_l)]
-            vinv, xv = bs.vinv.to(dtype), x.to(dtype)
-            a = k6.schur_matvec(*args, pose, ref, vinv, xv, plan.perm,
-                                plan.offsets, D)
-            b = k6.schur_matvec(*args, pose, ref, vinv, xv, plan.perm,
-                                plan.offsets, D)
-            want = k6.schur_matvec_plain(*[t.double() for t in args], pj.pose,
-                                         pj.ref, lm, vinv.double(),
+            args = [t.to(dtype) for t in (q.j_m, q.j_r, q.j_l)]
+            vinv, xv = b_.vinv.to(dtype), x.to(dtype)
+            pack = k6.schur_pack(*args, plan, lm_size)
+            a = k6.schur_matvec(pack, plan, vinv, xv, D)
+            b = k6.schur_matvec(pack, plan, vinv, xv, D)
+            want_pack = k6.schur_pack_plain(*args, plan, lm_size).rows
+            pack_ok = torch.equal(pack.rows, want_pack)
+            want = k6.schur_matvec_sorted_plain(
+                k6.schur_pack_plain(*[t.double() for t in args], plan,
+                                    lm_size), plan, vinv.double(),
+                xv.double(), D)
+            rows = k6.schur_matvec_plain(*[t.double() for t in args],
+                                         q.pose, q.ref, lm, vinv.double(),
                                          xv.double(), D)
+            by_pose = torch.zeros((P, 6), dtype=torch.float64,
+                                  device=x.device).index_add_(
+                0, plan.out_pose, a.double().reshape(-1, 6))
+            want_pose = torch.zeros_like(by_pose).index_add_(
+                0, torch.cat([q.pose, q.ref]), rows)
             torch.cuda.synchronize()
             err, rel = rel_err(a, want)
+            _, rel_p = rel_err(by_pose, want_pose)
             same = bool(torch.equal(a, b))
-            say(f"kernel 6 {dt} {what} (Nr={pj.j_m.shape[0]}, L={V.nseg}, "
-                f"longest landmark {longest} rows): max abs err {err:.3e} "
-                f"rel {rel:.3e} (tol {TOL_K6[dt]:g}); bit-identical relaunch "
-                f"{same}")
-            check(rel <= TOL_K6[dt], f"kernel 6 {dt} {what}: rel {rel:.3g}")
+            say(f"kernel 6 {dt} {what} (Nr={q.j_m.shape[0]}, L={L}, "
+                f"lm {lm_size}, longest landmark {longest} rows, "
+                f"{plan.tiles.numel() - 1} tiles of at most {tile_rows} "
+                f"rows): max abs err {err:.3e} rel {rel:.3e}, summed by pose "
+                f"against the row order rel {rel_p:.3e} (tol "
+                f"{TOL_K6[dt]:g}); pack equal {pack_ok}; bit-identical "
+                f"relaunch {same}")
+            check(rel <= TOL_K6[dt] and rel_p <= TOL_K6[dt],
+                  f"kernel 6 {dt} {what}: rel {rel:.3g} / {rel_p:.3g}")
+            check(pack_ok, f"kernel 6 {dt} {what}: the pack differs")
             check(same, f"kernel 6 {dt} {what}: two launches differ")
             if dt == "float32":
                 worst = max(worst, err)
+                worst_pack = max(worst_pack, _max_abs(pack.rows, want_pack))
+    # the packed route whole, at both landmark sizes
+    for what, pp, cc, b_ in (("CG build", p, cfg, bs),
+                             ("XYZ-landmark CG build", p3, cfg3, bs3)):
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).replace("torch.", "")
+            b_d = _cast_blocks(b_, dtype)
+            xv = x.to(dtype)
+            lam = 1e-4 if dtype == torch.float32 else 1e-8
+            got = cg.s_matvec(b_d, xv, P, D, 0, lam, None)
+            # the CPU path of s_matvec: row order, the plain sums
+            want = cg.s_matvec(_cast_blocks(b_, torch.float64, "cpu"),
+                               xv.double().cpu(), P, D, 0, lam)
+            torch.cuda.synchronize()
+            _, rel = rel_err(got.cpu(), want)
+            say(f"packed route {dt} {what}: S x (pack, kernel 6, segsum on "
+                f"the sorted plan) against the CPU path's (row order) rel "
+                f"{rel:.3e} (tol {TOL_K6[dt]:g})")
+            check(rel <= TOL_K6[dt], f"packed route {dt} {what}: rel "
+                  f"{rel:.3g}")
     say("PHASE k6 ok")
-    return worst, x
+    return worst, worst_pack, x
+
+
+def _cast_blocks(bs, dtype, device=None):
+    """The block system `bs` (nested named tuples) with its floating
+    tensors in `dtype`, and every tensor on `device` when given; kernel
+    6's records laid out anew on the card (a record's width depends on the
+    dtype), none off it."""
+    import torch
+
+    from ba_tpu_torch.kernels import schur_matvec as k6
+
+    def cast(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device or v.device,
+                        dtype=dtype if v.is_floating_point() else v.dtype)
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*[cast(f) for f in v])
+        return v
+
+    out = cast(bs)
+    if out.pack is None:
+        return out
+    pj = out.pj
+    return out._replace(pack=k6.schur_pack(
+        pj.j_m, pj.j_r, pj.j_l, out.plan.schur, out.pack.lm)
+        if pj.j_m.is_cuda else None)
 
 
 def cg_gap_cpu():
@@ -2519,7 +2643,7 @@ def phase_cg(p, cfg, sim, smi):
     finally:
         step.gn_iteration, cg.pcg_solve = orig_gn, orig_pcg
     k1, k2, reads = _counters()
-    k6 = _new_counters()[0]
+    k6, _, k6p = _new_counters()
     ia, ib = _imu_counters()
     k5, k11 = _marg_counters()
     peak = torch.cuda.max_memory_allocated()
@@ -2536,7 +2660,7 @@ def phase_cg(p, cfg, sim, smi):
         f"solver_ok at every iteration {all_ok}; PCG iterations per build "
         f"{its} (cap {CG['max_it']}, tol {CG['tol']:g}); Schur products "
         f"launched {matvecs}; kernel launches reprojection {k1} segsum {k2} "
-        f"schur_matvec {k6} imu_preint (a) {ia} (b) {ib}")
+        f"schur_matvec {k6} schur_pack {k6p} imu_preint (a) {ia} (b) {ib}")
     say(f"[{smi}] CG GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
         f"{secs * 1e3 / n:.1f} ms per iteration, {kf:.1f} kf/s; peak device "
         f"memory {peak / 2**30:.3f} GiB; host syncs {syncs} (the plans' "
@@ -2553,6 +2677,7 @@ def phase_cg(p, cfg, sim, smi):
     check((k1, k2, k6) == want, f"cg: launches {(k1, k2, k6)}, expected "
           f"{want}")
     check((ia, ib) == (n, n), f"cg: imu_preint launches ({ia}, {ib})")
+    check(k6p == n, f"cg: schur_pack launches {k6p}, one per build")
     check((k5, k11) == (0, 0), f"cg: schur_finish, marginalize launches "
           f"({k5}, {k11}) on the PCG solver")
     check(max(pcg_reads) <= max_reads, f"cg: {max(pcg_reads)} host reads in "
@@ -2585,7 +2710,8 @@ def phase_cg(p, cfg, sim, smi):
     check(got_p <= CG_GAP_FACTOR * gap_p and got_l <= CG_GAP_FACTOR * gap_l,
           "cg: the PCG step is off the dense one")
     say("PHASE cg ok")
-    return dict(k1=k1, k2=k2, k6=k6, imu=ia + ib, imu_a=ia, imu_b=ib,
+    return dict(k1=k1, k2=k2, k6=k6, k6_pack=k6p, imu=ia + ib, imu_a=ia,
+                imu_b=ib,
                 k5=k5, k11=k11, kf_s=kf, ms_iter=secs * 1e3 / n,
                 peak_gib=peak / 2**30, cg_iters=its, syncs_per_build=pcg_reads,
                 gap_p=got_p, gap_l=got_l)
@@ -2918,7 +3044,7 @@ def phase_fleet(p, cfg, sim, windows, smi):
         step.gn_iteration, banded.solve_reduced_fleet_dense = (orig_gn,
                                                                orig_fd)
     k1, k2, reads = _counters()
-    _, k10 = _new_counters()
+    k10 = _new_counters()[1]
     ia, ib = _imu_counters()
     k5, k11 = _marg_counters()
     peak = torch.cuda.max_memory_allocated()
@@ -2985,13 +3111,47 @@ def phase_fleet(p, cfg, sim, windows, smi):
                 ate_after=[a[1] for a in after])
 
 
+def schur_product_parts(bs, x, P, D, lm_size):
+    """{name: call} of one Schur product of `bs` (f32, on the card) and its
+    parts: the whole `cg.s_matvec`, kernel 6, segsum's launch (kernel 6's
+    rows with the unary and binary rows, and the IMU rows), and kernel 6's
+    pack (once per build, in `cg.assemble_blocks`); with the build's pack
+    and the segsum groups."""
+    import torch
+
+    from ba_tpu_torch.kernels import schur_matvec as k6
+    from ba_tpu_torch.kernels import segsum
+    from ba_tpu_torch.solver import cg
+
+    pj, plan = bs.pj, bs.plan.schur
+
+    def pack_call():
+        return k6.schur_pack(pj.j_m, pj.j_r, pj.j_l, plan, lm_size)
+
+    pack = bs.pack
+    xm = torch.where(bs.col_mask, x, 0.0)
+    flat = [(v.reshape(v.shape[0], -1).contiguous(), sp)
+            for v, sp in cg._s_groups(bs, xm, P, D)]
+    parts = {
+        "whole product": lambda: cg.s_matvec(bs, x, P, D, 0, 1e-4, None),
+        "kernel 6": lambda: k6.schur_matvec(pack, plan, bs.vinv,
+                                            xm[: P * D], D),
+        "segsum": lambda: segsum.seg_sum_grouped(flat),
+        "pack": pack_call}
+    return parts, pack, flat
+
+
 def phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f,
                           floor_ms, smi):
     """Kernels 6 and 10 timed at full width beside their bounds, plain
     versions and library yardsticks (torch.mv on the dense S of the same CG
     build; torch.bmm of the dense W operands, the product kernel 10
     replaces), kernel 10's device memory beside the plain route's, and the
-    library parts of the dense fleet solve timed apart."""
+    library parts of the dense fleet solve timed apart.  Kernel 6's pack
+    (once per build) and the segsum launch of one Schur product (kernel 6's
+    rows, the unary and binary rows and the IMU rows) are timed apart, and
+    the whole product; with `--parent`, the parent tree's kernel 6 on the
+    same build beside this tree's."""
     import torch
 
     from ba_tpu_torch.kernels import fleet_schur as k10
@@ -2999,48 +3159,113 @@ def phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f,
     from ba_tpu_torch.solver import assemble as asm
     from ba_tpu_torch.solver import step
 
-    # kernel 6
+    # kernel 6: the pack once per build, then one launch per product
     P, D = pc.poses.q.shape[0], cfg_c.pose_dim
-    pj, V = bs_c.pj, bs_c.plan.V
-    pose, ref = bs_c.plan.pose_ref
+    pj, plan = bs_c.pj, bs_c.plan.schur
+    L = bs_c.vinv.shape[0]
     Nr = pj.j_m.shape[0]
     x = x_c
+    lm = cfg_c.lm_size
+    parts, pack, flat = schur_product_parts(bs_c, x, P, D, lm)
+    k6_call, seg_call = parts["kernel 6"], parts["segsum"]
+    pack_call, product = parts["pack"], parts["whole product"]
 
-    def k6_call():
-        return k6.schur_matvec(pj.j_m, pj.j_r, pj.j_l, pose, ref, bs_c.vinv,
-                               x, V.perm, V.offsets, D)
-
-    b6_bytes = nbytes(pj.j_m, pj.j_r, pj.j_l, pose, ref, bs_c.vinv, x,
-                      V.perm, V.offsets) + 2 * Nr * 6 * x.element_size()
+    # bytes as the function needs them: J_m, J_r and j_l (24 + 2 lm values)
+    # and the pose, ref and landmark ids (12 B) of each row, the tile table,
+    # V^-1 (lm > 0) and x read once, the rows written once; the route reads
+    # the records' pad and the ids' group field besides (`route_bytes`)
+    out6 = k6_call()
+    b6_bytes = (Nr * ((24 + 2 * lm) * x.element_size() + 12)
+                + nbytes(plan.tiles, x, out6)
+                + (nbytes(bs_c.vinv) if lm else 0))
+    route_bytes = nbytes(pack.rows, plan.ids, plan.tiles, bs_c.vinv, x,
+                         out6)
     # per row: u (24 multiply-adds), j_l^T u (2), w (2), 12 outputs of 2
     # multiply-adds; per landmark one product with V^-1
-    b6_flops = Nr * 2 * (24 + 2 + 2 + 24) + V.nseg
-    b6 = max(b6_bytes / HBM_BPS, b6_flops / F32_FLOPS) * 1e3
-    by6 = "bytes" if b6_bytes / HBM_BPS >= b6_flops / F32_FLOPS \
-        else "operations"
+    b6_flops = Nr * 2 * (24 + 2 + 2 + 24) + L
+    b6, by6 = _bound(b6_bytes, b6_flops)
+    bp_bytes = nbytes(pj.j_m, pj.j_r, pj.j_l, plan.perm, pack.rows)
+    bp, byp = _bound(bp_bytes, 0)
+    # segsum's launch in the product, on the groups the product sums
+    bs_bytes = sum(nbytes(v, sp.perm) + sp.nseg * v.shape[1]
+                   * v.element_size() for v, sp in flat)
+    bs_ops = sum(v.numel() for v, _ in flat)
+    bseg, byseg = _bound(bs_bytes, bs_ops)
+    sorted_plain = k6.schur_pack_plain(pj.j_m, pj.j_r, pj.j_l, plan, lm)
     cfg_d = _dense_config(pc, cfg_c)
     S = asm.assemble(pc, cfg_d, imu_eval=step._imu_eval(pc, cfg_d, True,
                                                         True)).S
     xs = torch.zeros(S.shape[0], dtype=x.dtype, device=x.device)
     xs[: x.numel()] = x
     t6 = dict(ms=event_ms(k6_call, 200), device_ms=graph_ms(k6_call, 50),
-              plain_ms=event_ms(lambda: k6.schur_matvec_plain(
+              plain_ms=event_ms(lambda: k6.schur_matvec_sorted_plain(
+                  sorted_plain, plan, bs_c.vinv, x, D), 10),
+              row_order_plain_ms=event_ms(lambda: k6.schur_matvec_plain(
                   pj.j_m, pj.j_r, pj.j_l, pj.pose, pj.ref, pj.lm, bs_c.vinv,
                   x, D), 20),
               library_ms=event_ms(lambda: torch.mv(S, xs), 50),
               library_device_ms=graph_ms(lambda: torch.mv(S, xs), 20))
     del S
-    say(f"[{smi}] kernel 6 schur_matvec, CG build (Nr={Nr}, L={V.nseg}, "
-        f"P={P}) f32: {t6['ms']:.4f} ms per call ({t6['device_ms']:.4f} ms "
-        f"on the device, {b6 / t6['device_ms']:.1%} of the bound); plain "
-        f"{t6['plain_ms']:.4f} ms; torch.mv on the dense S of the same build "
-        f"({P * D}^2) {t6['library_ms']:.4f} ms ({t6['library_device_ms']:.4f}"
-        f" ms on the device); bound {b6:.5f} ms ({by6}: {b6_bytes} B, "
-        f"{b6_flops} flop); launch floor {floor_ms:.4f} ms")
+    tp = dict(ms=event_ms(pack_call, 100), device_ms=graph_ms(pack_call, 20),
+              plain_ms=event_ms(lambda: k6.schur_pack_plain(
+                  pj.j_m, pj.j_r, pj.j_l, plan, lm), 20))
+    ts = dict(ms=event_ms(seg_call, 200), device_ms=graph_ms(seg_call, 50))
+    tw = dict(ms=event_ms(product, 100), device_ms=graph_ms(product, 20))
+    parent = None
+    if PARENT is not None:
+        import importlib
+
+        parent_package(PARENT)
+        pk6 = importlib.import_module("ba_tpu_torch_parent.kernels."
+                                      "schur_matvec")
+        pose_ref = torch.stack([pj.pose, pj.ref]).int()
+        V = bs_c.plan.V
+
+        def parent_call():
+            return pk6.schur_matvec(pj.j_m, pj.j_r, pj.j_l, pose_ref[0],
+                                    pose_ref[1], bs_c.vinv, x, V.perm,
+                                    V.offsets, D)
+
+        parent = dict(ms=event_ms(parent_call, 200),
+                      device_ms=graph_ms(parent_call, 50))
+
+    def vs_parent(key):
+        return (f"; the parent's kernel {parent[key]:.4f} ms" if parent
+                else "; the parent's kernel not timed (no --parent)")
+
+    say(f"[{smi}] kernel 6 schur_matvec, CG build (Nr={Nr}, L={L}, P={P}) "
+        f"f32: {t6['ms']:.4f} ms per call{vs_parent('ms')}; "
+        f"{t6['device_ms']:.4f} ms on the device{vs_parent('device_ms')}; "
+        f"{b6 / t6['device_ms']:.1%} of the bound {b6:.5f} ms ({by6}: "
+        f"{b6_bytes} B, {b6_flops} flop; the route reads and writes "
+        f"{route_bytes} B with the records' pad and the ids' group field); "
+        f"plain (sorted order) "
+        f"{t6['plain_ms']:.4f} ms, row order {t6['row_order_plain_ms']:.4f} "
+        f"ms; torch.mv on the dense S of the same build ({P * D}^2) "
+        f"{t6['library_ms']:.4f} ms ({t6['library_device_ms']:.4f} ms on the "
+        f"device); launch floor {floor_ms:.4f} ms")
+    say(f"[{smi}] kernel 6's pack, once per build: {tp['ms']:.4f} ms per "
+        f"call ({tp['device_ms']:.4f} ms on the device, "
+        f"{bp / tp['device_ms']:.1%} of the bound {bp:.5f} ms, {byp}: "
+        f"{bp_bytes} B); plain {tp['plain_ms']:.4f} ms")
+    say(f"[{smi}] segsum in one Schur product ("
+        + ", ".join(f"{v.shape[0]}x{v.shape[1]}->{sp.nseg}" for v, sp in flat)
+        + f") f32: {ts['ms']:.4f} ms per call ({ts['device_ms']:.4f} ms on "
+        f"the device, {bseg / ts['device_ms']:.1%} of the bound {bseg:.5f} "
+        f"ms, {byseg}: {bs_bytes} B, {bs_ops} adds); the whole product "
+        f"(cg.s_matvec) {tw['ms']:.4f} ms per call, {tw['device_ms']:.4f} ms "
+        f"on the device")
     rec6 = dict(ms=t6["ms"], device_ms=t6["device_ms"], floor_ms=floor_ms,
-                plain_ms=t6["plain_ms"], bound_ms=b6, bound_by=by6,
+                plain_ms=t6["plain_ms"],
+                row_order_plain_ms=t6["row_order_plain_ms"], bound_ms=b6,
+                bound_by=by6, bytes=b6_bytes, route_bytes=route_bytes,
                 library_ms=t6["library_ms"],
-                library_device_ms=t6["library_device_ms"])
+                library_device_ms=t6["library_device_ms"], parent=parent,
+                product=tw)
+    rec6p = dict(ms=tp["ms"], device_ms=tp["device_ms"], floor_ms=floor_ms,
+                 plain_ms=tp["plain_ms"], bound_ms=bp, bound_by=byp,
+                 bytes=bp_bytes, library_ms=None)
+    rec_seg = dict(ts, bound_ms=bseg, bound_by=byseg, bytes=bs_bytes)
 
     # kernel 10
     from ba_tpu_torch.solver import banded
@@ -3115,7 +3340,7 @@ def phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f,
                  bytes=b10_bytes, flops=b10_flops, peak_mib=peak_k / 2**20,
                  plain_peak_mib=peak_p / 2**20, library_parts=lib)
     say("PHASE timing (cg, fleet) ok")
-    return rec6, rec10
+    return rec6, rec6p, rec_seg, rec10
 
 
 # ---------------------------------------------------------------------------
@@ -4412,9 +4637,13 @@ def phase_stream_many(smi):
 def main():
     import torch
 
+    global PARENT
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--parent" in sys.argv[1:]:
+        PARENT = sys.argv[sys.argv.index("--parent") + 1]
     import ba_tpu_torch
 
     check(Path(ba_tpu_torch.__file__).resolve().parents[1] == ROOT,
@@ -4475,7 +4704,10 @@ def main():
     phase_cg_small()
     pc, cfg_c, sim_c = cg_problem()
     bs_c = cg_blocks(pc, cfg_c)
-    err6, x_c = phase_k6(pc, cfg_c, bs_c)
+    p3, cfg_3, _ = cg_problem(3)
+    bs_3 = cg_blocks(p3, cfg_3)
+    err6, err6p, x_c = phase_k6(pc, cfg_c, bs_c, p3, cfg_3, bs_3)
+    del p3, bs_3
     err_imu.append(phase_imu(pc, cfg_c, "cg"))
     cg = phase_cg(pc, cfg_c, sim_c, smi)
     phase_fleet_small()
@@ -4484,8 +4716,8 @@ def main():
     err10 = phase_k10(pf, cfg_f, bs_f, plan_f)
     err_imu.append(phase_imu(pf, cfg_f, "fleet"))
     fl = phase_fleet(pf, cfg_f, sim_f, windows, smi)
-    rec6, rec10 = phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f,
-                                        plan_f, rec1["floor_ms"], smi)
+    rec6, rec6p, rec2c, rec10 = phase_timing_cg_fleet(
+        pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f, rec1["floor_ms"], smi)
     del pc, bs_c, x_c, pf, bs_f, plan_f, windows
 
     t_new = time.perf_counter()
@@ -4538,7 +4770,8 @@ def main():
              replaces="ba_tpu/solver/assemble.py:120",
              **paths("k2"), launches_per_slide=st["k2"] / st["slides"],
              max_abs_err=max(err2, err2s), **rec2,
-             stream_slide=dict(max_abs_err=err2s, **rec2s)),
+             stream_slide=dict(max_abs_err=err2s, **rec2s),
+             pcg_product=dict(launches=cg["k2"], **rec2c)),
         dict(name="band_schur", route="cuda",
              source="ba_tpu_torch/kernels/csrc/band_schur.cu",
              replaces="ba_tpu/solver/banded.py:96", launches=lg["k7"],
@@ -4551,6 +4784,10 @@ def main():
              source="ba_tpu_torch/kernels/csrc/schur_matvec.cu",
              replaces="ba_tpu/solver/cg.py:160", launches=cg["k6"],
              launches_cg=cg["k6"], max_abs_err=err6, **rec6),
+        dict(name="schur_pack", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/schur_matvec.cu",
+             replaces="ba_tpu/solver/cg.py:160", launches=cg["k6_pack"],
+             launches_cg=cg["k6_pack"], max_abs_err=err6p, **rec6p),
         dict(name="fleet_schur", route="cuda",
              source="ba_tpu_torch/kernels/csrc/fleet_schur.cu",
              replaces="ba_tpu/solver/banded.py:498", launches=fl["k10"],

@@ -27,8 +27,10 @@ launches of one profiled iteration.
 
 With `--cg` or `--fleet`, the same on chip_smoke.py's PCG configuration
 (1,024 keyframes, `use_cg_solver`: IMU, assemble_blocks with the
-preconditioner, the PCG with its Schur products through kernels 6 and 2
-and the preconditioner, ...) or on its fused fleet (4 x 128 keyframes: the
+preconditioner, the PCG with kernel 6's pack, its Schur products through
+kernels 6 and 2 and the preconditioner, ...; then one Schur product split
+into kernel 6, segsum and the glue, with the host and on the device, and
+the pack's cost per build) or on its fused fleet (4 x 128 keyframes: the
 families' band, kernel 10 (a) and (b), the batched Cholesky and the
 triangular solves, ...).  With `--selfcal`, on chip_smoke.py's full-width
 self-calibration configuration (128 keyframes, 15-dim states, 11
@@ -346,6 +348,7 @@ def _wrap(owner, name, label, sums, on):
 def _stages(which):
     """(problem, config, [(owner, name, label)]) of `path_iteration`."""
     from ba_tpu_torch.kernels import fleet_schur
+    from ba_tpu_torch.kernels import schur_matvec as k6
     from ba_tpu_torch.solver import assemble as asm
     from ba_tpu_torch.solver import banded, cg, step
 
@@ -370,6 +373,7 @@ def _stages(which):
         p, cfg, _ = chip_smoke.cg_problem()
         mid = [(cg, "assemble_blocks",
                 "assemble_blocks with the preconditioner (kernel 1, segsum)"),
+               (k6, "schur_pack", "  kernel 6's pack (once per build)"),
                (cg, "pcg_solve", "PCG, whole"),
                (cg, "s_matvec", "  Schur products (kernel 6, segsum)"),
                (cg, "_precond", "  preconditioner")]
@@ -468,6 +472,36 @@ def path_iteration(smi, which, n_iters=3):
                if hasattr(ka[0], "self_device_time_total")
                else "self_cuda_time_total")
     print(ka.table(sort_by=dev_key, row_limit=15))
+
+
+def schur_product_split(smi):
+    """One Schur product of the PCG configuration (`cg.s_matvec`, f32)
+    split into kernel 6, segsum's launch and the glue (the masks, the
+    unary and binary rows, the pad, the damping: plain torch), each with
+    the host (CUDA events around 100 calls) and on the device (CUDA-graph
+    replay), the glue as the whole less the two kernels; the device
+    operations of one product; and kernel 6's pack, once per build."""
+    import numpy as np
+    import torch
+
+    p, cfg, _ = chip_smoke.cg_problem()
+    bs = chip_smoke.cg_blocks(p, cfg)
+    P, D = p.poses.q.shape[0], cfg.pose_dim
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(P * D),
+                        dtype=torch.float32, device="cuda")
+    parts = chip_smoke.schur_product_parts(bs, x, P, D, cfg.lm_size)[0]
+    t = {k: (chip_smoke.event_ms(f, 100), chip_smoke.graph_ms(f, 20))
+         for k, f in parts.items()}
+    t["glue (the rest)"] = tuple(
+        t["whole product"][i] - t["kernel 6"][i] - t["segsum"][i]
+        for i in range(2))
+    for k, (ms, dev) in t.items():
+        print(f"[{smi}] cg Schur product: {k} {ms:.4f} ms with the host, "
+              f"{dev:.4f} ms on the device"
+              + (" (once per build)" if k == "pack" else ""))
+    ops = chip_smoke._device_ops(parts["whole product"])
+    print(f"cg Schur product: {ops} device operations per product (kernel "
+          f"6, segsum and the glue's)")
 
 
 def _busy_seconds(prof, name, count=False, kernels=None):
@@ -674,6 +708,8 @@ def main():
             path_iteration(smi, which)
             if which == "long":
                 k8_levels(smi, None)
+            if which == "cg":
+                schur_product_split(smi)
             return 0
     _, p, cfg, _ = chip_smoke.flagship()
     cfg = dataclasses.replace(cfg, use_dogleg=False)

@@ -6,15 +6,17 @@ seed.
     `band_to_dense` bit for bit (tolerance 0) in f64 and f32, on a band
     whose diagonal blocks are not symmetric, so that the order (u + u^T) -
     u shows; a torch walk of the kernel's per-element formula equals it too.
-  * K8a: a torch walk of the kernel's per-element index map (the scaled
-    band, the scaling, Dg and Eg with identity poses and identity chunks)
-    equals the Jacobi scaling, window padding and `_chunk_windows` of
-    ba_tpu's `banded_pcg_solve` (:631-656) bit for bit (tolerance 0), at F =
-    2 windows of a pose count that is not a multiple of the chunk; so do
-    the port's plain versions (`jacobi_scaled`, `chunk_system`).  The
-    scaling itself is held to 2 ulps: XLA's rsqrt and torch's round
-    differently on some inputs, so ba_tpu's sequence then runs from the
-    port's scaling.
+  * K8a: a torch walk of the kernel's tile map (one tile per window,
+    chunk and row pose: the scales of the poses around it, its pose's
+    scaled band row and the blocks its Dg rows mirror, staged once, then
+    its rows of the scaled band, the scaling, Dg and Eg, with identity
+    poses and identity chunks) equals the Jacobi scaling, window padding
+    and `_chunk_windows` of ba_tpu's `banded_pcg_solve` (:631-656) bit for
+    bit (tolerance 0), at F = 2 windows of a pose count that is not a
+    multiple of the chunk; so do the port's plain versions
+    (`jacobi_scaled`, `chunk_system`).  The scaling itself is held to 2
+    ulps: XLA's rsqrt and torch's round differently on some inputs, so
+    ba_tpu's sequence then runs from the port's scaling.
   * K8b and K8c in ba_tpu's representation: a torch walk of a blocked
     order (the right-looking Cholesky in 32-column panels, the blocked
     triangular solves, cyclic reduction's level split with the shifted T1
@@ -134,48 +136,70 @@ def _ba_tpu_layout(band, F, chunk, eps, scal=None):
 
 
 def _k8a_walk(band, F, chunk, m, eps):
-    """K8a's per-element index map (csrc/chunk_layout.cu): every output
-    from the raw band, the products then eps, a diagonal block of Dg as
-    (u + u^T) - u, identity poses past P_w and identity chunks past n_c."""
+    """K8a's tile map (csrc/chunk_layout.cu), tile by tile: one tile per
+    (window f, chunk c, row pose k).  A real chunk's tile stages the scales
+    of the virtual poses pv - (B - 1) .. pv + (B - 1) (pv = f P_w + c chunk
+    + k, clamped to the band), pose a's scaled band row (the products then
+    eps; identity past P_w) and the mirrored blocks band_s[pv - d, d], d =
+    1 .. min(B - 1, k), then writes band_s[pv], scal[pv] and its D rows of
+    Dg (above the diagonal block the row, below it the mirrored blocks, on
+    it (u + u^T) - u) and of Eg; a padding chunk's tiles write identity
+    and zero rows."""
     P, B, D, _ = band.shape
     P_w = P // F
     n_c = -(-P_w // chunk)
     n = chunk * D
-    diag = torch.diagonal(band[:, 0], dim1=-2, dim2=-1)
-    lo = torch.tensor(1e-12, dtype=band.dtype)
-    scal = torch.rsqrt(torch.where(diag < lo, lo, diag))
-
-    def scaled(p, d, i, j):
-        up = torch.clamp(p + d, max=P - 1)
-        v = (band[p, d, i, j] * scal[p, i]) * scal[up, j]
-        return torch.where(d == 0, v + torch.where(i == j, eps, 0.0).to(
-            band.dtype), v)
-
-    def windowed(f, a, d, i, j):
-        inside = a < P_w
-        p = (f * P_w + torch.clamp(a, max=P_w - 1))
-        pad = ((d == 0) & (i == j)).to(band.dtype)
-        return torch.where(inside, scaled(p, d.clamp(0, B - 1), i, j), pad)
-
-    p, d, i, j = torch.meshgrid(*(torch.arange(s) for s in (P, B, D, D)),
-                                indexing="ij")
-    band_s = scaled(p, d, i, j)
-    f, c, r, q = torch.meshgrid(*(torch.arange(s) for s in (F, m, n, n)),
-                                indexing="ij")
-    k, i = r // D, r % D
+    dt = band.dtype
+    lo = torch.tensor(1e-12, dtype=dt)
+    eye = torch.eye(D, dtype=dt)
+    band_s = torch.full_like(band, float("nan"))
+    scal = torch.full((P, D), float("nan"), dtype=dt)
+    Dg = torch.full((F, m, n, n), float("nan"), dtype=dt)
+    Eg = torch.full_like(Dg, float("nan"))
+    q = torch.arange(n)
     k2, j = q // D, q % D
-    a = c * chunk + k
-    zero = torch.zeros((), dtype=band.dtype)
-    ident = (r == q).to(band.dtype)
-    above = torch.where(k2 - k < B, windowed(f, a, k2 - k, i, j), zero)
-    below = torch.where(k - k2 < B, windowed(f, c * chunk + k2, k - k2, j, i),
-                        zero)
-    u = windowed(f, a, 0 * k, i, j)
-    on = (u + windowed(f, a, 0 * k, j, i)) - u
-    Dg = torch.where(k2 > k, above, torch.where(k2 < k, below, on))
-    Dg = torch.where(c >= n_c, ident, Dg)
-    de = chunk + k2 - k
-    Eg = torch.where((c < n_c) & (de < B), windowed(f, a, de, i, j), zero)
+    i = torch.arange(D)[:, None]
+    for f in range(F):
+        for c in range(m):
+            for k in range(chunk):
+                rows = slice(k * D, (k + 1) * D)
+                if c >= n_c:
+                    Dg[f, c, rows] = torch.eye(n, dtype=dt)[rows]
+                    Eg[f, c, rows] = 0.0
+                    continue
+                a = c * chunk + k
+                pv = f * P_w + a
+                near = torch.clamp(torch.arange(pv - (B - 1), pv + B), 0,
+                                   P - 1)
+                d_ = torch.diagonal(band[near, 0], dim1=-2, dim2=-1)
+                sc = torch.rsqrt(torch.where(d_ < lo, lo, d_))
+                s_at = sc[B - 1]
+                if a < P_w:
+                    row = (band[pv] * s_at[None, :, None]) \
+                        * sc[B - 1:][:, None, :]
+                    row[0] = row[0] + eps * eye
+                    band_s[pv], scal[pv] = row, s_at
+                else:
+                    row = torch.zeros((B, D, D), dtype=dt)
+                    row[0] = eye
+                below = torch.zeros((max(B - 1, 1), D, D), dtype=dt)
+                for d in range(1, min(B - 1, k) + 1):
+                    if a - d < P_w:
+                        below[d - 1] = (band[pv - d, d]
+                                        * sc[B - 1 - d][:, None]) \
+                            * s_at[None, :]
+                above = torch.where(
+                    k2 - k < B, row[torch.clamp(k2 - k, 0, B - 1), i, j], 0.0)
+                mirror = torch.where(
+                    k - k2 < B,
+                    below[torch.clamp(k - k2 - 1, 0, max(B - 2, 0)), j, i],
+                    0.0)
+                u, uT = row[0, i, j], row[0, j, i]
+                Dg[f, c, rows] = torch.where(
+                    k2 > k, above, torch.where(k2 < k, mirror, (u + uT) - u))
+                de = chunk + k2 - k
+                Eg[f, c, rows] = torch.where(
+                    de < B, row[torch.clamp(de, max=B - 1), i, j], 0.0)
     return band_s, scal, Dg, Eg
 
 

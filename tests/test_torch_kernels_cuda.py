@@ -22,8 +22,9 @@ versions to 1e-12 (f64) and 1e-5 (f32, the same products summed in
 another order), bit-identical between launches; a kernel that does not
 build raises; three f32 GN iterations of the banded solver run through all
 four kernels.  Kernel 6 (the projection rows of the matrix-free Schur
-product, with landmarks merged into one of more rows than a warp's
-lanes) and kernel 10 (the fleet's scaled Schur system from its W blocks,
+product, and its pack, at lm 0, 1 and 3, with landmarks merged into one of
+more rows than a warp's lanes and into one of more rows than a tile's 256)
+and kernel 10 (the fleet's scaled Schur system from its W blocks,
 with padding W blocks; and random windows at lm 0, 1 and 3, F up to 4,
 with masked dims) match their plain versions to 1e-12 (f64) and 1e-5
 (f32), bit-identical between launches, Ss exactly symmetric; three f32 GN iterations run on the PCG
@@ -411,36 +412,70 @@ def test_banded_gn_f32_on_the_card(cuda_band_problem, monkeypatch, grouped):
     assert k9.band_matvec.launches - n9 == 3 * 4
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
-                                       (torch.float32, 1e-5)])
-def test_schur_matvec_kernel_matches_plain(cuda_band_problem, dtype, tol):
-    """Kernel 6 against its plain version on the 48-pose build with the
-    rows of its first 8 landmarks given to landmark 0, more than one warp's
-    lanes (the simulator's landmarks have at most 23 rows); two launches
-    bit-identical."""
-    from ba_tpu_torch.kernels import schur_matvec as k6
-    from ba_tpu_torch.kernels import segsum
+def _k6_system(cuda_band_problem, lm):
+    """(problem, config, block system) of the 48-pose build with landmarks
+    of lm columns (lm 0 keeps the lm 1 blocks: kernel 1 has no lm 0)."""
+    from ba_tpu_torch.core.problem import prepare_landmarks
+    from ba_tpu_torch.solver import cg, step
 
     p, cfg, bs = cuda_band_problem
+    if lm == 3:
+        cfg = dataclasses.replace(cfg, lm_size=3)
+        p = prepare_landmarks(p, cfg)
+        bs, _ = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True,
+                                                          True),
+                                   with_precond=False)
+    return p, cfg, bs
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("lm,merged", [(1, 0), (1, 8), (1, 48), (3, 0),
+                                       (3, 8), (0, 0)])
+def test_schur_matvec_kernel_matches_plain(cuda_band_problem, dtype, tol,
+                                           lm, merged):
+    """Kernel 6 and its pack against their plain versions on the 48-pose
+    build, at lm 1, 3 and 0, and with the rows of the first `merged`
+    landmarks given to landmark 0 (8: more rows than a warp's lanes; 48: a
+    tile of more than 256 rows, walked in chunks); the pack equal element
+    for element, the rows within `tol`, two launches bit-identical; summed
+    by pose, the rows equal the row-order route's (`schur_matvec_plain`)."""
+    from ba_tpu_torch.kernels import schur_matvec as k6
+
+    p, cfg, bs = _k6_system(cuda_band_problem, lm)
     P, D = p.poses.q.shape[0], cfg.pose_dim
     pj = bs.pj
-    lm = torch.where(pj.lm < 8, 0, pj.lm)
-    V = segsum.build_plan(lm, bs.vinv.shape[0])
-    assert int((V.offsets[1:] - V.offsets[:-1]).max()) > 32
+    lmid = torch.where(pj.lm < merged, 0, pj.lm)
+    plan = k6.schur_plan(pj.pose, pj.ref, lmid, bs.vinv.shape[0])
+    longest = int(torch.bincount(lmid).max())
+    assert longest > {0: 0, 8: 32, 48: k6.ROWS}[merged]
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(P * D),
                         dtype=dtype, device="cuda")
     args = [t.to(dtype) for t in (pj.j_m, pj.j_r, pj.j_l)]
     vinv = bs.vinv.to(dtype)
-    pose, ref = bs.plan.pose_ref
-    before = k6.schur_matvec.launches
-    a = k6.schur_matvec(*args, pose, ref, vinv, x, V.perm, V.offsets, D)
-    b = k6.schur_matvec(*args, pose, ref, vinv, x, V.perm, V.offsets, D)
-    assert k6.schur_matvec.launches == before + 2
-    want = k6.schur_matvec_plain(*[t.double() for t in args], pj.pose,
-                                 pj.ref, lm, vinv.double(), x.double(), D)
+    n_pack, n_mv = k6.schur_pack.launches, k6.schur_matvec.launches
+    pack = k6.schur_pack(*args, plan, lm)
+    a = k6.schur_matvec(pack, plan, vinv, x, D)
+    b = k6.schur_matvec(pack, plan, vinv, x, D)
+    assert (k6.schur_pack.launches - n_pack,
+            k6.schur_matvec.launches - n_mv) == (1, 2)
+    want_pack = k6.schur_pack_plain(*args, plan, lm)
+    want = k6.schur_matvec_sorted_plain(
+        k6.schur_pack_plain(*[t.double() for t in args], plan, lm), plan,
+        vinv.double(), x.double(), D)
+    jl = args[2] if lm else torch.zeros_like(args[2])
+    rows = k6.schur_matvec_plain(args[0].double(), args[1].double(),
+                                 jl.double(), pj.pose, pj.ref, lmid,
+                                 vinv.double(), x.double(), D)
     torch.cuda.synchronize()
+    assert torch.equal(pack.rows, want_pack.rows)
     assert torch.equal(a, b)
     assert _rel(a, want) <= tol
+    by_pose = torch.zeros((P, 6), dtype=torch.float64, device="cuda")
+    by_pose.index_add_(0, plan.out_pose, a.double().reshape(-1, 6))
+    want_pose = torch.zeros_like(by_pose).index_add_(
+        0, torch.cat([pj.pose, pj.ref]), rows)
+    assert _rel(by_pose, want_pose) <= tol
 
 
 @pytest.fixture(scope="module")
@@ -571,6 +606,7 @@ def test_cg_and_fleet_gn_f32_on_the_card(cuda_band_problem, cuda_fleet,
         return res
 
     n6, n10 = k6.schur_matvec.launches, k10.fleet_schur.launches
+    n_pack = k6.schur_pack.launches
     cg.pcg_solve = record
     try:
         _, costs, _ = step.solve_fixed(p, cfg, True, 3)
@@ -581,6 +617,7 @@ def test_cg_and_fleet_gn_f32_on_the_card(cuda_band_problem, cuda_fleet,
     assert float(costs[-1]) < float(costs[0]), costs
     assert k6.schur_matvec.launches - n6 == sum(matvecs)
     assert len(matvecs) == (3 if path == "cg" else 0)
+    assert k6.schur_pack.launches - n_pack == len(matvecs)
     assert k10.fleet_schur.launches - n10 == (3 if path == "fleet_dense"
                                              else 0)
 
@@ -1118,17 +1155,24 @@ def test_band_to_dense_kernel_matches_plain(dtype, P, B, D):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("bcr", [True, False], ids=["bcr", "scan"])
-def test_chunk_layout_kernel_matches_plain(dtype, bcr):
+@pytest.mark.parametrize("F,P_w,B,D,chunk", [(2, 23, 4, 9, 5),
+                                             (2, 23, 4, 9, 4),
+                                             (1, 17, 3, 9, 4),
+                                             (1, 30, 5, 6, 6)],
+                         ids=["n45", "n36", "n36-B3", "D6"])
+def test_chunk_layout_kernel_matches_plain(dtype, bcr, F, P_w, B, D, chunk):
     """K8a equals `jacobi_scaled` + `chunk_system` on the card bit for bit
     (F = 2 windows of 23 poses in chunks of 5: two identity poses per
-    window; five chunks, padded to eight under cyclic reduction)."""
+    window; five chunks, padded to eight under cyclic reduction; chunks of
+    4 poses, whose rows the kernel writes 16 bytes a store; a band row of
+    B D^2 = 243 values, written one value a store; and D = 6, the generic
+    instantiation)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ba_tpu_torch.core.problem import BAConfig
     from ba_tpu_torch.kernels import chunk_tridiag as k8
     from ba_tpu_torch.solver import banded
 
-    F, P_w, B, D, chunk = 2, 23, 4, 9, 5
     band = torch.as_tensor(_spd_windows(np.random.default_rng(1), F, P_w, B,
                                         D), dtype=dtype, device="cuda")
     cfg = BAConfig(pose_dim=D, lm_size=1, fleet_size=F, banded_chunk=chunk)
