@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--parent TREE]
 
 With `--parent TREE` (an earlier commit unpacked with `git archive` under
-`_archive/`), phases 14 and 20 also time that tree's K8a and kernel 6 on
-the same inputs, loaded beside this tree's package.
+`_archive/`), phases 14 and 20 also time that tree's kernels 7 and 9, K8a
+and kernel 6 on the same inputs, loaded beside this tree's package.
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -80,9 +80,11 @@ Phases, each of which exits non-zero when a check fails:
      0.01, seed 1, no marginalization prior), f32, band width from the
      problem, use_banded_solver; k7: kernel 7 (grouped band Schur
      correction) against its plain version at full width in f32 and on an
-     f64 copy, with padding W blocks, bit-identical relaunch; k9: kernel 9
-     (band matvec) against its plain version on the scaled band and at 2,047
-     poses (not a multiple of its 8-pose blocks); k8: K8a (the chunk
+     f64 copy, with padding W blocks, and on a 48-pose build with XYZ
+     landmarks (lm_size 3), bit-identical relaunch, and bit-identical with
+     its staging forced into pieces; k9: kernel 9 (band matvec) against its
+     plain version on the scaled band and at 2,047 poses (not a multiple of
+     its 16-pose tiles); k8: K8a (the chunk
      layout) bit-identical to its plain version, K8b and K8c (factor and
      solve, cyclic reduction with explicit inverses against its plain
      versions and x = S^-1 b against the torch.linalg route; the scan
@@ -97,7 +99,9 @@ Phases, each of which exits non-zero when a check fails:
      first iteration's step against the dense solve of the same build
      (banded grid + dense Cholesky), within a multiple of the same gap on
      an f32 CPU run of both at 256 poses; K7 and K9 timed as in 11, with
-     torch.mv on the densified band as K9's library yardstick; K8a, K8b
+     torch.mv on the densified band as K9's library yardstick, their bounds
+     counted as the function needs its bytes (the route's beside) and,
+     with `--parent`, the parent's kernels on the same inputs; K8a, K8b
      and one K8c solve timed apart, with the host and on the device
      (CUDA-graph replay), beside their bounds (flops and bytes counted level
      by level over the chunks that are not padding; PR 8's count beside)
@@ -1464,10 +1468,38 @@ def long_blocks(p, cfg):
     return bs, plan
 
 
+def xyz_band_case(device="cuda"):
+    """(problem, config, block system) of a 48-pose f64 build with XYZ
+    landmarks (lm_size 3) on the banded solver's config, no
+    marginalization prior: kernel 7's lm_size 3 inputs."""
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import cg, step
+    from ba_tpu_torch.solver.assemble import band_width_of
+
+    cfg = BAConfig(pose_dim=9, lm_size=3, use_dogleg=False,
+                   use_banded_solver=True)
+    sim = sv.simulate(n_poses=48, n_lms=160, seed=0)
+    p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                               with_marg_prior=False, device=device)
+    cfg = dataclasses.replace(cfg, band_width=band_width_of(p))
+    p = prepare_landmarks(p, cfg)
+    bs, _ = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True, True),
+                               with_precond=False)
+    return p, cfg, bs
+
+
+# kernel 7's partner and left rows staged at once when phase k7 forces
+# the piecewise walk
+K7_PIECES = (37, 101)
+
+
 def phase_k7(p, cfg, bs, plan):
     """Kernel 7 against its plain version at full width, f32 and an f64
-    copy, with and without padding W blocks; two launches bit-identical.
-    Returns the f32 max abs error."""
+    copy, with and without padding W blocks, and with its staging forced
+    into pieces (`K7_PIECES`), which must not change a bit; then on a
+    48-pose build with XYZ landmarks (lm_size 3) the same ways; two
+    launches bit-identical.  Returns the f32 max abs error."""
     import torch
 
     from ba_tpu_torch.kernels import band_schur as k7
@@ -1477,7 +1509,8 @@ def phase_k7(p, cfg, bs, plan):
     idx = p.pidx
     check(plan.band.grouped, "long: band_S is not on the grouped form")
     sp = plan.band.schur
-    check(int(sp.slot.max()) == B - 1,
+    i_loc, kept = k7.slot_of(idx.wb_pose, idx.wb_lm, L, B)
+    check(int(i_loc[kept].max()) == B - 1,
           "k7: no landmark reaches the last slot of the band")
     # padding W blocks (landmark id L), nonzero: both versions drop them
     pad, dev = 64, bs.wb.device
@@ -1486,25 +1519,35 @@ def phase_k7(p, cfg, bs, plan):
     wb_lm_p = torch.cat([idx.wb_lm, torch.full((pad,), L, dtype=torch.int32,
                                                device=dev)])
     Wb_p = torch.cat([bs.wb, torch.full((pad, 6, 1), 1e3, device=dev)])
-    cases = (("full width", idx.wb_pose, idx.wb_lm, bs.wb, sp),
-             ("padding rows", wb_pose_p, wb_lm_p, Wb_p,
-              k7.schur_plan(wb_pose_p, wb_lm_p, P, L, B)))
+    px, cfg_x, bs_x = xyz_band_case()
+    Px, Bx = px.poses.q.shape[0], cfg_x.band_width
+    ix = px.pidx
+    cases = (("full width", P, B, idx.wb_pose, idx.wb_lm, bs.wb, bs.vinv,
+              sp),
+             ("padding rows", P, B, wb_pose_p, wb_lm_p, Wb_p, bs.vinv,
+              k7.schur_plan(wb_pose_p, wb_lm_p, P, L, B)),
+             ("lm_size 3, 48 poses", Px, Bx, ix.wb_pose, ix.wb_lm, bs_x.wb,
+              bs_x.vinv, k7.schur_plan(ix.wb_pose, ix.wb_lm, Px,
+                                       px.lms.x.shape[0], Bx)))
     worst = 0.0
     for dtype in (torch.float32, torch.float64):
         dt = str(dtype).replace("torch.", "")
-        for what, wp, wl, Wb, sp_ in cases:
-            Wb, vinv = Wb.to(dtype), bs.vinv.to(dtype)
-            a = k7.band_schur(Wb, vinv, sp_, P)
-            b = k7.band_schur(Wb, vinv, sp_, P)
-            want = banded.band_schur_plain(wp, wl, Wb, vinv, P, B)
+        for what, P_, B_, wp, wl, Wb, vinv, sp_ in cases:
+            Wb, vinv = Wb.to(dtype), vinv.to(dtype)
+            a = k7.band_schur(Wb, vinv, sp_, P_)
+            b = k7.band_schur(Wb, vinv, sp_, P_)
+            c = k7.band_schur(Wb, vinv, sp_, P_, caps=K7_PIECES)
+            want = banded.band_schur_plain(wp, wl, Wb, vinv, P_, B_)
             torch.cuda.synchronize()
             err, rel = rel_err(a, want)
-            same = bool(torch.equal(a, b))
-            say(f"kernel 7 {dt} {what} (Nw={Wb.shape[0]}, P={P}, B={B}): "
-                f"max abs err {err:.3e} rel {rel:.3e} (tol {TOL_K7[dt]:g}); "
-                f"bit-identical relaunch {same}")
+            same, cut = bool(torch.equal(a, b)), bool(torch.equal(a, c))
+            say(f"kernel 7 {dt} {what} (Nw={Wb.shape[0]}, P={P_}, B={B_}, "
+                f"lm {Wb.shape[2]}): max abs err {err:.3e} rel {rel:.3e} "
+                f"(tol {TOL_K7[dt]:g}); bit-identical relaunch {same}, "
+                f"in pieces of {K7_PIECES} rows {cut}")
             check(rel <= TOL_K7[dt], f"kernel 7 {dt} {what}: rel {rel:.3g}")
             check(same, f"kernel 7 {dt} {what}: two launches differ")
+            check(cut, f"kernel 7 {dt} {what}: the piecewise walk differs")
             if dt == "float32":
                 worst = max(worst, err)
             del want
@@ -1714,10 +1757,47 @@ def phase_long(p, cfg, sim, smi):
                 syncs=syncs - plan_again, gap_p=got_p, gap_l=got_l)
 
 
+def _parent_kernels():
+    """The parent tree's (kernel 7, kernel 9) modules (`--parent`), or
+    None."""
+    if PARENT is None:
+        return None
+    import importlib
+
+    parent_package(PARENT)
+    return tuple(importlib.import_module(f"ba_tpu_torch_parent.kernels.{m}")
+                 for m in ("band_schur", "band_matvec"))
+
+
+def k7_work(plan, L, lm):
+    """(block pairs, flop) of kernel 7 on `plan`: every two kept W blocks
+    of a landmark (its span is under B) make one 6 x 6 product of lm
+    terms, each kept block one u = Wb V^-1."""
+    import torch
+
+    n_kept = int(plan.offsets[-1])
+    n_l = torch.bincount(plan.lm[:n_kept].long(), minlength=L).double()
+    pairs = int((n_l * (n_l + 1) / 2).sum())
+    return pairs, 72 * lm * pairs + 6 * lm * (2 * lm - 1) * n_kept
+
+
+def k9_blocks_read(P, B):
+    """Band blocks kernel 9 reads: each tile's own rows and the blocks of
+    the B - 1 rows before it that reach into it."""
+    from ba_tpu_torch.kernels import band_matvec as k9
+
+    chb, _ = k9.schedule(B)
+    return sum(db - da for q0 in range(0, P, k9.TILE)
+               for pc in k9.pieces(q0, P, B, chb) if pc is not None
+               for _, da, db in [pc])
+
+
 def phase_timing_band(p, cfg, bs, plan, band, band_s, x, k8_per_iter,
                       floor_ms, smi):
-    """Kernels 7 and 9 timed at full width beside their bounds, plain
-    versions and (kernel 9) torch.mv on the densified band."""
+    """Kernels 7 and 9 timed at full width beside their bounds (bytes as
+    the function needs them, the route's own printed beside), plain
+    versions, (kernel 9) torch.mv on the densified band and, with
+    `--parent`, the parent tree's kernels on the same inputs."""
     import torch
 
     from ba_tpu_torch.kernels import band_matvec as k9
@@ -1730,35 +1810,51 @@ def phase_timing_band(p, cfg, bs, plan, band, band_s, x, k8_per_iter,
     sp = plan.band.schur
     Wb, vinv = bs.wb, bs.vinv
     idx = p.pidx
+    es = Wb.element_size()
+    parent = _parent_kernels()
 
     def k7_call():
         return k7.band_schur(Wb, vinv, sp, P)
 
-    occ = (sp.slot_row.view(L, B) >= 0).sum(1).double()
-    pairs = int((occ * (occ + 1) / 2).sum())
-    k7_bytes = nbytes(Wb, vinv, sp.perm, sp.offsets, sp.lm, sp.slot,
-                      sp.slot_row) + P * B * 36 * Wb.element_size()
-    k7_flops = 72 * pairs + 6 * int(sp.offsets[-1])
+    def dev(t):
+        return "not measured" if t is None else f"{t:.4f} ms"
+
+    pairs, k7_flops = k7_work(sp, L, Wb.shape[2])
+    out_bytes = P * B * 36 * es
+    k7_bytes = nbytes(Wb, vinv, idx.wb_pose, idx.wb_lm) + out_bytes
+    k7_route = nbytes(Wb, vinv, sp.perm, sp.offsets, sp.lm,
+                      sp.tile_src) + out_bytes
     t7 = dict(ms=event_ms(k7_call, 50), device_ms=graph_ms(k7_call, 20),
               plain_ms=event_ms(lambda: banded.band_schur_plain(
                   idx.wb_pose, idx.wb_lm, Wb, vinv, P, B), 3))
-    b7 = max(k7_bytes / HBM_BPS, k7_flops / F32_FLOPS) * 1e3
-    by7 = "bytes" if k7_bytes / HBM_BPS >= k7_flops / F32_FLOPS \
-        else "operations"
+    b7, by7 = _bound(k7_bytes, k7_flops)
+    old7 = None
+    if parent is not None:
+        psp = parent[0].schur_plan(idx.wb_pose, idx.wb_lm, P, L, B)
+        old7 = _timed(lambda: parent[0].band_schur(Wb, vinv, psp, P), 50, 20)
+    vs7 = (f"; the parent's kernel {old7[0]:.4f} ms per call "
+           f"({dev(old7[1])} on the device)" if old7
+           else "; the parent's kernel not timed (no --parent)")
     say(f"[{smi}] kernel 7 band_schur, long build (Nw={Wb.shape[0]}, "
         f"{pairs} block pairs, P={P}, B={B}) f32: {t7['ms']:.4f} ms per call "
         f"({t7['device_ms']:.4f} ms on the device, "
-        f"{b7 / t7['device_ms']:.1%} of the bound); plain (the (L, B, B, 6, "
-        f"6) form) {t7['plain_ms']:.3f} ms; bound {b7:.5f} ms ({by7}: "
-        f"{k7_bytes} B, {k7_flops} flop); no library call computes it; "
-        f"launch floor {floor_ms:.4f} ms")
+        f"{b7 / t7['device_ms']:.1%} of the bound){vs7}; plain (the (L, B, "
+        f"B, 6, 6) form) {t7['plain_ms']:.3f} ms; bound {b7:.5f} ms ({by7}: "
+        f"{k7_bytes} B as the function needs them (Wb, V^-1, wb_pose, "
+        f"wb_lm, the output), {k7_flops} flop; the route's {k7_route} B "
+        f"with the plan's perm, offsets and landmark ids); no library call "
+        f"computes it; launch floor {floor_ms:.4f} ms")
     rec7 = dict(ms=t7["ms"], device_ms=t7["device_ms"], floor_ms=floor_ms,
                 plain_ms=t7["plain_ms"], bound_ms=b7, bound_by=by7,
-                library_ms=None)
+                library_ms=None, bytes=k7_bytes, route_bytes=k7_route,
+                flops=k7_flops, parent_ms=old7 and old7[0],
+                parent_device_ms=old7 and old7[1])
 
     blocks = P * B - B * (B - 1) // 2                # upper blocks in range
     k9_flops = 2 * D * D * (2 * blocks - P)          # + the lower ones
     k9_bytes = nbytes(band_s, x) + x.numel() * x.element_size()
+    k9_route = (k9_blocks_read(P, B) * D * D * es
+                + 2 * x.numel() * x.element_size())
     S = band_to_dense(band_s)
     t9 = dict(ms=event_ms(lambda: k9.band_matvec(band_s, x), 200),
               device_ms=graph_ms(lambda: k9.band_matvec(band_s, x), 50),
@@ -1767,45 +1863,56 @@ def phase_timing_band(p, cfg, bs, plan, band, band_s, x, k8_per_iter,
               library_ms=event_ms(lambda: torch.mv(S, x), 50),
               library_device_ms=graph_ms(lambda: torch.mv(S, x), 20))
     del S
-    b9 = max(k9_bytes / HBM_BPS, k9_flops / F32_FLOPS) * 1e3
-    by9 = "bytes" if k9_bytes / HBM_BPS >= k9_flops / F32_FLOPS \
-        else "operations"
+    b9, by9 = _bound(k9_bytes, k9_flops)
+    old9 = None
+    if parent is not None:
+        old9 = _timed(lambda: parent[1].band_matvec(band_s, x), 200, 50)
+    vs9 = (f"; the parent's kernel {old9[0]:.4f} ms per call "
+           f"({dev(old9[1])} on the device)" if old9
+           else "; the parent's kernel not timed (no --parent)")
     say(f"[{smi}] kernel 9 band_matvec, long band (P={P}, B={B}, D={D}) f32: "
         f"{t9['ms']:.4f} ms per call ({t9['device_ms']:.4f} ms on the "
-        f"device, {b9 / t9['device_ms']:.1%} of the bound); plain "
+        f"device, {b9 / t9['device_ms']:.1%} of the bound){vs9}; plain "
         f"{t9['plain_ms']:.4f} ms; torch.mv on the densified band "
         f"{t9['library_ms']:.4f} ms ({t9['library_device_ms']:.4f} ms on the "
-        f"device); bound {b9:.5f} ms ({by9}: {k9_bytes} B, {k9_flops} flop); "
+        f"device); bound {b9:.5f} ms ({by9}: {k9_bytes} B, {k9_flops} flop; "
+        f"the route reads {k9_route} B with each tile's halo blocks); "
         f"launch floor {floor_ms:.4f} ms")
     rec9 = dict(ms=t9["ms"], device_ms=t9["device_ms"], floor_ms=floor_ms,
                 plain_ms=t9["plain_ms"], bound_ms=b9, bound_by=by9,
                 library_ms=t9["library_ms"],
-                library_device_ms=t9["library_device_ms"])
+                library_device_ms=t9["library_device_ms"], bytes=k9_bytes,
+                route_bytes=k9_route, parent_ms=old9 and old9[0],
+                parent_device_ms=old9 and old9[1])
     rec8 = k8_timing(p, cfg, band, k8_per_iter, floor_ms, smi)
     say("PHASE timing (long) ok")
     return rec7, rec9, rec8
 
 
-def _device_ops(fn):
+def _device_ops(fn, tries=3):
     """Device operations (kernels, memsets, copies) that one call of `fn`
     puts on the card, from torch.profiler; None when the profiler sees
-    none."""
+    none in `tries` captures (a capture has been seen to miss the one
+    kernel of a call: 1 of 8 smoke runs on an H100)."""
     import torch
     from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with torch.profiler.profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    except RuntimeError as e:
-        say(f"torch.profiler failed ({str(e)[:160]}); device operations not "
-            f"counted")
-        n = 0
+    n = 0
+    for _ in range(tries):
+        try:
+            with torch.profiler.profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            n = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        except RuntimeError as e:
+            say(f"torch.profiler failed ({str(e)[:160]}); device operations "
+                f"not counted")
+        if n:
+            break
     return n or None
 
 
@@ -3218,13 +3325,10 @@ def phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f,
         parent_package(PARENT)
         pk6 = importlib.import_module("ba_tpu_torch_parent.kernels."
                                       "schur_matvec")
-        pose_ref = torch.stack([pj.pose, pj.ref]).int()
-        V = bs_c.plan.V
+        xm = torch.where(bs_c.col_mask, x, 0.0)[: P * D]
 
-        def parent_call():
-            return pk6.schur_matvec(pj.j_m, pj.j_r, pj.j_l, pose_ref[0],
-                                    pose_ref[1], bs_c.vinv, x, V.perm,
-                                    V.offsets, D)
+        def parent_call():   # the parent's kernel 6 on this tree's pack
+            return pk6.schur_matvec(pack, plan, bs_c.vinv, xm, D)
 
         parent = dict(ms=event_ms(parent_call, 200),
                       device_ms=graph_ms(parent_call, 50))

@@ -5,8 +5,10 @@ The Schur band (pair and grouped forms, the grouped one forced by patching
 `_GROUPED_SP_MIN` in both packages), the band product, the chunk layout,
 the scan and cyclic-reduction factorizations on random SPD
 block-tridiagonal systems (padded and power-of-two chunk counts, batched),
-the PCG wrap, and the arithmetic of kernels 7 and 9 walked in Python over
-the kernels' own tables and lane layout.  The same sums in another order:
+the PCG wrap, band_S on the grouped form with XYZ landmarks, and the
+arithmetic of kernels 7 and 9 walked in Python in the kernels' order:
+kernel 7 over its plan, whole and cut into pieces (the two walks equal),
+at lm_size 1 and 3; kernel 9 over its tiles, pieces and warps.  The same sums in another order:
 1e-9 relative to max(1, max |ba_tpu|) for the band, the rhs and the step,
 1e-12 for the factorizations of well-conditioned random systems.
 """
@@ -23,6 +25,7 @@ from ba_tpu.solver import assemble as jasm
 from ba_tpu.solver import banded as jband
 from ba_tpu.solver import cg as jcg
 from ba_tpu.solver import step as jstep
+from ba_tpu_torch.kernels import band_matvec as k9
 from ba_tpu_torch.kernels import band_schur as k7
 from ba_tpu_torch.solver import banded as tband
 from ba_tpu_torch.solver import cg as tcg
@@ -65,25 +68,61 @@ def test_band_S_matches(schur_form):
     assert_rel(tb, jb, TOL, f"band ({schur_form})")
 
 
-def _kernel7_walk(plan, Wb, vinv, P):
-    """Kernel 7's arithmetic in Python over its own tables: for each pose,
-    its kept W blocks in CSR order, each with the same landmark's blocks
-    at the next slots."""
-    B = plan.B
-    Wb = Wb.reshape(-1, 6).numpy()
-    vinv = vinv.reshape(-1).numpy()
-    perm, off = plan.perm.numpy(), plan.offsets.numpy()
-    lm, slot, slot_row = plan.lm.numpy(), plan.slot.numpy(), \
-        plan.slot_row.numpy()
+def _kernel7_walk(plan, Wb, vinv, P, caps=None):
+    """Kernel 7's order of work in Python over its own plan: tiles of
+    TILE_POSES poses; the run of the tile's W blocks (left rows) and of
+    its B + TILE_POSES - 1 poses' (partners) staged whole, or in pieces of
+    `caps` (left rows, partner rows), left pieces outside; per output
+    block (a, d) a merge walk of pose a's blocks, ascending in landmark,
+    against pose a + d's, adding (Wb_a V^-1) Wb_{a+d}^T per shared
+    landmark."""
+    B, T = plan.B, k7.TILE_POSES
+    W, V = Wb.numpy(), vinv.numpy()
+    perm, off, lms = plan.perm.numpy(), plan.offsets.numpy(), \
+        plan.lm.numpy()
     out = np.zeros((P, B, 6, 6))
-    for a in range(P):
-        for row in perm[off[a]:off[a + 1]]:
-            u = Wb[row] * vinv[lm[row]]
-            for d in range(B - slot[row]):
-                q = slot_row[lm[row] * B + slot[row] + d]
-                if q >= 0:
-                    out[a, d] += np.outer(u, Wb[q])
+    for a0 in range(0, P, T):
+        a1, w1 = min(P, a0 + T), min(P, a0 + T + B - 1)
+        L0, L1, R1 = off[a0], off[a1], off[w1]
+        cl, cr = caps or (max(1, L1 - L0), max(1, R1 - L0))
+        nlp, nrp = max(1, -(-(L1 - L0) // cl)), max(1, -(-(R1 - L0) // cr))
+        for a in range(a0, a1):
+            for d in range(min(B, P - a)):
+                acc = np.zeros((6, 6))
+                for lp in range(nlp):
+                    lp0 = L0 + lp * cl
+                    lp1 = min(L1, lp0 + cl)
+                    for rp in range(nrp):
+                        rp0 = L0 + rp * cr
+                        rp1 = min(R1, rp0 + cr)
+                        j, je = max(off[a + d], rp0), min(off[a + d + 1], rp1)
+                        for r in range(max(off[a], lp0), min(off[a + 1], lp1)):
+                            lm = lms[r]
+                            while j < je and lms[j] < lm:
+                                j += 1
+                            if j < je and lms[j] == lm:
+                                acc += (W[perm[r]] @ V[lm]) @ W[perm[j]].T
+                                j += 1
+                out[a, d] = acc
     return out
+
+
+def _padded_table(tp, n_pad=5):
+    """The problem's W block table with padding rows (landmark id L) at
+    the end, which both versions must drop."""
+    L, idx = tp.lms.x.shape[0], tp.pidx
+    wb_pose = torch.cat([idx.wb_pose, torch.zeros(n_pad, dtype=torch.int32)])
+    wb_lm = torch.cat([idx.wb_lm, torch.full((n_pad,), L,
+                                             dtype=torch.int32)])
+    return wb_pose, wb_lm
+
+
+def _random_wb(rng, n, L, lm):
+    """Random W blocks (n, 6, lm) and SPD landmark inverses (L, lm, lm)."""
+    Wb = torch.as_tensor(rng.standard_normal((n, 6, lm)))
+    A = rng.standard_normal((L, lm, lm))
+    vinv = torch.as_tensor(A @ np.swapaxes(A, 1, 2) + lm * np.eye(lm))
+    return Wb, vinv
 
 
 def test_kernel7_tables_reproduce_the_plain_correction():
@@ -93,45 +132,102 @@ def test_kernel7_tables_reproduce_the_plain_correction():
     _, _, tp, tcfg = banded_case(mask=False)
     P, B, L = tp.poses.q.shape[0], tcfg.band_width, tp.lms.x.shape[0]
     rng = np.random.default_rng(4)
-    idx = tp.pidx
     n_pad = 5
-    wb_pose = torch.cat([idx.wb_pose, torch.zeros(n_pad, dtype=torch.int32)])
-    wb_lm = torch.cat([idx.wb_lm, torch.full((n_pad,), L,
-                                             dtype=torch.int32)])
-    Wb = torch.as_tensor(rng.standard_normal((wb_pose.shape[0], 6, 1)))
-    vinv = torch.as_tensor(rng.uniform(0.5, 2.0, (L, 1, 1)))
+    wb_pose, wb_lm = _padded_table(tp, n_pad)
+    Wb, vinv = _random_wb(rng, wb_pose.shape[0], L, 1)
     plan = k7.schur_plan(wb_pose, wb_lm, P, L, B)
-    assert int(plan.slot.max()) == B - 1
-    assert bool((plan.slot[-n_pad:] == -1).all())
-    assert int(plan.offsets[-1]) == idx.wb_pose.shape[0]
+    i_loc, kept = k7.slot_of(wb_pose, wb_lm, L, B)
+    assert int(i_loc[kept].max()) == B - 1
+    assert not bool(kept[-n_pad:].any())
+    n_kept = tp.pidx.wb_pose.shape[0]
+    assert int(plan.offsets[-1]) == n_kept
+    # the kept blocks sorted by (pose, landmark), the padding last
+    key = (wb_pose.long() * (L + 1) + wb_lm.long())[plan.perm.long()]
+    assert bool((key[1:n_kept] > key[:n_kept - 1]).all())
+    assert set(plan.perm[n_kept:].tolist()) == set(range(n_kept,
+                                                         n_kept + n_pad))
     want = tband.band_schur_plain(wb_pose, wb_lm, Wb, vinv, P, B)
     assert_rel(_kernel7_walk(plan, Wb, vinv, P), want.numpy(), 1e-12,
                "kernel 7 walk")
 
 
+@pytest.mark.parametrize("lm", [1, 3], ids=["inverse_depth", "xyz"])
+def test_kernel7_walk_in_pieces_matches_whole(lm):
+    """Kernel 7's piecewise staging (a tile's run cut into pieces of 3
+    left and 5 partner rows) sums every output in the same order as the
+    whole run: the two walks are equal, and equal the plain correction to
+    1e-12, at lm_size 1 and 3."""
+    _, _, tp, tcfg = banded_case(mask=False)
+    P, B, L = tp.poses.q.shape[0], tcfg.band_width, tp.lms.x.shape[0]
+    wb_pose, wb_lm = _padded_table(tp)
+    Wb, vinv = _random_wb(np.random.default_rng(5 + lm), wb_pose.shape[0],
+                          L, lm)
+    plan = k7.schur_plan(wb_pose, wb_lm, P, L, B)
+    whole = _kernel7_walk(plan, Wb, vinv, P)
+    cut = _kernel7_walk(plan, Wb, vinv, P, caps=(3, 5))
+    assert np.array_equal(cut, whole)
+    want = tband.band_schur_plain(wb_pose, wb_lm, Wb, vinv, P, B)
+    assert_rel(cut, want.numpy(), 1e-12, f"kernel 7 walk in pieces, lm {lm}")
+
+
+def test_band_S_xyz_landmarks_grouped_matches(monkeypatch):
+    """band_S on the grouped Schur form (forced in both packages, as
+    `schur_form` forces it) with XYZ landmarks (lm_size 3) against
+    ba_tpu's."""
+    monkeypatch.setattr(jband, "_GROUPED_SP_MIN", 0)
+    monkeypatch.setattr(tband, "_GROUPED_SP_MIN", 0)
+    jp, jcfg, tp, tcfg = banded_case(lm_size=3)
+    D, K, P, L, lm, N = jasm.dims(jp, jcfg)
+    assert lm == 3 and tband.grouped_schur(tp, tcfg)
+    want, got = _blocks(jp, jcfg, tp, tcfg)
+    jb = jax.jit(lambda p, bs: jband.band_S(p, jcfg, bs, P, D))(jp, want)
+    tb = tband.band_S(tp, tcfg, got, P, D)
+    assert_rel(tb, jb, TOL, "band (grouped, lm_size 3)")
+
+
 def _kernel9_walk(band, x):
-    """Kernel 9's arithmetic in Python: lanes (slot s, row i) of one warp
-    per pose, each over blocks k = s, s + slots, ..., then the slots added
-    in order."""
+    """Kernel 9's order of work in Python: tiles of TILE output poses, each
+    tile's pieces (`k9.pieces` at the kernel's schedule) dealt to its
+    warps in turn; per piece the lower terms band[p, d]^T x_p of the
+    tile's poses p + d into the warp's accumulator, and for an owned row
+    the upper terms band[p, d] x_{p+d} summed by lane group g (blocks
+    b = g, g + G, ..., G = 32 // D), the groups added in order, then into
+    it; each y the sum of the warps' accumulators in warp order."""
     P, B, D, _ = band.shape
     band, X = band.numpy(), x.numpy().reshape(P, D)
-    slots = 32 // D
+    chb, nw = k9.schedule(B)
+    G = 32 // D
     y = np.zeros((P, D))
-    for q in range(P):
-        acc = np.zeros((slots, D))
-        for s in range(slots):
-            for k in range(s, 2 * B - 1, slots):
-                if k < B and q + k < P:
-                    acc[s] += band[q, k] @ X[q + k]
-                elif k >= B and q - (k - B + 1) >= 0:
-                    p = q - (k - B + 1)
-                    acc[s] += band[p, k - B + 1].T @ X[p]
-        y[q] = acc.sum(0)
+    for q0 in range(0, P, k9.TILE):
+        q1 = min(P, q0 + k9.TILE)
+        acc = np.zeros((nw, k9.TILE, D))
+        for n, pc in enumerate(k9.pieces(q0, P, B, chb)):
+            if pc is None:
+                continue
+            p, da, db = pc
+            w = acc[n % nw]
+            for d in range(max(da, 1), db):
+                if q0 <= p + d < q1:
+                    w[p + d - q0] += band[p, d].T @ X[p]
+            if p >= q0:
+                parts = [np.zeros(D) for _ in range(G)]
+                for d in range(da, db):
+                    g = (d - da) % G
+                    parts[g] = parts[g] + band[p, d] @ X[p + d]
+                tot = parts[0]
+                for part in parts[1:]:
+                    tot = tot + part
+                w[p - q0] += tot
+        s = acc[0]
+        for w in acc[1:]:
+            s = s + w
+        y[q0:q1] = s[: q1 - q0]
     return y.reshape(-1)
 
 
 @pytest.mark.parametrize("P,B,D", [(9, 4, 3), (13, 13, 9), (7, 1, 6),
-                                   (11, 5, 15)])
+                                   (11, 5, 15), (40, 21, 4), (35, 35, 9),
+                                   (20, 6, 32), (70, 50, 1), (150, 7, 9)])
 def test_band_matvec_matches(P, B, D):
     rng = np.random.default_rng(P * B)
     band = rng.standard_normal((P, B, D, D))

@@ -16,10 +16,13 @@ general assembly path a build's seven sums are one launch that equals the
 plain walk of the same plans (f64, 1e-12: the same additions in the same
 order, FMA contraction aside), and three f32 slides of the ring run
 through both kernels with finite costs that fall.  Kernel 7 (grouped band
-Schur correction, with padding W blocks) and kernel 9 (band matvec, at a
-pose count that is not a multiple of its 8-pose blocks) match their plain
-versions to 1e-12 (f64) and 1e-5 (f32, the same products summed in
-another order), bit-identical between launches; a kernel that does not
+Schur correction, with padding W blocks, with its staging forced into
+pieces, at lm_size 3 and at band widths above its first version's 48 KB
+limit) and kernel 9 (band matvec, at a pose count that is not a multiple
+of its 16-pose tiles, B = 1, B = P, D from 1 to 32 and a view off 16
+bytes) match their plain versions to 1e-12 (f64) and 1e-5 (f32, the same
+products summed in another order), bit-identical between launches (and
+kernel 7 with its walk in pieces); a kernel that does not
 build raises; three f32 GN iterations of the banded solver run through all
 four kernels.  Kernel 6 (the projection rows of the matrix-free Schur
 product, and its pack, at lm 0, 1 and 3, with landmarks merged into one of
@@ -312,7 +315,9 @@ def cuda_band_problem():
                                        (torch.float32, 1e-5)])
 def test_band_schur_kernel_matches_plain(cuda_band_problem, dtype, tol):
     """Kernel 7 against its plain version, with padding W blocks
-    (landmark id L) that must be dropped; two launches bit-identical."""
+    (landmark id L) that must be dropped; two launches bit-identical, and
+    bit-identical with its staging forced into pieces and with its W rows
+    gathered through the plan's order (no tile marked consecutive)."""
     from ba_tpu_torch.kernels import band_schur as k7
     from ba_tpu_torch.solver import banded
 
@@ -328,23 +333,92 @@ def test_band_schur_kernel_matches_plain(cuda_band_problem, dtype, tol):
                                       device="cuda")]).to(dtype)
     vinv = bs.vinv.to(dtype)
     plan = k7.schur_plan(wb_pose, wb_lm, P, L, B)
-    assert int(plan.slot.max()) == B - 1
+    i_loc, kept = k7.slot_of(wb_pose, wb_lm, L, B)
+    assert int(i_loc[kept].max()) == B - 1
     before = k7.band_schur.launches
     a = k7.band_schur(Wb, vinv, plan, P)
     b = k7.band_schur(Wb, vinv, plan, P)
-    assert k7.band_schur.launches == before + 2
+    c = k7.band_schur(Wb, vinv, plan, P, caps=(5, 11))
+    assert bool((plan.tile_src >= 0).all())
+    gathered = plan._replace(tile_src=torch.full_like(plan.tile_src, -1))
+    g = k7.band_schur(Wb, vinv, gathered, P)
+    assert k7.band_schur.launches == before + 4
     want = banded.band_schur_plain(wb_pose, wb_lm, Wb.double(),
                                    vinv.double(), P, B)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+    assert torch.equal(a, c)
+    assert torch.equal(a, g)
     assert _rel(a, want) <= tol
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
+def test_band_schur_kernel_xyz_landmarks(dtype, tol):
+    """Kernel 7 at lm_size 3 (XYZ landmarks, a 48-pose build) against its
+    plain version; bit-identical relaunch and piecewise walk."""
+    from chip_smoke import xyz_band_case
+
+    from ba_tpu_torch.kernels import band_schur as k7
+    from ba_tpu_torch.solver import banded
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p, cfg, bs = xyz_band_case()
+    P, B, L = p.poses.q.shape[0], cfg.band_width, p.lms.x.shape[0]
+    idx = p.pidx
+    assert bs.wb.shape[2] == 3
+    plan = k7.schur_plan(idx.wb_pose, idx.wb_lm, P, L, B)
+    Wb, vinv = bs.wb.to(dtype), bs.vinv.to(dtype)
+    a = k7.band_schur(Wb, vinv, plan, P)
+    b = k7.band_schur(Wb, vinv, plan, P)
+    c = k7.band_schur(Wb, vinv, plan, P, caps=(7, 13))
+    want = banded.band_schur_plain(idx.wb_pose, idx.wb_lm, Wb.double(),
+                                   vinv.double(), P, B)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, c)
+    assert _rel(a, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol,width", [(torch.float64, 1e-12, 960),
+                                             (torch.float32, 1e-5, 1800)])
+def test_band_schur_kernel_wide_band(cuda_band_problem, dtype, tol, width):
+    """Kernel 7 at a band width above the first kernel's 48 KB shared
+    memory limit ((B + 1) (6 itemsize + 4) bytes): its band equals the
+    plain correction at the problem's own width, and is zero beyond it
+    (no landmark spans more poses).  The plain version's (P, B^2 36)
+    grid cannot be formed at this width."""
+    from ba_tpu_torch.kernels import band_schur as k7
+    from ba_tpu_torch.solver import banded
+
+    p, cfg, bs = cuda_band_problem
+    P, B, L = p.poses.q.shape[0], cfg.band_width, p.lms.x.shape[0]
+    assert (width + 1) * (6 * torch.tensor([], dtype=dtype).element_size()
+                          + 4) > 48 * 1024
+    idx = p.pidx
+    Wb, vinv = bs.wb.to(dtype), bs.vinv.to(dtype)
+    wide = k7.schur_plan(idx.wb_pose, idx.wb_lm, P, L, width)
+    a = k7.band_schur(Wb, vinv, wide, P)
+    b = k7.band_schur(Wb, vinv, wide, P)
+    want = banded.band_schur_plain(idx.wb_pose, idx.wb_lm, Wb.double(),
+                                   vinv.double(), P, B)
+    torch.cuda.synchronize()
+    assert a.shape == (P, width, 6, 6)
+    assert torch.equal(a, b)
+    assert _rel(a[:, :B], want) <= tol
+    assert not bool(a[:, B:].any())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
 @pytest.mark.parametrize("P,B,D", [(1003, 24, 9), (2048, 24, 9), (37, 37, 6),
-                                   (64, 1, 15)])
+                                   (64, 1, 15), (300, 40, 9), (40, 40, 32),
+                                   (200, 50, 1)])
 def test_band_matvec_kernel_matches_plain(dtype, tol, P, B, D):
+    """Kernel 9 against its plain version: a pose count that is not a
+    multiple of its 16-pose tiles, B = 1, B = P, a band wider than a tile
+    (rows in several pieces), D from 1 to 32; two launches bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ba_tpu_torch.kernels import band_matvec as k9
@@ -364,6 +438,25 @@ def test_band_matvec_kernel_matches_plain(dtype, tol, P, B, D):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert _rel(a, want) <= tol
+
+
+def test_band_matvec_kernel_view_off_16_bytes():
+    """Kernel 9 on a band view that starts off a 16-byte boundary."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.solver import banded
+
+    rng = np.random.default_rng(3)
+    full = torch.as_tensor(rng.standard_normal((41, 5, 3, 3)),
+                           dtype=torch.float32, device="cuda")
+    band = full[1:]             # 5 * 9 * 4 = 180 bytes in
+    assert band.data_ptr() % 16
+    x = torch.as_tensor(rng.standard_normal(40 * 3), dtype=torch.float32,
+                        device="cuda")
+    a = banded.band_matvec(band, x)
+    want = banded.band_matvec_plain(band.double(), x.double())
+    torch.cuda.synchronize()
+    assert _rel(a, want) <= 1e-5
 
 
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):
