@@ -1,3 +1,6 @@
 """Applications of the port, run as `python -m ba_tpu_torch.apps.<name>`:
-`vins_stream` (the online streaming smoother) and `vins_window` (the
-fixed-lag window, as a ring or as solve-then-marginalize)."""
+`vins_stream` (the online streaming smoother, and the multi-stream
+server), `vins_window` (the fixed-lag window, as a ring or as
+solve-then-marginalize), `fleet_serve` (a fused vehicle fleet) and
+`unary_binary_imu_test` (the GPS + IMU pose-graph smoother, batch and
+fixed-lag stream)."""

@@ -7,8 +7,10 @@ and the plain version takes its exact manifold Jacobians with
 goes through the hand-written kernel (kernels/csrc/reprojection.cu, the
 closed form of the retired Pallas kernel, with the calibration columns of
 self-calibration) and raises for the configurations it does not cover
-(lm_size 0, per-pose intrinsics, the poly3 and equidistant models); the
-plain version runs on CPU problems.
+(per-pose intrinsics, the poly3 and equidistant models); the plain version
+runs on CPU problems.  At lm_size 0 (a pose graph) a row is evaluated as a
+world point's, x[:3] fixed, with no landmark columns and no same-pose
+zeroing, as ba_tpu's `_residual_fn` does.
 
 Residual: r = z - project(T_sv_meas^-1 T_wv_meas^-1 T_wv_ref T_vs_ref x_s)
 with x_s the homogeneous inverse-depth landmark (lm_size==1) or the world
@@ -94,10 +96,10 @@ def evaluate(problem: Problem, config: BAConfig,
 
 
 def _evaluate_kernel(problem, config, with_jacobians):
-    if (config.lm_size not in (1, 3) or config.calib_size not in (0, 5)
+    if (config.lm_size not in (0, 1, 3) or config.calib_size not in (0, 5)
             or config.use_per_pose_cam_params):
         raise NotImplementedError(
-            "reprojection kernel covers lm_size 1 and 3 with the rig's "
+            "reprojection kernel covers lm_size 0, 1 and 3 with the rig's "
             "intrinsics, not per-pose intrinsics (ROADMAP.md queue 1, the "
             "kernel variants)")
     from ...kernels import reprojection as kern

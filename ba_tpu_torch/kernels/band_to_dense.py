@@ -3,21 +3,26 @@
 Replaces the TPU formulation `ba_tpu/solver/assemble.py:band_to_dense`
 (:159-184), a pad and flat-reshape placement of the band strips followed by
 `upper + upper^T - diagonal strips`.  It runs once per dense build on the
-banded grid (`solver/assemble.py`, the flagship) and once per
-`schur_on_band` solve (`solver/banded.py:band_to_dense_sym`).  The fused
-fleet densifies its windows inside kernel 10 (b) instead.
+banded grid (`solver/assemble.py`: the flagship, the GPS smoother's batch)
+and once per `schur_on_band` solve (`solver/banded.py:band_to_dense_sym`).
+The fused fleet densifies its windows inside kernel 10 instead.
 
-Design (csrc/band_to_dense.cu): one thread per output element, no atomics;
-a diagonal block rounds as (u + u^T) - u, the plain version's order, so the
-kernel's output equals the plain version's element for element.
+Design (csrc/band_to_dense.cu): one block per (block row, column stripe);
+the blocks of the row that meet the stripe staged in shared memory by
+16-byte loads, a lower block transposed on its shared-memory read; 16-byte
+stores of the block row's D output rows, zeros past the band written with
+no load; D a compile-time constant for 6, 9 and 15.  A diagonal block
+rounds as (u + u^T) - u, the plain version's order, so the kernel's output
+equals the plain version's element for element.
 
 `solver/assemble.py:band_to_dense_plain` is its plain PyTorch version;
 `assemble.band_to_dense` takes it for CPU tensors.
 
 Bound on an H100: bytes (the band read once, the dense matrix written once:
-6.3 MB at the flagship in f32, ~1.9 us at 3.35 TB/s).
+6.3 MB at the flagship in f32, ~1.9 us at 3.35 TB/s; 116.6 MB at the GPS
+batch's P = 600, B = 2, ~35 us).
 
-Scope: float32 and float64, any P, B, D.
+Scope: float32 and float64, any P, B >= 1, D.
 """
 
 from __future__ import annotations

@@ -10,7 +10,9 @@
 // [dt, dw] (right-multiplied rotation q*exp(dw)) and the inverse depth.
 // Same-pose rows get zero pose Jacobians; invalid rows write zeros.  With
 // lm_size 3 the landmark is a world point x_w = [x, 1] (no reference pose:
-// j_ref is zero, and j_lm holds the 3 point columns).
+// j_ref is zero, and j_lm holds the 3 point columns); lm_size 0 (a pose
+// graph) evaluates a row the same way with no landmark columns, as
+// ba_tpu's _residual_fn does (a fixed point; no same-pose zeroing).
 //
 // Self-calibration (K = calib_size + 6 do_tvs columns, ba_tpu's
 // _residual_fn): the intrinsics [fx, fy, cx, cy, w] and the T_vs tangent of
@@ -253,8 +255,10 @@ __global__ void __launch_bounds__(ROWS*(ROLES + CAL_WARPS))
   }
   __syncthreads();
 
-  const bool lm3 = lm_size == 3;
-  const int nl = lm3 ? 3 : 1;                   // j_lm columns
+  // a world point x_w = [x, 1]: lm_size 3, or 0 (a pose graph's fixed
+  // point, ba_tpu's _residual_fn, with no landmark columns)
+  const bool lm3 = lm_size != 1;
+  const int nl = lm_size;                       // j_lm columns
   const int role = threadIdx.x >> 5;
   const int lr = threadIdx.x & 31;
   const int row0 = blockIdx.x * ROWS;
@@ -435,7 +439,7 @@ __global__ void __launch_bounds__(ROWS*(ROLES + CAL_WARPS))
                 s_jm[12 * lr + 6 + c] = same ? T(0) : j1;
                 s_jr[12 * lr + c] = same || lm3 ? T(0) : -j0;
                 s_jr[12 * lr + 6 + c] = same || lm3 ? T(0) : -j1;
-                if (lm3) {
+                if (lm_size == 3) {
                   s_jl[6 * lr + c] = -j0;
                   s_jl[6 * lr + 3 + c] = -j1;
                 }
@@ -496,8 +500,8 @@ int launch(const T* z, const int* pose, const int* lm, const int* cam,
            const T* tvs_t, int n_params, int ncam, int nr, int with_jac,
            int lm_size, int calib_size, int n_cal, T* r, T* jm, T* jr,
            T* jl, T* jc, T* err, void* stream) {
-  if ((lm_size != 1 && lm_size != 3) || calib_size < 0 || calib_size > 5 ||
-      n_cal < 0 || n_cal > MAX_CAL || n_params < 5)
+  if ((lm_size != 0 && lm_size != 1 && lm_size != 3) || calib_size < 0 ||
+      calib_size > 5 || n_cal < 0 || n_cal > MAX_CAL || n_params < 5)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nr > 0) {
     const int blocks = (nr + ROWS - 1) / ROWS;

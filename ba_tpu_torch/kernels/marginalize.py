@@ -42,6 +42,7 @@ to 238 and 168, the rest in the workspace).
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -122,3 +123,45 @@ def marginalize_prior(S, rhs, pd, eps: float):
 
 
 marginalize_prior.launches = 0
+
+
+class Branches:
+    """While active, `marginalize_prior` keeps the info tensor of each
+    launch (on the device: nothing is read back until `read`), so that a
+    run can say which branch each marginalization took; callers and return
+    values are unchanged.  On the CPU the plain version runs and nothing is
+    recorded."""
+
+    def __enter__(self):
+        module = sys.modules[__name__]
+        self.orig = orig = module.marginalize_prior
+        infos = self.infos = []
+
+        class Recording:
+            # the callers count launches on the module's attribute, which
+            # is this while active: the count goes on to `orig`
+            launches = property(lambda _: orig.launches,
+                                lambda _, v: setattr(orig, "launches", v))
+
+            def __call__(self, *args, **kwargs):
+                out = orig(*args, **kwargs)
+                infos.append(out[2])
+                return out
+
+        module.marginalize_prior = Recording()
+        return self
+
+    def __exit__(self, *exc):
+        sys.modules[__name__].marginalize_prior = self.orig
+
+    def read(self):
+        """{marginalizations, certified (settled by the certificate),
+        clipped (by the Jacobi branch), ok (every info flag)}."""
+        if not self.infos:
+            return dict(marginalizations=0, certified=0, clipped=0, ok=True)
+        a = torch.stack(self.infos).cpu()
+        col = {k: a[:, i] for i, k in enumerate(INFO)}
+        return dict(marginalizations=len(self.infos),
+                    certified=int(col["certified"].sum()),
+                    clipped=int((col["clipped"] > 0).sum()),
+                    ok=bool((col["ok"] == 1).all()))

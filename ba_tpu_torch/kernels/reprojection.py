@@ -27,7 +27,8 @@ tables stay in L2) and writes 116 B (f32) per row, ~1.3 MB at Nr = 9,696 —
 at 67 TFLOP/s f32.  Launch latency and the dependent chain of a row
 dominate; the design keeps one launch per evaluation.
 
-Scope: lm_size 1 (inverse depth) and 3 (world points), the rig's
+Scope: lm_size 1 (inverse depth), 3 (world points) and 0 (a pose graph:
+a row is a world point's with no landmark columns, as in ba_tpu), the rig's
 intrinsics of the linear and FOV models, optionally with the calibration
 columns of camera 0 (calib_size 0 or 5, do_tvs).  Another model raises.
 """
@@ -80,9 +81,9 @@ def reprojection(problem, with_jacobians: bool, lm_size: int = 1,
     dtype = pr.z.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"reprojection kernel: unsupported dtype {dtype}")
-    if lm_size not in (1, 3) or calib_size not in (0, 5):
-        raise ValueError("reprojection kernel: lm_size 1 or 3, calib_size "
-                         "0 or 5")
+    if lm_size not in (0, 1, 3) or calib_size not in (0, 5):
+        raise ValueError("reprojection kernel: lm_size 0, 1 or 3, "
+                         "calib_size 0 or 5")
     floats = (pr.z, poses.q, poses.t, lms.x, lms.z_ref, rig.params,
               rig.tvs_q, rig.tvs_t)
     ints = (pr.pose, pr.lm, pr.cam, lms.ref_pose, lms.ref_cam, rig.model)

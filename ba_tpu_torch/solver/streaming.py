@@ -31,7 +31,11 @@ that have already retired (their rows are kept and never read); and
 
 Restrictions (as the ring's): no calibration block, no per-pose cam
 params, landmarks anchored at in-window poses, and alive landmark ids
-distinct mod L_w within every window (asserted).
+distinct mod L_w within every window (asserted).  A pose graph (lm_size 0,
+the GPS smoother of `apps/unary_binary_imu_test.py`) runs with one
+landmark slot and one projection row, both padding, and no landmark:
+`prepare_rows` leaves the slot as it is and the assembly's landmark block
+is the dummy 1-wide one.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--parent TREE]
 
 With `--parent TREE` (an earlier commit unpacked with `git archive` under
-`_archive/`), phases 14 and 20 also time that tree's kernels 7 and 9, K8a
-and kernel 6 on the same inputs, loaded beside this tree's package.
+`_archive/`), phases 14, 20 and 28 also time that tree's kernels 7 and 9,
+K8a, kernel 6 and K5b on the same inputs, loaded beside this tree's
+package.
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -66,9 +67,7 @@ Phases, each of which exits non-zero when a check fails:
      replayed the same way), its bound and its plain version; index_add_,
      segsum's library yardstick, both ways; the segment plans' one-off
      build; kf/s of both drivers and of the stream;
- 12. k5b: K5b (band_to_dense) on a flagship build's band against its
-     plain version, f32 and f64, equal element for element, bit-identical
-     relaunch, and timed (no library call computes it); banded_small: the
+ 12. banded_small: the
      banded solvers on the card against the CPU in f64 (simulate(80 poses,
      200 landmarks), four chunks): solve_reduced_banded with cyclic
      reduction and with the scan (exact K8 launches, no torch.linalg factor
@@ -197,14 +196,32 @@ Phases, each of which exits non-zero when a check fails:
      with the certificate's na^3 / 3 and the rotations only where the
      Jacobi ran), plain versions and library yardsticks (torch.matmul of
      W V^-1 by W^T; `eigh` and the clip product); `stream` and
-     `stream_many` count the marginalizations the certificate settled.
+     `stream_many` count the marginalizations the certificate settled;
+ 26. gps_small: the GPS + IMU smoother (apps/unary_binary_imu_test.py) on
+     the card against the CPU in f64: a 16-fix log's batch solve at 1e-8,
+     its first 8 fixes streamed with W = 4 at TOL_GPS_STREAM; K2 at its
+     spans of 101 slots;
+ 27. gps_batch: `generate_log(600)` parsed by the native parser, built,
+     `solve(max_iter=25, gn_damping=0.2)` in f32 on the banded grid: cost
+     falls, the track within 3 GPS sigma of the fixes, exact launches of
+     K1 (lm_size 0), K2, segsum, K5b and K5, kf/s, ms per iteration, host
+     syncs per iteration; K2 timed at its spans; gps_stream: its first 120
+     fixes through `run_streaming` (W = 10, 6 GN iterations per slide,
+     f64): poses retired per second, ms per push, no host sync per steady
+     push, exact launches per slide, K11's branches, the retired track
+     within GPS_STREAM_RMSE of the f64 batch;
+ 28. k5b: K5b (band_to_dense) on a flagship build's band, a GPS batch
+     build's and K5B_SHAPES, f32 and f64, equal to its plain version
+     element for element, bit-identical relaunch; the flagship and GPS
+     bands timed beside the bound, the plain version and, with `--parent`,
+     the parent's kernel.
 
 K2 launches are counted on every path (one (a) per build, one (b) per
 trial cost; phase 11 counts one device operation per IMU evaluation, its
 whitening included); K5 on every dense path (one per build, and one per
 marginalization), K11 once per marginalization, both none on the banded,
 PCG and fused-fleet solvers; K5b once per dense build on the banded grid
-(gn, dogleg), none on the banded solver.  The last lines are the `kernels` JSON
+(gn, dogleg, gps_batch), none on the banded solver.  The last lines are the `kernels` JSON
 line, the card's name and power limit, and {"ok": true, "device":
 {...}}.  Without a CUDA device, or when
 `ba_tpu_torch` is not next to this script, it exits non-zero before
@@ -217,6 +234,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -381,8 +399,33 @@ VICALIB = dict(seed=0, tags=6, tag=0.088, gap=0.0264, frames=300,
 VICALIB_EXPECTED = dict(rows=43200)
 TRUE_CAM = (250.0, 245.0, 320.0, 240.0)
 
-# an earlier tree (`--parent TREE`) whose kernel 6 and K8a the timings run
-# beside this tree's
+# the GPS + IMU pose-graph smoother (ba_tpu_torch/apps/
+# unary_binary_imu_test.py, the reference's applications/
+# unary_binary_imu_test): generate_log(600), ten minutes of the app's drive
+# (100 Hz IMU, 1 Hz GPS with 0.5 m noise, wheel odometry); the batch
+# `solve(max_iter=25, gn_damping=0.2)` in f32 on the banded grid, as the
+# reference app runs it; the stream with W = 10 and 6 GN iterations per
+# slide (the app's) in f64, reduced to the log's first 120 fixes for the
+# script's time.  pose_dim 9, lm_size 0, the reference's covariances: not
+# cut
+GPS = dict(fixes=600, noise=0.5, stream_fixes=120, window=10, iters=6)
+GPS_EXPECTED = dict(P=600, Ni=599, M=101, B=2, Nr=0)
+# card against CPU in f64: the batch of a 16-fix log (at TOL_SMALL) and the
+# stream (W = 4) of its first 8 fixes.  The stream's marginalization on the
+# card returns a prior its certificate settles as it is, where the CPU's
+# plain version clips it by `eigh` (a move of order tau = 1e-12 ||H||), and
+# the GPS priors' ~1e15 condition number carries that gap from slide to
+# slide: on an H100 the retired states differed by 9e-11 at the first
+# slide and 1.3e-8 at the fifth, growing ~3x a slide, so the stream is held
+# at TOL_GPS_STREAM, ~30x the last slide's reading
+GPS_SMALL = dict(fixes=16, stream_fixes=8, window=4)
+TOL_GPS_STREAM = 1e-6
+# the stream's retired track against the f64 batch of the same fixes, RMSE
+# in m (tests/test_gps_app.py:88)
+GPS_STREAM_RMSE = 0.5
+
+# an earlier tree (`--parent TREE`) whose K5b, kernels 6, 7 and 9 and K8a
+# the timings run beside this tree's
 PARENT = None
 
 # H100 SXM peaks at 700 W (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
@@ -1105,6 +1148,7 @@ def phase_stream(smi):
     from ba_tpu_torch.apps.vins_stream import (add_keyframe, stream_feed,
                                                stream_problem, wait)
     from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.kernels.marginalize import Branches as K11Branches
     from ba_tpu_torch.solver import fixedlag
     from ba_tpu_torch.solver.streaming import RingCapacities, StreamingRing
 
@@ -1133,7 +1177,7 @@ def phase_stream(smi):
                          dtype=np.float32)
     outs, syncs = [], []
     _counters_zero()
-    with _K11Branches() as kb:
+    with K11Branches() as kb:
         t0 = time.perf_counter()
         for g in range(STREAM["poses"]):
             add_keyframe(ring, feed, g)
@@ -2378,60 +2422,371 @@ def phase_k8(p, cfg, band):
     return errs
 
 
-def flagship_band(p32, cfg):
-    """The (P, B, D, D) band a flagship build densifies (K5b's input)."""
+def dense_build_band(p32, cfg, label):
+    """The (P, B, D, D) band that one dense build on the banded grid
+    densifies (K5b's input)."""
     from ba_tpu_torch.solver import assemble as asm
     from ba_tpu_torch.solver import step
 
     seen = _recording(asm, "band_to_dense", lambda: step._build_and_solve(
         p32, dataclasses.replace(cfg, use_dogleg=False), True))
-    check(len(seen) == 1, f"flagship build densified {len(seen)} bands")
+    check(len(seen) == 1, f"{label} build densified {len(seen)} bands")
     return seen[0][0][0]
 
 
-def phase_k5b(band, floor_ms, smi):
-    """K5b against its plain version on a flagship build's band, f32 and
-    an f64 copy: equal element for element, two launches bit-identical;
-    then timed beside its bound and its plain version (no single library
-    call computes it).  Returns (f32 max abs error, timing record)."""
+# K5b on bands that are not the main paths': P D not a multiple of 4 (the
+# kernel's scalar stores), B > P, the other pose dimensions D = 6 and 15,
+# P = 1 and a view whose data starts 4 bytes past a 16-byte boundary (the
+# staging's scalar heads); random values with signed zeros
+K5B_SHAPES = ((7, 3, 9, 0), (5, 8, 9, 0), (37, 5, 6, 0), (12, 3, 15, 0),
+              (1, 2, 9, 0), (9, 4, 9, 1))
+
+
+def k5b_odd_cases():
+    """[(label, f32 band on the card)] of K5B_SHAPES."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch import resolve_device
+
+    out = []
+    for P, B, D, off in K5B_SHAPES:
+        rng = np.random.default_rng(P * 100 + B * 10 + D)
+        flat = rng.standard_normal(P * B * D * D + off)
+        flat[::7] = -0.0
+        flat[::11] = 0.0
+        band = torch.as_tensor(flat, dtype=torch.float32,
+                               device=resolve_device())
+        band = band[off:].view(P, B, D, D)
+        out.append((f"P={P} B={B} D={D}"
+                    + (f" (view {4 * off} B past 16)" if off else ""), band))
+    return out
+
+
+def _k5b_parent():
+    """The parent tree's K5b module (`--parent`), or None."""
+    if PARENT is None:
+        return None
+    import importlib
+
+    parent_package(PARENT)
+    return importlib.import_module("ba_tpu_torch_parent.kernels."
+                                   "band_to_dense")
+
+
+def phase_k5b(cases, timed, floor_ms, smi):
+    """K5b against its plain version on each (label, f32 band) of `cases`
+    (a flagship build's, a GPS batch build's and K5B_SHAPES), f32 and an
+    f64 copy: equal element for element, two launches bit-identical; then
+    the bands labelled in `timed` timed beside their bound, the plain
+    version and, with `--parent`, the parent's kernel on the same band (no
+    single library call computes it).  Returns (f32 max abs error,
+    {label: timing record})."""
     import torch
 
     from ba_tpu_torch.kernels import band_to_dense as k5b
     from ba_tpu_torch.solver import assemble as asm
 
-    P, B, D, _ = band.shape
-    asym = not torch.equal(band[:, 0], band[:, 0].mT)
     worst = 0.0
-    for dtype in (torch.float32, torch.float64):
-        dt = str(dtype).replace("torch.", "")
-        bd = band.to(dtype)
-        a, b = k5b.band_to_dense(bd), k5b.band_to_dense(bd)
-        want = asm.band_to_dense_plain(bd)
-        torch.cuda.synchronize()
-        err = _max_abs(a, want)
-        say(f"K5b band_to_dense {dt} (P={P}, B={B}, D={D}; diagonal blocks "
-            f"not exactly symmetric {asym}): max abs err {err:.3e} (tol 0); "
-            f"bit-identical relaunch {torch.equal(a, b)}")
-        check(torch.equal(a, want) and torch.equal(a, b),
-              f"K5b {dt}: differs from its plain version or between "
-              f"launches")
-        if dtype == torch.float32:
-            worst = err
-    out = k5b.band_to_dense(band)
-    nb = nbytes(band, out)
-    bound, by = _bound(nb, out.numel())
-    ms, dev = _timed(lambda: k5b.band_to_dense(band), 200, 50)
-    check(dev is not None, "K5b: no device time")
-    plain = event_ms(lambda: asm.band_to_dense_plain(band), 50)
-    say(f"[{smi}] K5b band_to_dense, flagship band f32: {ms:.4f} ms per "
-        f"call ({dev:.4f} ms on the device, {bound / dev:.1%} of the "
-        f"bound); plain (pad/reshape) {plain:.4f} ms; bound {bound:.5f} ms "
-        f"({by}: {nb} B); no library call computes it; launch floor "
-        f"{floor_ms:.4f} ms")
+    for label, band in cases:
+        P, B, D, _ = band.shape
+        asym = not torch.equal(band[:, 0], band[:, 0].mT)
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).replace("torch.", "")
+            bd = band if dtype == band.dtype else band.to(dtype)
+            a, b = k5b.band_to_dense(bd), k5b.band_to_dense(bd)
+            want = asm.band_to_dense_plain(bd)
+            torch.cuda.synchronize()
+            err = _max_abs(a, want)
+            say(f"K5b band_to_dense {label} {dt} (P={P}, B={B}, D={D}; "
+                f"diagonal blocks not exactly symmetric {asym}): max abs "
+                f"err {err:.3e} (tol 0); bit-identical relaunch "
+                f"{torch.equal(a, b)}")
+            check(torch.equal(a, want) and torch.equal(a, b),
+                  f"K5b {label} {dt}: differs from its plain version or "
+                  f"between launches")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            del a, b, want
+    parent = _k5b_parent()
+    recs = {}
+    for label, band in cases:
+        if label not in timed:
+            continue
+        out = k5b.band_to_dense(band)
+        nb = nbytes(band, out)
+        del out
+        bound, by = _bound(nb, 0)
+        big = nb > 64e6
+        calls, graph_calls = (20, 10) if big else (200, 50)
+        ms, dev = _timed(lambda: k5b.band_to_dense(band), calls, graph_calls)
+        check(dev is not None, f"K5b {label}: no device time")
+        plain = event_ms(lambda: asm.band_to_dense_plain(band),
+                         5 if big else 50)
+        rec = dict(ms=ms, device_ms=dev, floor_ms=floor_ms, plain_ms=plain,
+                   bound_ms=bound, bound_by=by, bytes=nb, library_ms=None,
+                   parent_ms=None, parent_device_ms=None)
+        line = ""
+        if parent is not None:
+            old = parent.band_to_dense
+            check(torch.equal(old(band), k5b.band_to_dense(band)),
+                  f"K5b {label}: the parent's kernel gives another matrix")
+            pms, pdev = _timed(lambda: old(band), calls, graph_calls)
+            rec.update(parent_ms=pms, parent_device_ms=pdev)
+            line = (f"; the parent's kernel {pms:.4f} ms per call "
+                    f"({pdev:.4f} ms on the device, {bound / pdev:.1%} of "
+                    f"the bound)")
+        say(f"[{smi}] K5b band_to_dense, {label} band f32 (P={band.shape[0]},"
+            f" B={band.shape[1]}): {ms:.4f} ms per call ({dev:.4f} ms on "
+            f"the device, {bound / dev:.1%} of the bound){line}; plain "
+            f"(pad/reshape) {plain:.4f} ms; bound {bound:.5f} ms ({by}: "
+            f"{nb} B); no library call computes it; launch floor "
+            f"{floor_ms:.4f} ms")
+        recs[label] = rec
     say("PHASE k5b ok")
-    return worst, dict(ms=ms, device_ms=dev, floor_ms=floor_ms,
-                       plain_ms=plain, bound_ms=bound, bound_by=by,
-                       library_ms=None)
+    return worst, recs
+
+
+# ---------------------------------------------------------------------------
+# The GPS + IMU pose-graph smoother (ba_tpu_torch/apps/unary_binary_imu_test)
+
+
+def phase_gps_small(tmp):
+    """The smoother on the card against the CPU in f64: the batch solve of
+    a GPS_SMALL["fixes"]-fix log and the stream of its first
+    GPS_SMALL["stream_fixes"] fixes with W = GPS_SMALL["window"]."""
+    import torch
+
+    from ba_tpu_torch.apps import unary_binary_imu_test as app
+
+    path = str(tmp / "gps_small.txt")
+    app.generate_log(path, n_gps=GPS_SMALL["fixes"], noise_gps=GPS["noise"])
+    imu, gps, gu, parser = app.parse_log(path)
+    check(parser == "native", f"GPS: the {parser} parser ran, not the "
+          f"native one")
+    n, W = GPS_SMALL["stream_fixes"], GPS_SMALL["window"]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p, cfg = app.build_problem_from_records(imu, gps, gu, device=dev)
+        sol, summ = app.solve_batch(p, cfg)
+        outs, _ = app.run_streaming(imu, gps[:n], gu[:n], W, device=dev)
+        res[dev] = (sol, summ, outs)
+    (gs, gsum, gouts), (cs, csum, couts) = res["cuda"], res["cpu"]
+    pairs = [(f"batch poses.{f}", getattr(gs.poses, f), getattr(cs.poses, f))
+             for f in ("q", "t", "v")]
+    pairs.append(("batch final cost",
+                  torch.tensor(gsum.final_cost, dtype=torch.float64),
+                  torch.tensor(csum.final_cost, dtype=torch.float64)))
+    check(len(gouts) == len(couts) == n - W + 1,
+          f"GPS small stream: {len(gouts)} and {len(couts)} retired")
+    _compare(pairs, f"GPS {GPS_SMALL['fixes']} fixes f64", TOL_SMALL)
+    pairs = [(f"stream slide {k} {f}", torch.as_tensor(a[f]).double(),
+              torch.as_tensor(b[f]).double())
+             for k, (a, b) in enumerate(zip(gouts, couts))
+             for f in ("q", "t", "cost")]
+    _compare(pairs, f"GPS {n} fixes f64, W = {W}", TOL_GPS_STREAM)
+    say(f"GPS small batch: {gsum.iterations} iterations, {gsum.result} "
+        f"(CPU {csum.iterations}, {csum.result})")
+    check((gsum.iterations, gsum.result) == (csum.iterations, csum.result),
+          "GPS small batch: another iteration path on the card")
+    say("PHASE gps_small ok")
+    return app.build_problem_from_records(imu, gps, gu)
+
+
+def _gps_log(tmp):
+    """(imu rows, fixes, dead-reckoned guesses) of the GPS configuration's
+    log, generated and parsed by the app (native parser)."""
+    from ba_tpu_torch.apps import unary_binary_imu_test as app
+
+    path = str(tmp / "gps.txt")
+    t0 = time.perf_counter()
+    app.generate_log(path, n_gps=GPS["fixes"], noise_gps=GPS["noise"])
+    t1 = time.perf_counter()
+    imu, gps, gu, parser = app.parse_log(path)
+    say(f"GPS log: {len(imu)} IMU samples, {len(gps)} fixes, generated in "
+        f"{t1 - t0:.2f} s, parsed by the {parser} parser in "
+        f"{time.perf_counter() - t1:.2f} s")
+    check(parser == "native", f"GPS: the {parser} parser ran")
+    return imu, gps, gu
+
+
+def phase_gps_batch(imu, gps, gu, smi):
+    """The batch smoother at the GPS configuration: build (f64, then f32
+    as the reference app runs it), `solve(max_iter=25, gn_damping=0.2)`
+    twice (the first a warm-up that counts host syncs): cost falls, the
+    track within a few GPS sigma of the fixes, exact launches of K1 (lm 0),
+    K2, segsum, K5b and K5; kf/s, ms per iteration, host syncs per
+    iteration.  Returns (record, f32 problem, config)."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.apps import unary_binary_imu_test as app
+    from ba_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    p64, cfg = app.build_problem_from_records(imu, gps, gu)
+    t_build = time.perf_counter() - t0
+    sizes = dict(P=int(p64.poses.t.shape[0]),
+                 Ni=int(p64.imu.valid.sum()),
+                 M=int(p64.imu.time.shape[1]), B=cfg.band_width,
+                 Nr=int(p64.proj.valid.sum()))
+    say(f"GPS batch configuration {GPS}: {sizes}, built in {t_build:.2f} s")
+    check(sizes == GPS_EXPECTED, f"GPS sizes {sizes} != {GPS_EXPECTED}")
+    p32 = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a,
+                   p64)
+    del p64
+
+    def run():
+        out = app.solve_batch(p32, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    (_, warm), syncs = _sync_count(run)              # warm-up
+    _counters_zero()
+    t0 = time.perf_counter()
+    p, s = run()
+    secs = time.perf_counter() - t0
+    k1, k2, reads = _counters()
+    ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
+    k5b = _k5b_count()
+    its = s.iterations
+    # a GN iteration makes one trial; the host reads one vector of scalars
+    # per iteration
+    trials = its
+    n = len(gps)
+    t_opt = p.poses.t[:n].double().cpu().numpy()
+    fixes = np.array([r[1:4] for r in gps])
+    err = np.linalg.norm(t_opt - fixes, axis=1)
+    say(f"GPS batch f32 solve(25, 0.2): {its} iterations, {s.result}, cost {s.initial_cost:.6g} -> "
+        f"{s.final_cost:.6g}; track to fixes mean {err.mean():.4f} m, max "
+        f"{err.max():.4f} m (GPS sigma {GPS['noise']} m); kernel launches "
+        f"reprojection {k1} segsum {k2} imu_preint (a) {ia} (b) {ib} "
+        f"schur_finish {k5} marginalize {k11} band_to_dense {k5b}; same as "
+        f"the warm-up run "
+        f"{(its, s.final_cost) == (warm.iterations, warm.final_cost)}")
+    check(s.is_good, f"GPS batch: result {s.result}")
+    check(np.isfinite(t_opt).all() and np.isfinite(s.final_cost),
+          "GPS batch: non-finite values")
+    check(s.final_cost < s.initial_cost, "GPS batch: cost did not fall")
+    check(err.mean() <= 3 * GPS["noise"], f"GPS batch: the track is "
+          f"{err.mean():.3g} m from the fixes on average")
+    check(reads == its, f"GPS batch: {reads} host reads, expected {its}")
+    check(k1 == its + trials + 1, f"GPS batch: {k1} reprojection "
+          f"launches, expected {its + trials + 1} (one build per "
+          f"iteration, one per trial, one for the error breakdown)")
+    check(k2 == its, f"GPS batch: {k2} segsum launches, expected {its}")
+    check((ia, ib) == (its + 1, trials + 1), f"GPS batch: imu_preint "
+          f"launches ({ia}, {ib}), expected ({its + 1}, {trials + 1})")
+    check((k5, k11, k5b) == (its, 0, its), f"GPS batch: schur_finish, "
+          f"marginalize, band_to_dense launches ({k5}, {k11}, {k5b}), "
+          f"expected ({its}, 0, {its})")
+    kf = n * its / secs
+    say(f"[{smi}] GPS batch f32: {secs * 1e3:.1f} ms, {kf:.1f} kf/s, "
+        f"{secs * 1e3 / its:.2f} ms per iteration; host syncs {syncs} in "
+        f"the warm-up solve ({syncs / its:.2f} per iteration; counted reads "
+        f"{reads})")
+    say("PHASE gps_batch ok")
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
+                k11=k11, k5b=k5b, kf_s=kf, ms_iter=secs * 1e3 / its,
+                syncs=syncs, iters=its, track_mean_m=float(err.mean()),
+                track_max_m=float(err.max())), p32, cfg
+
+
+def phase_gps_stream(imu, gps, gu, smi):
+    """The fixed-lag smoother at the GPS configuration, f64, W =
+    GPS["window"], reduced to the first GPS["stream_fixes"] fixes: every
+    fix through the app's `run_streaming` (`push(block=False)`): retired
+    poses per second after the first push, ms per push, host syncs per
+    steady push (none), exact launches per slide, K11's branches; the
+    retired track against the f64 batch of the same fixes (RMSE under
+    GPS_STREAM_RMSE, tests/test_gps_app.py:88)."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.apps import unary_binary_imu_test as app
+    from ba_tpu_torch.kernels.marginalize import Branches as K11Branches
+    from ba_tpu_torch.solver.streaming import StreamingRing
+
+    n, W = GPS["stream_fixes"], GPS["window"]
+    pb, cfg_b = app.build_problem_from_records(imu, gps[:n], gu[:n])
+    sol, sb = app.solve_batch(pb, cfg_b)
+    check(sb.is_good, f"GPS f64 batch of {n} fixes: {sb.result}")
+    t_batch = sol.poses.t[:n].cpu().numpy()
+    del pb, sol
+
+    orig = StreamingRing.push
+    syncs, mark = [], {}
+
+    def push(ring, block=True):
+        if "first" not in mark:
+            return orig(ring, block)
+        out, k = _sync_count(lambda: orig(ring, block))
+        syncs.append(k)
+        return out
+
+    def on_push(g, out):
+        if out is not None and "first" not in mark:
+            torch.cuda.synchronize()
+            mark["first"] = time.perf_counter() - mark["t0"]
+            mark["t1"] = time.perf_counter()
+
+    StreamingRing.push = push
+    try:
+        _counters_zero()
+        with K11Branches() as kb:
+            mark["t0"] = time.perf_counter()
+            outs, ring = app.run_streaming(imu, gps[:n], gu[:n], W,
+                                           on_push=on_push)
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter() - mark["t1"]
+        branches = kb.read()
+    finally:
+        StreamingRing.push = orig
+    k1, k2, _ = _counters()
+    ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
+    k5b = _k5b_count()
+    slides = len(outs)
+    steady = slides - 1
+    win = ring.current_window()
+    traj = np.stack([o["t"] for o in outs]
+                    + [win["t"][g % W] for g in range(slides, n)])
+    rmse = float(np.sqrt(np.mean(np.sum((traj - t_batch) ** 2, axis=1))))
+    costs = np.array([float(o["cost"]) for o in outs])
+    it = GPS["iters"]
+    # per slide: `it` GN builds and the marginalization's, `it` trials
+    want = dict(k1=(2 * it + 1) * slides, k2=(it + 1) * slides,
+                imu_a=(it + 1) * slides, imu_b=it * slides,
+                k5=(it + 1) * slides, k11=slides, k5b=0)
+    got = dict(k1=k1, k2=k2, imu_a=ia, imu_b=ib, k5=k5, k11=k11, k5b=k5b)
+    say(f"[{smi}] GPS stream f64 (W={W}, {n} fixes): {slides} poses "
+        f"retired; first push (warm-up included) {mark['first']:.2f} s; "
+        f"steady state {steady / t_steady:.3f} poses retired/s, "
+        f"{1e3 * t_steady / steady:.1f} ms per push over {steady} pushes; "
+        f"host syncs per steady push min {min(syncs)} max {max(syncs)}; "
+        f"kernel launches {got}")
+    say(f"GPS stream f64: K11's certificate settled "
+        f"{branches['certified']} of {branches['marginalizations']} "
+        f"marginalizations, the Jacobi clip ran on the rest "
+        f"({branches['clipped']} clipping an eigenvalue); every info ok "
+        f"{branches['ok']}; retired track against the f64 batch RMSE "
+        f"{rmse:.4f} m (bound {GPS_STREAM_RMSE} m); last cost "
+        f"{costs[-1]:.6g}")
+    check(slides == n - W + 1, f"GPS stream: {slides} retired")
+    check(np.isfinite(costs).all() and np.isfinite(traj).all(),
+          "GPS stream: non-finite costs or states")
+    check(rmse < GPS_STREAM_RMSE, f"GPS stream: RMSE {rmse:.4g} m")
+    check(got == want, f"GPS stream: launches {got}, expected {want}")
+    check(branches["marginalizations"] == slides and branches["ok"],
+          f"GPS stream: K11 {branches}")
+    check(max(syncs) == 0, f"GPS stream: {max(syncs)} host syncs in a "
+          f"steady push")
+    say("PHASE gps_stream ok")
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
+                k11=k11, k5b=k5b, slides=slides, k11_branches=branches,
+                poses_s=steady / t_steady, ms_push=1e3 * t_steady / steady,
+                syncs_per_push=sum(syncs) / len(syncs), rmse_m=rmse)
 
 
 # ---------------------------------------------------------------------------
@@ -4469,52 +4824,6 @@ def phase_k11(cases):
     return worst, infos
 
 
-class _K11Branches:
-    """While active, `kernels.marginalize.marginalize_prior` keeps the
-    info tensor of each K11 launch (on the device: nothing is read back
-    until `read`); its callers and its return value are unchanged."""
-
-    def __enter__(self):
-        from ba_tpu_torch.kernels import marginalize as k11
-
-        self.k11, self.infos = k11, []
-        self.orig = orig = k11.marginalize_prior
-        infos = self.infos
-
-        class Recording:
-            # the wrapper counts its launches on the module's attribute,
-            # which is this while active: the count goes on to `orig`
-            launches = property(lambda _: orig.launches,
-                                lambda _, v: setattr(orig, "launches", v))
-
-            def __call__(self, *args, **kwargs):
-                out = orig(*args, **kwargs)
-                infos.append(out[2])
-                return out
-
-        k11.marginalize_prior = Recording()
-        return self
-
-    def __exit__(self, *exc):
-        self.k11.marginalize_prior = self.orig
-
-    def read(self):
-        """(marginalizations, settled by the certificate, clipped by the
-        Jacobi branch, info all ok)."""
-        import torch
-
-        from ba_tpu_torch.kernels import marginalize as k11
-
-        if not self.infos:
-            return dict(marginalizations=0, certified=0, clipped=0, ok=True)
-        a = torch.stack(self.infos).cpu()
-        col = {k: a[:, i] for i, k in enumerate(k11.INFO)}
-        return dict(marginalizations=len(self.infos),
-                    certified=int(col["certified"].sum()),
-                    clipped=int((col["clipped"] > 0).sum()),
-                    ok=bool((col["ok"] == 1).all()))
-
-
 def _k5_ops(N, n, K, lm):
     """Floating-point operations of K5's function as a dense product: the
     symmetric product (n (n + 1) / 2 entries of K multiply-adds), W V^-1
@@ -4649,6 +4958,7 @@ def phase_stream_many(smi):
 
     from ba_tpu_torch.apps.vins_stream import stream_many, stream_problem
     from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.kernels.marginalize import Branches as K11Branches
     from ba_tpu_torch.solver import fixedlag
     from ba_tpu_torch.solver.streaming import RingCapacities, StreamingRing
 
@@ -4679,7 +4989,7 @@ def phase_stream_many(smi):
     StreamingRing.push = push
     try:
         _counters_zero()
-        with _K11Branches() as kb:
+        with K11Branches() as kb:
             outs, t_steady, n_steady = stream_many(problems, cfg, W,
                                                    STREAM["iters"], caps,
                                                    keyframes=G)
@@ -4789,7 +5099,7 @@ def main():
     rec1s, rec2s = phase_timing(s32, cfg_s, sums_s, smi, "stream slide")
     rec_imu = phase_timing_imu(p32, cfg, rec1["floor_ms"], smi)
     del sums_s, sched
-    err5b, rec5b = phase_k5b(flagship_band(p32, cfg), rec1["floor_ms"], smi)
+    band_flag = dense_build_band(p32, cfg, "flagship")
 
     bsm = phase_banded_small()
     pl, cfg_l, sim_l = long_problem()
@@ -4847,8 +5157,27 @@ def main():
     vc = phase_vicalib(smi)
     t_new = time.perf_counter() - t_new
 
+    t_gps = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gps_") as tmp:
+        tmp = Path(tmp)
+        pg_small, cfg_gs = phase_gps_small(tmp)
+        imu_g, gps_g, gu_g = _gps_log(tmp)
+    err_imu.append(phase_imu(pg_small, cfg_gs, "gps spans"))
+    del pg_small
+    gb, pg32, cfg_g = phase_gps_batch(imu_g, gps_g, gu_g, smi)
+    gs = phase_gps_stream(imu_g, gps_g, gu_g, smi)
+    rec_imu_gps = phase_timing_imu(pg32, cfg_g, rec1["floor_ms"], smi,
+                                   "gps batch")
+    band_gps = dense_build_band(pg32, cfg_g, "GPS batch")
+    err5b, rec5b = phase_k5b(
+        [("flagship", band_flag), ("gps batch", band_gps)]
+        + k5b_odd_cases(), ("flagship", "gps batch"), rec1["floor_ms"], smi)
+    del pg32, band_gps, band_flag
+    t_gps = time.perf_counter() - t_gps
+
     runs = dict(gn=gn, dogleg=dl, stream=st, stream_many=sm, long=lg, cg=cg,
-                fleet=fl, selfcal=sc, vicalib=vc)
+                fleet=fl, selfcal=sc, vicalib=vc, gps_batch=gb,
+                gps_stream=gs)
 
     def paths(key, names=tuple(runs)):
         out = {f"launches_{n}": runs[n][key] for n in names}
@@ -4868,7 +5197,7 @@ def main():
              **paths("imu"),
              launches_parts=dict(full=paths("imu_a"),
                                  residual=paths("imu_b")),
-             max_abs_err=max(err_imu), **rec_imu),
+             max_abs_err=max(err_imu), **rec_imu, gps_batch=rec_imu_gps),
         dict(name="segsum", route="cuda",
              source="ba_tpu_torch/kernels/csrc/segsum.cu",
              replaces="ba_tpu/solver/assemble.py:120",
@@ -4912,11 +5241,14 @@ def main():
              indefinite_n360=rec11["indefinite n=360"],
              psd_n360=rec11["PSD n=360"], info=info11,
              certified=dict(stream=st["k11_branches"],
-                            stream_many=sm["k11_branches"])),
+                            stream_many=sm["k11_branches"],
+                            gps_stream=gs["k11_branches"])),
         dict(name="band_to_dense", route="cuda",
              source="ba_tpu_torch/kernels/csrc/band_to_dense.cu",
              replaces="ba_tpu/solver/assemble.py:159",
-             **paths("k5b", ("gn", "dogleg")), max_abs_err=err5b, **rec5b),
+             **paths("k5b", ("gn", "dogleg", "gps_batch")),
+             max_abs_err=err5b, **rec5b["flagship"],
+             gps_batch=rec5b["gps batch"]),
         dict(name="chunk_layout", route="cuda",
              source="ba_tpu_torch/kernels/csrc/chunk_layout.cu",
              replaces="ba_tpu/solver/banded.py:245",
@@ -4960,7 +5292,13 @@ def main():
         f"({sc['ms_iter']:.1f} ms per iteration, {sc['iters']} iterations); "
         f"vicalib solve_once "
         + ", ".join(f"{x['secs']:.2f} s" for x in vc["stages"])
-        + f"; selfcal and vicalib phases {t_new:.1f} s; total smoke "
+        + f"; GPS batch {gb['kf_s']:.1f} kf/s ({gb['ms_iter']:.1f} ms per "
+        f"iteration), GPS stream {gs['poses_s']:.3f} poses retired/s "
+        f"({gs['ms_push']:.1f} ms per push); K5b "
+        f"{rec5b['flagship']['device_ms']:.4f} / "
+        f"{rec5b['gps batch']['device_ms']:.4f} ms on the device (flagship "
+        f"/ GPS band); selfcal and vicalib phases {t_new:.1f} s; GPS and "
+        f"K5b phases {t_gps:.1f} s; total smoke "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

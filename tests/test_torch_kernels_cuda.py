@@ -49,8 +49,9 @@ output PSD to 1e-6 ||H|| in f32, its PSD certificate settling exactly the
 inputs with no eigenvalue below -tau (-0.1 tau in, -10 tau out); both
 bit-identical between launches and raising when they do not build; three
 steady f32 pushes of the streaming smoother make no host sync.  K5b (band
-to dense) and K8a (the chunk layout) equal their plain versions element
-for element in f32 and f64; K8b and K8c (the chunked factor and solve, by
+to dense, also at the GPS band, odd shapes, B > P, D = 6, 15, 40 and 130
+and an unaligned view) and K8a (the chunk layout) equal their plain
+versions element for element in f32 and f64; K8b and K8c (the chunked factor and solve, by
 cyclic reduction with explicit triangular inverses and by the scan) match
 their plain versions to 1e-12 (f64) and 1e-4 (f32, the levels' Schur
 complements summed in another order), every level's Li, W and V, and x =
@@ -58,7 +59,9 @@ S^-1 b the solver's plain `_bcr_solve`, at F = 2 windows, n up to 216 and
 padded chunk counts, bit-identical between launches; an indefinite block
 clears `ok` on the device; `banded_pcg_solve` on the
 card runs K8 and kernel 9 only, with no `torch.linalg` call and no host
-read.
+read.  Kernel 1 at lm_size 0 (a pose graph) matches its plain version at
+kernel 1's tolerances, and the GPS + IMU smoother's app runs its f32 batch
+and its f64 stream on the card.
 """
 
 import dataclasses
@@ -113,6 +116,34 @@ def test_reprojection_kernel_matches_plain(cuda_problem, dtype, tol,
     torch.cuda.synchronize()
     for name in want._fields:
         assert _rel(getattr(got, name), getattr(want, name)) <= tol, name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("with_jacobians", [True, False])
+def test_reprojection_kernel_lm0_matches_plain(cuda_problem, dtype, tol,
+                                               with_jacobians):
+    """lm_size 0 (a pose graph): each row a world point's (the landmark
+    state set to its world point), no landmark columns, same-pose rows
+    keep their pose Jacobians; bit-identical relaunch."""
+    from ba_tpu_torch.core.residuals import reprojection as rp
+    from ba_tpu_torch.utils.tree import tree_map
+
+    p, cfg = cuda_problem
+    cfg = dataclasses.replace(cfg, lm_size=0)
+    p = dataclasses.replace(p, lms=dataclasses.replace(p.lms, x=p.lms.x_w))
+    p = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, p)
+    got = rp.evaluate(p, cfg, with_jacobians)
+    again = rp.evaluate(p, cfg, with_jacobians)
+    want = rp.evaluate_plain(p, cfg, with_jacobians)
+    torch.cuda.synchronize()
+    for name in want._fields:
+        assert _rel(getattr(got, name), getattr(want, name)) <= tol, name
+        assert torch.equal(getattr(got, name), getattr(again, name)), name
+    if with_jacobians:
+        assert got.j_lm.shape == (p.proj.z.shape[0], 2, 0)
+        same = (p.proj.pose == p.lms.ref_pose[p.proj.lm]) & p.proj.valid
+        assert float(got.j_meas[same].abs().max()) > 0.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1247,6 +1278,42 @@ def test_band_to_dense_kernel_matches_plain(dtype, P, B, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("P,B,D,off", [(128, 24, 9, 0), (600, 2, 9, 0),
+                                       (7, 3, 9, 0), (5, 8, 9, 0),
+                                       (37, 5, 6, 0), (12, 3, 15, 0),
+                                       (1, 2, 9, 0), (9, 4, 9, 1),
+                                       (6, 3, 40, 0), (3, 2, 130, 0)],
+                         ids=["flagship", "gps", "PD63", "B>P", "D6", "D15",
+                              "P1", "view", "D40", "D130"])
+def test_band_to_dense_kernel_shapes(dtype, P, B, D, off):
+    """K5b at the flagship's and the GPS batch's bands, P D not a multiple
+    of 4 (scalar stores), B > P, D = 6 and 15, P = 1, a band whose data
+    starts one element past a 16-byte boundary (the staging's scalar
+    heads), a generic D that is staged (40) and one too large to stage
+    (130, read in place): equal to its plain version element for element,
+    signed zeros in the band, two launches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.kernels import band_to_dense as k5b
+    from ba_tpu_torch.solver import assemble as asm
+
+    rng = np.random.default_rng(P * 10 + D)
+    flat = rng.standard_normal(P * B * D * D + off)
+    flat[::7] = -0.0
+    flat[::11] = 0.0
+    band = torch.as_tensor(flat, dtype=dtype,
+                           device="cuda")[off:].view(P, B, D, D)
+    before = k5b.band_to_dense.launches
+    a = k5b.band_to_dense(band)
+    b = k5b.band_to_dense(band)
+    assert k5b.band_to_dense.launches == before + 2
+    want = asm.band_to_dense_plain(band)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("bcr", [True, False], ids=["bcr", "scan"])
 @pytest.mark.parametrize("F,P_w,B,D,chunk", [(2, 23, 4, 9, 5),
                                              (2, 23, 4, 9, 4),
@@ -1451,3 +1518,40 @@ def test_banded_pcg_solve_on_the_card_runs_k8_only(monkeypatch, F, bcr):
     assert moved == ((1, 10, 0, 5 * 14, 0) if bcr else (1, 0, 1, 0, 5 * 2))
     assert bool(ok) and bool(ok_w)
     assert _rel(got.cpu(), want) <= 1e-10
+
+
+def test_gps_smoother_on_the_card(tmp_path):
+    """The GPS + IMU smoother's app on a 12-fix log: the f32 batch through
+    K1 at lm_size 0, K2, segsum, K5b and K5 (cost falls, the track within
+    a few GPS sigma of the fixes), and the f64 stream (W = 6) through K11
+    on every slide, certified or clipped with its info flag set."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ba_tpu_torch.apps import unary_binary_imu_test as app
+    from ba_tpu_torch.kernels import (band_to_dense, marginalize,
+                                      reprojection, schur_finish)
+    from ba_tpu_torch.utils.tree import tree_map
+
+    path = str(tmp_path / "log.txt")
+    app.generate_log(path, n_gps=12, noise_gps=0.2)
+    imu, gps, gu, parser = app.parse_log(path)
+    p, cfg = app.build_problem_from_records(imu, gps, gu)
+    p = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a, p)
+    before = (reprojection.reprojection.launches,
+              band_to_dense.band_to_dense.launches,
+              schur_finish.schur_finish.launches)
+    sol, summ = app.solve_batch(p, cfg)
+    its = summ.iterations
+    assert summ.is_good and summ.final_cost < summ.initial_cost
+    assert (reprojection.reprojection.launches - before[0],
+            band_to_dense.band_to_dense.launches - before[1],
+            schur_finish.schur_finish.launches - before[2]) == (
+                2 * its + 1, its, its)
+    err = np.linalg.norm(sol.poses.t[:12].double().cpu().numpy()
+                         - np.array([r[1:4] for r in gps]), axis=1)
+    assert err.mean() < 1.5, err
+    with marginalize.Branches() as br:
+        outs, _ = app.run_streaming(imu, gps, gu, 6)
+        got = br.read()
+    assert len(outs) == 7 and got["marginalizations"] == 7 and got["ok"]
+    assert all(np.isfinite(o["t"]).all() for o in outs)

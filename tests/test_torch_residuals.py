@@ -125,3 +125,28 @@ def test_imu_matches(path):
                             torch.as_tensor(np.asarray(c9)))
     for name in want._fields:
         assert_rel(getattr(got, name), getattr(want, name), TOL, name)
+
+
+@pytest.mark.parametrize("with_jacobians", [True, False])
+def test_reprojection_lm0_matches(with_jacobians):
+    """lm_size 0 (a pose graph; K1 runs it on the card): the plain version
+    against ba_tpu's `evaluate`, on the (12, 48) problem with each
+    landmark's state its world point and every 7th row measured from its
+    landmark's reference pose.  Both evaluate a row as a world point's,
+    with no landmark columns (`j_lm` of width 0) and no same-pose
+    zeroing: those rows keep their pose Jacobians."""
+    jp, jcfg, _, _ = _prepared()
+    jp = dataclasses.replace(jp, lms=dataclasses.replace(jp.lms,
+                                                         x=jp.lms.x_w))
+    jcfg = dataclasses.replace(jcfg, lm_size=0)
+    tp, tcfg = to_torch(jp), torch_config(jcfg)
+    same = (tp.proj.pose == tp.lms.ref_pose[tp.proj.lm]) & tp.proj.valid
+    assert int(same.sum()) > 0
+    want = jrep.evaluate(jp, jcfg, with_jacobians=with_jacobians)
+    got = trep.evaluate(tp, tcfg, with_jacobians=with_jacobians)
+    for name in want._fields:
+        assert_rel(getattr(got, name), getattr(want, name), TOL, name)
+    if with_jacobians:
+        assert got.j_lm.shape == (tp.proj.z.shape[0], 2, 0)
+        assert float(got.j_meas[same].abs().max()) > 0.0
+        assert float(got.j_ref.abs().max()) == 0.0
