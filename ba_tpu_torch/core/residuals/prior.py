@@ -5,6 +5,15 @@ decoupled SE3 manifold, whitened by a triangular factor of cov_inv:
 
   unary:  r = log_decoupled(T_wp, T_prior)
   binary: r = log_decoupled(T_w1 * T_12_meas, T_w2)
+
+The Jacobians are written out (ba_tpu differentiates with `vmap(jacfwd)`,
+which in eager PyTorch cost ~40-70 ms of host time a call on the card).
+With the right retraction T exp(delta) and the rotation part
+phi = log(q_e), q_e = q_a q_b^-1: a right perturbation of q_a by w moves
+q_e to q_e exp(R_b w) and of q_b by w to q_e exp(-R_b w) (unit
+quaternions), and log(exp(phi) exp(d)) = phi + Jr^-1(phi) d to first
+order, Jr^-1(phi) = I + [phi]x / 2 + c [phi]x^2 with
+c = 1 / theta^2 - cot(theta / 2) / (2 theta), theta = |phi|.
 """
 
 from __future__ import annotations
@@ -12,7 +21,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd, vmap
 
 from .. import lie
 from ...utils.linalg import whiten_factor
@@ -46,10 +54,44 @@ def _unary_r(delta, pq, pt, uq, ut):
 
 
 def _binary_r(delta, q1, t1, q2, t2, mq, mt):
-    T1 = lie.se3_retract((q1, t1), delta[:6])
-    T2 = lie.se3_retract((q2, t2), delta[6:])
+    T1 = lie.se3_retract((q1, t1), delta[..., :6])
+    T2 = lie.se3_retract((q2, t2), delta[..., 6:])
     pred = lie.se3_compose(T1, (mq, mt))
     return lie.se3_log_decoupled(pred, T2)
+
+
+def _skew(v):
+    """[v]x, (..., 3, 3)."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([z, -v[..., 2], v[..., 1],
+                        v[..., 2], z, -v[..., 0],
+                        -v[..., 1], v[..., 0], z], dim=-1).reshape(
+                            *v.shape[:-1], 3, 3)
+
+
+def _log_jac(qe, phi):
+    """Jr^-1(phi) (..., 3, 3) of phi = so3_log(qe): on the short geodesic
+    (w >= 0), theta = 2 atan2(|v|, w) and cot(theta / 2) = w / |v|; the
+    Taylor branch 1/12 + theta^2/720 near 0."""
+    qe = qe * torch.where(qe[..., 0:1] < 0, -1.0, 1.0)
+    w = qe[..., 0]
+    n = torch.sqrt(torch.sum(qe[..., 1:] * qe[..., 1:], dim=-1))
+    theta = 2.0 * torch.atan2(n, w)
+    small = theta < 1e-3
+    th = torch.where(small, torch.ones_like(theta), theta)
+    n_s = torch.where(small, torch.ones_like(n), n)
+    c = torch.where(small, 1.0 / 12.0 + theta * theta / 720.0,
+                    1.0 / (th * th) - w / (2.0 * th * n_s))
+    K = _skew(phi)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    return eye + 0.5 * K + c[..., None, None] * (K @ K)
+
+
+def _rot_part(qa, qb):
+    """(phi, Jr^-1(phi)) of phi = so3_log(q_a q_b^-1)."""
+    qe = lie.quat_mul(qa, lie.quat_conj(qb))
+    phi = lie.so3_log(qe)
+    return phi, _log_jac(qe, phi)
 
 
 def evaluate_unary(problem, config, with_jacobians=True) -> PriorEval:
@@ -57,11 +99,13 @@ def evaluate_unary(problem, config, with_jacobians=True) -> PriorEval:
     poses = problem.poses
     args = (u.t.new_zeros((u.pose.shape[0], 6)), poses.q[u.pose],
             poses.t[u.pose], u.q, u.t)
-    r = vmap(_unary_r)(*args)
+    r = _unary_r(*args)
+    J = r.new_zeros(r.shape + (6,))
     if with_jacobians:
-        J = vmap(jacfwd(_unary_r))(*args)
-    else:
-        J = r.new_zeros(r.shape + (6,))
+        # d r_t / d t = I; d phi / d w = Jr^-1(phi) R_prior
+        _, Ji = _rot_part(args[1], u.q)
+        J[:, :3, :3] = torch.eye(3, dtype=r.dtype, device=r.device)
+        J[:, 3:, 3:] = Ji @ lie.quat_to_matrix(u.q)
     return PriorEval(*_whiten(r, J, None, u.cov_inv, u.valid))
 
 
@@ -71,11 +115,20 @@ def evaluate_binary(problem, config, with_jacobians=True) -> PriorEval:
     args = (b.t.new_zeros((b.pose1.shape[0], 12)),
             poses.q[b.pose1], poses.t[b.pose1],
             poses.q[b.pose2], poses.t[b.pose2], b.q, b.t)
-    r = vmap(_binary_r)(*args)
+    r = _binary_r(*args)
+    J1 = r.new_zeros(r.shape + (6,))
+    J2 = r.new_zeros(r.shape + (6,))
     if with_jacobians:
-        J = vmap(jacfwd(_binary_r))(*args)
-        J1, J2 = J[..., :6], J[..., 6:]
-    else:
-        J1 = r.new_zeros(r.shape + (6,))
-        J2 = J1
+        # r_t = t1 + R1 t_meas - t2: d / d w1 = -R1 [t_meas]x; r_phi =
+        # log(q1 q_meas q2^-1): d / d w1 = Jr^-1 R2 R_meas^T, d / d w2 =
+        # -Jr^-1 R2
+        q1, q2 = args[1], args[3]
+        _, Ji = _rot_part(lie.quat_mul(q1, b.q), q2)
+        eye = torch.eye(3, dtype=r.dtype, device=r.device)
+        R2 = lie.quat_to_matrix(q2)
+        J1[:, :3, :3] = eye
+        J1[:, :3, 3:] = -lie.quat_to_matrix(q1) @ _skew(b.t)
+        J1[:, 3:, 3:] = Ji @ R2 @ lie.quat_to_matrix(b.q).transpose(-1, -2)
+        J2[:, :3, :3] = -eye
+        J2[:, 3:, 3:] = -(Ji @ R2)
     return PriorEval(*_whiten(r, J1, J2, b.cov_inv, b.valid))

@@ -9,9 +9,10 @@ The fused fleet densifies its windows inside kernel 10 instead.
 
 Design (csrc/band_to_dense.cu): one block per (block row, column stripe);
 the blocks of the row that meet the stripe staged in shared memory by
-16-byte loads, a lower block transposed on its shared-memory read; 16-byte
-stores of the block row's D output rows, zeros past the band written with
-no load; D a compile-time constant for 6, 9 and 15.  A diagonal block
+scalar loads of consecutive threads, a lower block transposed on its
+shared-memory read; 16-byte stores of the block row's D output rows, zeros
+past the band written with no load; D a compile-time constant for 6, 9 and
+15 (any other D reads the band in place, unstaged).  A diagonal block
 rounds as (u + u^T) - u, the plain version's order, so the kernel's output
 equals the plain version's element for element.
 

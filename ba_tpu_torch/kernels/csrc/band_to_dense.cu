@@ -33,9 +33,10 @@
 //     P D sizeof(T) is a multiple of 16, else a scalar; a store wholly
 //     outside the band writes zeros and reads nothing;
 //   * D is a compile-time constant for 6, 9 and 15 (the repo's pose
-//     dimensions), so the block and column splits are multiplies; any
-//     other D takes a generic instantiation (staged while the stripe's
-//     blocks fit in 96 KB, else read in place through L1); index
+//     dimensions), so the block and column splits are multiplies, and
+//     the stripe's blocks are staged when they fit in 96 KB; any other D,
+//     and a stripe whose blocks do not fit, takes one generic
+//     instantiation that reads the band in place through L1; index
 //     arithmetic within a row is 32-bit.
 
 #include <cuda_runtime.h>
@@ -178,11 +179,8 @@ int launch(const void* band_v, int P, int B, int D, void* out_v,
   int stripe = (N + S - 1) / S;
   if (stripe < MIN_STRIPE) stripe = MIN_STRIPE < N ? MIN_STRIPE : N;
   stripe = (stripe + per - 1) / per * per;
-  int narrow = stripe;
-  while (narrow > per && smem_of<T>(narrow, P, B, D) > SMEM_BUDGET)
-    narrow = ((narrow / 2) + per - 1) / per * per;
-  const bool stage = smem_of<T>(narrow, P, B, D) <= SMEM_BUDGET;
-  if (stage) stripe = narrow;
+  const bool stage = (D == 6 || D == 9 || D == 15) &&
+                     smem_of<T>(stripe, P, B, D) <= SMEM_BUDGET;
   const int smem = stage ? smem_of<T>(stripe, P, B, D) : 0;
   const dim3 grid(P, (N + stripe - 1) / stripe);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -202,10 +200,8 @@ int launch(const void* band_v, int P, int B, int D, void* out_v,
     K5B_LAUNCH(9, true);
   else if (stage && D == 6)
     K5B_LAUNCH(6, true);
-  else if (stage && D == 15)
-    K5B_LAUNCH(15, true);
   else if (stage)
-    K5B_LAUNCH(0, true);
+    K5B_LAUNCH(15, true);
   else
     K5B_LAUNCH(0, false);
 #undef K5B_LAUNCH

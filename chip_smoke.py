@@ -198,9 +198,9 @@ Phases, each of which exits non-zero when a check fails:
      W V^-1 by W^T; `eigh` and the clip product); `stream` and
      `stream_many` count the marginalizations the certificate settled;
  26. gps_small: the GPS + IMU smoother (apps/unary_binary_imu_test.py) on
-     the card against the CPU in f64: a 16-fix log's batch solve at 1e-8,
-     its first 8 fixes streamed with W = 4 at TOL_GPS_STREAM; K2 at its
-     spans of 101 slots;
+     the card against the CPU in f64: a 16-fix log's batch solve and its
+     stream with the app's W = 10, both at 1e-8; K2 at its spans of 101
+     slots;
  27. gps_batch: `generate_log(600)` parsed by the native parser, built,
      `solve(max_iter=25, gn_damping=0.2)` in f32 on the banded grid: cost
      falls, the track within 3 GPS sigma of the fixes, exact launches of
@@ -410,16 +410,17 @@ TRUE_CAM = (250.0, 245.0, 320.0, 240.0)
 # cut
 GPS = dict(fixes=600, noise=0.5, stream_fixes=120, window=10, iters=6)
 GPS_EXPECTED = dict(P=600, Ni=599, M=101, B=2, Nr=0)
-# card against CPU in f64: the batch of a 16-fix log (at TOL_SMALL) and the
-# stream (W = 4) of its first 8 fixes.  The stream's marginalization on the
-# card returns a prior its certificate settles as it is, where the CPU's
-# plain version clips it by `eigh` (a move of order tau = 1e-12 ||H||), and
-# the GPS priors' ~1e15 condition number carries that gap from slide to
-# slide: on an H100 the retired states differed by 9e-11 at the first
-# slide and 1.3e-8 at the fifth, growing ~3x a slide, so the stream is held
-# at TOL_GPS_STREAM, ~30x the last slide's reading
-GPS_SMALL = dict(fixes=16, stream_fixes=8, window=4)
-TOL_GPS_STREAM = 1e-6
+# card against CPU in f64, both at TOL_SMALL: the batch of a 16-fix log
+# and its stream with the app's window (GPS["window"]), 7 slides.  Each
+# marginalization carries the rounding of one slide into the next through
+# priors of condition ~1e10-1e15, so the stream is held on the window the
+# app runs, where the card stays within 3e-9 of the CPU over 111 slides
+# (profile_port.py --gps-drift); on a W = 4 window the CPU's own stream
+# moves by 5e-9 and more between one thread and two, and no other
+# rounding order meets 1e-8 there.  The CPU's priors have no negative
+# eigenvalue, so K11's certificate (the prior returned unclipped) and the
+# CPU's `eigh` clip agree on them
+GPS_SMALL = dict(fixes=16, stream_fixes=16, window=GPS["window"])
 # the stream's retired track against the f64 batch of the same fixes, RMSE
 # in m (tests/test_gps_app.py:88)
 GPS_STREAM_RMSE = 0.5
@@ -1933,31 +1934,60 @@ def phase_timing_band(p, cfg, bs, plan, band, band_s, x, k8_per_iter,
     return rec7, rec9, rec8
 
 
-def _device_ops(fn, tries=3):
+def _device_ops(fn, tries=5):
     """Device operations (kernels, memsets, copies) that one call of `fn`
-    puts on the card, from torch.profiler; None when the profiler sees
-    none in `tries` captures (a capture has been seen to miss the one
-    kernel of a call: 1 of 8 smoke runs on an H100)."""
+    puts on the card, from torch.profiler: the most that `tries` captures
+    of one call each saw, since a capture can lose a record but never adds
+    one (one has been seen to miss the one kernel of a call in 1 of 8
+    smoke runs on an H100, and three in a row in another); None when none
+    saw any."""
     import torch
     from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    n = 0
+    seen = []
     for _ in range(tries):
         try:
             with torch.profiler.profile(activities=[
                     ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            n = sum(1 for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+            seen.append(sum(1 for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA))
         except RuntimeError as e:
             say(f"torch.profiler failed ({str(e)[:160]}); device operations "
                 f"not counted")
-        if n:
-            break
-    return n or None
+    if len(set(seen)) > 1:
+        say(f"device operations seen by {len(seen)} captures of one call: "
+            f"{seen}")
+    return max(seen, default=0) or None
+
+
+def _graph_ops(fn):
+    """Device operations (kernels, memsets, copies) that one call of `fn`
+    puts on the card: the nodes of a CUDA graph that captures the call
+    (cuGraphGetNodes).  Exact where torch.profiler loses records: late in
+    this script, captures of a one-kernel call have seen its kernel in 1
+    and 2 of 5."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    check(rc == 0, f"cuGraphGetNodes failed: CUDA error {rc}")
+    return int(n.value)
 
 
 def _timed(fn, calls, graph_calls):
@@ -2584,7 +2614,7 @@ def phase_gps_small(tmp):
               torch.as_tensor(b[f]).double())
              for k, (a, b) in enumerate(zip(gouts, couts))
              for f in ("q", "t", "cost")]
-    _compare(pairs, f"GPS {n} fixes f64, W = {W}", TOL_GPS_STREAM)
+    _compare(pairs, f"GPS {n} fixes f64, W = {W}", TOL_SMALL)
     say(f"GPS small batch: {gsum.iterations} iterations, {gsum.result} "
         f"(CPU {csum.iterations}, {csum.result})")
     check((gsum.iterations, gsum.result) == (csum.iterations, csum.result),
@@ -3994,8 +4024,8 @@ def phase_timing_imu(p, cfg, floor_ms, smi, label="flagship"):
                                          b_out.err_sq, b_out.y_t, b_out.y_v)
     a_flops = _k2_flops(Ni, steps, R, D, True)
     b_flops = _k2_flops(Ni, steps, R, D, False)
-    ops_a, ops_b = _device_ops(a_call), _device_ops(b_call)
-    ops_whiten = _device_ops(plain_whitening)
+    ops_a, ops_b = _graph_ops(a_call), _graph_ops(b_call)
+    ops_whiten = _graph_ops(plain_whitening)
     whiten_t = dict(ms=event_ms(plain_whitening, 20),
                     device_ms=graph_ms(plain_whitening, 10))
     say(f"K2 device operations per IMU evaluation ({label}): with "

@@ -84,6 +84,21 @@ root, so that `chip_smoke` and the package resolve there:
         sys.argv = ['profile_port.py', '--solves']; \
         runpy.run_path('../../profile_port.py', run_name='__main__')"
 
+With `--gps`, instead, the stages of one push of chip_smoke.py's GPS
+stream (the smoother's fixed-lag ring, W = 10, f64), the device's busy
+share of two profiled pushes, and the host operators with the most self
+time in them.
+
+    python3 profile_port.py --gps
+
+With `--gps-drift`, instead, the card's GPS streams (chip_smoke.py's
+`gps_small` and `gps_stream`, f64) against the CPU's, slide by slide,
+beside the CPU's own streams with their priors moved by about an ulp and
+with the priors K11's certificate returns (three CPU worker processes;
+~10 min).
+
+    python3 profile_port.py --gps-drift
+
 The device's busy time is the sum of the kernel and copy spans of the
 profiler's trace (written to a temporary directory in the checkout and
 deleted once read: two iterations make ~80 MB).  Needs one CUDA device;
@@ -320,6 +335,220 @@ def slide_stage_times(smi, n_warm=3, n_slides=5):
           f"on), device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.2f}%"
           f"; per push: device busy {busy / 2 * 1e3:.3f} ms, "
           + ", ".join(f"{k} {v / 2 * 1e3:.4f} ms" for k, v in ks.items()))
+
+
+def gps_slide_stage_times(smi, n_warm=3, n_slides=5):
+    """`slide_stage_times` on chip_smoke.py's GPS stream (W = 10, f64,
+    lm_size 0, the app's `run_streaming`): mean ms per push of each stage,
+    then the device's busy share of two profiled pushes, the kernels'
+    device ms per push and the host operators with the most self time."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from ba_tpu_torch.apps import unary_binary_imu_test as app
+    from ba_tpu_torch.core.residuals import prior
+    from ba_tpu_torch.solver import assemble as asm
+    from ba_tpu_torch.solver import fixedlag, step, streaming, window
+    from ba_tpu_torch.solver.streaming import StreamingRing
+
+    W = chip_smoke.GPS["window"]
+    with tempfile.TemporaryDirectory(dir=chip_smoke.ROOT) as tmp:
+        path = str(Path(tmp) / "gps.txt")
+        app.generate_log(path, n_gps=W + n_warm + n_slides + 3,
+                         noise_gps=chip_smoke.GPS["noise"])
+        imu, gps, gu, _ = app.parse_log(path)
+    sums = collections.defaultdict(float)
+    on = [False]
+    for owner, name, label in (
+            (StreamingRing, "_slide_tables", "host: slide tables"),
+            (streaming, "_pack", "host: pack the three buffers"),
+            (StreamingRing, "_upload", "upload (pinned, asynchronous)"),
+            (fixedlag, "assembly_plan", "assembly plan (once per slide)"),
+            (step, "_build_and_solve",
+             "build: IMU + assemble + solve_reduced (x6)"),
+            (step, "_imu_eval", lambda p, c, u, jac, c9=None:
+             "  IMU evaluate with Jacobians (x6 builds)" if jac
+             else "  IMU evaluate without Jacobians (x6 trials)"),
+            (step, "assemble", "  assemble (x6)"),
+            (asm, "proj_blocks", "    K1 blocks (lm_size 0)"),
+            (prior, "evaluate_unary", lambda p, c, with_jacobians=True:
+             "    unary priors with Jacobians" if with_jacobians
+             else "    unary priors, residuals only"),
+            (prior, "evaluate_binary", lambda p, c, with_jacobians=True:
+             "    binary priors with Jacobians" if with_jacobians
+             else "    binary priors, residuals only"),
+            (asm, "seg_sum_groups", "    grouped segment sums"),
+            (asm, "marg_contribution", "    the prior's rows"),
+            (asm, "finish", "    Schur step (K5) and finish"),
+            (step, "solve_reduced", "  solve_reduced (x6)"),
+            (step, "_cost", "trial cost (x6)"),
+            (window, "marginalize", "marginalize"),
+            (StreamingRing, "push", "push, whole")):
+        _wrap(owner, name, label, sums, on)
+    prof = torch.profiler.profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    slides = []
+    clock = {}
+
+    def on_push(g, out):
+        if out is None:
+            return
+        slides.append(g)
+        k = len(slides)
+        if k == n_warm:
+            on[0] = True
+        elif k == n_warm + n_slides:
+            on[0] = False
+            torch.cuda.synchronize()
+            prof.start()
+            clock["t0"] = time.perf_counter()
+        elif k == n_warm + n_slides + 2:
+            torch.cuda.synchronize()
+            clock["wall"] = time.perf_counter() - clock["t0"]
+            prof.stop()
+
+    app.run_streaming(imu, gps, gu, W, iters_per_slide=chip_smoke.GPS[
+        "iters"], device="cuda", on_push=on_push)
+    for name, secs in sums.items():
+        print(f"[{smi}] GPS push stage {name}: "
+              f"{secs / n_slides * 1e3:.2f} ms")
+    busy, ks = _busy_seconds(prof, "profile_gps.json", kernels={
+        "K1 (reprojection)": ("reproj",),
+        "K2 (imu_preint)": ("imu_preint",),
+        "K5 (schur_finish)": ("schur_mask_kernel", "schur_product_kernel"),
+        "K11 (marginalize)": ("marginalize_kernel",)})
+    wall = clock["wall"]
+    print(f"[{smi}] GPS profiled 2 pushes: wall {wall * 1e3:.1f} ms "
+          f"(profiler on), device busy {busy * 1e3:.1f} ms = "
+          f"{100 * busy / wall:.2f}%; per push: device busy "
+          f"{busy / 2 * 1e3:.3f} ms, "
+          + ", ".join(f"{k} {v / 2 * 1e3:.4f} ms" for k, v in ks.items()))
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in ops[:15]:
+        print(f"GPS push host op {e.key}: {e.count / 2:g} calls, "
+              f"{e.self_cpu_time_total / 2e3:.2f} ms self per push")
+
+
+def _gps_cpu_stream(job):
+    """The GPS stream of `job` = (log path, fixes, W, mode) on the CPU, in
+    f64 (a worker process): the retired outputs as numpy.  `mode` sets the
+    prior that each marginalization returns: "plain" (the `eigh` clip),
+    "certified" (the symmetrized H unclipped whenever an f64 Cholesky of
+    its active block + tau I succeeds, tau = 1e-12 ||H||_F: K11's
+    certified branch) or "ulp" (the plain prior with each entry moved by
+    a relative 1e-16 of symmetric seeded noise: about an ulp).  Returns
+    (outputs, [(certified, smallest eigenvalue of the prior's active block
+    / ||H||_F) per marginalization] in the "certified" mode, else [])."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.apps import unary_binary_imu_test as app
+    from ba_tpu_torch.kernels import marginalize as k11
+
+    path, fixes, W, mode = job
+    torch.set_num_threads(1)
+    plain = k11.marginalize_prior_plain
+    rng = np.random.default_rng(0)
+    stats = []
+
+    def prior(S, rhs, pd, eps):
+        H, g = plain(S, rhs, pd, eps)
+        if mode == "ulp":
+            E = torch.as_tensor(rng.standard_normal(H.shape))
+            return H * (1 + 1e-16 * 0.5 * (E + E.T)), g
+        if mode == "certified":
+            Pd = pd.to(S.dtype)
+            Bm = (S * Pd[:, None] * Pd[None, :] + torch.diag(1.0 - Pd)
+                  + eps * torch.diag(Pd))
+            Binv = torch.linalg.inv_ex(Bm).inverse * Pd[:, None] * Pd[None, :]
+            SP = S * Pd[None, :]
+            keep = 1.0 - Pd
+            Hu = (S - SP @ Binv @ SP.T) * keep[:, None] * keep[None, :]
+            Hu = 0.5 * (Hu + Hu.T)
+            act = Hu.abs().sum(1) != 0
+            Ha = Hu[act][:, act]
+            fro = torch.linalg.norm(Hu)
+            eye = torch.eye(Ha.shape[0], dtype=Ha.dtype)
+            ok = torch.linalg.cholesky_ex(Ha + 1e-12 * fro * eye).info == 0
+            stats.append((bool(ok), float(torch.linalg.eigvalsh(Ha)[0]
+                                          / fro)))
+            if ok:
+                return Hu, g
+        return H, g
+
+    k11.marginalize_prior_plain = prior
+    imu, gps, gu, _ = app.parse_log(path)
+    outs, _ = app.run_streaming(imu, gps[:fixes], gu[:fixes], W,
+                                device="cpu")
+    return outs, stats
+
+
+def gps_drift(smi):
+    """How far the card's GPS stream (f64) lies from the CPU's, slide by
+    slide, beside how far the CPU's own stream moves when its priors move
+    by about an ulp ("ulp") or are returned as K11's certificate returns
+    them ("certified"): chip_smoke.py's `gps_stream` (the first 120 of
+    600 fixes, W = 10) and `gps_small` (16 fixes, W = 10), and the first
+    8 of those 16 fixes with W = 4.  The CPU streams run in
+    worker processes (one thread each) beside the card's."""
+    import multiprocessing
+
+    import torch
+
+    from ba_tpu_torch.apps import unary_binary_imu_test as app
+
+    small = chip_smoke.GPS_SMALL
+    runs = (("gps_stream", chip_smoke.GPS["fixes"],
+             chip_smoke.GPS["stream_fixes"], chip_smoke.GPS["window"]),
+            ("gps_small", small["fixes"], small["stream_fixes"],
+             small["window"]),
+            ("gps_small_w4", small["fixes"], 8, 4))
+    modes = ("plain", "certified", "ulp")
+    with tempfile.TemporaryDirectory(dir=chip_smoke.ROOT) as tmp:
+        jobs = []
+        for name, n_log, fixes, W in runs:
+            path = str(Path(tmp) / f"{name}.txt")
+            app.generate_log(path, n_gps=n_log,
+                             noise_gps=chip_smoke.GPS["noise"])
+            jobs += [(path, fixes, W, m) for m in modes]
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(2 * len(modes)) as pool:
+            cpu = pool.map_async(_gps_cpu_stream, jobs, chunksize=1)
+            card = {}
+            for (name, _, fixes, W) in runs:
+                imu, gps, gu, _ = app.parse_log(str(Path(tmp) /
+                                                    f"{name}.txt"))
+                t0 = time.perf_counter()
+                card[name], _ = app.run_streaming(imu, gps[:fixes],
+                                                  gu[:fixes], W)
+                torch.cuda.synchronize()
+                print(f"[{smi}] {name} stream on the card: "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+            cpu = cpu.get()
+    for r, (name, _, fixes, W) in enumerate(runs):
+        (plain, _), (cert, stats), (ulp, _) = cpu[3 * r:3 * r + 3]
+        lam = min(v for _, v in stats)
+        print(f"{name}: the CPU's priors certified {sum(c for c, _ in stats)}"
+              f" of {len(stats)}; smallest eigenvalue of an active block "
+              f"{lam:.3e} ||H||_F (tau 1e-12 ||H||_F), "
+              f"{sum(v < 0 for _, v in stats)} priors with a negative one")
+        worst = collections.defaultdict(float)
+        for k, (a, b) in enumerate(zip(card[name], plain)):
+            errs = []
+            for label, o in (("card", a), ("certified", cert[k]),
+                             ("ulp", ulp[k])):
+                e = {f: chip_smoke.rel_err(
+                    torch.as_tensor(o[f]).double(),
+                    torch.as_tensor(b[f]).double())[1]
+                    for f in ("q", "t", "cost")}
+                worst[label] = max(worst[label], max(e.values()))
+                errs.append(f"{label} " + " ".join(
+                    f"{f} {v:.2e}" for f, v in e.items()))
+            print(f"{name} (W = {W}) slide {k} rel err to the CPU: "
+                  + "; ".join(errs))
+        print(f"[{smi}] {name} ({fixes} fixes, W = {W}, "
+              f"{len(plain)} slides) worst rel err to the CPU stream: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
 def _wrap(owner, name, label, sums, on):
@@ -702,6 +931,12 @@ def main():
         return 0
     if "--solves" in sys.argv[1:]:
         solve_times(smi)
+        return 0
+    if "--gps" in sys.argv[1:]:
+        gps_slide_stage_times(smi)
+        return 0
+    if "--gps-drift" in sys.argv[1:]:
+        gps_drift(smi)
         return 0
     for which in ("long", "cg", "fleet", "selfcal"):
         if f"--{which}" in sys.argv[1:]:

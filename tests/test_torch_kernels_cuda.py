@@ -1282,16 +1282,18 @@ def test_band_to_dense_kernel_matches_plain(dtype, P, B, D):
                                        (7, 3, 9, 0), (5, 8, 9, 0),
                                        (37, 5, 6, 0), (12, 3, 15, 0),
                                        (1, 2, 9, 0), (9, 4, 9, 1),
-                                       (6, 3, 40, 0), (3, 2, 130, 0)],
+                                       (6, 3, 40, 0), (3, 2, 130, 0),
+                                       (300, 40, 15, 0)],
                          ids=["flagship", "gps", "PD63", "B>P", "D6", "D15",
-                              "P1", "view", "D40", "D130"])
+                              "P1", "view", "D40", "D130", "D15-wide"])
 def test_band_to_dense_kernel_shapes(dtype, P, B, D, off):
     """K5b at the flagship's and the GPS batch's bands, P D not a multiple
     of 4 (scalar stores), B > P, D = 6 and 15, P = 1, a band whose data
-    starts one element past a 16-byte boundary (the staging's scalar
-    heads), a generic D that is staged (40) and one too large to stage
-    (130, read in place): equal to its plain version element for element,
-    signed zeros in the band, two launches bit-identical."""
+    starts one element past a 16-byte boundary, two generic D (40 and
+    130) and a D = 15 band whose stripe's blocks pass the staging budget
+    in f64 (the three read in place, unstaged): equal to its plain version
+    element for element, signed zeros in the band, two launches
+    bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ba_tpu_torch.kernels import band_to_dense as k5b

@@ -108,6 +108,54 @@ def test_priors_match(tables, with_jacobians):
                        f"{jf.__name__}.{name}")
 
 
+def _qmul(a, b):
+    aw, ax, ay, az = np.moveaxis(a, -1, 0)
+    bw, bx, by, bz = np.moveaxis(b, -1, 0)
+    return np.stack([aw * bw - ax * bx - ay * by - az * bz,
+                     aw * bx + ax * bw + ay * bz - az * by,
+                     aw * by - ax * bz + ay * bw + az * bx,
+                     aw * bz + ax * by - ay * bx + az * bw], axis=-1)
+
+
+def _qconj(q):
+    return q * np.array([1.0, -1.0, -1.0, -1.0])
+
+
+@pytest.mark.parametrize("theta", [0.0, 1e-9, 1e-5, 1e-2, 1.0,
+                                   np.pi - 1e-4],
+                         ids=["zero", "1e-9", "1e-5", "1e-2", "1", "near-pi"])
+def test_prior_jacobians_across_angles(theta):
+    """The port's written-out prior Jacobians against ba_tpu's
+    `vmap(jacfwd)` where the rotation error log(q_a q_b^-1) has angle
+    `theta`: zero, inside both Taylor branches (1e-9), between them, and
+    at the short geodesic's far end; unary and binary rows, with
+    Jacobians, f64, at TOL."""
+    jp, jcfg, _, tcfg = _prepared(same_pose_rows=False)
+    jp = _with_priors(jp)
+    rng = np.random.default_rng(11)
+    q = np.asarray(jp.poses.q)
+    axis = rng.standard_normal((3, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    e = np.concatenate([np.full((3, 1), np.cos(theta / 2)),
+                        np.sin(theta / 2) * axis], axis=1)
+    up = np.asarray(jp.unary.pose)
+    b1, b2 = np.asarray(jp.binary.pose1), np.asarray(jp.binary.pose2)
+    # q_pose q_prior^-1 = e, and q1 q_meas q2^-1 = e
+    uq = _qmul(_qconj(e), q[up])
+    mq = _qmul(_qmul(_qconj(q[b1]), e), q[b2])
+    jp = dataclasses.replace(
+        jp, unary=dataclasses.replace(jp.unary, q=jnp.asarray(uq)),
+        binary=dataclasses.replace(jp.binary, q=jnp.asarray(mq)))
+    tp = to_torch(jp)
+    for jf, tf in ((jprior.evaluate_unary, tprior.evaluate_unary),
+                   (jprior.evaluate_binary, tprior.evaluate_binary)):
+        want = jf(jp, jcfg, with_jacobians=True)
+        got = tf(tp, tcfg, with_jacobians=True)
+        for name in want._fields:
+            assert_rel(getattr(got, name), getattr(want, name), TOL,
+                       f"{jf.__name__}.{name}")
+
+
 @pytest.mark.parametrize("path", ["build", "cost_c9_none", "cost_c9_cached"])
 def test_imu_matches(path):
     jp, jcfg, tp, tcfg = _prepared(same_pose_rows=False)
