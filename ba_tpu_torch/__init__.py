@@ -29,8 +29,9 @@ source each in kernels/csrc/ (`kernels/build.py:SOURCES`):
 
 (with the shared headers dual_lie.cuh, tile_walk.cuh and chunk_blas.cuh).
 
-native/ holds the host code of the GPS + IMU smoother's app (the
-interpolation buffer and the log parser, C++ built with g++ at first use).
+native/ holds the host code (C++ built with g++ at first use): the GPS +
+IMU smoother's interpolation buffer and log parser, and the problem
+builder (`native.NativeProblemBuilder`).
 
 Every kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; a CUDA tensor goes through the kernel or

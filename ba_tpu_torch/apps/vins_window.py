@@ -12,7 +12,8 @@ the retired-keyframe trajectory's ATE.
     python -m ba_tpu_torch.apps.vins_window --poses 40 --window 10 --ring
 
 Tensors live on `--device` (cuda unless told otherwise; without CUDA that
-default raises).  f32 unless `--f64`.
+default raises).  f32 unless `--f64`.  The stages are timed with
+`utils.timing.span` (each waits for the device) and reported at the end.
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ def main(argv=None):
     from ..solver import step as step_mod
     from ..solver import window as window_mod
     from ..solver.assemble import band_width_of
+    from ..utils import timing
     from ..utils.tree import tree_map
-    from .vins_stream import wait
 
     sim = sv.simulate(n_poses=args.poses, n_lms=args.lms, seed=7)
     cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False,
@@ -66,49 +67,46 @@ def main(argv=None):
 
         cfg_r = dataclasses.replace(cfg, band_width=0)   # compact: general
         pr = prepare_landmarks(problem, cfg_r)
-        t0 = time.perf_counter()
-        sched = fixedlag.build_ring_schedule(pr, cfg_r, args.window)
-        t_sched = time.perf_counter() - t0
-        for run in ("first", "second"):
-            t0 = time.perf_counter()
+        with timing.span("build_schedule", sync=pr):
+            sched = fixedlag.build_ring_schedule(pr, cfg_r, args.window)
+        with timing.span("first_run"):
             _, outs = fixedlag.run_ring(sched, cfg_r, True, 2)
-            wait(dev)
-            dt = time.perf_counter() - t0
+            timing.wait(outs)
+        t0 = time.perf_counter()
+        _, outs = fixedlag.run_ring(sched, cfg_r, True, 2)
+        timing.wait(outs)
+        dt = time.perf_counter() - t0
         n = sched.n_slides
         ate = sv.ate(None, outs["t"].double().cpu().numpy(), None,
                      sim.t_wv[:n])
         print(f"ring on {dev}: {n} keyframes retired in {dt * 1e3:.1f} ms "
-              f"({n / dt:.1f}/s, second run; schedule build "
-              f"{t_sched * 1e3:.1f} ms); retired-trajectory ATE "
+              f"({n / dt:.1f}/s, second run); retired-trajectory ATE "
               f"{ate * 100:.3f} cm; last window cost "
               f"{float(outs['cost'][-1]):.4g}")
+        print(timing.report())
         return 0
 
     p = problem
     n_marg = args.poses - args.window
-    t_solve = t_marg = 0.0
     summ = None
     for k in range(2, 2 + n_marg):
-        t0 = time.perf_counter()
-        p, summ = step_mod.solve(p, cfg, max_iter=6, use_imu=True)
-        t1 = time.perf_counter()
-        p = window_mod.apply_marginalization(
-            p, cfg, True, torch.arange(P, device=dev) == k)
-        wait(dev)
-        t_solve += t1 - t0
-        t_marg += time.perf_counter() - t1
+        with timing.span("window_solve", sync=lambda: p):
+            p, summ = step_mod.solve(p, cfg, max_iter=6, use_imu=True)
+        with timing.span("marginalize", sync=lambda: p):
+            p = window_mod.apply_marginalization(
+                p, cfg, True, torch.arange(P, device=dev) == k)
         n_active = int(p.poses.active.sum())
         print(f"step {k - 1:3d}: cost {summ.final_cost:10.4g}  "
               f"active poses {n_active}")
-    p, summ = step_mod.solve(p, cfg, max_iter=10, use_imu=True)
+    with timing.span("window_solve", sync=lambda: p):
+        p, summ = step_mod.solve(p, cfg, max_iter=10, use_imu=True)
 
     sl = slice(2 + n_marg, args.poses)
     ate = sv.ate(None, p.poses.t[sl].double().cpu().numpy(), None,
                  sim.t_wv[sl])
     print(f"final window cost {summ.final_cost:.4g}; ATE over window "
-          f"poses: {ate * 100:.3f} cm; on {dev}: window solves "
-          f"{t_solve * 1e3:.1f} ms, marginalizations {t_marg * 1e3:.1f} ms "
-          f"({n_marg} steps)")
+          f"poses: {ate * 100:.3f} cm; on {dev} ({n_marg} steps)")
+    print(timing.report())
     return 0
 
 

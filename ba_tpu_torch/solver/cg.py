@@ -34,6 +34,16 @@ the masked identity stay plain torch, as does the block-Jacobi
 preconditioner (`_precond`, a batched D x D product).  The CPU path keeps
 the row order (`schur_matvec_plain` on `rhs`).
 
+Self-calibration (K = calib_dim > 0 columns after the poses): the
+projection rows carry J_c, so every product through them has a (K,)
+part, sum_n J_c^T (...), a plain torch reduction as in ba_tpu, except in
+the Schur product on the card, where kernel 6 writes one (K,) partial per
+tile and segsum adds them in tile order in the same launch (`plan.cal`).
+The build sums the calibration block's W blocks by landmark on `plan.V`
+(in its second launch), forms the (K, K) block Sc of S and inverts it
+with `torch.linalg.inv_ex` (no host read): the preconditioner's `minv_cal`
+and the damping scale of the calibration dims.
+
 The PCG loop (`pcg_solve`) replaces ba_tpu's `lax.while_loop` by a Python
 loop whose iterations are masked once the residual test fails
 (`torch.where(live, ...)`, never a multiplication by 0, which would turn a
@@ -43,9 +53,8 @@ every `CG_CHECK_EVERY` (8) iterations to leave the loop: at most
 ceil(cg_max_iterations / 8) host syncs per build (12 at 100 iterations),
 and up to 7 masked iterations after convergence.
 
-Not ported here: a calibration block (K > 0 raises; ROADMAP.md queue 1,
-calibration on the block system) and the sharded layout (`axis_name`,
-`lm_offset`; queue 1, distribution).
+Not ported here: the sharded layout (`axis_name`, `lm_offset`; ROADMAP.md
+queue 1, distribution).
 """
 
 from __future__ import annotations
@@ -94,6 +103,9 @@ class BlockPlan(NamedTuple):
     s_rhs: Optional[segsum.SegPlan] = None  # (P) rows [schur.out_pose,
     #                           unary, binary 1, binary 2]: the Schur product
     #                           on the card, or None
+    cal: Optional[segsum.SegPlan] = None  # (1) kernel 6's tiles: the
+    #                           calibration part of the Schur product on the
+    #                           card (K > 0), or None
 
 
 class BlockSystem(NamedTuple):
@@ -161,18 +173,22 @@ def block_plan(problem: Problem, config: BAConfig, band: bool = False,
         if fleet:
             fleet_plan = banded.fleet_dense_plan(problem, config, ids)
     rhs_ids = ids["rhs"][0]
-    k6_plan = s_rhs = None
+    k6_plan = s_rhs = cal = None
     if schur:
         k6_plan = k6.schur_plan(rhs_ids[:Nr], rhs_ids[Nr: 2 * Nr],
                                 problem.proj.lm, ids["V"][1],
                                 plans["V"].perm)
         s_rhs = segsum.build_plan(
             torch.cat([k6_plan.out_pose, rhs_ids[2 * Nr:]]), P)
+        if config.calib_dim:
+            cal = segsum.build_plan(
+                torch.zeros(k6_plan.tiles.shape[0] - 1, dtype=torch.long,
+                            device=rhs_ids.device), 1)
     return BlockPlan(**plans,
                      wz=segsum.build_plan(rhs_ids[: 2 * Nr], P),
                      wb_pose=segsum.build_plan(problem.pidx.wb_pose, P),
                      band=band_plan, fleet=fleet_plan, windows=windows,
-                     schur=k6_plan, s_rhs=s_rhs)
+                     schur=k6_plan, s_rhs=s_rhs, cal=cal)
 
 
 def _seg2_rows(j1, j2, u1, u2):
@@ -181,33 +197,49 @@ def _seg2_rows(j1, j2, u1, u2):
     return torch.cat([_jtr(j1, u1), _jtr(j2, u2)])
 
 
-def _proj_u(bs: BlockSystem, xp6):
-    """(Jp x) rows for the projection family: (Nr, 2)."""
+def _proj_u(bs: BlockSystem, xp6, xk=None):
+    """(Jp x) rows for the projection family: (Nr, 2); xk the calibration
+    part of x (used when the blocks carry J_c)."""
     pj = bs.pj
-    return (torch.einsum("nik,nk->ni", pj.j_m, xp6[pj.pose])
-            + torch.einsum("nik,nk->ni", pj.j_r, xp6[pj.ref]))
+    u = (torch.einsum("nik,nk->ni", pj.j_m, xp6[pj.pose])
+         + torch.einsum("nik,nk->ni", pj.j_r, xp6[pj.ref]))
+    if pj.j_c is not None:
+        u = u + torch.einsum("nik,k->ni", pj.j_c, xk)
+    return u
 
 
-def _wt_apply(bs: BlockSystem, xp6):
+def _cal_sum(bs: BlockSystem, v):
+    """The calibration part of J^T v over the projection rows: (K,), or
+    None without a calibration block."""
+    if bs.pj.j_c is None:
+        return None
+    return torch.einsum("nik,ni->k", bs.pj.j_c, v)
+
+
+def _wt_apply(bs: BlockSystem, xp6, xk=None):
     """W^T x -> (L, lm)."""
-    u = _proj_u(bs, xp6)
+    u = _proj_u(bs, xp6, xk)
     return asm.seg_sum_groups([(torch.einsum("nil,ni->nl", bs.pj.j_l, u),
                                 bs.plan.rhs_l)])[0]
 
 
 def _w_group(bs: BlockSystem, z):
+    """The rows of W z on `plan.wz` and the calibration part, (K,) or
+    None."""
     pj = bs.pj
     v = torch.einsum("nil,nl->ni", pj.j_l, z[pj.lm])
-    return (_seg2_rows(pj.j_m, pj.j_r, v, v), bs.plan.wz)
+    return (_seg2_rows(pj.j_m, pj.j_r, v, v), bs.plan.wz), _cal_sum(bs, v)
 
 
-def _w_finish(yp6, D):
-    return F.pad(yp6, (0, D - 6)).reshape(-1)
+def _w_finish(yp6, D, yk=None):
+    y = F.pad(yp6, (0, D - 6)).reshape(-1)
+    return y if yk is None else torch.cat([y, yk])
 
 
 def _w_apply(bs: BlockSystem, z, P, D, K=0):
     """W z -> (N,) from z: (L, lm)."""
-    return _w_finish(asm.seg_sum_groups([_w_group(bs, z)])[0], D)
+    group, yk = _w_group(bs, z)
+    return _w_finish(asm.seg_sum_groups([group])[0], D, yk)
 
 
 def _pose_rows(bs: BlockSystem, xp):
@@ -229,29 +261,29 @@ def _pose_rows(bs: BlockSystem, xp):
 
 def _u_groups(bs: BlockSystem, xm, P, D):
     """The rows of U x: the width-6 families on `plan.rhs`, the IMU on
-    `plan.imu_rhs`."""
+    `plan.imu_rhs`; and the calibration part, (K,) or None."""
     xp = xm[: P * D].reshape(P, D)
-    u = _proj_u(bs, xp[:, :6])
+    u = _proj_u(bs, xp[:, :6], xm[P * D:])
     rows, imu = _pose_rows(bs, xp)
     groups = [(torch.cat([_seg2_rows(bs.pj.j_m, bs.pj.j_r, u, u), rows]),
                bs.plan.rhs)]
-    return groups + ([imu] if imu is not None else [])
+    return groups + ([imu] if imu is not None else []), _cal_sum(bs, u)
 
 
-def _u_finish(sums, xm, P, D, marg_H):
+def _u_finish(sums, xm, P, D, marg_H, yk=None):
     y = F.pad(sums[0], (0, D - 6))
     if len(sums) > 1:
         y = y + sums[1]
     y = y.reshape(-1)
     if marg_H is not None:
         y = y + marg_H @ xm[: P * D]
-    return y
+    return y if yk is None else torch.cat([y, yk])
 
 
 def _u_apply(bs: BlockSystem, xm, P, D, K=0, marg_H=None):
     """U x (all families + marginalization prior) -> (N,)."""
-    return _u_finish(asm.seg_sum_groups(_u_groups(bs, xm, P, D)), xm, P, D,
-                     marg_H)
+    groups, yk = _u_groups(bs, xm, P, D)
+    return _u_finish(asm.seg_sum_groups(groups), xm, P, D, marg_H, yk)
 
 
 def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
@@ -267,10 +299,6 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     card a plan with `schur` lays out kernel 6's records (`pack`, one
     launch)."""
     D, K, P, L, lm, N = asm.dims(problem, config)
-    if K:
-        raise NotImplementedError(
-            "the block system with a calibration block is not ported yet "
-            "(ROADMAP.md queue 1, calibration on the block system)")
     on_card = problem.poses.t.is_cuda
     if plan is None:
         plan = block_plan(problem, config, schur=with_precond and on_card)
@@ -331,10 +359,13 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
         marg_H = H * colmD[:, None] * colmD[None, :]
         rhs_p = rhs_p + (H @ delta + marg.g * on) * colmD
         cost = cost + delta @ H @ delta + 2.0 * (marg.g * on) @ delta
+    if K:                                     # the calibration gradient
+        rhs_p = torch.cat([rhs_p, torch.einsum("nik,ni->k", pb.j_c, pb.r)])
 
     pack = None
     if on_card and plan.schur is not None:    # kernel 6's records
-        pack = k6.schur_pack(pb.j_m, pb.j_r, pb.j_l, plan.schur, lm)
+        pack = k6.schur_pack(pb.j_m, pb.j_r, pb.j_l, plan.schur, lm,
+                             pb.j_c)
     bs = BlockSystem(pj=pb, ju=ju, u_pose=u_pose, jb1=jb1, jb2=jb2, b1=b1,
                      b2=b2, ji1=ji1, ji2=ji2, i1=i1, i2=i2, V=V, vinv=vinv,
                      rhs_l=rhs_l.reshape(-1), rhs_p=rhs_p, rhs_sc=rhs_p,
@@ -346,9 +377,10 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
                      cost=cost, proj_w=pb.w, wb=Wb, plan=plan, pack=pack)
 
     # Schur-reduced rhs: W V^-1 rhs_l, with the preconditioner's sums in
-    # the same launch
+    # the same launch (and the calibration block's W blocks by landmark)
     z0 = torch.einsum("lij,lj->li", vinv, rhs_l)
-    groups = [_w_group(bs, z0)]
+    w_group, w_cal = _w_group(bs, z0)
+    groups = [w_group]
     if with_precond:
         groups.append((torch.cat([
             _outer(pb.j_m, pb.j_m), _outer(pb.j_r, pb.j_r), _outer(ju, ju),
@@ -359,8 +391,10 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
         if ji1 is not None:
             groups.append((torch.cat([_outer(ji1, ji1), _outer(ji2, ji2)]),
                            plan.imu_rhs))
+        if K:
+            groups.append((_outer(pb.j_c, pb.j_l), plan.V))
     sums = asm.seg_sum_groups(groups)
-    rhs_sc = torch.where(cmask, rhs_p - _w_finish(sums[0], D), 0.0)
+    rhs_sc = torch.where(cmask, rhs_p - _w_finish(sums[0], D, w_cal), 0.0)
     if not with_precond:
         return bs._replace(rhs_sc=rhs_sc), marg_H
 
@@ -368,6 +402,7 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     diag = F.pad(sums[1] - sums[2], (0, D - 6, 0, D - 6))
     if ji1 is not None:
         diag = diag + sums[3]
+    Wc = sums[-1] if K else None
     if marg_H is not None:
         diag = diag + marg_H.reshape(P, D, P, D).diagonal(
             dim1=0, dim2=2).permute(2, 0, 1)
@@ -382,8 +417,18 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     diag = diag + lam * torch.diag_embed(dscale_p)
     dscale = torch.ones((N,), dtype=dtype, device=mD.device)
     dscale[: P * D] = dscale_p.reshape(-1)
+    minv_cal = None
+    if K:
+        # the calibration block of S: Uc - sum_l Wc_l V_l^-1 Wc_l^T
+        Sc = (torch.einsum("nik,nil->kl", pb.j_c, pb.j_c)
+              - torch.einsum("lkm,lmn,lqn->kq", Wc, vinv, Wc))
+        dk = torch.clamp(torch.diagonal(Sc), min=1e-12)
+        eye = torch.eye(K, dtype=dtype, device=mD.device)
+        minv_cal = torch.linalg.inv_ex(Sc + lam * torch.diag(dk)
+                                       + 1e-12 * eye)[0]
+        dscale[P * D:] = dk
     return bs._replace(rhs_sc=rhs_sc, minv_pose=block_diag_inv(diag),
-                       dscale=dscale), marg_H
+                       minv_cal=minv_cal, dscale=dscale), marg_H
 
 
 def back_substitute_blocks(bs: BlockSystem, delta_p, P, D, K=0):
@@ -391,7 +436,7 @@ def back_substitute_blocks(bs: BlockSystem, delta_p, P, D, K=0):
     blocks."""
     L, lm, _ = bs.vinv.shape
     xp6 = delta_p[: P * D].reshape(P, D)[:, :6]
-    resid = bs.rhs_l.reshape(L, lm) - _wt_apply(bs, xp6)
+    resid = bs.rhs_l.reshape(L, lm) - _wt_apply(bs, xp6, delta_p[P * D:])
     return torch.einsum("lij,lj->li", bs.vinv, resid).reshape(-1)
 
 
@@ -402,10 +447,11 @@ def cauchy_factor(bs: BlockSystem, marg_H, P, D, K=0):
     L, lm, _ = bs.V.shape
     rl = bs.rhs_l.reshape(L, lm)
     rp = torch.where(bs.col_mask, bs.rhs_p, 0.0)
-    groups = _u_groups(bs, rp, P, D)
-    sums = asm.seg_sum_groups(groups + [_w_group(bs, rl)])
-    Ur = _u_finish(sums[:len(groups)], rp, P, D, marg_H)
-    Wrl = _w_finish(sums[-1], D)
+    groups, u_cal = _u_groups(bs, rp, P, D)
+    w_group, w_cal = _w_group(bs, rl)
+    sums = asm.seg_sum_groups(groups + [w_group])
+    Ur = _u_finish(sums[:len(groups)], rp, P, D, marg_H, u_cal)
+    Wrl = _w_finish(sums[-1], D, w_cal)
     den = (bs.rhs_p @ Ur + 2.0 * (bs.rhs_p @ Wrl)
            + torch.einsum("li,lij,lj->", rl, bs.V, rl))
     num = torch.sum(bs.rhs_p ** 2) + torch.sum(bs.rhs_l ** 2)
@@ -415,41 +461,59 @@ def cauchy_factor(bs: BlockSystem, marg_H, P, D, K=0):
 def _s_groups(bs: BlockSystem, xm, P, D):
     """The rows of (U - W V^-1 W^T) x in one buffer (the projection rows,
     written in place, then the unary and binary rows), with its plan, and
-    the IMU group on `plan.imu_rhs`.  On the card the projection rows come
-    from kernel 6 on the build's `pack` in the order of `plan.s_rhs`; on
-    the CPU from `schur_matvec_plain` in the order of `plan.rhs`."""
+    the IMU group on `plan.imu_rhs`; then the calibration part, (K,) or
+    None.  On the card the projection rows come from kernel 6 on the
+    build's `pack` in the order of `plan.s_rhs`, and the calibration
+    part's tile partials join the groups on `plan.cal` (the calibration
+    part is then None); on the CPU from `schur_matvec_plain` in the order
+    of `plan.rhs`."""
     pj = bs.pj
     Nr = pj.j_m.shape[0]
-    xp = xm[: P * D]
+    xp, xk = xm[: P * D], xm[P * D:]
     rows, imu = _pose_rows(bs, xp.reshape(P, D))
     buf = xm.new_empty((2 * Nr + rows.shape[0], 6))
+    cal = yk = None
     if xm.is_cuda:
-        k6.schur_matvec(bs.pack, bs.plan.schur, bs.vinv, xp, D,
-                        out=buf[: 2 * Nr].view(Nr, 2, 6))
+        out = k6.schur_matvec(bs.pack, bs.plan.schur, bs.vinv, xp, D,
+                              out=buf[: 2 * Nr].view(Nr, 2, 6),
+                              xk=xk if pj.j_c is not None else None)
+        if pj.j_c is not None:
+            cal = (out[1], bs.plan.cal)
         plan = bs.plan.s_rhs
     else:
-        buf[: 2 * Nr] = k6.schur_matvec_plain(pj.j_m, pj.j_r, pj.j_l,
-                                              pj.pose, pj.ref, pj.lm,
-                                              bs.vinv, xp, D)
+        out = k6.schur_matvec_plain(pj.j_m, pj.j_r, pj.j_l, pj.pose, pj.ref,
+                                    pj.lm, bs.vinv, xp, D, pj.j_c, xk)
+        if pj.j_c is not None:
+            out, yk = out
+        buf[: 2 * Nr] = out
         plan = bs.plan.rhs
     buf[2 * Nr:] = rows
-    return [(buf, plan)] + ([imu] if imu is not None else [])
+    groups = ([(buf, plan)] + ([imu] if imu is not None else [])
+              + ([cal] if cal is not None else []))
+    return groups, yk
 
 
 def s_matvec(bs: BlockSystem, x, P, D, K, lam, marg_H=None):
     """(S + lam*diag(S)) x in the masked subspace; identity on masked
     dims.  Two launches on the card: kernel 6, then segsum."""
     xm = torch.where(bs.col_mask, x, 0.0)
-    y = _u_finish(asm.seg_sum_groups(_s_groups(bs, xm, P, D)), xm, P, D,
-                  marg_H)
+    groups, yk = _s_groups(bs, xm, P, D)
+    sums = asm.seg_sum_groups(groups)
+    if K and yk is None:                  # kernel 6's tiles, summed
+        yk = sums.pop().reshape(K)
+    y = _u_finish(sums, xm, P, D, marg_H, yk)
     y = y + lam * bs.dscale * xm
     return torch.where(bs.col_mask, y, x)
 
 
 def _precond(bs: BlockSystem, r, P, D, K=0):
-    """Block-Jacobi preconditioner: the inverted S diagonal blocks."""
+    """Block-Jacobi preconditioner: the inverted S diagonal blocks (the
+    poses', then the calibration block's)."""
     rp = r[: P * D].reshape(P, D)
-    return torch.einsum("pij,pj->pi", bs.minv_pose, rp).reshape(-1)
+    y = torch.einsum("pij,pj->pi", bs.minv_pose, rp).reshape(-1)
+    if K:
+        return torch.cat([y, bs.minv_cal @ r[P * D:]])
+    return y
 
 
 class PcgResult(NamedTuple):
@@ -460,17 +524,19 @@ class PcgResult(NamedTuple):
     reads: int                # host reads of the stop test
 
 
-def pcg_solve(bs: BlockSystem, marg_H, config: BAConfig, P, D) -> PcgResult:
+def pcg_solve(bs: BlockSystem, marg_H, config: BAConfig, P, D,
+              K=0) -> PcgResult:
     """PCG on S x = rhs_sc from x = 0 until r.r <= (cg_tolerance |b|)^2
     or `cg_max_iterations`, as ba_tpu's while loop: the iterations past the
     stop are masked, and the host reads the stop test every
-    `CG_CHECK_EVERY` iterations to leave the loop."""
+    `CG_CHECK_EVERY` iterations to leave the loop.  K is the calibration
+    block's width."""
     dtype = bs.rhs_sc.dtype
     lam = 1e-8 if dtype == torch.float64 else 1e-4
     b = bs.rhs_sc
     x = torch.zeros_like(b)
     r = b
-    z = _precond(bs, r, P, D)
+    z = _precond(bs, r, P, D, K)
     p = z
     rz = r @ z
     tol2 = (config.cg_tolerance * torch.sqrt(b @ b)) ** 2
@@ -480,13 +546,13 @@ def pcg_solve(bs: BlockSystem, marg_H, config: BAConfig, P, D) -> PcgResult:
     while k < n_max:
         for _ in range(min(CG_CHECK_EVERY, n_max - k)):
             live = r @ r > tol2
-            Ap = s_matvec(bs, p, P, D, 0, lam, marg_H)
+            Ap = s_matvec(bs, p, P, D, K, lam, marg_H)
             denom = p @ Ap
             alpha = torch.where(denom > 0,
                                 rz / torch.where(denom > 0, denom, 1.0), 0.0)
             x = torch.where(live, x + alpha * p, x)
             r = torch.where(live, r - alpha * Ap, r)
-            z = _precond(bs, r, P, D)
+            z = _precond(bs, r, P, D, K)
             rz_new = r @ z
             beta = rz_new / torch.where(rz > 0, rz, 1.0)
             p = torch.where(live, z + beta * p, p)
@@ -504,9 +570,9 @@ def solve_reduced_cg(bs: BlockSystem, marg_H, config: BAConfig, P, D,
                      K=0) -> GnStep:
     """PCG on S delta_p = rhs_sc (`pcg_solve`), then landmark
     back-substitution; `ok` is a finite iterate."""
-    x = pcg_solve(bs, marg_H, config, P, D).x
+    x = pcg_solve(bs, marg_H, config, P, D, K).x
     delta_p = torch.where(torch.isfinite(x), x, 0.0)
     delta_p = torch.where(bs.col_mask, delta_p, 0.0)
-    delta_l = back_substitute_blocks(bs, delta_p, P, D)
+    delta_l = back_substitute_blocks(bs, delta_p, P, D, K)
     return GnStep(delta_p=delta_p, delta_l=delta_l,
                   ok=torch.all(torch.isfinite(x)))

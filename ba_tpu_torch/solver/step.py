@@ -268,7 +268,7 @@ def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
                                             with_precond=path == "cg",
                                             plan=plan)
         if path == "cg":
-            step = cg_mod.solve_reduced_cg(bs, marg_H, config, P, D)
+            step = cg_mod.solve_reduced_cg(bs, marg_H, config, P, D, K)
         elif path == "fleet_dense":
             step = banded_mod.solve_reduced_fleet_dense(problem, config, bs,
                                                         P, D)
@@ -281,7 +281,8 @@ def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
                                                          P, D, marg_H)
         return BuildOut(step=step, cost=bs.cost, proj_w=bs.proj_w,
                         rhs_p=bs.rhs_p, rhs_l=bs.rhs_l,
-                        cauchy_alpha=cg_mod.cauchy_factor(bs, marg_H, P, D),
+                        cauchy_alpha=cg_mod.cauchy_factor(bs, marg_H, P, D,
+                                                          K),
                         imu_c9=imu_c9)
     asm = assemble(problem, config, imu_eval=imu_eval, plan=plan)
     return BuildOut(step=solve_reduced(asm), cost=asm.cost,

@@ -1,5 +1,6 @@
-"""Solution diagnostics: per-family error totals (port of
-`ba_tpu/solver/summary.py:error_breakdown`)."""
+"""Solution diagnostics: per-family error totals and per-landmark outlier
+ratios (port of `ba_tpu/solver/summary.py:error_breakdown` and
+`landmark_outlier_ratio`)."""
 
 from __future__ import annotations
 
@@ -7,9 +8,11 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import robust
 from ..core.problem import BAConfig, Problem
 from ..core.residuals import imu as imu_mod
 from ..core.residuals import prior, reprojection
+from .assemble import seg_sum_blocks
 
 
 class ErrorBreakdown(NamedTuple):
@@ -66,3 +69,22 @@ def error_breakdown(problem: Problem, config: BAConfig,
         num_binary=torch.sum(problem.binary.valid),
         num_imu=num_imu,
         num_cond_imu=num_cond_imu)
+
+
+def landmark_outlier_ratio(problem: Problem, config: BAConfig) -> torch.Tensor:
+    """Fraction of each landmark's projection residuals flagged as robust
+    outliers (weight < 1 under the current Huber scale) — the reference's
+    `LandmarkOutlierRatio(id)` accessor (BundleAdjuster.cpp:1806-1812),
+    batched over all landmarks: (L,), 0 for a landmark with no residuals.
+    Kernel 1 without Jacobians, then the outlier and residual counts per
+    landmark in one segment sum (segsum on the card); no host read."""
+    pe = reprojection.evaluate(problem, config, with_jacobians=False)
+    pr = problem.proj
+    L = problem.lms.x.shape[0]
+    base_w = torch.where(pr.valid, pr.weight, 0.0)
+    w_rob = robust.huber_weights(base_w * pe.err_sq, pr.valid, pr.cond,
+                                 config.outlier_threshold)
+    is_outlier = (w_rob < 1.0) & pr.valid
+    counts = seg_sum_blocks(torch.stack([is_outlier, pr.valid], dim=1)
+                            .to(pe.err_sq.dtype), pr.lm, L)
+    return counts[:, 0] / torch.clamp(counts[:, 1], min=1.0)

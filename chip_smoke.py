@@ -214,16 +214,46 @@ Phases, each of which exits non-zero when a check fails:
      build's and K5B_SHAPES, f32 and f64, equal to its plain version
      element for element, bit-identical relaunch; the flagship and GPS
      bands timed beside the bound, the plain version and, with `--parent`,
-     the parent's kernel.
+     the parent's kernel;
+ 29. cg_selfcal_small: self-calibration on the matrix-free PCG
+     (use_cg_solver with a calibration block) on the card against the CPU
+     in f64 (simulate(12 poses, 36 landmarks, seed 13), calibration moved),
+     at K = 11 (pose_dim 15, intrinsics and T_vs) and K = 5 (pose_dim 9,
+     intrinsics): the build's rhs_sc, minv_cal and dscale, one
+     solve_reduced_cg step at tolerance 1e-12 and one GN iteration;
+ 30. k6_calib: the PCG configuration's problem (16) under <R,1,15,5,true>,
+     calibration moved as in 21, f32: kernel 6 and its pack with the 11
+     calibration columns (records with J_c; the rows and each tile's
+     partial of J_c^T w) against their plain versions in f32 and on an f64
+     copy, bit-identical relaunch, and the packed route whole against the
+     CPU path's S x;
+ 31. cg_selfcal: GN solve_fixed(..., 10) of that problem on the PCG (cap
+     100, tol 1e-5) in f32: the cost, the intrinsics and the T_vs rotation
+     errors fall, solver_ok at every iteration, PCG iterations and host
+     syncs per build (the stop-test reads only), exact launches of kernel
+     1, segsum, K2, kernel 6 and its pack (one per build); the dense GN
+     self-calibration of the same problem in f64 on the card and the
+     calibration gap between the two (recorded, not bounded); kernel 6 and
+     its pack with the calibration columns timed as in 11, torch.mv on the
+     dense S (15,371 rows, 945 MB in f32) as kernel 6's yardstick;
+ 32. vins_csv: apps/vins_csv.py at the flagship's size (its sequence of
+     simulate(128 poses, 512 landmarks, seed 3) written and read in the
+     reference's CSV format, triangulated, perturb 0.02, GN solve(max_iter
+     25) in f32 on the banded grid): the cost falls, the ATE within twice
+     the JAX app's f64 ATE on the same sequence, exact launches of kernel
+     1, K2, segsum, K5b and K5;
+ 33. math_test: apps/math_test.py --f32 on the card (the Lie Jacobians
+     against finite differences, the FOV round trip, the assembly against
+     a dense jacrev oracle, a flagship GN iteration timed).
 
 K2 launches are counted on every path (one (a) per build, one (b) per
 trial cost; phase 11 counts one device operation per IMU evaluation, its
 whitening included); K5 on every dense path (one per build, and one per
 marginalization), K11 once per marginalization, both none on the banded,
 PCG and fused-fleet solvers; K5b once per dense build on the banded grid
-(gn, dogleg, gps_batch), none on the banded solver.  The last lines are the `kernels` JSON
-line, the card's name and power limit, and {"ok": true, "device":
-{...}}.  Without a CUDA device, or when
+(gn, dogleg, gps_batch, vins_csv), none on the banded solver.  The last
+lines are the `kernels` JSON line, the card's name and power limit, and
+{"ok": true, "device": {...}}.  Without a CUDA device, or when
 `ba_tpu_torch` is not next to this script, it exits non-zero before
 printing a result.
 """
@@ -424,6 +454,29 @@ GPS_SMALL = dict(fixes=16, stream_fixes=16, window=GPS["window"])
 # the stream's retired track against the f64 batch of the same fixes, RMSE
 # in m (tests/test_gps_app.py:88)
 GPS_STREAM_RMSE = 0.5
+
+# self-calibration on the matrix-free PCG: the PCG configuration's problem
+# (CG) under the reference's fullest template <R,1,15,5,true>, intrinsics
+# and T_vs moved as `selfcal` moves them, f32, use_cg_solver (cap 100, tol
+# 1e-5), GN solve_fixed(..., 10): the dense S of 15,371 rows (945 MB in f32)
+# that the PCG never forms.  Its calibration is compared with a dense GN
+# self-calibration of the same problem in f64 on the card (recorded, not
+# bounded)
+CG_SELFCAL = dict(iters=10, max_it=100, tol=1e-5)
+CG_SELFCAL_EXPECTED = dict(P=1024, K=11, N=15371, Nr=85823, Ni=1023)
+# cg_selfcal_small: card against CPU in f64 (TOL_SMALL) on simulate(12
+# poses, 36 landmarks, seed 13), the CPU tests' scene, at K = 11 (pose_dim
+# 15) and K = 5 (pose_dim 9, intrinsics only)
+CG_SELFCAL_SMALL = dict(poses=12, lms=36, max_it=400, tol=1e-12)
+
+# the CSV VINS app (apps/vins_csv.py) at the flagship's size: its own
+# sequence (simulate(128 poses, 512 landmarks, seed 3)) written and read in
+# the reference's CSV format, triangulated, perturb 0.02, GN solve(max_iter
+# 25) in f32 on the banded grid; limit: the ATE at most twice the JAX app's
+# f64 ATE on the same sequence (1.323 cm: `python apps/vins_csv.py seq
+# --generate --poses 128 --lms 512` with JAX_ENABLE_X64=1 on a CPU)
+VINS_CSV = dict(poses=128, lms=512, perturb=0.02, max_iter=25)
+VINS_CSV_JAX_ATE = 0.01323
 
 # an earlier tree (`--parent TREE`) whose K5b, kernels 6, 7 and 9 and K8a
 # the timings run beside this tree's
@@ -3049,7 +3102,7 @@ def _cast_blocks(bs, dtype, device=None):
         return out
     pj = out.pj
     return out._replace(pack=k6.schur_pack(
-        pj.j_m, pj.j_r, pj.j_l, out.plan.schur, out.pack.lm)
+        pj.j_m, pj.j_r, pj.j_l, out.plan.schur, out.pack.lm, pj.j_c)
         if pj.j_m.is_cuda else None)
 
 
@@ -3618,16 +3671,18 @@ def schur_product_parts(bs, x, P, D, lm_size):
     pj, plan = bs.pj, bs.plan.schur
 
     def pack_call():
-        return k6.schur_pack(pj.j_m, pj.j_r, pj.j_l, plan, lm_size)
+        return k6.schur_pack(pj.j_m, pj.j_r, pj.j_l, plan, lm_size, pj.j_c)
 
     pack = bs.pack
+    K = pack.K
     xm = torch.where(bs.col_mask, x, 0.0)
     flat = [(v.reshape(v.shape[0], -1).contiguous(), sp)
-            for v, sp in cg._s_groups(bs, xm, P, D)]
+            for v, sp in cg._s_groups(bs, xm, P, D)[0]]
+    xk = xm[P * D:] if K else None
     parts = {
-        "whole product": lambda: cg.s_matvec(bs, x, P, D, 0, 1e-4, None),
+        "whole product": lambda: cg.s_matvec(bs, x, P, D, K, 1e-4, None),
         "kernel 6": lambda: k6.schur_matvec(pack, plan, bs.vinv,
-                                            xm[: P * D], D),
+                                            xm[: P * D], D, xk=xk),
         "segsum": lambda: segsum.seg_sum_grouped(flat),
         "pack": pack_call}
     return parts, pack, flat
@@ -3713,7 +3768,8 @@ def phase_timing_cg_fleet(pc, cfg_c, bs_c, x_c, pf, cfg_f, bs_f, plan_f,
         xm = torch.where(bs_c.col_mask, x, 0.0)[: P * D]
 
         def parent_call():   # the parent's kernel 6 on this tree's pack
-            return pk6.schur_matvec(pack, plan, bs_c.vinv, xm, D)
+            return pk6.schur_matvec(pk6.SchurPack(pack.rows, pack.lm), plan,
+                                    bs_c.vinv, xm, D)
 
         parent = dict(ms=event_ms(parent_call, 200),
                       device_ms=graph_ms(parent_call, 50))
@@ -5078,6 +5134,484 @@ def phase_stream_many(smi):
                 streams=M, keyframes=G)
 
 
+# ---------------------------------------------------------------------------
+# Self-calibration on the matrix-free PCG, the CSV VINS app, math_test
+
+
+def cg_selfcal_case(n_poses, n_lms, K, device, dtype, seed=0, build_seed=1,
+                    perturb=0.01, **cfg):
+    """(prepared problem, config, SimData): simulate(n_poses, n_lms, seed)
+    built without a marginalization prior under pose_dim 15 and the 11
+    calibration columns (K = 11) or pose_dim 9 and the 5 intrinsics
+    (K = 5), on the PCG solver, the calibration moved (T_vs only when it
+    is calibrated); `cfg` overrides config fields."""
+    import torch
+
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.utils.tree import tree_map
+
+    tvs = K == 11
+    c = BAConfig(pose_dim=15 if tvs else 9, lm_size=1, calib_size=5,
+                 do_tvs=tvs, use_dogleg=False, use_cg_solver=True, **cfg)
+    sim = sv.simulate(n_poses=n_poses, n_lms=n_lms, seed=seed)
+    p, _, _ = sv.build_problem(sim, c, perturb=perturb, seed=build_seed,
+                               with_marg_prior=False, device=device)
+    p = _move_calibration(p) if tvs else _move_calibration(
+        p, rot=[0.0, 0.0, 0.0], trans=[0.0, 0.0, 0.0])
+    p = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, p)
+    check(c.calib_dim == K, f"calibration block {c.calib_dim} != {K}")
+    return prepare_landmarks(p, c), c, sim
+
+
+def phase_cg_selfcal_small():
+    """The self-calibrating PCG on the card against the CPU in f64
+    (CG_SELFCAL_SMALL), at K = 11 and K = 5: one build's Schur-reduced
+    rhs, calibration preconditioner and damping scale, one
+    `solve_reduced_cg` step at tolerance 1e-12, one GN iteration, all at
+    TOL_SMALL; kernel 6 and its pack with the calibration columns
+    launched (the pack once per build)."""
+    import torch
+
+    from ba_tpu_torch.solver import cg, step
+
+    sm = CG_SELFCAL_SMALL
+    for K in (11, 5):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p, cfg, _ = cg_selfcal_case(
+                sm["poses"], sm["lms"], K, dev, torch.float64, seed=13,
+                build_seed=14, cg_max_iterations=sm["max_it"],
+                cg_tolerance=sm["tol"])
+            check(step._reduced_path(p, cfg)[0] == "cg",
+                  "cg_selfcal_small: not the CG path")
+            P, D = p.poses.q.shape[0], cfg.pose_dim
+            _counters_zero()
+            bs, mH = cg.assemble_blocks(
+                p, cfg, step._imu_eval(p, cfg, True, True),
+                plan=step.solve_plan(p, cfg))
+            s = cg.solve_reduced_cg(bs, mH, cfg, P, D, K)
+            g = step.gn_iteration(p, cfg, True)
+            k6, _, k6p = _new_counters()
+            out[dev] = ({"rhs_sc": bs.rhs_sc, "minv_cal": bs.minv_cal,
+                         "dscale": bs.dscale, "step delta_p": s.delta_p,
+                         "step delta_l": s.delta_l, "step ok": s.ok,
+                         "GN post_cost": g.post_cost,
+                         "GN poses.t": g.problem.poses.t,
+                         "GN rig.params": g.problem.rig.params,
+                         "GN rig.tvs_t": g.problem.rig.tvs_t,
+                         "GN lms.x": g.problem.lms.x, "GN ok": g.solver_ok},
+                        (k6, k6p))
+        (g, (k6, k6p)), (c, _) = out["cuda"], out["cpu"]
+        _compare([(k, g[k], c[k]) for k in c],
+                 f"self-calibrating PCG K={K}, {sm['poses']} poses f64",
+                 TOL_SMALL)
+        check(bool(c["step ok"]) and bool(g["GN ok"]),
+              "cg_selfcal_small: a solve failed")
+        say(f"cg_selfcal_small K={K}: schur_matvec launches on the card "
+            f"{k6}, schur_pack {k6p}")
+        check(k6 > 0 and k6p == 2, f"cg_selfcal_small: kernel 6 launched "
+              f"{k6} times, its pack {k6p} (one per build)")
+    say("PHASE cg_selfcal_small ok")
+
+
+def cg_selfcal_problem():
+    """(f32 problem, f64 problem, config, SimData) of the self-calibrating
+    PCG at full width (CG_SELFCAL), prepared."""
+    import torch
+
+    from ba_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    p64, cfg, sim = cg_selfcal_case(CG["poses"], CG["lms"], 11, "cuda",
+                                    torch.float64,
+                                    cg_max_iterations=CG_SELFCAL["max_it"],
+                                    cg_tolerance=CG_SELFCAL["tol"])
+    p32 = tree_map(lambda a: a.float() if a.dtype == torch.float64 else a,
+                   p64)
+    P, K = p32.poses.q.shape[0], cfg.calib_dim
+    sizes = dict(P=P, K=K, N=P * cfg.pose_dim + K, Nr=p32.proj.z.shape[0],
+                 Ni=int(p32.imu.valid.sum()))
+    say(f"CG selfcal problem {sizes} on {p32.poses.q.device} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(sizes == CG_SELFCAL_EXPECTED, f"CG selfcal sizes {sizes} != "
+          f"{CG_SELFCAL_EXPECTED}")
+    return p32, p64, cfg, sim
+
+
+def _k6_calib_work(Nr, L, lm, K, itemsize):
+    """(bytes, flop) kernel 6 with K calibration columns needs: J_m, J_r,
+    j_l and J_c (24 + 2 lm + 2 K values) and the pose, ref and landmark
+    ids (12 B) of each row read once (the tile table, V^-1, x and x_k
+    counted by the caller), the rows written once; per row u (24 + 2 K
+    multiply-adds), j_l^T u, w, the 12 outputs and the K calibration sums
+    (2 multiply-adds each); per landmark one product with V^-1."""
+    return (Nr * ((24 + 2 * lm + 2 * K) * itemsize + 12),
+            Nr * 2 * (24 + 2 * K + 2 + 2 + 24 + 2 * K) + L)
+
+
+def phase_k6_calib(p, cfg, bs):
+    """Kernel 6 and its pack with the 11 calibration columns against their
+    plain versions at the self-calibrating PCG's shapes, f32 and an f64
+    copy: the pack equal element for element, the rows and the tiles'
+    calibration partials against `schur_matvec_sorted_plain`, two launches
+    bit-identical; then the packed route whole (`cg.s_matvec` on the card)
+    against the CPU path's S x in f64.  Returns (f32 max abs errors of the
+    rows and partials, and of the pack, x)."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.kernels import schur_matvec as k6
+    from ba_tpu_torch.solver import cg
+
+    P, D, K = p.poses.q.shape[0], cfg.pose_dim, cfg.calib_dim
+    pj, plan = bs.pj, bs.plan.schur
+    L = bs.vinv.shape[0]
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(P * D + K),
+                        dtype=torch.float32, device=bs.wb.device)
+    worst = worst_pack = 0.0
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        args = [t.to(dtype) for t in (pj.j_m, pj.j_r, pj.j_l, pj.j_c)]
+        vinv, xv, xk = bs.vinv.to(dtype), x[: P * D].to(dtype), \
+            x[P * D:].to(dtype)
+        pack = k6.schur_pack(*args[:3], plan, 1, args[3])
+        a, pa = k6.schur_matvec(pack, plan, vinv, xv, D, xk=xk)
+        b, pb = k6.schur_matvec(pack, plan, vinv, xv, D, xk=xk)
+        want_pack = k6.schur_pack_plain(*args[:3], plan, 1, args[3]).rows
+        want, want_part = k6.schur_matvec_sorted_plain(
+            k6.schur_pack_plain(*[t.double() for t in args[:3]], plan, 1,
+                                args[3].double()),
+            plan, vinv.double(), xv.double(), D, xk.double())
+        torch.cuda.synchronize()
+        err, rel = rel_err(a, want)
+        err_p, rel_p = rel_err(pa, want_part)
+        pack_ok = bool(torch.equal(pack.rows, want_pack))
+        same = bool(torch.equal(a, b) and torch.equal(pa, pb))
+        say(f"kernel 6 {dt} with K={K} calibration columns (Nr="
+            f"{pj.j_m.shape[0]}, L={L}, record {pack.rows.shape[1]} values, "
+            f"{plan.tiles.numel() - 1} tiles): rows max abs err {err:.3e} "
+            f"rel {rel:.3e}, calibration partials max abs err {err_p:.3e} "
+            f"rel {rel_p:.3e} (tol {TOL_K6[dt]:g}); pack equal {pack_ok}; "
+            f"bit-identical relaunch {same}")
+        check(rel <= TOL_K6[dt] and rel_p <= TOL_K6[dt],
+              f"kernel 6 {dt} K={K}: rel {rel:.3g} / {rel_p:.3g}")
+        check(pack_ok, f"kernel 6 {dt} K={K}: the pack differs")
+        check(same, f"kernel 6 {dt} K={K}: two launches differ")
+        if dt == "float32":
+            worst = max(err, err_p)
+            worst_pack = _max_abs(pack.rows, want_pack)
+        b_d = _cast_blocks(bs, dtype)
+        lam = 1e-4 if dtype == torch.float32 else 1e-8
+        got = cg.s_matvec(b_d, x.to(dtype), P, D, K, lam, None)
+        want_sx = cg.s_matvec(_cast_blocks(bs, torch.float64, "cpu"),
+                              x.double().cpu(), P, D, K, lam)
+        torch.cuda.synchronize()
+        _, rel_s = rel_err(got.cpu(), want_sx)
+        say(f"packed route {dt} K={K}: S x (pack, kernel 6, segsum with the "
+            f"tiles' partials) against the CPU path's rel {rel_s:.3e} (tol "
+            f"{TOL_K6[dt]:g})")
+        check(rel_s <= TOL_K6[dt], f"packed route {dt} K={K}: rel "
+              f"{rel_s:.3g}")
+    say("PHASE k6_calib ok")
+    return worst, worst_pack, x
+
+
+def phase_cg_selfcal(p, p64, cfg, sim, smi):
+    """GN solve_fixed(..., 10) of the self-calibrating PCG at full width in
+    f32: the cost and the intrinsics and T_vs rotation errors fall,
+    everything finite, solver_ok at every iteration, PCG iterations and
+    host syncs per build (the stop-test reads only), exact launches;
+    then a dense GN self-calibration of the same problem in f64 on the
+    card and the calibration gap between the two (recorded)."""
+    import torch
+
+    from ba_tpu_torch.core import lie
+    from ba_tpu_torch.solver import cg, step
+    from ba_tpu_torch.solver.assemble import evaluate_cost
+
+    n, K = CG_SELFCAL["iters"], cfg.calib_dim
+    cost0 = float(evaluate_cost(p, cfg, step._imu_eval(p, cfg, True, False)))
+    err0 = _calib_errors(p, sim)
+
+    def plan():
+        out = step.solve_plan(p, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    _sync_count(plan)
+    plan_again = _sync_count(plan)[1]
+    step.solve_fixed(p, cfg, True, 1)                      # warm-up
+    torch.cuda.synchronize()
+    oks, pcgs = [], []
+    orig_gn, orig_pcg = step.gn_iteration, cg.pcg_solve
+
+    def gn_recording(*a, **k):
+        res = orig_gn(*a, **k)
+        oks.append(res.solver_ok)
+        return res
+
+    def pcg_recording(*a, **k):
+        res = orig_pcg(*a, **k)
+        pcgs.append(res)
+        return res
+
+    def run():
+        out = step.solve_fixed(p, cfg, True, n)
+        torch.cuda.synchronize()
+        return out
+
+    step.gn_iteration, cg.pcg_solve = gn_recording, pcg_recording
+    torch.cuda.reset_peak_memory_stats()
+    _counters_zero()
+    try:
+        t0 = time.perf_counter()
+        (q, costs, _), syncs = _sync_count(run)
+        secs = time.perf_counter() - t0
+    finally:
+        step.gn_iteration, cg.pcg_solve = orig_gn, orig_pcg
+    k1, k2, reads = _counters()
+    k6, _, k6p = _new_counters()
+    ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
+    peak = torch.cuda.max_memory_allocated()
+    costs_h = costs.double().cpu()
+    err1 = _calib_errors(q, sim)
+    all_ok = bool(torch.stack(oks).all())
+    its = [int(r.iterations) for r in pcgs]
+    matvecs = sum(r.matvecs for r in pcgs)
+    pcg_reads = [r.reads for r in pcgs]
+    max_reads = -(-CG_SELFCAL["max_it"] // cg.CG_CHECK_EVERY)
+    finite = bool(torch.isfinite(costs_h).all()) and _finite(q) and bool(
+        torch.isfinite(q.rig.params).all() and torch.isfinite(
+            q.rig.tvs_t).all())
+    say(f"CG selfcal GN solve_fixed({n}) f32 (K={K}): cost {cost0:.6g} -> "
+        f"{float(costs_h[-1]):.6g} (per iteration "
+        + ", ".join(f"{c:.6g}" for c in costs_h.tolist())
+        + f"); intrinsics max error {err0[0]:.4g} -> {err1[0]:.4g}, T_vs "
+        f"rotation error {err0[1]:.4g} -> {err1[1]:.4g} rad, T_vs "
+        f"translation error across the turn axis {err0[2]:.4g} -> "
+        f"{err1[2]:.4g} m, along it (not observable) {err0[3]:.4g} -> "
+        f"{err1[3]:.4g} m; solver_ok at every iteration {all_ok}; PCG "
+        f"iterations per build {its} (cap {CG_SELFCAL['max_it']}, tol "
+        f"{CG_SELFCAL['tol']:g}); Schur products launched {matvecs}; kernel "
+        f"launches reprojection {k1} segsum {k2} schur_matvec {k6} "
+        f"schur_pack {k6p} imu_preint (a) {ia} (b) {ib}")
+    say(f"[{smi}] CG selfcal GN solve_fixed({n}): {secs * 1e3:.1f} ms, "
+        f"{secs * 1e3 / n:.1f} ms per iteration, "
+        f"{CG['poses'] * n / secs:.1f} kf/s; peak device memory "
+        f"{peak / 2**30:.3f} GiB; host syncs {syncs} (the plans' "
+        f"{plan_again}), per build {pcg_reads} (at most {max_reads}: the "
+        f"stop test every {cg.CG_CHECK_EVERY} iterations)")
+    check(finite, "cg_selfcal: non-finite values")
+    check(float(costs_h[-1]) < cost0, "cg_selfcal: cost did not fall")
+    check(err1[0] < err0[0] and err1[1] < err0[1],
+          "cg_selfcal: the intrinsics or the T_vs rotation did not improve")
+    check(len(oks) == n and all_ok, "cg_selfcal: solver_ok failed")
+    check(len(pcgs) == n, f"cg_selfcal: {len(pcgs)} PCG solves in {n} "
+          "iterations")
+    want = (2 * n, K2_PER_CG_BUILD * n + matvecs, matvecs)
+    check((k1, k2, k6) == want, f"cg_selfcal: launches {(k1, k2, k6)}, "
+          f"expected {want}")
+    check((ia, ib) == (n, n), f"cg_selfcal: imu_preint launches ({ia}, "
+          f"{ib})")
+    check(k6p == n, f"cg_selfcal: schur_pack launches {k6p}, one per build")
+    check((k5, k11) == (0, 0), f"cg_selfcal: schur_finish, marginalize "
+          f"launches ({k5}, {k11}) on the PCG solver")
+    check(max(pcg_reads) <= max_reads, f"cg_selfcal: {max(pcg_reads)} host "
+          "reads in one PCG solve")
+    check(syncs - plan_again == sum(pcg_reads) == reads,
+          f"cg_selfcal: {syncs - plan_again} host syncs, {reads} counted "
+          f"reads, {sum(pcg_reads)} PCG stop tests")
+
+    # the dense self-calibration of the same problem in f64 (general path,
+    # one dense Cholesky of S a build)
+    cfg_d = dataclasses.replace(cfg, use_cg_solver=False)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qd, costs_d, _ = step.solve_fixed(p64, cfg_d, True, n)
+    torch.cuda.synchronize()
+    secs_d = time.perf_counter() - t0
+    peak_d = torch.cuda.max_memory_allocated()
+    err_d = _calib_errors(qd, sim)
+    gap = dict(
+        intrinsics=float((q.rig.params[0, :5].double()
+                          - qd.rig.params[0, :5]).abs().max()),
+        tvs_rot=float(torch.linalg.norm(lie.so3_log(lie.quat_mul(
+            q.rig.tvs_q[0].double(), lie.quat_conj(qd.rig.tvs_q[0]))))),
+        tvs_t=float((q.rig.tvs_t[0].double() - qd.rig.tvs_t[0])[:2]
+                    .abs().max()))
+    say(f"[{smi}] dense GN self-calibration of the same problem, f64 on the "
+        f"card, solve_fixed({n}): cost {cost0:.6g} -> "
+        f"{float(costs_d[-1]):.6g}, intrinsics error {err_d[0]:.4g}, T_vs "
+        f"rotation {err_d[1]:.4g} rad, translation across {err_d[2]:.4g} m, "
+        f"along {err_d[3]:.4g} m; {secs_d * 1e3 / n:.1f} ms per iteration, "
+        f"peak {peak_d / 2**30:.3f} GiB; the f32 PCG's calibration against "
+        f"it: intrinsics {gap['intrinsics']:.4g}, T_vs rotation "
+        f"{gap['tvs_rot']:.4g} rad, T_vs translation across the turn axis "
+        f"{gap['tvs_t']:.4g} m (recorded, not bounded)")
+    check(bool(torch.isfinite(costs_d).all()), "cg_selfcal: the dense f64 "
+          "reference is not finite")
+    say("PHASE cg_selfcal ok")
+    return dict(k1=k1, k2=k2, k6=k6, k6_pack=k6p, imu=ia + ib, imu_a=ia,
+                imu_b=ib, k5=k5, k11=k11, kf_s=CG["poses"] * n / secs,
+                ms_iter=secs * 1e3 / n, peak_gib=peak / 2**30,
+                cg_iters=its, syncs_per_build=pcg_reads,
+                costs=costs_h.tolist(), calib_err0=err0, calib_err=err1,
+                dense_f64=dict(calib_err=err_d, ms_iter=secs_d * 1e3 / n,
+                               final_cost=float(costs_d[-1]), gap=gap))
+
+
+def phase_timing_k6_calib(p, cfg, bs, x, floor_ms, smi):
+    """Kernel 6 and its pack with the 11 calibration columns timed at the
+    self-calibrating PCG's shapes beside their bounds (J_c counted), their
+    plain versions and, for kernel 6, torch.mv on the dense S of the same
+    build (15,371 rows in f32, formed here for the yardstick only)."""
+    import torch
+
+    from ba_tpu_torch.kernels import schur_matvec as k6
+    from ba_tpu_torch.solver import assemble as asm
+    from ba_tpu_torch.solver import step
+
+    P, D, K = p.poses.q.shape[0], cfg.pose_dim, cfg.calib_dim
+    pj, plan = bs.pj, bs.plan.schur
+    L, Nr = bs.vinv.shape[0], pj.j_m.shape[0]
+    parts, pack, _ = schur_product_parts(bs, x, P, D, cfg.lm_size)
+    k6_call, pack_call = parts["kernel 6"], parts["pack"]
+    out6, part6 = k6_call()
+    nb, nf = _k6_calib_work(Nr, L, 1, K, x.element_size())
+    nb += nbytes(plan.tiles, x, bs.vinv, out6, part6)
+    b6, by6 = _bound(nb, nf)
+    route_bytes = nbytes(pack.rows, plan.ids, plan.tiles, bs.vinv, x, out6,
+                         part6)
+    bp_bytes = nbytes(pj.j_m, pj.j_r, pj.j_l, pj.j_c, plan.perm, pack.rows)
+    bp, byp = _bound(bp_bytes, 0)
+    sorted_plain = k6.schur_pack_plain(pj.j_m, pj.j_r, pj.j_l, plan, 1,
+                                       pj.j_c)
+    xm = torch.where(bs.col_mask, x, 0.0)
+    cfg_d = dataclasses.replace(cfg, use_cg_solver=False)
+    S = asm.assemble(p, cfg_d, imu_eval=step._imu_eval(p, cfg_d, True,
+                                                       True)).S
+    check(S.shape == (P * D + K,) * 2, f"dense S {tuple(S.shape)}")
+    t6 = dict(ms=event_ms(k6_call, 200), device_ms=graph_ms(k6_call, 50),
+              plain_ms=event_ms(lambda: k6.schur_matvec_sorted_plain(
+                  sorted_plain, plan, bs.vinv, xm[: P * D], D, xm[P * D:]),
+                  10),
+              library_ms=event_ms(lambda: torch.mv(S, x), 20),
+              library_device_ms=graph_ms(lambda: torch.mv(S, x), 10))
+    s_mb = nbytes(S) / 1e6
+    del S
+    tp = dict(ms=event_ms(pack_call, 100), device_ms=graph_ms(pack_call, 20),
+              plain_ms=event_ms(lambda: k6.schur_pack_plain(
+                  pj.j_m, pj.j_r, pj.j_l, plan, 1, pj.j_c), 20))
+    say(f"[{smi}] kernel 6 schur_matvec with K={K} calibration columns, CG "
+        f"selfcal build (Nr={Nr}, L={L}, P={P}, D={D}) f32: {t6['ms']:.4f} "
+        f"ms per call, {t6['device_ms']:.4f} ms on the device, "
+        f"{b6 / t6['device_ms']:.1%} of the bound {b6:.5f} ms ({by6}: {nb} "
+        f"B, {nf} flop; the route moves {route_bytes} B); plain (sorted "
+        f"order) {t6['plain_ms']:.4f} ms; torch.mv on the dense S of the "
+        f"same build ({P * D + K}^2, {s_mb:.0f} MB) {t6['library_ms']:.4f} "
+        f"ms ({t6['library_device_ms']:.4f} ms on the device); launch floor "
+        f"{floor_ms:.4f} ms")
+    say(f"[{smi}] kernel 6's pack with K={K}, once per build: "
+        f"{tp['ms']:.4f} ms per call ({tp['device_ms']:.4f} ms on the "
+        f"device, {bp / tp['device_ms']:.1%} of the bound {bp:.5f} ms, "
+        f"{byp}: {bp_bytes} B); plain {tp['plain_ms']:.4f} ms")
+    say("PHASE timing (k6 calib) ok")
+    rec6 = dict(t6, floor_ms=floor_ms, bound_ms=b6, bound_by=by6, bytes=nb,
+                route_bytes=route_bytes)
+    recp = dict(tp, floor_ms=floor_ms, bound_ms=bp, bound_by=byp,
+                bytes=bp_bytes, library_ms=None)
+    return rec6, recp
+
+
+def phase_vins_csv(tmp, smi):
+    """The CSV VINS app (apps/vins_csv.py) end to end on the card at
+    VINS_CSV: its sequence written and read in the reference's CSV format,
+    triangulated, the GN `solve` in f32 on the banded grid: the cost falls,
+    the ATE within twice the JAX app's f64 ATE, exact launches of kernel 1,
+    K2, segsum, K5b and K5; the trajectory file written."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.apps import vins_csv as app
+    from ba_tpu_torch.io import csvio
+    from ba_tpu_torch.io import simulate_vins as sv
+
+    v = VINS_CSV
+    seq = tmp / "seq"
+    t0 = time.perf_counter()
+    csvio.write_csv(sv.simulate(n_poses=v["poses"], n_lms=v["lms"], seed=3),
+                    str(seq))
+    sim, n_tri, gt = app.read_sequence(str(seq))
+    t_io = time.perf_counter() - t0
+    app.run(sim, gt, v["perturb"], 1, "cuda")            # warm-up
+    torch.cuda.synchronize()
+    _counters_zero()
+    res = app.run(sim, gt, v["perturb"], v["max_iter"], "cuda")
+    k1, k2, reads = _counters()
+    ia, ib = _imu_counters()
+    k5, k11 = _marg_counters()
+    k5b = _k5b_count()
+    s = res.summary
+    its = s.iterations
+    app.write_trajectory(str(tmp / "trajectory_vins.csv"), res)
+    rows = np.loadtxt(tmp / "trajectory_vins.csv", delimiter=",")
+    say(f"vins_csv: {v['poses']} poses, {len(sim.obs)} observations, "
+        f"{n_tri} landmarks triangulated (CSV write, read and triangulation "
+        f"{t_io:.2f} s); f32 solve(max_iter {v['max_iter']}) on the card: "
+        f"{its} iterations, {s.result}, cost {s.initial_cost:.6g} -> "
+        f"{s.final_cost:.6g}; ATE {res.ate * 100:.4f} cm (limit "
+        f"{2 * VINS_CSV_JAX_ATE * 100:.4f}: twice the JAX app's f64 "
+        f"{VINS_CSV_JAX_ATE * 100:.3f}); kernel launches reprojection {k1} "
+        f"segsum {k2} imu_preint (a) {ia} (b) {ib} schur_finish {k5} "
+        f"band_to_dense {k5b} marginalize {k11}")
+    say(f"[{smi}] vins_csv solve: {res.seconds * 1e3:.1f} ms, "
+        f"{res.seconds * 1e3 / its:.2f} ms per iteration, "
+        f"{v['poses'] * its / res.seconds:.1f} kf/s")
+    check(np.isfinite(res.ate) and np.isfinite(s.final_cost),
+          "vins_csv: non-finite values")
+    check(s.final_cost < s.initial_cost, "vins_csv: cost did not fall")
+    check(res.ate <= 2 * VINS_CSV_JAX_ATE, f"vins_csv: ATE {res.ate:.4g} m "
+          f"above twice the JAX app's {VINS_CSV_JAX_ATE} m")
+    check(rows.shape == (v["poses"], 8), f"vins_csv: trajectory file "
+          f"{rows.shape}")
+    check(reads == its, f"vins_csv: {reads} host reads, expected {its}")
+    check(k1 == 2 * its + 1, f"vins_csv: {k1} reprojection launches, "
+          f"expected {2 * its + 1} (one build and one trial per iteration, "
+          f"one for the error breakdown)")
+    check(k2 == its, f"vins_csv: {k2} segsum launches, expected {its}")
+    check((ia, ib) == (its + 1, its + 1), f"vins_csv: imu_preint launches "
+          f"({ia}, {ib}), expected ({its + 1}, {its + 1})")
+    check((k5, k11, k5b) == (its, 0, its), f"vins_csv: schur_finish, "
+          f"marginalize, band_to_dense launches ({k5}, {k11}, {k5b}), "
+          f"expected ({its}, 0, {its})")
+    say("PHASE vins_csv ok")
+    return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
+                k11=k11, k5b=k5b, iters=its, ate_m=res.ate,
+                ms_iter=res.seconds * 1e3 / its,
+                kf_s=v["poses"] * its / res.seconds)
+
+
+def phase_math_test():
+    """apps/math_test.py --f32 on the card: the Lie Jacobians against
+    finite differences, the FOV round trip, the assembly against the dense
+    jacrev oracle, and a flagship GN iteration timed."""
+    import contextlib
+    import io
+
+    from ba_tpu_torch.apps import math_test
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = math_test.main(["--f32"])
+    for line in buf.getvalue().splitlines():
+        say(f"math_test: {line}")
+    check(rc == 0 and "ALL PASS" in buf.getvalue(),
+          "math_test --f32 failed on the card")
+    say("PHASE math_test ok")
+
+
 def main():
     import torch
 
@@ -5205,9 +5739,24 @@ def main():
     del pg32, band_gps, band_flag
     t_gps = time.perf_counter() - t_gps
 
+    t_slice = time.perf_counter()
+    phase_cg_selfcal_small()
+    pcs, pcs64, cfg_cs, sim_cs = cg_selfcal_problem()
+    bs_cs = cg_blocks(pcs, cfg_cs)
+    err6c, err6cp, x_cs = phase_k6_calib(pcs, cfg_cs, bs_cs)
+    csc = phase_cg_selfcal(pcs, pcs64, cfg_cs, sim_cs, smi)
+    del pcs64
+    rec6c, rec6cp = phase_timing_k6_calib(pcs, cfg_cs, bs_cs, x_cs,
+                                          rec1["floor_ms"], smi)
+    del pcs, bs_cs, x_cs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_csv_") as tmp:
+        vcsv = phase_vins_csv(Path(tmp), smi)
+    phase_math_test()
+    t_slice = time.perf_counter() - t_slice
+
     runs = dict(gn=gn, dogleg=dl, stream=st, stream_many=sm, long=lg, cg=cg,
                 fleet=fl, selfcal=sc, vicalib=vc, gps_batch=gb,
-                gps_stream=gs)
+                gps_stream=gs, cg_selfcal=csc, vins_csv=vcsv)
 
     def paths(key, names=tuple(runs)):
         out = {f"launches_{n}": runs[n][key] for n in names}
@@ -5251,6 +5800,16 @@ def main():
              source="ba_tpu_torch/kernels/csrc/schur_matvec.cu",
              replaces="ba_tpu/solver/cg.py:160", launches=cg["k6_pack"],
              launches_cg=cg["k6_pack"], max_abs_err=err6p, **rec6p),
+        dict(name="schur_matvec_calib", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/schur_matvec.cu",
+             replaces="ba_tpu/solver/cg.py:160", launches=csc["k6"],
+             launches_cg_selfcal=csc["k6"], calib_dim=11, max_abs_err=err6c,
+             **rec6c),
+        dict(name="schur_pack_calib", route="cuda",
+             source="ba_tpu_torch/kernels/csrc/schur_matvec.cu",
+             replaces="ba_tpu/solver/cg.py:160", launches=csc["k6_pack"],
+             launches_cg_selfcal=csc["k6_pack"], calib_dim=11,
+             max_abs_err=err6cp, **rec6cp),
         dict(name="fleet_schur", route="cuda",
              source="ba_tpu_torch/kernels/csrc/fleet_schur.cu",
              replaces="ba_tpu/solver/banded.py:498", launches=fl["k10"],
@@ -5276,7 +5835,7 @@ def main():
         dict(name="band_to_dense", route="cuda",
              source="ba_tpu_torch/kernels/csrc/band_to_dense.cu",
              replaces="ba_tpu/solver/assemble.py:159",
-             **paths("k5b", ("gn", "dogleg", "gps_batch")),
+             **paths("k5b", ("gn", "dogleg", "gps_batch", "vins_csv")),
              max_abs_err=err5b, **rec5b["flagship"],
              gps_batch=rec5b["gps batch"]),
         dict(name="chunk_layout", route="cuda",
@@ -5327,8 +5886,12 @@ def main():
         f"({gs['ms_push']:.1f} ms per push); K5b "
         f"{rec5b['flagship']['device_ms']:.4f} / "
         f"{rec5b['gps batch']['device_ms']:.4f} ms on the device (flagship "
-        f"/ GPS band); selfcal and vicalib phases {t_new:.1f} s; GPS and "
-        f"K5b phases {t_gps:.1f} s; total smoke "
+        f"/ GPS band); CG selfcal GN {csc['ms_iter']:.1f} ms per iteration "
+        f"(PCG iterations {csc['cg_iters']}); vins_csv ATE "
+        f"{vcsv['ate_m'] * 100:.4f} cm ({vcsv['ms_iter']:.1f} ms per "
+        f"iteration); selfcal and vicalib phases {t_new:.1f} s; GPS and "
+        f"K5b phases {t_gps:.1f} s; CG selfcal, vins_csv and math_test "
+        f"phases {t_slice:.1f} s; total smoke "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

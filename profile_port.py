@@ -37,7 +37,10 @@ self-calibration configuration (128 keyframes, 15-dim states, 11
 calibration columns, the general dense path: IMU through K2, kernel 1 with
 the calibration columns, the assembly with its calibration block in one
 segsum launch, the Cholesky of the 1,931-row S, the calibration update
-with its re-unprojection, the trial cost).
+with its re-unprojection, the trial cost).  With `--cg-selfcal`, on
+chip_smoke.py's self-calibrating PCG (the PCG configuration under
+<R,1,15,5,true>: the same stages as `--cg`, kernel 6 and its pack with the
+11 calibration columns, and one Schur product split the same way).
 
 On the stream of chip_smoke.py (W = 10, 2 GN iterations per slide, f32) it
 prints the stages of one `StreamingRing.push`, timed the same way over
@@ -598,8 +601,11 @@ def _stages(which):
                (banded, "chunk_factor", "  cyclic-reduction factor (K8b)"),
                (banded, "band_matvec", "  kernel 9 (4 per iteration)"),
                (banded, "chunk_solve", "  cyclic-reduction solves (5, K8c)")]
-    elif which == "cg":
-        p, cfg, _ = chip_smoke.cg_problem()
+    elif which in ("cg", "cg_selfcal"):
+        if which == "cg":
+            p, cfg, _ = chip_smoke.cg_problem()
+        else:
+            p, _, cfg, _ = chip_smoke.cg_selfcal_problem()
         mid = [(cg, "assemble_blocks",
                 "assemble_blocks with the preconditioner (kernel 1, segsum)"),
                (k6, "schur_pack", "  kernel 6's pack (once per build)"),
@@ -703,21 +709,25 @@ def path_iteration(smi, which, n_iters=3):
     print(ka.table(sort_by=dev_key, row_limit=15))
 
 
-def schur_product_split(smi):
-    """One Schur product of the PCG configuration (`cg.s_matvec`, f32)
-    split into kernel 6, segsum's launch and the glue (the masks, the
-    unary and binary rows, the pad, the damping: plain torch), each with
-    the host (CUDA events around 100 calls) and on the device (CUDA-graph
-    replay), the glue as the whole less the two kernels; the device
-    operations of one product; and kernel 6's pack, once per build."""
+def schur_product_split(smi, which="cg"):
+    """One Schur product of the PCG configuration (`cg.s_matvec`, f32;
+    with `which` "cg_selfcal" the self-calibrating PCG's) split into
+    kernel 6, segsum's launch and the glue (the masks, the unary and
+    binary rows, the pad, the damping: plain torch), each with the host
+    (CUDA events around 100 calls) and on the device (CUDA-graph replay),
+    the glue as the whole less the two kernels; the device operations of
+    one product; and kernel 6's pack, once per build."""
     import numpy as np
     import torch
 
-    p, cfg, _ = chip_smoke.cg_problem()
+    if which == "cg":
+        p, cfg, _ = chip_smoke.cg_problem()
+    else:
+        p, _, cfg, _ = chip_smoke.cg_selfcal_problem()
     bs = chip_smoke.cg_blocks(p, cfg)
     P, D = p.poses.q.shape[0], cfg.pose_dim
-    x = torch.as_tensor(np.random.default_rng(0).standard_normal(P * D),
-                        dtype=torch.float32, device="cuda")
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        P * D + cfg.calib_dim), dtype=torch.float32, device="cuda")
     parts = chip_smoke.schur_product_parts(bs, x, P, D, cfg.lm_size)[0]
     t = {k: (chip_smoke.event_ms(f, 100), chip_smoke.graph_ms(f, 20))
          for k, f in parts.items()}
@@ -725,12 +735,12 @@ def schur_product_split(smi):
         t["whole product"][i] - t["kernel 6"][i] - t["segsum"][i]
         for i in range(2))
     for k, (ms, dev) in t.items():
-        print(f"[{smi}] cg Schur product: {k} {ms:.4f} ms with the host, "
-              f"{dev:.4f} ms on the device"
+        print(f"[{smi}] {which} Schur product: {k} {ms:.4f} ms with the "
+              f"host, {dev:.4f} ms on the device"
               + (" (once per build)" if k == "pack" else ""))
     ops = chip_smoke._device_ops(parts["whole product"])
-    print(f"cg Schur product: {ops} device operations per product (kernel "
-          f"6, segsum and the glue's)")
+    print(f"{which} Schur product: {ops} device operations per product "
+          f"(kernel 6, segsum and the glue's)")
 
 
 def _busy_seconds(prof, name, count=False, kernels=None):
@@ -938,13 +948,13 @@ def main():
     if "--gps-drift" in sys.argv[1:]:
         gps_drift(smi)
         return 0
-    for which in ("long", "cg", "fleet", "selfcal"):
-        if f"--{which}" in sys.argv[1:]:
+    for which in ("long", "cg", "fleet", "selfcal", "cg_selfcal"):
+        if f"--{which.replace('_', '-')}" in sys.argv[1:]:
             path_iteration(smi, which)
             if which == "long":
                 k8_levels(smi, None)
-            if which == "cg":
-                schur_product_split(smi)
+            if which in ("cg", "cg_selfcal"):
+                schur_product_split(smi, which)
             return 0
     _, p, cfg, _ = chip_smoke.flagship()
     cfg = dataclasses.replace(cfg, use_dogleg=False)

@@ -86,9 +86,25 @@ def test_block_system_matches(case, with_precond):
 
 
 def test_block_system_rejects_a_calibration_block():
+    """The banded solvers' gate rejects a calibration block (ba_tpu's
+    `_build_and_solve` gate): with `use_banded_solver` or `schur_on_band`
+    such a build takes the dense path, with `use_cg_solver` the PCG, whose
+    block system carries the calibration block (held against ba_tpu in
+    tests/test_torch_cg_calib.py)."""
     _, _, tp, tcfg = _case(mask=False)
-    with pytest.raises(NotImplementedError, match="calibration block"):
-        tcg.assemble_blocks(tp, dataclasses.replace(tcfg, calib_size=5))
+    cfg = dataclasses.replace(tcfg, calib_size=5)
+    P, D = tp.poses.q.shape[0], cfg.pose_dim
+    assert 0 < cfg.band_width <= P
+    for gate in ("use_banded_solver", "schur_on_band"):
+        c = dataclasses.replace(cfg, **{gate: True})
+        assert tstep._reduced_path(tp, c)[0] == "dense", gate
+    assert tstep._reduced_path(tp, dataclasses.replace(
+        tcfg, schur_on_band=True))[0] == "schur_on_band"
+    c = dataclasses.replace(cfg, use_banded_solver=True, use_cg_solver=True)
+    assert tstep._reduced_path(tp, c)[0] == "cg"
+    bs, _ = tcg.assemble_blocks(tp, c)
+    assert bs.minv_cal.shape == (5, 5)
+    assert bs.rhs_p.shape == bs.dscale.shape == (P * D + 5,)
 
 
 @pytest.mark.parametrize("marg_active", [False, True])

@@ -3,8 +3,9 @@ or `profile_port.py`) imports jax or ba_tpu, importing the port leaves jax
 out of sys.modules, each entry point (the builders, the converters, the
 streaming smoother, the calibration service and the three apps, the
 multi-stream server among them) raises when CUDA is absent and no
-device="cpu" is given (the GPS smoother's app: `test_torch_gps_app.py`),
-and `chip_smoke.py` fails without a card."""
+device="cpu" is given (the GPS smoother's app: `test_torch_gps_app.py`;
+`vins_csv`, `math_test`: `test_torch_apps_csv.py`; the native builder:
+`test_torch_host_utils.py`), and `chip_smoke.py` fails without a card."""
 
 import ast
 import subprocess
@@ -58,7 +59,10 @@ def test_importing_the_port_loads_no_jax():
             "ba_tpu_torch.kernels.schur_finish",
             "ba_tpu_torch.kernels.marginalize",
             "ba_tpu_torch.kernels.band_to_dense", "ba_tpu_torch.native",
-            "ba_tpu_torch.apps.unary_binary_imu_test"]
+            "ba_tpu_torch.apps.unary_binary_imu_test",
+            "ba_tpu_torch.io.csvio", "ba_tpu_torch.apps.vins_csv",
+            "ba_tpu_torch.apps.math_test", "ba_tpu_torch.utils.checkpoint",
+            "ba_tpu_torch.utils.timing"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'ba_tpu')]\n"

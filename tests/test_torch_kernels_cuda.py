@@ -37,7 +37,14 @@ allowances, bit-identical between launches, and one IMU evaluation is one
 device operation; kernel 1 with the 11 calibration columns
 (FOV) and with XYZ landmarks (linear camera) matches its plain version at
 kernel 1's tolerances; three f32 GN iterations of a self-calibration scene
-launch each kernel once per build and trial.  K5 (the dense Schur step)
+launch each kernel once per build and trial.  Kernel 6 and its pack with
+a calibration block of K = 5, 6 and 11 columns (records with J_c; the
+rows, and each tile's (K,) partial of J_c^T w) match their plain versions
+to 1e-12 (f64) and 1e-5 (f32), bit-identical between launches, also with
+a landmark longer than a warp; a K the kernel does not cover raises; the
+self-calibrating PCG's Schur product on the card matches the CPU's (f64,
+1e-12), and three f32 GN iterations of it launch kernel 6's pack once
+per build.  K5 (the dense Schur step)
 matches its plain version to 1e-10 (f64) and 1e-5 (f32) of max |S|, with
 the column mask, cut to the leading rows, at lm 3 and without landmark
 columns, S exactly symmetric, on block-banded W whose distant tile pairs
@@ -893,6 +900,149 @@ def test_selfcal_gn_f32_on_the_card(cuda_selfcal):
     assert reprojection.reprojection.launches - k1 == 6
     assert imu_preint.imu_full.launches - ka == 3
     assert imu_preint.imu_residual.launches - kb == 3
+
+
+# kernel 6 with the calibration columns: K -> (calib_size, do_tvs)
+K6_CALIB = {5: (5, False), 6: (0, True), 11: (5, True)}
+
+
+def _k6_calib_system(cuda_selfcal, K, dtype=None, device="cuda"):
+    """(problem, config, block system with kernel 6's plans) of the
+    self-calibration scene with a calibration block of K columns (the
+    T_vs translation free), on the CG path."""
+    from ba_tpu_torch.solver import cg, step
+    from ba_tpu_torch.utils.tree import tree_map
+
+    p, cfg = cuda_selfcal
+    calib_size, do_tvs = K6_CALIB[K]
+    cfg = dataclasses.replace(cfg, calib_size=calib_size, do_tvs=do_tvs,
+                              tvs_translation_staging=False,
+                              use_cg_solver=True, use_dogleg=False)
+    p = tree_map(lambda a: a.to(device=device, dtype=dtype or a.dtype)
+                 if a.is_floating_point() else a.to(device), p)
+    plan = cg.block_plan(p, cfg, schur=True)
+    bs, H = cg.assemble_blocks(p, cfg, step._imu_eval(p, cfg, True, True),
+                               plan=plan)
+    return p, cfg, bs, H
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("K", sorted(K6_CALIB))
+@pytest.mark.parametrize("merged", [0, 8])
+def test_schur_matvec_kernel_calibration_columns(cuda_selfcal, dtype, tol,
+                                                 K, merged):
+    """Kernel 6 and its pack with K calibration columns against their
+    plain versions: the pack equal element for element, the rows and the
+    tiles' partials within `tol` of the sorted plain version, both
+    bit-identical between launches; the rows summed by pose and the
+    partials summed against the row-order route (`schur_matvec_plain`)."""
+    from ba_tpu_torch.kernels import schur_matvec as k6
+
+    p, cfg, bs, _ = _k6_calib_system(cuda_selfcal, K)
+    assert cfg.calib_dim == K and bs.pj.j_c.shape[-1] == K
+    P, D = p.poses.q.shape[0], cfg.pose_dim
+    pj = bs.pj
+    lmid = torch.where(pj.lm < merged, 0, pj.lm)
+    plan = k6.schur_plan(pj.pose, pj.ref, lmid, bs.vinv.shape[0])
+    if merged:
+        assert int(torch.bincount(lmid).max()) > 32
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal(P * D), dtype=dtype,
+                        device="cuda")
+    xk = torch.as_tensor(rng.standard_normal(K), dtype=dtype, device="cuda")
+    args = [t.to(dtype) for t in (pj.j_m, pj.j_r, pj.j_l, pj.j_c)]
+    vinv = bs.vinv.to(dtype)
+    n_pack, n_mv = k6.schur_pack.launches, k6.schur_matvec.launches
+    pack = k6.schur_pack(*args[:3], plan, 1, args[3])
+    a, pa = k6.schur_matvec(pack, plan, vinv, x, D, xk=xk)
+    b, pb = k6.schur_matvec(pack, plan, vinv, x, D, xk=xk)
+    assert (k6.schur_pack.launches - n_pack,
+            k6.schur_matvec.launches - n_mv) == (1, 2)
+    want_pack = k6.schur_pack_plain(*args[:3], plan, 1, args[3])
+    want, want_part = k6.schur_matvec_sorted_plain(
+        k6.schur_pack_plain(*[t.double() for t in args[:3]], plan, 1,
+                            args[3].double()),
+        plan, vinv.double(), x.double(), D, xk.double())
+    rows, yk = k6.schur_matvec_plain(
+        *[t.double() for t in args[:3]], pj.pose, pj.ref, lmid,
+        vinv.double(), x.double(), D, args[3].double(), xk.double())
+    torch.cuda.synchronize()
+    assert pack.K == K and torch.equal(pack.rows, want_pack.rows)
+    assert torch.equal(a, b) and torch.equal(pa, pb)
+    assert pa.shape == (plan.tiles.shape[0] - 1, K)
+    assert _rel(a, want) <= tol and _rel(pa, want_part) <= tol
+    by_pose = torch.zeros((P, 6), dtype=torch.float64, device="cuda")
+    by_pose.index_add_(0, plan.out_pose, a.double().reshape(-1, 6))
+    want_pose = torch.zeros_like(by_pose).index_add_(
+        0, torch.cat([pj.pose, pj.ref]), rows)
+    assert _rel(by_pose, want_pose) <= tol
+    assert _rel(pa.double().sum(0), yk) <= tol
+
+
+def test_schur_matvec_kernel_refuses_other_calibration_widths(
+        cuda_selfcal):
+    from ba_tpu_torch.kernels import schur_matvec as k6
+
+    p, cfg, bs, _ = _k6_calib_system(cuda_selfcal, 11)
+    pj, plan = bs.pj, bs.plan.schur
+    with pytest.raises(NotImplementedError, match="calibration"):
+        k6.schur_pack(pj.j_m, pj.j_r, pj.j_l, plan, 1, pj.j_c[..., :3])
+    x = pj.j_m.new_zeros(p.poses.q.shape[0] * cfg.pose_dim)
+    with pytest.raises(NotImplementedError, match="calibration"):
+        k6.schur_matvec(k6.SchurPack(bs.pack.rows, 1, 3), plan, bs.vinv, x,
+                        cfg.pose_dim, xk=pj.j_m.new_zeros(3))
+
+
+@pytest.mark.parametrize("K", sorted(K6_CALIB))
+def test_cg_selfcal_schur_product_card_against_cpu(cuda_selfcal, K):
+    """The self-calibrating PCG's Schur product (pack, kernel 6, segsum
+    with the tiles' partials) and one solve_reduced_cg step on the card
+    against the same code on the CPU (row order, plain sums), f64."""
+    from ba_tpu_torch.solver import cg
+
+    p, cfg, bs, H = _k6_calib_system(cuda_selfcal, K, torch.float64)
+    _, _, bc, Hc = _k6_calib_system(cuda_selfcal, K, torch.float64, "cpu")
+    P, D = p.poses.q.shape[0], cfg.pose_dim
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        P * D + K))
+    got = cg.s_matvec(bs, x.cuda(), P, D, K, 1e-8, H)
+    want = cg.s_matvec(bc, x, P, D, K, 1e-8, Hc)
+    assert _rel(got.cpu(), want) <= 1e-12
+    for name in ("rhs_sc", "minv_cal", "dscale"):
+        assert _rel(getattr(bs, name).cpu(), getattr(bc, name)) <= 1e-10
+    cfg = dataclasses.replace(cfg, cg_tolerance=1e-10, cg_max_iterations=200)
+    a = cg.solve_reduced_cg(bs, H, cfg, P, D, K)
+    b = cg.solve_reduced_cg(bc, Hc, cfg, P, D, K)
+    assert _rel(a.delta_p.cpu(), b.delta_p) <= 1e-8
+    assert _rel(a.delta_l.cpu(), b.delta_l) <= 1e-8
+
+
+def test_cg_selfcal_gn_f32_on_the_card(cuda_selfcal):
+    from ba_tpu_torch.kernels import schur_matvec as k6
+    from ba_tpu_torch.solver import cg, step
+
+    p, cfg, _, _ = _k6_calib_system(cuda_selfcal, 11, torch.float32)
+    cost0 = float(step._cost(p, cfg, True))
+    matvecs = []
+    orig = cg.pcg_solve
+
+    def recording(*a, **k):
+        res = orig(*a, **k)
+        matvecs.append(res.matvecs)
+        return res
+
+    n6, n_pack = k6.schur_matvec.launches, k6.schur_pack.launches
+    cg.pcg_solve = recording
+    try:
+        q, costs, _ = step.solve_fixed(p, cfg, True, 3)
+        torch.cuda.synchronize()
+    finally:
+        cg.pcg_solve = orig
+    assert bool(torch.isfinite(costs).all())
+    assert float(costs[-1]) < cost0
+    assert k6.schur_matvec.launches - n6 == sum(matvecs) > 0
+    assert k6.schur_pack.launches - n_pack == len(matvecs) == 3
 
 
 def _k5_inputs(p, cfg, dtype):
