@@ -66,8 +66,18 @@ def _equi_factor(r_u):
     return torch.where(small, torch.ones_like(f), f)
 
 
+def _model_id(model, like):
+    """The model id as a tensor on `like`'s device (callers may pass a
+    Python int, as ba_tpu's callers pass a static one)."""
+    if isinstance(model, torch.Tensor):
+        return model
+    return torch.tensor(model, device=like.device)
+
+
 def project(params, model, ray):
-    """Pixel coordinates (..., 2) of a sensor-frame ray (..., 3), z forward."""
+    """Pixel coordinates (..., 2) of a sensor-frame ray (..., 3), z forward;
+    `model` a tensor or Python int (MODEL_*)."""
+    model = _model_id(model, ray)
     z = ray[..., 2]
     zero = (z == 0).to(z.dtype)
     z_safe = torch.where(z.abs() < _SMALL,
@@ -105,6 +115,7 @@ def _poly3_inv_factor(params, r_d):
 
 def unproject(params, model, pix):
     """Unit-norm sensor-frame ray for pixel(s) `pix` (..., 2)."""
+    model = _model_id(model, pix)
     fx, fy = params[..., 0], params[..., 1]
     cx, cy = params[..., 2], params[..., 3]
     xd = (pix[..., 0] - cx) / fx

@@ -6,9 +6,11 @@ and the plain version takes its exact manifold Jacobians with
 `torch.func.vmap(jacfwd(...))` at delta = 0.  On a CUDA problem `evaluate`
 goes through the hand-written kernel (kernels/csrc/reprojection.cu, the
 closed form of the retired Pallas kernel, with the calibration columns of
-self-calibration) and raises for the configurations it does not cover
-(per-pose intrinsics, the poly3 and equidistant models); the plain version
-runs on CPU problems.  At lm_size 0 (a pose graph) a row is evaluated as a
+self-calibration), which covers every configuration ba_tpu accepts: the
+linear, FOV, poly3 and equidistant models mixed freely across a rig, the
+rig's or per-pose intrinsics, lm_size 0, 1 or 3, calib_size 0 or 5 with or
+without T_vs; it raises by name for anything else.  The plain version runs
+on CPU problems.  At lm_size 0 (a pose graph) a row is evaluated as a
 world point's, x[:3] fixed, with no landmark columns and no same-pose
 zeroing, as ba_tpu's `_residual_fn` does.
 
@@ -96,17 +98,19 @@ def evaluate(problem: Problem, config: BAConfig,
 
 
 def _evaluate_kernel(problem, config, with_jacobians):
-    if (config.lm_size not in (0, 1, 3) or config.calib_size not in (0, 5)
-            or config.use_per_pose_cam_params):
+    if config.lm_size not in (0, 1, 3):
         raise NotImplementedError(
-            "reprojection kernel covers lm_size 0, 1 and 3 with the rig's "
-            "intrinsics, not per-pose intrinsics (ROADMAP.md queue 1, the "
-            "kernel variants)")
+            f"reprojection kernel: lm_size {config.lm_size} is not 0, 1 "
+            f"or 3")
+    if config.calib_size not in (0, 5):
+        raise NotImplementedError(
+            f"reprojection kernel: calib_size {config.calib_size} is not 0 "
+            f"or 5")
     from ...kernels import reprojection as kern
 
     r, j_meas, j_ref, j_lm, j_cal, err_sq = kern.reprojection(
         problem, with_jacobians, config.lm_size, config.calib_size,
-        config.do_tvs)
+        config.do_tvs, config.use_per_pose_cam_params)
     if not with_jacobians:
         z2 = r.new_zeros((r.shape[0], 2, 0))
         return ProjEval(r, z2, z2, z2, z2, err_sq)

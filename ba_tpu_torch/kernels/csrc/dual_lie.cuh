@@ -231,7 +231,15 @@ BA_HD void se3_log_decoupled(const S* qa, const S* ta, const S* qb,
 }
 
 // ---------------------------------------------------------------------------
-// Cameras (core/camera.py): the linear (0) and FOV (1) models
+// Cameras (core/camera.py): linear (0), FOV (1), poly3 (2) and equidistant
+// (3), each a radial factor on the normalized point; params [fx, fy, cx,
+// cy, p4, p5, p6] (FOV: p4 = w; poly3: p4..p6 = k1, k2, k3)
+
+constexpr int MODEL_LINEAR = 0;
+constexpr int MODEL_FOV = 1;
+constexpr int MODEL_POLY3 = 2;
+constexpr int MODEL_EQUIDISTANT = 3;
+constexpr int MAX_PARAMS = 7;        // core/camera.py MAX_PARAMS
 
 template <typename S>
 BA_HD S fov_factor(S w, S r_u) {
@@ -248,7 +256,53 @@ BA_HD S fov_factor(S w, S r_u) {
   return sel(small_w, S(T(1)), factor);
 }
 
-// pixel of a sensor-frame ray; params [fx, fy, cx, cy, w]
+// r_d / r_u = 1 + k1 r^2 + k2 r^4 + k3 r^6 (`_poly3_factor`)
+template <typename S>
+BA_HD S poly3_factor(const S* params, S r_u) {
+  using T = typename Base<S>::type;
+  const S r2 = r_u * r_u;
+  return S(T(1)) + r2 * (params[4] + r2 * (params[5] + r2 * params[6]));
+}
+
+// r_d / r_u = atan(r) / r, 1 below the guard (`_equi_factor`)
+template <typename S>
+BA_HD S equi_factor(S r_u) {
+  using T = typename Base<S>::type;
+  const bool small = val(r_u) < T(CAM_SMALL);
+  const S r_safe = sel(small, S(T(1)), r_u);
+  return sel(small, S(T(1)), atan_(r_safe) / r_safe);
+}
+
+// r_u / r_d by exactly eight Newton steps on r_u (1 + k1 r_u^2 + ...) =
+// r_d (`_poly3_inv_factor`), so the tangent runs through the same steps
+// as jacfwd's
+template <typename S>
+BA_HD S poly3_inv_factor(const S* params, S r_d) {
+  using T = typename Base<S>::type;
+  const bool small = val(r_d) < T(CAM_SMALL);
+  const S rd = sel(small, S(T(1)), r_d);
+  const S k1 = params[4], k2 = params[5], k3 = params[6];
+  S ru = rd;
+  for (int it = 0; it < 8; ++it) {
+    const S r2 = ru * ru;
+    const S f = ru * (S(T(1)) + r2 * (k1 + r2 * (k2 + r2 * k3))) - rd;
+    const S df = S(T(1)) + r2 * (T(3) * k1 +
+                                 r2 * (T(5) * k2 + r2 * T(7) * k3));
+    ru = ru - f / (abs_(val(df)) < T(CAM_SMALL) ? S(T(1)) : df);
+  }
+  return sel(small, S(T(1)), ru / rd);
+}
+
+// sqrt of a squared radius; at 0 the tangent is 0 (the guards that follow
+// take a branch that does not depend on r there, except poly3's, whose
+// reference tangent at exactly r = 0 is sqrt's 0 / 0)
+template <typename S>
+BA_HD S radius(S r2) {
+  using T = typename Base<S>::type;
+  return val(r2) > T(0) ? sqrt_(r2) : S(T(0));
+}
+
+// pixel of a sensor-frame ray
 template <typename S>
 BA_HD void project(const S* params, int model, const S* ray, S* pix) {
   using T = typename Base<S>::type;
@@ -262,12 +316,15 @@ BA_HD void project(const S* params, int model, const S* ray, S* pix) {
   const S xn = ray[0] / z_safe;
   const S yn = ray[1] / z_safe;
   S factor = S(T(1));
-  if (model == 1) {
-    const S r2 = xn * xn + yn * yn;
-    // sqrt at r = 0 has no derivative; the FOV factor's guard then takes
-    // its constant branch, so any finite tangent will do
-    const S r_u = val(r2) > T(0) ? sqrt_(r2) : S(T(0));
-    factor = fov_factor(params[4], r_u);
+  if (model == MODEL_FOV || model == MODEL_POLY3 ||
+      model == MODEL_EQUIDISTANT) {
+    const S r_u = radius(xn * xn + yn * yn);
+    if (model == MODEL_FOV)
+      factor = fov_factor(params[4], r_u);
+    else if (model == MODEL_POLY3)
+      factor = poly3_factor(params, r_u);
+    else
+      factor = equi_factor(r_u);
   }
   pix[0] = params[0] * factor * xn + params[2];
   pix[1] = params[1] * factor * yn + params[3];
@@ -280,9 +337,8 @@ BA_HD void unproject(const S* params, int model, const S* pix, S* ray) {
   const S xd = (pix[0] - params[2]) / params[0];
   const S yd = (pix[1] - params[3]) / params[1];
   S factor = S(T(1));
-  if (model == 1) {
-    const S r2 = xd * xd + yd * yd;
-    const S r_d = val(r2) > T(0) ? sqrt_(r2) : S(T(0));
+  if (model == MODEL_FOV) {
+    const S r_d = radius(xd * xd + yd * yd);
     const S w = params[4];
     const S tan_half = tan_(T(0.5) * w);
     const bool small =
@@ -290,6 +346,15 @@ BA_HD void unproject(const S* params, int model, const S* pix, S* ray) {
     const S r_safe = sel(small, S(T(1)), r_d);
     const S inv = tan_(r_safe * w) / (T(2) * tan_half * r_safe);
     factor = sel(small, S(T(1)), inv);
+  } else if (model == MODEL_POLY3) {
+    factor = poly3_inv_factor(params, radius(xd * xd + yd * yd));
+  } else if (model == MODEL_EQUIDISTANT) {
+    // r_u = tan(r_d), with its own r-guard (the FOV guard also fires at
+    // w = 0)
+    const S r_d = radius(xd * xd + yd * yd);
+    const bool small = val(r_d) < T(CAM_SMALL);
+    const S r_safe = sel(small, S(T(1)), r_d);
+    factor = sel(small, S(T(1)), tan_(r_safe) / r_safe);
   }
   ray[0] = xd * factor;
   ray[1] = yd * factor;

@@ -14,18 +14,32 @@
 // graph) evaluates a row the same way with no landmark columns, as
 // ba_tpu's _residual_fn does (a fixed point; no same-pose zeroing).
 //
+// Cameras: every model of ba_tpu/core/camera.py, chosen per row by the
+// camera's model id, so a rig of mixed models is one launch: linear (0),
+// FOV (1), poly3 (2: 1 + k1 r^2 + k2 r^4 + k3 r^6) and equidistant (3:
+// atan(r) / r).  The closed form needs each model's radial factor F(r)
+// and G = F'(r) / r.  The intrinsics [fx, fy, cx, cy, p4, p5, p6] are the
+// rig's (params[cam]) or, with per-pose intrinsics, each pose's own
+// (pose_cam[pose] on the measuring side, pose_cam[ref_pose] on the
+// reference side); the model, T_vs and the calibrated flag stay the rig
+// camera's, as in ba_tpu's _residual_fn.
+//
 // Self-calibration (K = calib_size + 6 do_tvs columns, ba_tpu's
-// _residual_fn): the intrinsics [fx, fy, cx, cy, w] and the T_vs tangent of
-// camera 0 move the projection of the measuring camera and, for lm_size 1,
-// the reference camera's T_vs and the unprojection of the landmark's
-// reference pixel (with calibration the ray is unproject(params_r, z_ref),
-// not x[:3]).  Those columns come from forward-mode duals (dual_lie.cuh)
-// through the whole residual, one column per lane of the calibration
-// warps; they are written only when K > 0.
+// _residual_fn): the first 5 intrinsics (fx, fy, cx, cy, p4: FOV's w,
+// poly3's k1, nothing for the linear and equidistant models) and the T_vs
+// tangent of camera 0 move the projection of the measuring camera and,
+// for lm_size 1, the reference camera's T_vs and the unprojection of the
+// landmark's reference pixel (with calibration the ray is
+// unproject(params_r, z_ref), not x[:3]; poly3's by eight Newton steps).
+// Those columns come from forward-mode duals (dual_lie.cuh) through the
+// whole residual, one column per lane of the calibration warps; they are
+// written only when K > 0.
 //
 // Differences from the Pallas kernel: the exact atan (not the polynomial),
 // and the guards of ba_tpu/core/camera.py (|z| < 1e-9, r < 1e-9, |w| < 1e-9)
-// with the derivatives autodiff gives through them.
+// with the derivatives autodiff gives through them.  At exactly r = 0
+// poly3's reference tangent is sqrt's 0 / 0 (NaN); the closed form gives
+// its limit.
 //
 // Bound on an H100: bytes.  Per row it reads z and four indices (~20 B; the
 // pose/landmark/camera tables are a few KB and stay in L2) and writes
@@ -41,14 +55,19 @@
 //     meas-rotation columns, 3 the 3 ref-rotation columns.  Each warp
 //     recomputes the shared transfer chain and the projection (~255 flops)
 //     rather than waiting on another warp; a role is uniform over a warp,
-//     so nothing diverges.  Nr = 9,696 gives 303 blocks, 2.3 per SM.
-//     Without Jacobians a block is the one warp of role 0.  With
-//     calibration columns, CAL_WARPS more warps take the K columns;
+//     so nothing diverges but the model branch of a mixed rig.  Nr = 9,696
+//     gives 303 blocks, 2.3 per SM.  Without Jacobians a block is the one
+//     warp of role 0.  With calibration columns, CAL_WARPS more warps take
+//     the K columns;
 //   * the outputs of a block are staged in shared memory and written as
 //     contiguous runs with 16-byte stores, in place of each thread's
 //     stride-12 and stride-2 stores;
-//   * the per-camera constants (the FOV k = 2 tan(w/2), its guard and
-//     k / w) are computed once per block into shared memory.
+//   * the per-camera constants (a Lens: the FOV k = 2 tan(w/2) and k / w,
+//     poly3's k1..k3) are computed once per block into shared memory.  With
+//     per-pose intrinsics they are not per camera: each row computes its
+//     measuring pose's Lens from pose_cam (one tan per row for FOV);
+//   * one kernel serves every model, with an f32 register bound that keeps
+//     two blocks with calibration warps on an SM (see the kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,7 +82,11 @@ constexpr int ROWS = 32;       // rows per block: one per lane
 constexpr int ROLES = 4;       // warps per block with Jacobians
 constexpr int CAL_WARPS = 4;   // warps of calibration columns (K > 0)
 constexpr int MAX_CAL = 11;    // calibration columns: 5 intrinsics + 6 T_vs
-constexpr int CAM = 8;         // per-camera constants: fx fy cx cy w fov k k/w
+constexpr int CAM = 8;         // a Lens: fx fy cx cy a b c model
+constexpr int NP = ba::MAX_PARAMS;   // intrinsics per camera or pose
+// below this r^2 the equidistant G is its series (the closed form
+// (1 / (1 + r^2) - F) / r^2 cancels)
+constexpr double EQUI_SERIES_R2 = 1e-3;
 
 __device__ __forceinline__ float d_atan(float x) { return atanf(x); }
 __device__ __forceinline__ double d_atan(double x) { return atan(x); }
@@ -130,25 +153,129 @@ __device__ __forceinline__ void store_run(T* __restrict__ dst, const T* src,
 // calibrated camera 0
 template <typename T>
 struct Cam {
-  T params[5];
+  T params[NP];
   int model;
   T q[4], t[3];
   T opt;
 };
 
+// camera c of the rig with the intrinsics at prm (the rig's or a pose's)
 template <typename T>
-__device__ __forceinline__ Cam<T> load_cam(const T* cam_params,
+__device__ __forceinline__ Cam<T> load_cam(const T* prm,
                                            const int* cam_model,
                                            const T* tvs_q, const T* tvs_t,
-                                           int n_params, int c) {
+                                           int c) {
   Cam<T> k;
-  for (int j = 0; j < 5; ++j)
-    k.params[j] = cam_params[static_cast<long long>(c) * n_params + j];
+  for (int j = 0; j < NP; ++j) k.params[j] = prm[j];
   k.model = cam_model[c];
   for (int j = 0; j < 4; ++j) k.q[j] = tvs_q[4 * c + j];
   for (int j = 0; j < 3; ++j) k.t[j] = tvs_t[3 * c + j];
   k.opt = c == 0 ? T(1) : T(0);
   return k;
+}
+
+// The projection constants of one camera: intrinsics and the model's
+// radial constants (FOV: a = w, b = k = 2 tan(w/2), c = k / w, and an FOV
+// camera with |w| < 1e-9 is linear, as the guard of _fov_factor makes it;
+// poly3: a, b, c = k1, k2, k3)
+template <typename T>
+struct Lens {
+  T fx, fy, cx, cy, a, b, c;
+  int model;
+};
+
+template <typename T>
+__device__ __forceinline__ Lens<T> make_lens(const T* prm, int model) {
+  Lens<T> L;
+  L.fx = prm[0];
+  L.fy = prm[1];
+  L.cx = prm[2];
+  L.cy = prm[3];
+  L.a = L.b = L.c = T(0);
+  L.model = model;
+  if (model == ba::MODEL_FOV) {
+    const T w = prm[4];
+    if (d_abs(w) < T(ba::CAM_SMALL)) {
+      L.model = ba::MODEL_LINEAR;
+    } else {
+      L.a = w;
+      L.b = T(2) * d_tan(T(0.5) * w);
+      L.c = L.b / w;
+    }
+  } else if (model == ba::MODEL_POLY3) {
+    L.a = prm[4];
+    L.b = prm[5];
+    L.c = prm[6];
+  }
+  return L;
+}
+
+template <typename T>
+__device__ __forceinline__ void put_lens(T* sc, const Lens<T>& L) {
+  sc[0] = L.fx;
+  sc[1] = L.fy;
+  sc[2] = L.cx;
+  sc[3] = L.cy;
+  sc[4] = L.a;
+  sc[5] = L.b;
+  sc[6] = L.c;
+  sc[7] = T(L.model);
+}
+
+template <typename T>
+__device__ __forceinline__ Lens<T> get_lens(const T* sc) {
+  Lens<T> L;
+  L.fx = sc[0];
+  L.fy = sc[1];
+  L.cx = sc[2];
+  L.cy = sc[3];
+  L.a = sc[4];
+  L.b = sc[5];
+  L.c = sc[6];
+  L.model = static_cast<int>(sc[7]);
+  return L;
+}
+
+// The radial factor F(r) of the normalized point (xn, yn) and G = F'(r) / r,
+// with the guards of core/camera.py (below r = 1e-9 the FOV factor is its
+// limit and the equidistant one 1, each with no derivative)
+template <typename T>
+__device__ __forceinline__ void radial(const Lens<T>& L, T xn, T yn, T& F,
+                                       T& G) {
+  const T SMALL = T(ba::CAM_SMALL);
+  F = T(1);
+  G = T(0);
+  if (L.model == ba::MODEL_FOV) {
+    const T ru = d_sqrt(xn * xn + yn * yn);
+    const T k = L.b;
+    if (ru < SMALL) {
+      F = L.c;
+    } else {
+      const T a = d_atan(ru * k);
+      F = a / (ru * L.a);
+      // dF/dr = [k r / (1 + (r k)^2) - atan(r k)] / (r^2 w)
+      G = (k * ru / (T(1) + ru * ru * k * k) - a) / (ru * ru * L.a) / ru;
+    }
+  } else if (L.model == ba::MODEL_POLY3) {
+    // smooth in r^2: no sqrt
+    const T r2 = xn * xn + yn * yn;
+    F = T(1) + r2 * (L.a + r2 * (L.b + r2 * L.c));
+    G = T(2) * L.a + r2 * (T(4) * L.b + r2 * (T(6) * L.c));
+  } else if (L.model == ba::MODEL_EQUIDISTANT) {
+    const T r2 = xn * xn + yn * yn;
+    const T ru = d_sqrt(r2);
+    if (!(ru < SMALL)) {
+      F = d_atan(ru) / ru;
+      // G = (1 / (1 + r^2) - atan(r) / r) / r^2
+      //   = sum_n>=1 (-1)^n 2n / (2n + 1) r^(2n - 2)
+      G = r2 < T(EQUI_SERIES_R2)
+              ? r2 * (r2 * (r2 * (r2 * T(-10.0 / 11.0) + T(8.0 / 9.0)) +
+                            T(-6.0 / 7.0)) +
+                      T(4.0 / 5.0)) +
+                    T(-2.0 / 3.0)
+              : (T(1) / (T(1) + r2) - F) / r2;
+    }
+  }
 }
 
 // d r / d(calibration column `col`) of one row: the residual of
@@ -160,8 +287,8 @@ __device__ void calib_column(const T* z, const T* q_m, const T* t_m,
                              const T* z_ref, bool has_z_ref, bool lm3,
                              int calib_size, int col, T* out) {
   using S = Dual<T>;
-  S pm[5], pr[5], tq_m[4], tt_m[3], tq_r[4], tt_r[3];
-  for (int j = 0; j < 5; ++j) {
+  S pm[NP], pr[NP], tq_m[4], tt_m[3], tq_r[4], tt_r[3];
+  for (int j = 0; j < NP; ++j) {
     const bool on = j < calib_size && col == j;
     pm[j] = S(cm.params[j], on ? cm.opt : T(0));
     pr[j] = S(cr.params[j], on ? cr.opt : T(0));
@@ -212,8 +339,13 @@ __device__ void calib_column(const T* z, const T* q_m, const T* t_m,
   out[1] = -pix[1].d;
 }
 
+// In f32 at most 128 registers, so that two blocks with calibration warps
+// fit an SM (303 blocks at the flagship in two waves, not three); ptxas
+// spills what poly3's dual Newton inverse needs beyond that (without the
+// bound it takes the whole kernel to 160).  f64 is left to ptxas.
 template <typename T, bool JAC>
-__global__ void __launch_bounds__(ROWS*(ROLES + CAL_WARPS))
+__global__ void __launch_bounds__(ROWS*(ROLES + CAL_WARPS),
+                                  sizeof(T) == 4 ? 2 : 1)
     reprojection_kernel(
         const T* __restrict__ z, const int* __restrict__ pose,
         const int* __restrict__ lm, const int* __restrict__ cam,
@@ -224,9 +356,9 @@ __global__ void __launch_bounds__(ROWS*(ROLES + CAL_WARPS))
         const uint8_t* __restrict__ lm_has_z_ref,
         const T* __restrict__ cam_params, const int* __restrict__ cam_model,
         const T* __restrict__ tvs_q, const T* __restrict__ tvs_t,
-        int n_params, int ncam, int nr, int lm_size, int calib_size,
-        int n_cal, T* __restrict__ r_out, T* __restrict__ jm_out,
-        T* __restrict__ jr_out, T* __restrict__ jl_out,
+        const T* __restrict__ pose_cam, int per_pose, int ncam, int nr,
+        int lm_size, int calib_size, int n_cal, T* __restrict__ r_out,
+        T* __restrict__ jm_out, T* __restrict__ jr_out, T* __restrict__ jl_out,
         T* __restrict__ jc_out, T* __restrict__ err_out) {
   __shared__ __align__(16) T s_r[2 * ROWS];
   __shared__ __align__(16) T s_err[ROWS];
@@ -237,22 +369,11 @@ __global__ void __launch_bounds__(ROWS*(ROLES + CAL_WARPS))
   extern __shared__ __align__(16) unsigned char s_dyn[];
   T* s_cam = reinterpret_cast<T*>(s_dyn);       // (ncam, CAM)
 
-  const T SMALL = T(1e-9);
-  for (int c = threadIdx.x; c < ncam; c += blockDim.x) {
-    const T* prm = cam_params + static_cast<long long>(c) * n_params;
-    const T w = prm[4];
-    const bool fov = cam_model[c] == 1 && !(d_abs(w) < SMALL);
-    const T k = fov ? T(2) * d_tan(T(0.5) * w) : T(0);
-    T* sc = s_cam + CAM * c;
-    sc[0] = prm[0];
-    sc[1] = prm[1];
-    sc[2] = prm[2];
-    sc[3] = prm[3];
-    sc[4] = w;
-    sc[5] = fov ? T(1) : T(0);
-    sc[6] = k;
-    sc[7] = fov ? k / w : T(1);
-  }
+  const T SMALL = T(ba::CAM_SMALL);
+  if (!per_pose)
+    for (int c = threadIdx.x; c < ncam; c += blockDim.x)
+      put_lens(s_cam + CAM * c,
+               make_lens<T>(cam_params + NP * c, cam_model[c]));
   __syncthreads();
 
   // a world point x_w = [x, 1]: lm_size 3, or 0 (a pose graph's fixed
@@ -314,33 +435,37 @@ __global__ void __launch_bounds__(ROWS*(ROLES + CAL_WARPS))
       }
       const bool has_z = !lm3 && lm_has_z_ref[l];
       const T* zr = lm_z_ref + 2 * l;
+      // the intrinsics of the measuring and the reference camera: the
+      // rig's, or with per-pose intrinsics the measuring and reference
+      // poses' own
+      const T* prm_m = per_pose ? pose_cam + static_cast<long long>(NP) * pm
+                                : cam_params + NP * cm;
+      const T* prm_r = per_pose ? pose_cam + static_cast<long long>(NP) * pr
+                                : cam_params + NP * cr;
       if (calib_size && has_z) {
         // self-calibration: the ray is the unprojection of the reference
         // pixel through the current intrinsics of the reference camera
-        T prm[5];
-        for (int k = 0; k < 5; ++k)
-          prm[k] = cam_params[static_cast<long long>(cr) * n_params + k];
+        T prm[NP];
+        for (int k = 0; k < NP; ++k) prm[k] = prm_r[k];
         ba::unproject(prm, cam_model[cr], zr, xs);
       }
       const T rho = lm3 ? T(1) : lm_x[4 * l + 3];
 
       if (JAC && role >= ROLES) {
-        const Cam<T> km = load_cam(cam_params, cam_model, tvs_q, tvs_t,
-                                   n_params, cm);
-        const Cam<T> kr = load_cam(cam_params, cam_model, tvs_q, tvs_t,
-                                   n_params, cr);
+        const Cam<T> km = load_cam(prm_m, cam_model, tvs_q, tvs_t, cm);
+        const Cam<T> kr = load_cam(prm_r, cam_model, tvs_q, tvs_t, cr);
         const T xl[4] = {lm_x[4 * l], lm_x[4 * l + 1], lm_x[4 * l + 2],
                          lm_x[4 * l + 3]};
         for (int c = role - ROLES; c < n_cal; c += CAL_WARPS) {
           T jc[2];
-          calib_column(z + 2 * i, q_m, t_m, q_r, t_r, xl, km, kr, zr, has_z,
-                       lm3, calib_size, c, jc);
+          calib_column(z + 2 * i, q_m, t_m, q_r, t_r, xl, km, kr, zr, has_z, lm3, calib_size, c, jc);
           s_jc[2 * n_cal * lr + c] = jc[0];
           s_jc[2 * n_cal * lr + n_cal + c] = jc[1];
         }
       } else {
-        const T* sc = s_cam + CAM * cm;
-        const T fx = sc[0], fy = sc[1], cx = sc[2], cy = sc[3], wfov = sc[4];
+        const Lens<T> lens = per_pose ? make_lens(prm_m, cam_model[cm])
+                                      : get_lens(s_cam + CAM * cm);
+        const T fx = lens.fx, fy = lens.fy, cx = lens.cx, cy = lens.cy;
 
         // --- transfer chain: ref side through the landmark's reference
         // camera (lm_size 3: the world point itself, rho = 1)
@@ -371,20 +496,8 @@ __global__ void __launch_bounds__(ROWS*(ROLES + CAL_WARPS))
         const T iz = T(1) / pz;
         const T xn = p[0] * iz;
         const T yn = p[1] * iz;
-        const T ru = d_sqrt(xn * xn + yn * yn);
-        T F = T(1), dF_over_r = T(0);
-        if (sc[5] != T(0)) {
-          const T k = sc[6];
-          if (ru < SMALL) {
-            F = sc[7];
-          } else {
-            const T a = d_atan(ru * k);
-            F = a / (ru * wfov);
-            // dF/dr = [k r / (1 + (r k)^2) - atan(r k)] / (r^2 w)
-            dF_over_r = (k * ru / (T(1) + ru * ru * k * k) - a) /
-                        (ru * ru * wfov) / ru;
-          }
-        }
+        T F, dF_over_r;
+        radial(lens, xn, yn, F, dF_over_r);
         if (role == 0) {
           const T r0 = z[2 * i] - (fx * F * xn + cx);
           const T r1 = z[2 * i + 1] - (fy * F * yn + cy);
@@ -497,30 +610,32 @@ int launch(const T* z, const int* pose, const int* lm, const int* cam,
            const T* lm_x, const int* lm_ref_pose, const int* lm_ref_cam,
            const T* lm_z_ref, const uint8_t* lm_has_z_ref,
            const T* cam_params, const int* cam_model, const T* tvs_q,
-           const T* tvs_t, int n_params, int ncam, int nr, int with_jac,
-           int lm_size, int calib_size, int n_cal, T* r, T* jm, T* jr,
-           T* jl, T* jc, T* err, void* stream) {
+           const T* tvs_t, const T* pose_cam, int n_params, int per_pose,
+           int ncam, int nr, int with_jac, int lm_size, int calib_size,
+           int n_cal, T* r, T* jm, T* jr, T* jl, T* jc, T* err,
+           void* stream) {
   if ((lm_size != 0 && lm_size != 1 && lm_size != 3) || calib_size < 0 ||
-      calib_size > 5 || n_cal < 0 || n_cal > MAX_CAL || n_params < 5)
+      calib_size > 5 || n_cal < 0 || n_cal > MAX_CAL || n_params != NP ||
+      (per_pose && pose_cam == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (nr > 0) {
-    const int blocks = (nr + ROWS - 1) / ROWS;
-    const size_t smem = static_cast<size_t>(ncam) * CAM * sizeof(T);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (with_jac) {
-      const int warps = ROLES + (n_cal ? CAL_WARPS : 0);
-      reprojection_kernel<T, true><<<blocks, ROWS * warps, smem, s>>>(
-          z, pose, lm, cam, valid, pose_q, pose_t, lm_x, lm_ref_pose,
-          lm_ref_cam, lm_z_ref, lm_has_z_ref, cam_params, cam_model, tvs_q,
-          tvs_t, n_params, ncam, nr, lm_size, calib_size, n_cal, r, jm, jr,
-          jl, jc, err);
-    } else {
-      reprojection_kernel<T, false><<<blocks, ROWS, smem, s>>>(
-          z, pose, lm, cam, valid, pose_q, pose_t, lm_x, lm_ref_pose,
-          lm_ref_cam, lm_z_ref, lm_has_z_ref, cam_params, cam_model, tvs_q,
-          tvs_t, n_params, ncam, nr, lm_size, calib_size, 0, r, jm, jr, jl,
-          jc, err);
-    }
+  if (nr == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (nr + ROWS - 1) / ROWS;
+  const size_t smem =
+      per_pose ? 0 : static_cast<size_t>(ncam) * CAM * sizeof(T);
+  if (with_jac) {
+    const int warps = ROLES + (n_cal ? CAL_WARPS : 0);
+    reprojection_kernel<T, true><<<blocks, ROWS * warps, smem, s>>>(
+        z, pose, lm, cam, valid, pose_q, pose_t, lm_x, lm_ref_pose,
+        lm_ref_cam, lm_z_ref, lm_has_z_ref, cam_params, cam_model, tvs_q,
+        tvs_t, pose_cam, per_pose, ncam, nr, lm_size, calib_size, n_cal, r,
+        jm, jr, jl, jc, err);
+  } else {
+    reprojection_kernel<T, false><<<blocks, ROWS, smem, s>>>(
+        z, pose, lm, cam, valid, pose_q, pose_t, lm_x, lm_ref_pose,
+        lm_ref_cam, lm_z_ref, lm_has_z_ref, cam_params, cam_model, tvs_q,
+        tvs_t, pose_cam, per_pose, ncam, nr, lm_size, calib_size, 0, r, jm,
+        jr, jl, jc, err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -529,6 +644,8 @@ int launch(const T* z, const int* pose, const int* lm, const int* cam,
 
 extern "C" {
 
+// pose_cam: (P, 7) per-pose intrinsics, read when per_pose is set (else
+// may be null); n_params must be 7, the width of cam_params and pose_cam
 int ba_reprojection_f32(const float* z, const int* pose, const int* lm,
                         const int* cam, const uint8_t* valid,
                         const float* pose_q, const float* pose_t,
@@ -536,15 +653,17 @@ int ba_reprojection_f32(const float* z, const int* pose, const int* lm,
                         const int* lm_ref_cam, const float* lm_z_ref,
                         const uint8_t* lm_has_z_ref, const float* cam_params,
                         const int* cam_model, const float* tvs_q,
-                        const float* tvs_t, int n_params, int ncam, int nr,
-                        int with_jac, int lm_size, int calib_size, int n_cal,
-                        float* r, float* jm, float* jr, float* jl, float* jc,
-                        float* err, void* stream) {
+                        const float* tvs_t, const float* pose_cam,
+                        int n_params, int per_pose, int ncam,
+                        int nr, int with_jac, int lm_size, int calib_size,
+                        int n_cal, float* r, float* jm, float* jr, float* jl,
+                        float* jc, float* err, void* stream) {
   return launch<float>(z, pose, lm, cam, valid, pose_q, pose_t, lm_x,
                        lm_ref_pose, lm_ref_cam, lm_z_ref, lm_has_z_ref,
-                       cam_params, cam_model, tvs_q, tvs_t, n_params, ncam,
-                       nr, with_jac, lm_size, calib_size, n_cal, r, jm, jr,
-                       jl, jc, err, stream);
+                       cam_params, cam_model, tvs_q, tvs_t, pose_cam,
+                       n_params, per_pose, ncam, nr, with_jac,
+                       lm_size, calib_size, n_cal, r, jm, jr, jl, jc, err,
+                       stream);
 }
 
 int ba_reprojection_f64(const double* z, const int* pose, const int* lm,
@@ -554,15 +673,17 @@ int ba_reprojection_f64(const double* z, const int* pose, const int* lm,
                         const int* lm_ref_cam, const double* lm_z_ref,
                         const uint8_t* lm_has_z_ref, const double* cam_params,
                         const int* cam_model, const double* tvs_q,
-                        const double* tvs_t, int n_params, int ncam, int nr,
-                        int with_jac, int lm_size, int calib_size, int n_cal,
-                        double* r, double* jm, double* jr, double* jl,
+                        const double* tvs_t, const double* pose_cam,
+                        int n_params, int per_pose, int ncam,
+                        int nr, int with_jac, int lm_size, int calib_size,
+                        int n_cal, double* r, double* jm, double* jr, double* jl,
                         double* jc, double* err, void* stream) {
   return launch<double>(z, pose, lm, cam, valid, pose_q, pose_t, lm_x,
                         lm_ref_pose, lm_ref_cam, lm_z_ref, lm_has_z_ref,
-                        cam_params, cam_model, tvs_q, tvs_t, n_params, ncam,
-                        nr, with_jac, lm_size, calib_size, n_cal, r, jm, jr,
-                        jl, jc, err, stream);
+                        cam_params, cam_model, tvs_q, tvs_t, pose_cam,
+                        n_params, per_pose, ncam, nr, with_jac,
+                        lm_size, calib_size, n_cal, r, jm, jr, jl, jc, err,
+                        stream);
 }
 
 }  // extern "C"

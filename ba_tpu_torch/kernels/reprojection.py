@@ -12,8 +12,9 @@ gathers their pose, landmark and camera entries from the index arrays
 43-feature transposed copy is not built).  With Jacobians, four warps
 split each row's work by role (residual and inverse depth, translations,
 meas rotation, ref rotation), each recomputing the shared transfer chain
-and the FOV/linear projection with the exact `atan`; that shortens the
-longest thread's chain and fills the card (303 blocks at the flagship).
+and the projection (the model's radial factor and its derivative, in
+closed form, with the exact `atan`); that shortens the longest thread's
+chain and fills the card (303 blocks at the flagship).
 With calibration columns (self-calibration, K = calib_size + 6 do_tvs),
 four more warps take them by forward-mode duals through the whole
 residual, the intrinsics' unprojection of the reference pixel included.
@@ -27,10 +28,16 @@ tables stay in L2) and writes 116 B (f32) per row, ~1.3 MB at Nr = 9,696 —
 at 67 TFLOP/s f32.  Launch latency and the dependent chain of a row
 dominate; the design keeps one launch per evaluation.
 
-Scope: lm_size 1 (inverse depth), 3 (world points) and 0 (a pose graph:
-a row is a world point's with no landmark columns, as in ba_tpu), the rig's
-intrinsics of the linear and FOV models, optionally with the calibration
-columns of camera 0 (calib_size 0 or 5, do_tvs).  Another model raises.
+Scope: everything ba_tpu's reprojection residual computes.  lm_size 1
+(inverse depth), 3 (world points) and 0 (a pose graph: a row is a world
+point's with no landmark columns, as in ba_tpu); the linear, FOV, poly3
+and equidistant models, chosen per row by the camera's model id, so a rig
+of mixed models is one launch; the rig's intrinsics or per-pose
+intrinsics (`per_pose`: `poses.cam_params` (P, 7), gathered by the
+measuring pose and by the landmark's reference pose, the model, T_vs and
+the calibrated flag still the rig camera's); optionally the calibration
+columns of camera 0 (calib_size 0 or 5, do_tvs); f32 and f64.  Another
+model id raises.
 """
 
 from __future__ import annotations
@@ -43,7 +50,11 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 16 + [_I] * 7 + [_P] * 6 + [_P]
+_ARGTYPES = [_P] * 17 + [_I] * 8 + [_P] * 6 + [_P]
+# the camera models the kernel covers (core/camera.py MODEL_*)
+MODELS = {0: "linear", 1: "FOV", 2: "poly3", 3: "equidistant"}
+# the intrinsics per camera and per pose (core/camera.py MAX_PARAMS)
+N_PARAMS = 7
 
 
 def _fn(dtype):
@@ -58,24 +69,27 @@ def _fn(dtype):
 
 
 def _check_models(model):
-    """Linear (0) and FOV (1) only.  The check reads the (static) model
-    table from the device once and marks the tensor as checked."""
+    """The model ids must be those of `MODELS`.  The check reads the
+    (static) model table from the device once and marks the tensor as
+    checked; a refused table is read again to name its ids."""
     if getattr(model, "_ba_models_checked", False):
         return
-    bad = ((model != 0) & (model != 1)).any().item()
-    if bad:
+    if ((model < 0) | (model >= len(MODELS))).any().item():
+        ids = sorted(set(model.tolist()) - set(MODELS))
         raise NotImplementedError(
-            "reprojection kernel covers the linear and FOV camera models "
-            "(ROADMAP.md queue 1, the kernel variants)")
+            f"reprojection kernel: camera model id(s) {ids} are not one of "
+            + ", ".join(f"{v} ({k})" for k, v in MODELS.items()))
     model._ba_models_checked = True
 
 
 def reprojection(problem, with_jacobians: bool, lm_size: int = 1,
-                 calib_size: int = 0, do_tvs: bool = False):
+                 calib_size: int = 0, do_tvs: bool = False,
+                 per_pose: bool = False):
     """(r, j_meas, j_ref, j_lm, j_cal, err_sq) of every projection row,
     from the CUDA kernel: j_lm (Nr, 2, lm_size), j_cal (Nr, 2, K) with
     K = calib_size + 6 do_tvs the calibration columns of camera 0.  The
-    j_* are None without Jacobians."""
+    j_* are None without Jacobians.  `per_pose` takes the intrinsics from
+    `poses.cam_params` in place of the rig's."""
     pr, poses, lms, rig = problem.proj, problem.poses, problem.lms, \
         problem.rig
     dtype = pr.z.dtype
@@ -85,7 +99,8 @@ def reprojection(problem, with_jacobians: bool, lm_size: int = 1,
         raise ValueError("reprojection kernel: lm_size 0, 1 or 3, "
                          "calib_size 0 or 5")
     floats = (pr.z, poses.q, poses.t, lms.x, lms.z_ref, rig.params,
-              rig.tvs_q, rig.tvs_t)
+              rig.tvs_q, rig.tvs_t) + ((poses.cam_params,) if per_pose
+                                       else ())
     ints = (pr.pose, pr.lm, pr.cam, lms.ref_pose, lms.ref_cam, rig.model)
     for t in floats + ints + (pr.valid, lms.has_z_ref):
         if not t.is_cuda or t.device != pr.z.device:
@@ -101,8 +116,10 @@ def reprojection(problem, with_jacobians: bool, lm_size: int = 1,
     if pr.valid.dtype != torch.bool or lms.has_z_ref.dtype != torch.bool:
         raise TypeError("reprojection kernel: valid and has_z_ref must be "
                         "bool")
-    if rig.params.shape[1] < 5:
-        raise ValueError("reprojection kernel: params need >= 5 entries")
+    for t in (rig.params,) + ((poses.cam_params,) if per_pose else ()):
+        if t.shape[1] != N_PARAMS:
+            raise ValueError(f"reprojection kernel: intrinsics tables are "
+                             f"{N_PARAMS} wide, got {tuple(t.shape)}")
     _check_models(rig.model)
 
     Nr = pr.z.shape[0]
@@ -134,7 +151,9 @@ def reprojection(problem, with_jacobians: bool, lm_size: int = 1,
         lms.z_ref.data_ptr(), lms.has_z_ref.data_ptr(),
         rig.params.data_ptr(), rig.model.data_ptr(), rig.tvs_q.data_ptr(),
         rig.tvs_t.data_ptr(),
-        rig.params.shape[1], rig.params.shape[0], Nr, int(with_jacobians),
+        poses.cam_params.data_ptr() if per_pose else None, N_PARAMS,
+        int(per_pose), rig.params.shape[0], Nr,
+        int(with_jacobians),
         lm_size, calib_size, K, r.data_ptr(), *jp, err_sq.data_ptr(),
         stream)
     if rc != 0:

@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--parent TREE]
 
 With `--parent TREE` (an earlier commit unpacked with `git archive` under
-`_archive/`), phases 14, 20 and 28 also time that tree's kernels 7 and 9,
-K8a, kernel 6 and K5b on the same inputs, loaded beside this tree's
-package.
+`_archive/`), phases 11, 14, 20 and 28 also time that tree's kernel 1,
+kernels 7 and 9, K8a, kernel 6 and K5b on the same inputs, loaded beside
+this tree's package, and kernel 1's timing at the self-calibration (a rig
+of FOV cameras with the rig's intrinsics) times the parent's beside it.
 
 Phases, each of which exits non-zero when a check fails:
 
@@ -15,7 +16,8 @@ Phases, each of which exits non-zero when a check fails:
   2. build the flagship problem of bench.py with the port alone:
      simulate(128 poses, 512 landmarks, seed 0), build_problem(perturb 0.01,
      seed 1), band width from the problem, cast to f32, prepare_landmarks;
-  3. kernel 1 (reprojection) against its plain version, f64 and f32, with
+  3. kernel 1 (reprojection) against its plain version, f64 and f32 (the
+     f32 kernel against the plain version in f64 on the same inputs), with
      and without Jacobians, at the flagship rows and at a row count that is
      not a multiple of the kernel's 32-row blocks; k2: K2 (imu_preint, the
      IMU preintegration with its whitening) against the plain evaluation
@@ -244,7 +246,33 @@ Phases, each of which exits non-zero when a check fails:
      1, K2, segsum, K5b and K5;
  33. math_test: apps/math_test.py --f32 on the card (the Lie Jacobians
      against finite differences, the FOV round trip, the assembly against
-     a dense jacrev oracle, a flagship GN iteration timed).
+     a dense jacrev oracle, a flagship GN iteration timed);
+ 34. k1_cameras: the flagship sequence (simulate(128, 512, seed 0),
+     pose_dim 9, IMU, perturb 0.01, seed 1) re-measured through each
+     camera kernel 1 covers besides the FOV camera (`camera_scene`):
+     poly3 (the lens of tests/test_camera_models.py, REF_POLY3),
+     equidistant, the FOV camera with per-pose intrinsics, and a rig of
+     the FOV camera and that poly3 lens 0.11 m apart (landmarks
+     referenced to either camera, same-pose cross-camera rows), each
+     keeping the rows whose pixel lands in 640 x 480; kernel 1 against its plain version on each, as built, with the
+     11 calibration columns and with XYZ landmarks, f64 and f32, with and
+     without Jacobians, at a ragged last block;
+ 35. GN solve_fixed(..., 25) and the dogleg `solve` of each of those
+     scenes in f32, with the checks of 6 and 7 (cost and ATE fall, finite,
+     exact launches of every kernel), and GN-25 of each in f64 on the
+     card (its cost and ATE fall, its ATE at most the f32 GN's); kernel 1
+     timed at each scene as in
+     11 (with `--parent`, the parent's kernel 1 also at the flagship);
+ 36. camera_reference: the scenes of ba_tpu's tests/test_camera_models.py
+     (poly3, equidistant, per-pose) and tests/test_stereo.py at their own
+     sizes, rebuilt with the port alone, f64 `solve(max_iter=15 / 20)`,
+     the card against the CPU at TOL_SMALL with the same iterations and
+     result code;
+ 37. vicalib poly3: the calibration service's capture re-projected through
+     a poly3 lens: kernel 1's calibration columns (lm_size 3, K = 11,
+     poly3) against their plain version and timed at its last stage's
+     problem, then the checks of 24 from a lens moved in fx, fy, cx, cy
+     and k1 (24 also holds the final mse below the start's).
 
 K2 launches are counted on every path (one (a) per build, one (b) per
 trial cost; phase 11 counts one device operation per IMU evaluation, its
@@ -478,7 +506,32 @@ CG_SELFCAL_SMALL = dict(poses=12, lms=36, max_it=400, tol=1e-12)
 VINS_CSV = dict(poses=128, lms=512, perturb=0.02, max_iter=25)
 VINS_CSV_JAX_ATE = 0.01323
 
-# an earlier tree (`--parent TREE`) whose K5b, kernels 6, 7 and 9 and K8a
+# the lenses of ba_tpu's tests/test_camera_models.py (:19-20)
+REF_POLY3 = [420.0, 420.0, 320.0, 240.0, -0.28, 0.07, -0.004]
+REF_EQUI = [380.0, 380.0, 320.0, 240.0]
+POLY3_K = REF_POLY3[4:]
+# Kernel 1 for every camera model of ba_tpu's core/camera.py: the flagship
+# sequence re-measured four times, through the poly3 lens REF_POLY3 whole
+# (in 640 x 480 its r_u stays below 1.4; with the flagship's fx of ~199
+# it reaches 2.2, where the r^6 term cancels and f64 GN from the
+# perturbed start stalls at a metre of ATE, in ba_tpu as in the port),
+# through the equidistant fisheye (the flagship's fx, fy, cx, cy), through
+# the FOV camera with per-pose intrinsics (fx, fy scaled by 1 +
+# PER_POSE_STEP (i mod 8) at pose i) and as a rig of the FOV camera and
+# that poly3 lens RIG_BASELINE m to its right, each keeping the rows whose
+# pixel lands in IMG_WH; GN-25 and the dogleg solve of each in f32, and
+# GN-25 in f64, its ATE at most the f32 GN's
+CAMERA_SCENES = ("poly3", "equidistant", "per_pose", "rig")
+RIG_BASELINE, PER_POSE_STEP, IMG_WH = 0.11, 0.02, (640, 480)
+# the scenes of ba_tpu's tests/test_camera_models.py and
+# tests/test_stereo.py (:24-25), held card against CPU in f64
+STEREO_FOV = [198.969, 198.1284, 329.9368, 240.1017, 0.9640582]
+STEREO_BASELINE = 0.5
+# the calibration service's start: fx, fy, cx, cy (and a poly3 lens's k1)
+# moved by this much
+VICALIB_MOVE = [15.0, -12.0, 6.0, -5.0, 0.02]
+
+# an earlier tree (`--parent TREE`) whose K5b, kernels 1, 6, 7 and 9 and K8a
 # the timings run beside this tree's
 PARENT = None
 
@@ -653,32 +706,62 @@ def cut_rows(p, n):
     return dataclasses.replace(p, proj=proj)
 
 
-def phase_k1(p64, p32, cfg, label="flagship"):
-    """Kernel 1 against the plain version, at the problem's rows and at a
-    ragged last block; returns the f32 max abs error."""
+def k1_against_plain(p, cfg, label):
+    """Kernel 1 against its plain version on one problem, with and without
+    Jacobians, every output within TOL_K1; returns its max abs error in
+    f32 (0 in f64).  An f32 kernel is held to the plain version in f64 on
+    the same inputs (cast up, which is exact): the plain version's own f32
+    rounding reaches 1e-4 of the largest residual on world points far
+    from a pose (its SE(3) chain), the kernel's stays near 1e-5, so the
+    f32 plain version is not the yardstick; its distance is printed."""
     import torch
 
     from ba_tpu_torch.core.residuals import reprojection as rp
+    from ba_tpu_torch.utils.tree import tree_map
 
+    dt = str(p.proj.z.dtype).replace("torch.", "")
+    p_ref = p if dt == "float64" else tree_map(
+        lambda a: a.double() if a.dtype == torch.float32 else a, p)
     worst = 0.0
-    nr = p32.proj.z.shape[0] - 5
-    check(nr % 32, "the ragged case must not fill its last block")
-    for p in (p64, p32, cut_rows(p64, nr), cut_rows(p32, nr)):
-        dt = str(p.proj.z.dtype).replace("torch.", "")
-        for jac in (True, False):
-            got = rp.evaluate(p, cfg, jac)
-            want = rp.evaluate_plain(p, cfg, jac)
-            torch.cuda.synchronize()
-            for name in want._fields:
-                err, rel = rel_err(getattr(got, name), getattr(want, name))
-                check(rel <= TOL_K1[dt],
-                      f"kernel 1 {dt} jac={jac} {name}: rel err {rel:.3g} "
-                      f"> {TOL_K1[dt]:g}")
-                if dt == "float32":
-                    worst = max(worst, err)
-                say(f"kernel 1 {label} {dt} Nr={p.proj.z.shape[0]} "
-                    f"jac={int(jac)} {name:7s} max abs err "
-                    f"{err:.3e} rel {rel:.3e} (tol {TOL_K1[dt]:g})")
+    for jac in (True, False):
+        got = rp.evaluate(p, cfg, jac)
+        want = rp.evaluate_plain(p_ref, cfg, jac)
+        plain = None if dt == "float64" else rp.evaluate_plain(p, cfg, jac)
+        torch.cuda.synchronize()
+        errs, plain_errs = [], []
+        for name in want._fields:
+            err, rel = rel_err(getattr(got, name), getattr(want, name))
+            check(rel <= TOL_K1[dt], f"kernel 1 {label} {dt} jac={jac} "
+                  f"{name}: rel err {rel:.3g} > {TOL_K1[dt]:g}")
+            worst = max(worst, err) if dt == "float32" else 0.0
+            errs.append(f"{name} {rel:.2e}")
+            if plain is not None:
+                plain_errs.append(rel_err(getattr(plain, name),
+                                          getattr(want, name))[1])
+        if jac:
+            say(f"kernel 1 {label} {dt} Nr={p.proj.z.shape[0]} rel err "
+                + ", ".join(errs) + f" (tol {TOL_K1[dt]:g}; without "
+                f"Jacobians too"
+                + ("" if plain is None else
+                   f"; against the plain version in f64 on the same inputs,"
+                   f" which the plain version in f32 misses by "
+                   f"{max(plain_errs):.2e}")
+                + f"); f32 max abs err so far {worst:.3e}")
+    return worst
+
+
+def ragged(p):
+    """`p` cut to a row count that leaves kernel 1's last 32-row block
+    partly empty."""
+    nr = p.proj.z.shape[0] - 5
+    return cut_rows(p, nr - (0 if nr % 32 else 1))
+
+
+def phase_k1(p64, p32, cfg, label="flagship"):
+    """Kernel 1 against the plain version, at the problem's rows and at a
+    ragged last block; returns the f32 max abs error."""
+    worst = max(k1_against_plain(p, cfg, label)
+                for p in (p64, p32, ragged(p64), ragged(p32)))
     say(f"PHASE kernel1 ({label}) ok")
     return worst
 
@@ -989,7 +1072,9 @@ def plan_syncs(p32, cfg, smi):
     return again
 
 
-def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
+def phase_gn(p32, cfg, sim, smi, n_plan_syncs, label=""):
+    """GN solve_fixed(..., 25) in f32 (of the flagship, or of the problem
+    `label` names)."""
     import torch
 
     from ba_tpu_torch.solver import step
@@ -1019,38 +1104,41 @@ def phase_gn(p32, cfg, sim, smi, n_plan_syncs):
     ate1 = _ate(p, sim)
     ok0 = bool(step._build_and_solve(p32, cfg, True).step.ok)
     ok1 = bool(step._build_and_solve(p, cfg, True).step.ok)
-    say(f"GN solve_fixed({N_ITERS}) f32: cost {cost0:.6g} -> "
+    say(f"{label}GN solve_fixed({N_ITERS}) f32: cost {cost0:.6g} -> "
         f"{float(costs_h[-1]):.6g}, ATE {ate0:.6g} -> {ate1:.6g} m, "
         f"solver_ok at start/end {ok0}/{ok1}, kernel launches "
         f"reprojection {k1} segsum {k2} imu_preint (a) {ia} (b) {ib} "
         f"schur_finish {k5} marginalize {k11} band_to_dense {k5b}, "
         f"bit-identical to the warm-up run {torch.equal(costs, warm[1])}")
     check(bool(torch.isfinite(costs_h).all()) and _finite(p),
-          "GN: non-finite values")
-    check(float(costs_h[-1]) < cost0, "GN: cost did not fall")
-    check(ate1 < ate0, "GN: ATE did not fall")
-    check(ok0 and ok1, "GN: reduced factorization failed")
-    check(k1 == 2 * N_ITERS, f"GN: {k1} reprojection launches, "
+          f"{label}GN: non-finite values")
+    check(float(costs_h[-1]) < cost0, f"{label}GN: cost did not fall")
+    check(ate1 < ate0, f"{label}GN: ATE did not fall")
+    check(ok0 and ok1, f"{label}GN: reduced factorization failed")
+    check(k1 == 2 * N_ITERS, f"{label}GN: {k1} reprojection launches, "
           f"expected {2 * N_ITERS} (one build + one trial per iteration)")
-    check(k2 == N_ITERS, f"GN: {k2} segsum launches, expected "
+    check(k2 == N_ITERS, f"{label}GN: {k2} segsum launches, expected "
           f"{N_ITERS} (one per build)")
-    check((ia, ib) == (N_ITERS, N_ITERS), f"GN: imu_preint launches "
+    check((ia, ib) == (N_ITERS, N_ITERS), f"{label}GN: imu_preint launches "
           f"({ia}, {ib}), expected one (a) per build, one (b) per trial")
-    check((k5, k11) == (N_ITERS, 0), f"GN: schur_finish, marginalize "
+    check((k5, k11) == (N_ITERS, 0), f"{label}GN: schur_finish, marginalize "
           f"launches ({k5}, {k11}), expected ({N_ITERS}, 0)")
-    check(k5b == N_ITERS, f"GN: {k5b} band_to_dense launches, expected "
+    check(k5b == N_ITERS, f"{label}GN: {k5b} band_to_dense launches, expected "
           f"{N_ITERS} (one per build on the banded grid)")
     kf = N_POSES * N_ITERS / secs
-    say(f"[{smi}] GN solve_fixed({N_ITERS}): {secs * 1e3:.1f} ms, "
+    say(f"[{smi}] {label}GN solve_fixed({N_ITERS}): {secs * 1e3:.1f} ms, "
         f"{kf:.1f} kf/s; host syncs {syncs}: the plan's {n_plan_syncs} "
         f"once, then {(syncs - n_plan_syncs) / N_ITERS:.2f} per iteration "
         f"(counted reads {reads})")
-    say("PHASE gn ok")
+    say(f"PHASE {label}gn ok")
     return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
-                k11=k11, k5b=k5b, kf_s=kf, syncs=syncs, iters=N_ITERS)
+                k11=k11, k5b=k5b, kf_s=kf, syncs=syncs, iters=N_ITERS,
+                ate=ate1)
 
 
-def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
+def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs, label=""):
+    """The default dogleg `solve` in f32 (of the flagship, or of the
+    problem `label` names)."""
     import torch
 
     from ba_tpu_torch.solver import step
@@ -1078,39 +1166,41 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs):
     # and one for the status; reprojection launches: one build per
     # iteration, one per trial, one for the error breakdown
     trials = reads - 1 - s.iterations
-    say(f"dogleg solve f32: {s.iterations} iterations ({trials} trials), "
+    say(f"{label}dogleg solve f32: {s.iterations} iterations ({trials} "
+        f"trials), "
         f"{s.result}, cost {s.initial_cost:.6g} -> {s.final_cost:.6g}, "
         f"ATE {ate0:.6g} -> {ate1:.6g} m, kernel launches reprojection "
         f"{k1} segsum {k2} imu_preint (a) {ia} (b) {ib} schur_finish {k5} "
         f"marginalize {k11} band_to_dense {k5b}, same as the warm-up "
         f"run "
         f"{(s.iterations, s.final_cost) == (warm.iterations, warm.final_cost)}")
-    check(s.is_good, f"dogleg: result {s.result}")
+    check(s.is_good, f"{label}dogleg: result {s.result}")
     check(_finite(p) and torch.isfinite(torch.tensor(s.final_cost)),
-          "dogleg: non-finite values")
-    check(s.final_cost < s.initial_cost, "dogleg: cost did not fall")
-    check(ate1 < ate0, "dogleg: ATE did not fall")
+          f"{label}dogleg: non-finite values")
+    check(s.final_cost < s.initial_cost, f"{label}dogleg: cost did not fall")
+    check(ate1 < ate0, f"{label}dogleg: ATE did not fall")
     check(k1 == s.iterations + trials + 1,
-          f"dogleg: {k1} reprojection launches, expected "
+          f"{label}dogleg: {k1} reprojection launches, expected "
           f"{s.iterations + trials + 1}")
-    check(k2 == s.iterations, f"dogleg: {k2} segsum launches, "
+    check(k2 == s.iterations, f"{label}dogleg: {k2} segsum launches, "
           f"expected {s.iterations} (one per build)")
     # K2: (a) per build, (b) per trial, and one of each for the error
     # breakdown (its cost-only evaluation has no cached covariance)
     check((ia, ib) == (s.iterations + 1, trials + 1),
-          f"dogleg: imu_preint launches ({ia}, {ib}), expected "
+          f"{label}dogleg: imu_preint launches ({ia}, {ib}), expected "
           f"({s.iterations + 1}, {trials + 1})")
-    check((k5, k11) == (s.iterations, 0), f"dogleg: schur_finish, "
+    check((k5, k11) == (s.iterations, 0), f"{label}dogleg: schur_finish, "
           f"marginalize launches ({k5}, {k11}), expected "
           f"({s.iterations}, 0): one K5 per build")
-    check(k5b == s.iterations, f"dogleg: {k5b} band_to_dense launches, "
+    check(k5b == s.iterations, f"{label}dogleg: {k5b} band_to_dense launches, "
           f"expected {s.iterations} (one per build)")
     kf = N_POSES * s.iterations / secs
-    say(f"[{smi}] dogleg solve: {secs * 1e3:.1f} ms, {kf:.1f} kf/s; host "
+    say(f"[{smi}] {label}dogleg solve: {secs * 1e3:.1f} ms, {kf:.1f} kf/s; "
+        f"host "
         f"syncs {syncs}: the plan's {n_plan_syncs} once, then "
         f"{(syncs - n_plan_syncs) / s.iterations:.2f} per iteration "
         f"(counted reads {reads})")
-    say("PHASE dogleg ok")
+    say(f"PHASE {label}dogleg ok")
     return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
                 k11=k11, k5b=k5b, kf_s=kf, syncs=syncs, iters=s.iterations)
 
@@ -1369,6 +1459,20 @@ def phase_timing(p32, cfg, sums, smi, label="flagship"):
                 resid_device_ms=t["resid_device_ms"], floor_ms=floor_ms,
                 plain_ms=t["plain_ms"], bound_ms=k1_bound, bound_by=k1_by,
                 library_ms=None)
+    if PARENT is not None:
+        import importlib
+
+        parent_package(PARENT)
+        k1p = importlib.import_module(
+            "ba_tpu_torch_parent.kernels.reprojection")
+        rec1["parent_ms"] = event_ms(lambda: k1p.reprojection(p32, True),
+                                     200)
+        rec1["parent_device_ms"] = graph_ms(
+            lambda: k1p.reprojection(p32, True), 50)
+        say(f"[{smi}] kernel 1 reprojection, {label}: the parent's kernel "
+            f"on the same inputs {rec1['parent_ms']:.4f} ms per call "
+            f"({rec1['parent_device_ms']:.4f} ms on the device); this "
+            f"tree's {t['ms']:.4f} ({t['device_ms']:.4f})")
 
     k2_bytes = k2_ops = 0
     for _, vals, _, ids, nseg in sums:
@@ -4168,9 +4272,10 @@ def selfcal_problem():
 
 
 def phase_k1_calib(cases):
-    """Kernel 1's calibration columns (K = 11, FOV, inverse depth) and its
-    XYZ landmarks (lm_size 3, linear camera, K = 11) against the plain
-    version, f32 and f64, with and without Jacobians.  `cases` is
+    """Kernel 1's calibration columns (K = 11: FOV with inverse depth; XYZ
+    landmarks, lm_size 3, with the linear camera and with a poly3 lens)
+    against the plain version, f32 and f64, with and without Jacobians.
+    `cases` is
     [(label, f32 problem, config)]; the f64 copies renormalize their
     quaternions (as `stream_slide` does: the closed form and the plain
     version's compositions agree only on unit quaternions).  Returns the
@@ -4178,7 +4283,6 @@ def phase_k1_calib(cases):
     import torch
 
     from ba_tpu_torch.core import lie
-    from ba_tpu_torch.core.residuals import reprojection as rp
     from ba_tpu_torch.utils.tree import tree_map
 
     worst = 0.0
@@ -4193,54 +4297,9 @@ def phase_k1_calib(cases):
                         q.poses, q=lie.quat_normalize(q.poses.q)),
                     rig=dataclasses.replace(
                         q.rig, tvs_q=lie.quat_normalize(q.rig.tvs_q)))
-            for jac in (True, False):
-                got = rp.evaluate(q, cfg, jac)
-                want = rp.evaluate_plain(q, cfg, jac)
-                torch.cuda.synchronize()
-                for name in want._fields:
-                    err, rel = rel_err(getattr(got, name),
-                                       getattr(want, name))
-                    check(rel <= TOL_K1[dt], f"kernel 1 {label} {dt} "
-                          f"jac={jac} {name}: rel err {rel:.3g}")
-                    if dt == "float32":
-                        worst = max(worst, err)
-                    say(f"kernel 1 {label} {dt} Nr={q.proj.z.shape[0]} "
-                        f"jac={int(jac)} {name:7s} "
-                        f"{tuple(getattr(want, name).shape)} max abs err "
-                        f"{err:.3e} rel {rel:.3e} (tol {TOL_K1[dt]:g})")
+            worst = max(worst, k1_against_plain(q, cfg, label))
     say("PHASE k1_calib ok")
     return worst
-
-
-def phase_timing_k1_calib(p, cfg, floor_ms, smi):
-    """Kernel 1 with the calibration columns timed at the self-calibration
-    shapes beside its bound and its plain version."""
-    from ba_tpu_torch.core.residuals import reprojection as rp
-    from ba_tpu_torch.kernels import reprojection as k1
-
-    pr, poses, lms, rig = p.proj, p.poses, p.lms, p.rig
-
-    def call():
-        return k1.reprojection(p, True, cfg.lm_size, cfg.calib_size,
-                               cfg.do_tvs)
-
-    nb = nbytes(pr.z, pr.pose, pr.lm, pr.cam, pr.valid, poses.q, poses.t,
-                lms.x, lms.ref_pose, lms.ref_cam, lms.z_ref, lms.has_z_ref,
-                rig.params, rig.model, rig.tvs_q, rig.tvs_t, *call())
-    rows = int(pr.valid.sum())
-    nf = rows * (K1_FLOPS_PER_ROW + cfg.calib_size * K1_CAL_FLOPS_INTRINSIC
-                 + 6 * cfg.do_tvs * K1_CAL_FLOPS_TVS)
-    bound = max(nb / HBM_BPS, nf / F32_FLOPS) * 1e3
-    by = "bytes" if nb / HBM_BPS >= nf / F32_FLOPS else "operations"
-    t = dict(ms=event_ms(call, 200), device_ms=graph_ms(call, 50),
-             plain_ms=event_ms(lambda: rp.evaluate_plain(p, cfg, True), 5))
-    say(f"[{smi}] kernel 1 reprojection with {cfg.calib_dim} calibration "
-        f"columns, selfcal, Nr={pr.z.shape[0]} f32: {t['ms']:.4f} ms per "
-        f"call ({t['device_ms']:.4f} ms on the device, "
-        f"{bound / t['device_ms']:.1%} of the bound {bound:.5f} ms, {by}: "
-        f"{nb} B, {nf} flop), plain {t['plain_ms']:.3f} ms; launch floor "
-        f"{floor_ms:.4f} ms")
-    return dict(t, bound_ms=bound, bound_by=by, library_ms=None)
 
 
 def phase_selfcal_small():
@@ -4451,18 +4510,34 @@ def vicalib_capture(seed=0):
     return target, frames, imu
 
 
-def _vicalib_service(target, frames, imu, seed):
-    """A `ViCalibrator` on the card holding the capture, started from moved
-    intrinsics, T_vs rotation and pose guesses."""
+def vicalib_service(poly3=False):
+    """(a `ViCalibrator` on the card holding the synthetic capture, the
+    true lens): the linear camera TRUE_CAM, or with `poly3` the capture
+    re-projected through TRUE_CAM with POLY3_K by the port's plain
+    `camera.project`; started from a lens moved by VICALIB_MOVE (fx, fy,
+    cx, cy, and poly3's k1), a moved T_vs rotation and moved pose
+    guesses."""
     import numpy as np
     import torch
 
     from ba_tpu_torch.calib import ViCalibrator
-    from ba_tpu_torch.core import lie
+    from ba_tpu_torch.core import camera, lie
 
+    seed = VICALIB["seed"]
+    target, frames, imu = vicalib_capture(seed)
+    true = np.array(list(TRUE_CAM) + (POLY3_K if poly3 else []))
+    model = camera.MODEL_POLY3 if poly3 else camera.MODEL_LINEAR
+    if poly3:
+        prm = torch.as_tensor(true)
+        frames = [(q, t, list(enumerate(camera.project(
+            prm, model, torch.as_tensor((target - t) @ _rotation(q)))
+            .numpy())), tm) for q, t, _, tm in frames]
+    start = true.copy()
+    n = 5 if poly3 else 4
+    start[:n] += VICALIB_MOVE[:n]
     rng = np.random.default_rng(seed + 1)
     cal = ViCalibrator(target)
-    cal.add_camera(np.array(TRUE_CAM) + [15.0, -12.0, 6.0, -5.0], 0)
+    cal.add_camera(start, model)
     cal.tvs_q = lie.so3_exp(torch.tensor([0.06, -0.05, 0.04],
                                          dtype=torch.float64)).numpy()
     for (q, t, obs, tm) in frames:
@@ -4474,18 +4549,17 @@ def _vicalib_service(target, frames, imu, seed):
             cal.add_observation(f, pid, pix)
     for (w, a, tm) in imu:
         cal.add_imu_measurements(w, a, tm)
-    return cal
+    return cal, true
 
 
-def vicalib_problems():
+def vicalib_problems(poly3=False):
     """[(prepared f32 problem, config)] of the calibration service's first
-    and last stages on the synthetic capture: XYZ landmarks, K = 11, 9-dim
-    then 15-dim states."""
+    and last stages on the synthetic capture (`vicalib_service`): XYZ
+    landmarks, K = 11, 9-dim then 15-dim states."""
     from ba_tpu_torch.calib import STAGE_BIASES, STAGE_ROTATION
     from ba_tpu_torch.core.problem import prepare_landmarks
 
-    cal = _vicalib_service(*vicalib_capture(VICALIB["seed"]),
-                           VICALIB["seed"])
+    cal, _ = vicalib_service(poly3)
     out = []
     for stage in (STAGE_ROTATION, STAGE_BIASES):
         p, cfg, _, _ = cal._build(*cal._snapshot(), stage)
@@ -4493,28 +4567,40 @@ def vicalib_problems():
     return out
 
 
-def phase_vicalib(smi):
+def phase_vicalib(smi, poly3=False):
     """`ViCalibrator.solve_once` through its three stages on the synthetic
-    capture, f32 on the card, from moved intrinsics, T_vs rotation and
-    pose guesses."""
+    capture (`vicalib_service`: the linear camera, or a poly3 lens), f32 on
+    the card, from a moved lens, T_vs rotation and pose guesses: the mse
+    falls below the start's and VICALIB's bound, the lens and the T_vs
+    rotation improve."""
     import numpy as np
     import torch
 
     from ba_tpu_torch.calib import STAGE_BIASES
     from ba_tpu_torch.core import lie
+    from ba_tpu_torch.core.problem import prepare_landmarks
+    from ba_tpu_torch.solver import step
+    from ba_tpu_torch.solver.assemble import evaluate_cost
 
+    name = "vicalib poly3" if poly3 else "vicalib"
     t0 = time.perf_counter()
-    target, frames, imu = vicalib_capture(VICALIB["seed"])
-    rows = sum(len(f[2]) for f in frames)
-    cal = _vicalib_service(target, frames, imu, VICALIB["seed"])
-    say(f"vicalib capture: {len(target)} target corners, {len(frames)} "
-        f"frames, {len(imu)} IMU samples, {rows} projection rows "
-        f"({time.perf_counter() - t0:.2f} s to make and add)")
-    check(rows == VICALIB_EXPECTED["rows"], f"vicalib: {rows} rows")
+    cal, true = vicalib_service(poly3)
+    rows = sum(len(f.obs) for f in cal.frames)
+    # the start's mse as solve_once reports it: the cost of the first
+    # stage's build over the projection rows
+    p0, cfg0, use_imu, _ = cal._build(*cal._snapshot(), cal.stage)
+    p0 = prepare_landmarks(p0, cfg0)
+    mse0 = float(evaluate_cost(p0, cfg0, step._imu_eval(
+        p0, cfg0, use_imu, False))) / rows
+    del p0
+    say(f"{name} capture: {len(cal.target)} target corners, "
+        f"{len(cal.frames)} frames, {len(cal.imu)} IMU samples, {rows} "
+        f"projection rows, start mse {mse0:.6g} px^2 "
+        f"({time.perf_counter() - t0:.2f} s to make, add and build)")
+    check(rows == VICALIB_EXPECTED["rows"], f"{name}: {rows} rows")
 
     def intr_err():
-        return float(np.abs(np.asarray(cal.cam_params[:4])
-                            - np.array(TRUE_CAM)).max())
+        return float(np.abs(np.asarray(cal.cam_params) - true).max())
 
     def rot_err():
         return float(torch.linalg.norm(lie.so3_log(torch.as_tensor(
@@ -4530,27 +4616,27 @@ def phase_vicalib(smi):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         stages.append(dict(stage=stage, mse=mse, secs=secs))
-        say(f"[{smi}] vicalib solve_once {k}: stage {stage} -> {cal.stage}, "
-            f"mse {mse:.6g} px^2, {secs:.2f} s; intrinsics error "
-            f"{intr_err():.4g} px (from {e0:.4g}), T_vs rotation error "
+        say(f"[{smi}] {name} solve_once {k}: stage {stage} -> "
+            f"{cal.stage}, mse {mse:.6g} px^2, {secs:.2f} s; lens error "
+            f"{intr_err():.4g} (from {e0:.4g}), T_vs rotation error "
             f"{rot_err():.4g} rad (from {r0:.4g})")
-        check(np.isfinite(mse), f"vicalib: mse {mse} at stage {stage}")
+        check(np.isfinite(mse), f"{name}: mse {mse} at stage {stage}")
     k1, k2, _ = _counters()
     ia, ib = _imu_counters()
     k5, k11 = _marg_counters()
-    say(f"vicalib kernel launches: reprojection {k1} segsum {k2} imu_preint "
+    say(f"{name} kernel launches: reprojection {k1} segsum {k2} imu_preint "
         f"(a) {ia} (b) {ib} schur_finish {k5} marginalize {k11}")
     check([s["stage"] for s in stages] == [0, 1, 2]
-          and cal.stage == STAGE_BIASES, "vicalib: the stages did not "
+          and cal.stage == STAGE_BIASES, f"{name}: the stages did not "
           f"advance ({[s['stage'] for s in stages]} -> {cal.stage})")
     check(intr_err() < e0 and rot_err() < r0,
-          "vicalib: the calibration did not improve")
-    check(stages[-1]["mse"] < VICALIB["mse_bound"],
-          f"vicalib: final mse {stages[-1]['mse']:.3g}")
-    check(min(k1, k2, ia, ib) > 0, "vicalib: a kernel never launched")
-    check((k5, k11) == (k2, 0), f"vicalib: schur_finish, marginalize "
+          f"{name}: the calibration did not improve")
+    check(stages[-1]["mse"] < min(mse0, VICALIB["mse_bound"]),
+          f"{name}: final mse {stages[-1]['mse']:.3g} (start {mse0:.3g})")
+    check(min(k1, k2, ia, ib) > 0, f"{name}: a kernel never launched")
+    check((k5, k11) == (k2, 0), f"{name}: schur_finish, marginalize "
           f"launches ({k5}, {k11}), expected ({k2}, 0): one K5 per build")
-    say("PHASE vicalib ok")
+    say(f"PHASE {name} ok")
     return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
                 k11=k11, stages=stages, rows=rows)
 
@@ -5612,6 +5698,456 @@ def phase_math_test():
     say("PHASE math_test ok")
 
 
+# ---------------------------------------------------------------------------
+# Kernel 1 for every camera model: poly3, equidistant, per-pose intrinsics
+# and a rig of two models
+
+
+def _rotation(q):
+    """(3, 3) rotation matrix of a wxyz quaternion (numpy)."""
+    import torch
+
+    from ba_tpu_torch.core import lie
+
+    return lie.quat_to_matrix(torch.as_tensor(q, dtype=torch.float64)).numpy()
+
+
+def scene_cameras(sim, variant):
+    """[(params (7,), model, T_vs translation)] of a camera scene's rig:
+    the poly3 lens REF_POLY3; the flagship's fx, fy, cx, cy through the
+    equidistant model; the flagship's FOV camera (per-pose intrinsics ride
+    on it); or the FOV camera and the poly3 lens RIG_BASELINE m to its
+    right."""
+    import numpy as np
+
+    from ba_tpu_torch.core import camera
+
+    lens = list(sim.cam_params[:4])
+    fov = np.array(list(sim.cam_params) + [0.0, 0.0])
+    poly3 = np.array(REF_POLY3)
+    right = sim.tvs_t + _rotation(sim.tvs_q) @ np.array([RIG_BASELINE, 0, 0])
+    return {"poly3": [(poly3, camera.MODEL_POLY3, sim.tvs_t)],
+            "equidistant": [(np.array(lens + [0.0] * 3),
+                             camera.MODEL_EQUIDISTANT, sim.tvs_t)],
+            "per_pose": [(fov, camera.MODEL_FOV, sim.tvs_t)],
+            "rig": [(fov, camera.MODEL_FOV, sim.tvs_t),
+                    (poly3, camera.MODEL_POLY3, right)]}[variant]
+
+
+def per_pose_params(params, n):
+    """(n, 7) per-pose intrinsics: fx, fy scaled by 1 + PER_POSE_STEP
+    (i mod 8) at pose i."""
+    import numpy as np
+
+    pp = np.tile(params, (n, 1))
+    pp[:, :2] *= (1.0 + PER_POSE_STEP * (np.arange(n) % 8))[:, None]
+    return pp
+
+
+def scene_observations(sim, cams, pose_params=None):
+    """[(pose, landmark, camera, pixel)], pose-major then camera then
+    landmark: the simulator's depth and distance limits (> 0.5 m ahead,
+    < 12 m), the pixel from the port's plain `camera.project` inside
+    IMG_WH, on the model's invertible branch (the unprojection of the pixel
+    gives back the ray: poly3 folds back beyond r ~ 3.5).  `pose_params`
+    (P, 7) replaces each camera's intrinsics by the pose's own."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.core import camera
+
+    P, L = len(sim.t_wv), len(sim.lms_w)
+    R_wv = np.stack([_rotation(q) for q in sim.q_wv])
+    R_vs = _rotation(sim.tvs_q)
+    found = []
+    for c, (params, model, tvs_t) in enumerate(cams):
+        R_ws = R_wv @ R_vs
+        t_ws = sim.t_wv + R_wv @ tvs_t
+        p_s = np.einsum("pji,plj->pli", R_ws,
+                        sim.lms_w[None] - t_ws[:, None])
+        prm = np.ascontiguousarray(np.broadcast_to(
+            params if pose_params is None else pose_params[:, None],
+            (P, L, 7)))
+        ray = torch.as_tensor(p_s)
+        m = torch.tensor(model)
+        pix = camera.project(torch.as_tensor(prm), m, ray)
+        back = camera.unproject(torch.as_tensor(prm), m, pix)
+        cos = (back * ray).sum(-1) / ray.norm(dim=-1)
+        pix = pix.numpy()
+        ok = ((p_s[..., 2] > 0.5) & (np.linalg.norm(p_s, axis=-1) < 12.0)
+              & (pix[..., 0] >= 0) & (pix[..., 0] < IMG_WH[0])
+              & (pix[..., 1] >= 0) & (pix[..., 1] < IMG_WH[1])
+              & (cos.numpy() > 1 - 1e-9))
+        found += [(int(i), int(j), c, pix[i, j])
+                  for i, j in zip(*ok.nonzero())]
+    found.sort(key=lambda o: (o[0], o[2], o[1]))
+    return found
+
+
+def camera_scene(sim, variant, device="cuda", perturb=0.01, seed=1,
+                 pose_dim=9):
+    """(f64 problem, config) of the flagship sequence re-measured through
+    a camera variant (`scene_cameras`), built as
+    `simulate_vins.build_problem` builds the flagship: poses from index 2
+    perturbed, landmark depths perturbed along the ray from the reference
+    pose (the first that sees it), the same random draws in the same
+    order; the IMU spans.  A landmark of the rig is referenced to camera
+    j mod 2 where that camera sees it at the reference pose, else to the
+    other, so the other camera's row at the reference pose stays (a
+    same-pose cross-camera row)."""
+    import numpy as np
+    import torch
+
+    from ba_tpu_torch.core import lie
+    from ba_tpu_torch.core.problem import BAConfig, ProblemBuilder
+    from ba_tpu_torch.solver.assemble import band_width_of
+
+    per_pose = variant == "per_pose"
+    cfg = BAConfig(pose_dim=pose_dim, lm_size=1,
+                   use_per_pose_cam_params=per_pose)
+    cams = scene_cameras(sim, variant)
+    P = len(sim.pose_times)
+    pp = per_pose_params(cams[0][0], P) if per_pose else None
+    obs = scene_observations(sim, cams, pp)
+    rng = np.random.default_rng(seed)
+    b = ProblemBuilder(cfg)
+    cam_ids = [b.add_camera(prm, model, tvs_q=sim.tvs_q, tvs_t=tvs_t)
+               for prm, model, tvs_t in cams]
+    first_seen, seen = {}, set()
+    for i, j, c, _ in obs:
+        first_seen.setdefault(j, i)
+        seen.add((i, j, c))
+    pose_ids = []
+    for i in range(P):
+        active = i >= 2
+        q, t, v = sim.q_wv[i].copy(), sim.t_wv[i].copy(), sim.v_w[i].copy()
+        if active and perturb:
+            dq = lie.so3_exp(torch.as_tensor(rng.normal(size=3) * perturb,
+                                             dtype=torch.float64))
+            q = lie.quat_mul(torch.as_tensor(q, dtype=torch.float64),
+                             dq).numpy()
+            t = t + rng.normal(size=3) * perturb
+            v = v + rng.normal(size=3) * perturb
+        pose_ids.append(b.add_pose(q, t, v=v, active=active,
+                                   time=float(sim.pose_times[i]),
+                                   cam_params=None if pp is None else pp[i]))
+    lm_ids = {}
+    for j, ref in first_seen.items():
+        x_w = sim.lms_w[j].copy()
+        if perturb:
+            c0 = sim.t_wv[ref]
+            x_w = c0 + (x_w - c0) * (1.0 + rng.normal() * perturb)
+        rc = j % len(cams)
+        if (ref, j, rc) not in seen:
+            rc = 1 - rc
+        lm_ids[j] = b.add_landmark(x_w, ref_pose=pose_ids[ref],
+                                   ref_cam=cam_ids[rc])
+    for i, j, c, z in obs:
+        b.add_projection_residual(z, pose_ids[i], lm_ids[j], cam_ids[c])
+    if pose_dim >= 9:
+        for i in range(P - 1):
+            w, a, ts = sim.imu_spans[i]
+            b.add_imu_residual(pose_ids[i], pose_ids[i + 1], w, a, ts)
+    p = b.build(device=device)
+    return p, dataclasses.replace(cfg, band_width=band_width_of(p))
+
+
+def camera_scenes():
+    """{variant: (f64 problem, f32 problem, config, SimData)} of the four
+    full-width camera scenes on the card, prepared."""
+    import torch
+
+    from ba_tpu_torch.core.problem import prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.utils.tree import tree_map
+
+    sim = sv.simulate(n_poses=N_POSES, n_lms=N_LMS, seed=0)
+    out = {}
+    for variant in CAMERA_SCENES:
+        t0 = time.perf_counter()
+        p64, cfg = camera_scene(sim, variant)
+        p32 = tree_map(lambda a: a.float() if a.dtype == torch.float64
+                       else a, p64)
+        pr = p64.proj
+        same = int(((pr.pose == p64.lms.ref_pose[pr.lm])
+                    & (pr.cam != p64.lms.ref_cam[pr.lm])).sum())
+        say(f"camera scene {variant}: P={p64.poses.q.shape[0]} "
+            f"L={p64.lms.x.shape[0]} Nr={pr.z.shape[0]} rows in "
+            f"{IMG_WH[0]}x{IMG_WH[1]}, cameras {p64.rig.model.tolist()}, "
+            f"landmarks per reference camera "
+            f"{torch.bincount(p64.lms.ref_cam).tolist()}, same-pose "
+            f"cross-camera rows {same}, band width {cfg.band_width} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        check(pr.z.shape[0] > 10 * N_LMS // 16, f"camera scene {variant}: "
+              f"too few rows")
+        if variant == "rig":
+            check(same > 0 and bool((torch.bincount(p64.lms.ref_cam)
+                                     > 0).all()), "camera scene rig: no "
+                  "same-pose cross-camera row or a camera references none")
+        out[variant] = (prepare_landmarks(p64, cfg),
+                        prepare_landmarks(p32, cfg), cfg, sim)
+    return out
+
+
+def k1_combos(p, cfg):
+    """[(label, problem, config)] of K1's combinations on a camera scene:
+    as built; with the 5 intrinsics and the 6 T_vs tangents of camera 0
+    as calibration columns (its intrinsics moved by CALIB_ERR, so the
+    reference rays come from the unprojection through moved intrinsics);
+    with XYZ landmarks (lm_size 3)."""
+    from ba_tpu_torch.core.problem import prepare_landmarks
+
+    params = p.rig.params.clone()
+    params[0, :5] += params.new_tensor(CALIB_ERR)
+    moved = dataclasses.replace(p, rig=dataclasses.replace(p.rig,
+                                                           params=params))
+    cfg3 = dataclasses.replace(cfg, lm_size=3)
+    return [("", p, cfg),
+            (" K=11", moved, dataclasses.replace(cfg, calib_size=5,
+                                                 do_tvs=True)),
+            (" lm_size 3", prepare_landmarks(p, cfg3), cfg3)]
+
+
+def phase_k1_cameras(scenes):
+    """Kernel 1 against its plain version on each camera scene at every
+    combination of `k1_combos`, f64 and f32, with and without Jacobians,
+    at the scene's rows and at a ragged last block.  Returns {variant: f32
+    max abs error}."""
+    worst = {}
+    for variant, (p64, p32, cfg, _) in scenes.items():
+        worst[variant] = max(
+            k1_against_plain(p, c, f"{variant}{label}")
+            for (label, q64, c), (_, q32, _) in zip(k1_combos(p64, cfg),
+                                                   k1_combos(p32, cfg))
+            for p in (q64, q32, ragged(q64), ragged(q32)))
+    say("PHASE k1_cameras ok")
+    return worst
+
+
+def k1_timing(p, cfg, floor_ms, label, smi):
+    """Kernel 1 timed at one problem's shapes beside its bound (bytes and
+    operations counted as for the flagship FOV row, the per-pose table and
+    the calibration columns included where the variant has them) and its
+    plain version."""
+    from ba_tpu_torch.core.residuals import reprojection as rp
+    from ba_tpu_torch.kernels import reprojection as k1
+
+    pr, poses, lms, rig = p.proj, p.poses, p.lms, p.rig
+    per_pose = cfg.use_per_pose_cam_params
+
+    def call():
+        return k1.reprojection(p, True, cfg.lm_size, cfg.calib_size,
+                               cfg.do_tvs, per_pose)
+
+    nb = nbytes(pr.z, pr.pose, pr.lm, pr.cam, pr.valid, poses.q, poses.t,
+                lms.x, lms.ref_pose, lms.ref_cam, rig.params, rig.model,
+                rig.tvs_q, rig.tvs_t, *call())
+    if per_pose:
+        nb += nbytes(poses.cam_params)
+    if cfg.calib_size:
+        nb += nbytes(lms.z_ref, lms.has_z_ref)
+    rows = int(pr.valid.sum())
+    nf = rows * (K1_FLOPS_PER_ROW + cfg.calib_size * K1_CAL_FLOPS_INTRINSIC
+                 + 6 * cfg.do_tvs * K1_CAL_FLOPS_TVS)
+    bound, by = _bound(nb, nf)
+    t = dict(ms=event_ms(call, 200), device_ms=graph_ms(call, 50),
+             plain_ms=event_ms(lambda: rp.evaluate_plain(p, cfg, True), 5))
+    say(f"[{smi}] kernel 1 reprojection, {label}, Nr={pr.z.shape[0]} "
+        f"({rows} valid) f32: {t['ms']:.4f} ms per call "
+        f"({t['device_ms']:.4f} ms on the device, "
+        f"{bound / t['device_ms']:.1%} of the bound {bound:.5f} ms, {by}: "
+        f"{nb} B, {nf} flop), plain {t['plain_ms']:.3f} ms; launch floor "
+        f"{floor_ms:.4f} ms")
+    if PARENT is not None and not per_pose and bool((rig.model <= 1).all()):
+        import importlib
+
+        parent_package(PARENT)
+        k1p = importlib.import_module(
+            "ba_tpu_torch_parent.kernels.reprojection")
+
+        def parent_call():
+            return k1p.reprojection(p, True, cfg.lm_size, cfg.calib_size,
+                                    cfg.do_tvs)
+
+        t["parent_device_ms"] = graph_ms(parent_call, 50)
+        t["device_ms_after_parent"] = graph_ms(call, 50)
+        say(f"[{smi}] kernel 1 reprojection, {label}: the parent's kernel "
+            f"on the same inputs {t['parent_device_ms']:.5f} ms on the "
+            f"device; this tree's {t['device_ms']:.5f} before it, "
+            f"{t['device_ms_after_parent']:.5f} after")
+    return dict(t, bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def phase_scene_f64(p64, cfg, sim, ate32, label):
+    """GN solve_fixed(..., 25) of a camera scene in f64 on the card: its
+    cost and ATE fall, and its ATE is at most the f32 GN's `ate32`.  The
+    scene is then well posed for GN: f64 converges at least as near the
+    truth as f32, so the f32 GN's fall is not a rounding accident (on an
+    ill-conditioned lens f64 GN stalls where f32 happens to land)."""
+    import torch
+
+    from ba_tpu_torch.solver import step
+    from ba_tpu_torch.solver.assemble import evaluate_cost
+
+    cfg = dataclasses.replace(cfg, use_dogleg=False)
+    cost0 = float(evaluate_cost(p64, cfg, step._imu_eval(p64, cfg, True,
+                                                         False)))
+    ate0 = _ate(p64, sim)
+    t0 = time.perf_counter()
+    p, costs, _ = step.solve_fixed(p64, cfg, True, N_ITERS)
+    costs = costs.cpu()
+    secs = time.perf_counter() - t0
+    ate1 = _ate(p, sim)
+    say(f"{label}GN solve_fixed({N_ITERS}) f64: cost {cost0:.6g} -> "
+        f"{float(costs[-1]):.6g}, ATE {ate0:.6g} -> {ate1:.6g} m ({secs:.2f} "
+        f"s); the f32 GN's ATE {ate32:.6g} m")
+    check(bool(torch.isfinite(costs).all()) and _finite(p),
+          f"{label}f64 GN: non-finite values")
+    check(float(costs[-1]) < cost0, f"{label}f64 GN: cost did not fall")
+    check(ate1 < ate0, f"{label}f64 GN: ATE did not fall")
+    check(ate1 <= ate32, f"{label}f64 GN: ATE {ate1:.6g} m above the f32 "
+          f"GN's {ate32:.6g}")
+    return ate1
+
+
+def reference_camera_scene(kind, device, n_poses=None, n_lms=None,
+                           perturb=0.03, seed=None):
+    """The scenes of ba_tpu's tests/test_camera_models.py
+    (`_scene_with_model`: "poly3", "equidistant", "per_pose" (poly3 with
+    per-pose focal lengths)) and tests/test_stereo.py (`make_stereo_scene`:
+    "stereo", FOV cameras STEREO_BASELINE m apart), built from the same
+    numpy draws with the port alone; defaults are those tests' BA sizes.
+    Returns (problem, config, landmarks' true positions)."""
+    import numpy as np
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from ba_tpu_torch.core import camera, lie
+    from ba_tpu_torch.core.problem import BAConfig, ProblemBuilder
+
+    stereo = kind == "stereo"
+    if n_poses is None:
+        n_poses, n_lms, seed = (4, 24, 3) if stereo else (6, 30, 0)
+    rng = np.random.default_rng(seed)
+    cfg = BAConfig(pose_dim=6, lm_size=1, use_dogleg=False,
+                   use_robust_norm_for_proj_residuals=False,
+                   use_per_pose_cam_params=kind == "per_pose")
+    b = ProblemBuilder(cfg)
+    if stereo:
+        cams = [(b.add_camera(STEREO_FOV, camera.MODEL_FOV), np.zeros(3)),
+                (b.add_camera(STEREO_FOV, camera.MODEL_FOV,
+                              tvs_t=(STEREO_BASELINE, 0.0, 0.0)),
+                 np.array([STEREO_BASELINE, 0, 0]))]
+        params = np.array(STEREO_FOV, float)
+    else:
+        params = np.array(REF_EQUI if kind == "equidistant" else REF_POLY3,
+                          float)
+        model = (camera.MODEL_EQUIDISTANT if kind == "equidistant"
+                 else camera.MODEL_POLY3)
+        cams = [(b.add_camera(params, model), np.zeros(3))]
+
+    def proj(prm, pc):
+        xn, yn = pc[..., 0] / pc[..., 2], pc[..., 1] / pc[..., 2]
+        r2 = xn**2 + yn**2
+        if stereo:
+            fx, fy, cx, cy, w = prm
+            r = np.sqrt(r2)
+            f = (np.arctan(2 * r * np.tan(w / 2)) / (r * w) if r > 1e-9
+                 else 2 * np.tan(w / 2) / w)
+        elif kind == "equidistant":
+            fx, fy, cx, cy = prm
+            r = np.sqrt(r2)
+            f = np.where(r < 1e-12, 1.0, np.arctan(r) / np.maximum(r, 1e-12))
+        else:
+            fx, fy, cx, cy, k1, k2, k3 = prm
+            f = 1 + k1 * r2 + k2 * r2**2 + k3 * r2**3
+        return np.stack([fx * f * xn + cx, fy * f * yn + cy], axis=-1)
+
+    R_list, t_list, pose_ids, pose_params = [], [], [], []
+    for i in range(n_poses):
+        ang = 2 * np.pi * i / n_poses
+        pos = np.array([5 * np.cos(ang), 5 * np.sin(ang), 0.0])
+        z = -pos / np.linalg.norm(pos)
+        x = np.cross(np.array([0.0, 0, 1]), z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        R_list.append(np.stack([x, y, z], axis=1))
+        t_list.append(pos)
+    if stereo:
+        lms_w = rng.normal(size=(n_lms, 3)) * np.array([1.2, 1.2, 0.8])
+    for i in range(n_poses):
+        q = np.roll(Rotation.from_matrix(R_list[i]).as_quat(), 1)
+        active = i >= (1 if stereo else 2)
+        t = t_list[i]
+        if active and perturb:
+            dq = lie.so3_exp(torch.as_tensor(rng.normal(size=3) * perturb))
+            q = lie.quat_mul(torch.as_tensor(q), dq).numpy()
+            t = t_list[i] + rng.normal(size=3) * perturb * 5
+        pp = params.copy()
+        if kind == "per_pose":
+            pp[:2] *= 1.0 + 0.02 * i
+        pose_params.append(pp)
+        pose_ids.append(b.add_pose(q, t, active=active, time=float(i),
+                                   cam_params=pp if kind == "per_pose"
+                                   else None))
+    if not stereo:
+        lms_w = rng.normal(size=(n_lms, 3)) * np.array([1.2, 1.2, 0.8])
+    c0, lm_ids = t_list[0], []
+    for j in range(n_lms):
+        if stereo and not perturb:
+            x_pert = lms_w[j]
+        else:
+            ray = lms_w[j] - c0
+            x_pert = c0 + ray * (1.0 + (rng.normal() * perturb if perturb
+                                        else 0.0))
+        lm_ids.append(b.add_landmark(x_pert, ref_pose=0, ref_cam=0))
+    for i in range(n_poses):
+        for j in range(n_lms):
+            for cam, dtv in cams:
+                tws = t_list[i] + R_list[i] @ dtv
+                pc = R_list[i].T @ (lms_w[j] - tws)
+                z = proj(pose_params[i], pc)
+                if not (0 <= z[0] < 640 and 0 <= z[1] < 480):
+                    continue
+                b.add_projection_residual(z, pose_ids[i], lm_ids[j], cam)
+    return b.build(device=device), cfg, lms_w
+
+
+def phase_camera_reference():
+    """The scenes of ba_tpu's camera-model and stereo tests at their own
+    sizes (`reference_camera_scene`), f64, `solve(max_iter=15)` (20 for
+    stereo) on the card against the CPU: the same iterations and result
+    code, final cost, poses and landmarks within TOL_SMALL."""
+    import torch
+
+    from ba_tpu_torch.solver import step
+
+    for kind in ("poly3", "equidistant", "per_pose", "stereo"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p, cfg, _ = reference_camera_scene(kind, dev)
+            out[dev] = step.solve(p, cfg, use_imu=False,
+                                  max_iter=20 if kind == "stereo" else 15)
+        (pg, sg), (pc, sc) = out["cuda"], out["cpu"]
+        pairs = [("poses.q", pg.poses.q, pc.poses.q),
+                 ("poses.t", pg.poses.t, pc.poses.t),
+                 ("lms.x_w", pg.lms.x_w, pc.lms.x_w),
+                 ("final cost", torch.tensor(sg.final_cost),
+                  torch.tensor(sc.final_cost))]
+        for name, a, b in pairs:
+            _, rel = rel_err(a.cpu(), b)
+            say(f"card vs CPU, {kind} reference scene f64: {name} rel err "
+                f"{rel:.3e} (tol {TOL_SMALL:g})")
+            check(rel <= TOL_SMALL, f"card vs CPU {kind} {name}: {rel:.3g}")
+        say(f"card vs CPU {kind}: {sg.iterations} iterations, {sg.result}, "
+            f"final cost {sg.final_cost:.3e} (CPU {sc.iterations}, "
+            f"{sc.result})")
+        check((sg.iterations, sg.result) == (sc.iterations, sc.result),
+              f"{kind}: the card took another path than the CPU")
+        check(sg.final_cost < 1e-4, f"{kind}: final cost {sg.final_cost}")
+    say("PHASE camera_reference ok")
+
+
 def main():
     import torch
 
@@ -5708,7 +6244,7 @@ def main():
     err1c = phase_k1_calib([("selfcal K=11 FOV", ps32, cfg_sc),
                             ("vicalib lm_size 3 linear K=11", pv, cfg_v)])
     del pv0, pv
-    rec1c = phase_timing_k1_calib(ps32, cfg_sc, rec1["floor_ms"], smi)
+    rec1c = k1_timing(ps32, cfg_sc, rec1["floor_ms"], "selfcal", smi)
     k5c = k5_cases(p32, cfg, s32, cfg_s, ps32, cfg_sc)
     err5 = phase_k5(k5c)
     k11c = k11_cases()
@@ -5754,6 +6290,29 @@ def main():
     phase_math_test()
     t_slice = time.perf_counter() - t_slice
 
+    t_cam = time.perf_counter()
+    cams = camera_scenes()
+    err1m = phase_k1_cameras(cams)
+    cs = {}
+    for v, (pv64, pv, cfg_v, sim_v) in cams.items():
+        g = phase_gn(pv, cfg_v, sim_v, smi, n_plan_syncs, f"{v} ")
+        d = phase_dogleg(pv, cfg_v, sim_v, smi, n_plan_syncs, f"{v} ")
+        phase_scene_f64(pv64, cfg_v, sim_v, g["ate"], f"{v} ")
+        cs[v] = dict(k1=g["k1"] + d["k1"], k1_gn=g["k1"], k1_dogleg=d["k1"],
+                     rows=pv.proj.z.shape[0],
+                     gn_ms_iter=N_POSES / g["kf_s"] * 1e3,
+                     dogleg_ms_iter=N_POSES / d["kf_s"] * 1e3)
+    rec1m = {v: k1_timing(cams[v][1], cams[v][2], rec1["floor_ms"],
+                          f"{v} scene", smi) for v in CAMERA_SCENES}
+    del cams
+    phase_camera_reference()
+    pvp, cfg_vp = vicalib_problems(poly3=True)[-1]
+    err1vp = phase_k1_calib([("vicalib poly3 lm_size 3 K=11", pvp, cfg_vp)])
+    rec1vp = k1_timing(pvp, cfg_vp, rec1["floor_ms"], "vicalib poly3", smi)
+    del pvp
+    vp = phase_vicalib(smi, poly3=True)
+    t_cam = time.perf_counter() - t_cam
+
     runs = dict(gn=gn, dogleg=dl, stream=st, stream_many=sm, long=lg, cg=cg,
                 fleet=fl, selfcal=sc, vicalib=vc, gps_batch=gb,
                 gps_stream=gs, cg_selfcal=csc, vins_csv=vcsv)
@@ -5762,6 +6321,9 @@ def main():
         out = {f"launches_{n}": runs[n][key] for n in names}
         return dict(launches=sum(out.values()), **out)
 
+    k1_src = dict(route="cuda",
+                  source="ba_tpu_torch/kernels/csrc/reprojection.cu",
+                  replaces="80bbf6f^:ba_tpu/ops/reprojection_pallas.py:83")
     kernels = [
         dict(name="reprojection", route="cuda",
              source="ba_tpu_torch/kernels/csrc/reprojection.cu",
@@ -5863,6 +6425,15 @@ def main():
                  cyclic_reduction=bsm["bcr_solve"],
                  scan=bsm["scan_solve"]),
              max_abs_err=err8["s"], **rec8c),
+    ] + [
+        dict(name=f"reprojection_{v}", **k1_src, launches=cs[v]["k1"],
+             launches_gn=cs[v]["k1_gn"], launches_dogleg=cs[v]["k1_dogleg"],
+             rows=cs[v]["rows"], max_abs_err=err1m[v], **rec1m[v])
+        for v in CAMERA_SCENES
+    ] + [
+        dict(name="reprojection_calib_poly3", **k1_src, launches=vp["k1"],
+             launches_vicalib_poly3=vp["k1"], calib_dim=11,
+             max_abs_err=err1vp, **rec1vp),
     ]
     say(f"[{smi}] kf/s: GN solve_fixed({N_ITERS}) {gn['kf_s']:.1f}, "
         f"dogleg solve {dl['kf_s']:.1f} ({dl['iters']} iterations); "
@@ -5891,7 +6462,13 @@ def main():
         f"{vcsv['ate_m'] * 100:.4f} cm ({vcsv['ms_iter']:.1f} ms per "
         f"iteration); selfcal and vicalib phases {t_new:.1f} s; GPS and "
         f"K5b phases {t_gps:.1f} s; CG selfcal, vins_csv and math_test "
-        f"phases {t_slice:.1f} s; total smoke "
+        f"phases {t_slice:.1f} s; camera phases {t_cam:.1f} s ("
+        + ", ".join(f"{v} GN {cs[v]['gn_ms_iter']:.1f} / dogleg "
+                    f"{cs[v]['dogleg_ms_iter']:.1f} ms per iteration"
+                    for v in CAMERA_SCENES)
+        + f"; vicalib poly3 solve_once "
+        + ", ".join(f"{x['secs']:.2f} s" for x in vp["stages"])
+        + f"); total smoke "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -132,3 +132,46 @@ def test_problem_from_numpy_keeps_every_leaf():
     assert tp.proj.pose.dtype == torch.int32
     assert tp.proj.valid.dtype == torch.bool
     assert tp.imu.c9_set.shape == ()
+
+
+class CpuBuilder(tprob.ProblemBuilder):
+    """The port's ProblemBuilder emitting on the CPU by default, for scene
+    functions written against ba_tpu's builder (they call `build()` with
+    no device)."""
+
+    def build(self, pad_multiple=1, with_marg_prior=True, device="cpu"):
+        return super().build(pad_multiple, with_marg_prior, device)
+
+
+def both_scenes(monkeypatch, module, fn, *args, **kw):
+    """(ba_tpu's output, the port's output) of a scene function of a
+    ba_tpu test module: the same numpy scene from the same seed fed once
+    to ba_tpu's ProblemBuilder and BAConfig, once to the port's (on the
+    CPU)."""
+    want = fn(*args, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(module, "ProblemBuilder", CpuBuilder)
+        m.setattr(module, "BAConfig", tprob.BAConfig)
+        got = fn(*args, **kw)
+    return want, got
+
+
+def assert_eval_matches(got, want, tol=1e-10, what="reprojection"):
+    """Every field of a port ProjEval against ba_tpu's."""
+    for name in want._fields:
+        assert_rel(getattr(got, name), getattr(want, name), tol,
+                   f"{what}.{name}")
+
+
+def assert_solve_matches(got, want, tol=1e-8):
+    """A port `solve` against ba_tpu's: the same iteration count and
+    result code, the final cost, poses and landmarks to `tol`."""
+    (p_t, s_t), (p_j, s_j) = got, want
+    assert (s_t.iterations, s_t.result) == (s_j.iterations, s_j.result)
+    assert_rel(np.array(s_t.final_cost), np.array(s_j.final_cost), tol,
+               "final_cost")
+    for name in ("q", "t"):
+        assert_rel(getattr(p_t.poses, name), getattr(p_j.poses, name), tol,
+                   f"poses.{name}")
+    assert_rel(p_t.lms.x, p_j.lms.x, tol, "lms.x")
+    assert_rel(p_t.lms.x_w, p_j.lms.x_w, tol, "lms.x_w")

@@ -68,7 +68,12 @@ clears `ok` on the device; `banded_pcg_solve` on the
 card runs K8 and kernel 9 only, with no `torch.linalg` call and no host
 read.  Kernel 1 at lm_size 0 (a pose graph) matches its plain version at
 kernel 1's tolerances, and the GPS + IMU smoother's app runs its f32 batch
-and its f64 stream on the card.
+and its f64 stream on the card.  Kernel 1 on chip_smoke.py's camera scenes
+(the poly3 and equidistant models, per-pose intrinsics, and a rig of an FOV
+and a poly3 camera with landmarks referenced to either), each as built,
+with the 11 calibration columns and with XYZ landmarks, matches its plain
+version at kernel 1's tolerances, bit-identical between launches, and a
+camera model id it does not know raises by name.
 """
 
 import dataclasses
@@ -879,6 +884,70 @@ def test_reprojection_calibration_and_xyz_match_plain(
         assert got.j_lm.shape[-1] == cfg.lm_size
     for name in want._fields:
         assert _rel(getattr(got, name), getattr(want, name)) <= tol, name
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1 for every camera model
+
+@pytest.fixture(scope="module")
+def cuda_cameras():
+    """{variant: (prepared f64 problem, config)} of chip_smoke.py's camera
+    scenes on simulate(24 poses, 96 landmarks) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import CAMERA_SCENES, camera_scene
+
+    from ba_tpu_torch.core.problem import prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+
+    sim = sv.simulate(n_poses=24, n_lms=96, seed=0)
+    out = {}
+    for variant in CAMERA_SCENES:
+        p, cfg = camera_scene(sim, variant, device="cuda")
+        out[variant] = (prepare_landmarks(p, cfg), cfg)
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("variant", ["poly3", "equidistant", "per_pose",
+                                     "rig"])
+@pytest.mark.parametrize("combo", ["", " K=11", " lm_size 3"])
+@pytest.mark.parametrize("with_jacobians", [True, False])
+def test_reprojection_camera_models_match_plain(cuda_cameras, dtype, tol,
+                                                variant, combo,
+                                                with_jacobians):
+    """Kernel 1 on each camera scene as built, with the calibration
+    columns of camera 0 (K = 11, its intrinsics moved) and with XYZ
+    landmarks, against its plain version; one launch each, bit-identical
+    between launches."""
+    from chip_smoke import k1_combos
+
+    from ba_tpu_torch.core.residuals import reprojection as rp
+    from ba_tpu_torch.kernels import reprojection
+    from ba_tpu_torch.utils.tree import tree_map
+
+    p, cfg = cuda_cameras[variant]
+    (q, c), = [(q, c) for label, q, c in k1_combos(p, cfg) if label == combo]
+    q = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, q)
+    n = reprojection.reprojection.launches
+    got = rp.evaluate(q, c, with_jacobians)
+    assert reprojection.reprojection.launches == n + 1
+    again = rp.evaluate(q, c, with_jacobians)
+    want = rp.evaluate_plain(q, c, with_jacobians)
+    torch.cuda.synchronize()
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(again, name)), name
+        assert _rel(getattr(got, name), getattr(want, name)) <= tol, name
+
+
+def test_reprojection_kernel_refuses_unknown_model(cuda_problem):
+    from ba_tpu_torch.core.residuals import reprojection as rp
+
+    p, cfg = cuda_problem
+    rig = dataclasses.replace(p.rig, model=torch.full_like(p.rig.model, 4))
+    with pytest.raises(NotImplementedError, match=r"\[4\]"):
+        rp.evaluate(dataclasses.replace(p, rig=rig), cfg)
 
 
 def test_selfcal_gn_f32_on_the_card(cuda_selfcal):
