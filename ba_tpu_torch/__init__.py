@@ -1,7 +1,8 @@
 """ba_tpu_torch — the PyTorch/CUDA port of `ba_tpu` for one NVIDIA H100.
 
 The JAX package `ba_tpu` stays the reference; this package mirrors its
-layout module for module (core/, core/residuals/, io/, solver/, utils/) and
+layout module for module (core/, core/residuals/, io/, solver/, utils/,
+parallel/: the sharded solves on `torch.distributed`) and
 adds kernels/ with the hand-written CUDA kernels of its paths, one
 source each in kernels/csrc/ (`kernels/build.py:SOURCES`):
 

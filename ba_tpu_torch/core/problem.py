@@ -377,6 +377,15 @@ class Problem:
     pidx: ProblemIndex
 
 
+def stack_problems(problems) -> Problem:
+    """Stack same-shape problems along a new leading fleet axis (every
+    leaf (B, ...)).  All problems must share padded shapes (same size
+    bucket); the result feeds `solver.step.solve_fleet`."""
+    from ..utils.tree import tree_map
+
+    return tree_map(lambda *xs: torch.stack(xs), *problems)
+
+
 def concat_problems(problems, config: BAConfig) -> Problem:
     """Fuse B independent windows into one block-diagonal problem (the
     fleet layout): poses, landmarks and cameras concatenated with offset

@@ -220,8 +220,10 @@ def _jtr(j, r):
     return torch.einsum("nik,ni->nk", j, r)
 
 
-def proj_blocks(problem: Problem, config: BAConfig, colm6) -> ProjBlocks:
-    """Evaluate + weight + column-mask the projection family."""
+def proj_blocks(problem: Problem, config: BAConfig, colm6,
+                mesh=None) -> ProjBlocks:
+    """Evaluate + weight + column-mask the projection family; with `mesh`
+    (rows sharded over its ranks), the robust median is the global one."""
     D_full, K, P, L, lm, _ = dims(problem, config)
     pe = reprojection.evaluate(problem, config, with_jacobians=True)
     pr = problem.proj
@@ -229,7 +231,7 @@ def proj_blocks(problem: Problem, config: BAConfig, colm6) -> ProjBlocks:
     err_sq_w = base_w * pe.err_sq
     if config.use_robust_norm_for_proj_residuals:
         w_rob = robust.huber_weights(err_sq_w, pr.valid, pr.cond,
-                                     config.outlier_threshold)
+                                     config.outlier_threshold, mesh)
     else:
         w_rob = torch.ones_like(base_w)
     w = base_w * w_rob
@@ -255,6 +257,14 @@ def proj_blocks(problem: Problem, config: BAConfig, colm6) -> ProjBlocks:
         pose=pose_m, ref=ref_pose, lm=pr.lm.long(),
         w=w, cost=torch.sum(w * pe.err_sq),
         j_c=pe.j_cal * sw * cm_k[None, None, :] if K else None)
+
+
+def local_wb_lm(wb_lm, L: int, lm_offset: int = 0):
+    """The W block table's landmark ids in a rank's chunk of L landmarks
+    starting at `lm_offset` (`parallel/shard.py`): ids outside the chunk
+    become the padding id L, which every consumer masks."""
+    wl = wb_lm.long() - lm_offset
+    return torch.where((wl >= 0) & (wl < L), wl, L)
 
 
 def schur_step(U, W, vinv, rhs_p, rhs_l, cmask=None, n=None):
@@ -526,18 +536,24 @@ def assemble(problem: Problem, config: BAConfig, imu_eval=None,
 
 
 def contribution(problem: Problem, config: BAConfig, imu_eval, cmask,
-                 plan: AssemblyPlan):
+                 plan: AssemblyPlan, mesh=None, lm_offset: int = 0):
     """The normal equations of the residual families before the Schur
     step and without the marginalization prior: (Contribution, effective
     projection weights).  The values of the seven segment sums, one
     grouped sum over `plan`, then the banded grid densified or the general
-    path's blocks scattered (`plan.band_width`)."""
+    path's blocks scattered (`plan.band_width`).
+
+    On a rank of a sharded solve (`parallel/shard.py`) the result is the
+    rank's partial sum over its rows: `mesh` makes the robust median
+    global, and with landmark-sharded rows `lm_offset` is the rank's first
+    landmark (the problem's `proj.lm` already chunk-local), so that W
+    holds the rank's landmark columns."""
     D, K, P, L, lm, N = dims(problem, config)
     B = plan.band_width
     dtype = problem.poses.t.dtype
     colm = cmask.to(dtype)
     colm6 = col_mask(problem, config, 6).to(dtype)
-    pb = proj_blocks(problem, config, colm6)
+    pb = proj_blocks(problem, config, colm6, mesh)
     cm_p = colm6[: P * 6].reshape(P, 6)
 
     ue = prior.evaluate_unary(problem, config, with_jacobians=True)
@@ -601,7 +617,7 @@ def contribution(problem: Problem, config: BAConfig, imu_eval, cmask,
         """W (n, L*lm) from its blocks at pose width `width`."""
         W = torch.zeros((n, L * lm), dtype=dtype, device=Wb.device)
         return _scatter_blocks(W, Wb, idx.wb_pose.long() * width,
-                               idx.wb_lm.long() * lm)
+                               local_wb_lm(idx.wb_lm, L, lm_offset) * lm)
 
     if B:
         grid = F.pad(sums[0], (0, D - 6, 0, D - 6))
@@ -639,10 +655,12 @@ def contribution(problem: Problem, config: BAConfig, imu_eval, cmask,
 
 
 def evaluate_cost(problem: Problem, config: BAConfig, imu_eval=None,
-                  proj_w=None):
+                  proj_w=None, mesh=None):
     """Total weighted squared error without Jacobians; `proj_w` carries
     the robust weights frozen at build time so a trial compares like
-    against like."""
+    against like.  With `mesh` (rows sharded over its ranks) the families'
+    sum is all-reduced and the marginalization prior, a replicated term,
+    counted once."""
     pe = reprojection.evaluate(problem, config, with_jacobians=False)
     pr = problem.proj
     if proj_w is None:
@@ -654,4 +672,6 @@ def evaluate_cost(problem: Problem, config: BAConfig, imu_eval=None,
     cost = cost + torch.sum(be.err_sq)
     if imu_eval is not None:
         cost = cost + torch.sum(imu_eval.err_sq)
+    if mesh is not None:
+        cost = mesh.all_reduce_sum(cost.reshape(1))[0]
     return cost + marg_cost(problem, config)

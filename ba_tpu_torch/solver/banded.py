@@ -47,8 +47,16 @@ landmarks each tile's rows and columns share (no dense W operand, no
 `bmm`); the Cholesky and the triangular solves stay `torch.linalg`.  Its plan (`fleet_dense_plan`) holds the families-only
 grid and kernel 10's block table.
 
-Not ported: the sharded layout (`lm_offset`, queue 1, distribution) and
-`_effective_pcg_iters`' TPU-only clamp: the PCG count is
+The landmark-sharded layout (`parallel/shard.py`): a rank's `band_S`
+takes `lm_offset`, the first landmark of its chunk, and `add_identity=False`;
+its W blocks of other ranks' landmarks sum to zero, so the ranks' bands
+all-reduce to the global one, and the masked-dim identity is added once
+after the reduction.  Unlike ba_tpu, whose sharded band always takes the
+pair path, a rank takes the grouped form (kernel 7) past the same gate
+(`grouped_schur`, evaluated on the rank's problem: the replicated pair
+table and its own landmark count).
+
+Not ported: `_effective_pcg_iters`' TPU-only clamp: the PCG count is
 `banded_pcg_iterations or 4`.
 """
 
@@ -110,10 +118,12 @@ def grouped_schur(problem: Problem, config: BAConfig) -> bool:
 
 
 def band_plan(problem: Problem, config: BAConfig, ids=None,
-              grouped: Optional[bool] = None) -> BandPlan:
+              grouped: Optional[bool] = None,
+              lm_offset: int = 0) -> BandPlan:
     """The plans of band_S for `problem` (0 < band_width <= P), on its
     device, with no host read.  `ids` is `assemble.sum_ids` of the problem
-    when the caller has it; `grouped` defaults to `grouped_schur`."""
+    when the caller has it; `grouped` defaults to `grouped_schur`;
+    `lm_offset` is a rank's first landmark (`band_S`)."""
     P, L = problem.poses.q.shape[0], problem.lms.x.shape[0]
     B = config.band_width
     if ids is None:
@@ -124,7 +134,9 @@ def band_plan(problem: Problem, config: BAConfig, ids=None,
     grid_ids, nseg = ids["grid"]
     schur = None
     if grouped:
-        schur = k7.schur_plan(idx.wb_pose, idx.wb_lm, P, L, B)
+        schur = k7.schur_plan(idx.wb_pose,
+                              asm.local_wb_lm(idx.wb_lm, L, lm_offset),
+                              P, L, B)
     else:
         grid_ids = torch.cat([grid_ids, _pair_seg(idx, P, B)])
     return BandPlan(grouped, segsum.build_plan(grid_ids, nseg),
@@ -208,7 +220,8 @@ def band_schur_plain(wb_pose, wb_lm, Wb, vinv, P: int, B: int):
 
 
 def _band_schur_grouped(idx, Wb, vinv, P: int, B: int,
-                        plan: Optional[k7.SchurPlan] = None):
+                        plan: Optional[k7.SchurPlan] = None,
+                        lm_offset: int = 0):
     """Banded Schur correction without the per-pair table: every
     landmark's observing poses span < B (the band contract), so its W blocks
     fit a local strip of B slots anchored at its first observing pose.
@@ -216,23 +229,26 @@ def _band_schur_grouped(idx, Wb, vinv, P: int, B: int,
     Wb_{a,l} V_l^-1 Wb_{a+d,l}^T (the quantity band_S subtracts).
 
     CUDA tensors go through kernel 7 on `plan` (built here when absent),
-    CPU tensors through `band_schur_plain`.
+    CPU tensors through `band_schur_plain`; the W blocks of landmarks
+    outside a rank's chunk (`lm_offset`) are padding.
 
     As in ba_tpu (ADVICE r5, `ba_tpu/solver/banded.py:116`): a W block whose
     slot i_loc falls at or past B is dropped as a whole row here, with all
     its pairs, where the pair path drops only the single pairs that reach
     past the band.  With `band_width = band_width_of(problem)` no block
     does."""
+    L = vinv.shape[0]
+    wb_lm = asm.local_wb_lm(idx.wb_lm, L, lm_offset)
     if Wb.is_cuda:
         if plan is None:
-            plan = k7.schur_plan(idx.wb_pose, idx.wb_lm, P, vinv.shape[0], B)
+            plan = k7.schur_plan(idx.wb_pose, wb_lm, P, L, B)
         return k7.band_schur(Wb, vinv, plan, P)
-    return band_schur_plain(idx.wb_pose, idx.wb_lm, Wb, vinv, P, B)
+    return band_schur_plain(idx.wb_pose, wb_lm, Wb, vinv, P, B)
 
 
 def band_S(problem: Problem, config: BAConfig, bs: cg_mod.BlockSystem,
            P: int, D: int, add_identity: bool = True,
-           plan: Optional[BandPlan] = None):
+           plan: Optional[BandPlan] = None, lm_offset: int = 0):
     """Schur-reduced band (P, B, D, D): band[p, d] = S[p, p+d] (d >= 0,
     diagonal blocks full/symmetric), with masked dims as identity rows.
 
@@ -242,20 +258,23 @@ def band_S(problem: Problem, config: BAConfig, bs: cg_mod.BlockSystem,
 
     `plan` defaults to the block system's band plan; a plan built for the
     other Schur form is rebuilt (the form is chosen here, at call time, from
-    `_GROUPED_SP_MIN`)."""
+    `_GROUPED_SP_MIN`).  A rank of the landmark-sharded layout passes its
+    `lm_offset` and `add_identity=False` (module docstring)."""
     B = config.band_width
     dtype = bs.rhs_sc.dtype
     grouped = grouped_schur(problem, config)
     if plan is None:
         plan = bs.plan.band
     if plan is None or plan.grouped != grouped:
-        plan = band_plan(problem, config, grouped=grouped)
+        plan = band_plan(problem, config, grouped=grouped,
+                         lm_offset=lm_offset)
     idx = problem.pidx
     Wb = bs.wb
     pd = (torch.arange(P, device=Wb.device)[:, None]
           + torch.arange(B, device=Wb.device)[None, :])
     if grouped:
-        corr = _band_schur_grouped(idx, Wb, bs.vinv, P, B, plan.schur)
+        corr = _band_schur_grouped(idx, Wb, bs.vinv, P, B, plan.schur,
+                                   lm_offset)
         band = _band_self_cross(bs, P, B, D, plan).reshape(P, B, D, D)
         band = band - F.pad(corr, (0, D - 6, 0, D - 6))
     else:
@@ -263,8 +282,8 @@ def band_S(problem: Problem, config: BAConfig, bs: cg_mod.BlockSystem,
         # a = pose_i <= b = pose_j, subtract Wb_i V^-1 Wb_j^T at band
         # segment (a, b - a), summed with the residual families
         L = bs.vinv.shape[0]
-        WbVi = torch.einsum("nkl,nlm->nkm", Wb,
-                            bs.vinv[idx.wb_lm.long().clamp(0, L - 1)])
+        wb_lm = asm.local_wb_lm(idx.wb_lm, L, lm_offset).clamp(max=L - 1)
+        WbVi = torch.einsum("nkl,nlm->nkm", Wb, bs.vinv[wb_lm])
         corr = torch.einsum("nkl,nql->nkq", WbVi[idx.sp_i.long()],
                             Wb[idx.sp_j.long()])
         corr = corr * idx.sp_valid[:, None, None].to(dtype)

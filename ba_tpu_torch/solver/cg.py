@@ -53,8 +53,17 @@ every `CG_CHECK_EVERY` (8) iterations to leave the loop: at most
 ceil(cg_max_iterations / 8) host syncs per build (12 at 100 iterations),
 and up to 7 masked iterations after convergence.
 
-Not ported here: the sharded layout (`axis_name`, `lm_offset`; ROADMAP.md
-queue 1, distribution).
+The landmark-sharded layout (`parallel/shard.py`, ba_tpu's `axis_name`
+and `lm_offset`): a rank passes its `mesh` and `lm_offset`, the first
+landmark of its chunk, with its `proj.lm` already chunk-local.  V, vinv,
+rhs_l and the back-substitution stay on the rank; `assemble_blocks`
+all-reduces rhs_p and the cost in one call, W V^-1 rhs_l with the
+preconditioner's diagonal blocks and Sc in another, and clips the W block
+table to the chunk (`assemble.local_wb_lm`); `s_matvec` all-reduces one
+(N,) vector per Schur product and `cauchy_factor` two scalars.  The
+marginalization prior is a replicated term, added once after each
+reduction.  Every value the PCG loop branches on is then replicated, so
+the ranks read the same stop test.
 """
 
 from __future__ import annotations
@@ -152,13 +161,14 @@ class BlockSystem(NamedTuple):
 
 def block_plan(problem: Problem, config: BAConfig, band: bool = False,
                fleet: bool = False, windows: int = 1,
-               schur: bool = False) -> BlockPlan:
+               schur: bool = False, lm_offset: int = 0) -> BlockPlan:
     """The plans of the sums through a block system of `problem`, on its
     device, with no host read; with `band`, also band_S's
     (`banded.band_plan`), with `fleet` those of the dense fleet solve
     (`banded.fleet_dense_plan`), with `schur` kernel 6's row order and the
     segsum plan of its rows (the CG path on the card); `windows` as
-    `step._reduced_path` found it.  Build it once per solve."""
+    `step._reduced_path` found it; `lm_offset` the first landmark of a
+    rank's chunk (band_S's plan).  Build it once per solve."""
     ids = asm.sum_ids(problem, config)
     P = problem.poses.q.shape[0]
     Nr = problem.proj.pose.shape[0]
@@ -169,7 +179,8 @@ def block_plan(problem: Problem, config: BAConfig, band: bool = False,
         from . import banded
 
         if band:
-            band_plan = banded.band_plan(problem, config, ids)
+            band_plan = banded.band_plan(problem, config, ids,
+                                         lm_offset=lm_offset)
         if fleet:
             fleet_plan = banded.fleet_dense_plan(problem, config, ids)
     rhs_ids = ids["rhs"][0]
@@ -288,7 +299,8 @@ def _u_apply(bs: BlockSystem, xm, P, D, K=0, marg_H=None):
 
 def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
                     with_precond: bool = True,
-                    plan: Optional[BlockPlan] = None):
+                    plan: Optional[BlockPlan] = None, mesh=None,
+                    lm_offset: int = 0):
     """Evaluate all residual families into weighted blocks, the Schur-
     reduced rhs and, with `with_precond`, the exact block-Jacobi
     preconditioner of S (the banded solvers do not need it).  Returns
@@ -297,7 +309,9 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     solve's `block_plan`; without one, the build makes its own (with
     kernel 6's on the card when `with_precond`, as the CG path's).  On the
     card a plan with `schur` lays out kernel 6's records (`pack`, one
-    launch)."""
+    launch).  `mesh` and `lm_offset`: a rank of the landmark-sharded
+    layout (module docstring); rhs_p, rhs_sc, the cost and the
+    preconditioner come out replicated."""
     D, K, P, L, lm, N = asm.dims(problem, config)
     on_card = problem.poses.t.is_cuda
     if plan is None:
@@ -308,7 +322,7 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     cm6 = colm6[: P * 6].reshape(P, 6)
     cmD = cmask[: P * D].reshape(P, D).to(dtype)
 
-    pb = asm.proj_blocks(problem, config, colm6)
+    pb = asm.proj_blocks(problem, config, colm6, mesh)
     ue = prior.evaluate_unary(problem, config, with_jacobians=True)
     u_pose = problem.unary.pose.long()
     ju = ue.j1 * cm6[u_pose][:, None, :]
@@ -347,6 +361,11 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
         yp = yp + sums[4]
     rhs_p = yp.reshape(-1)
     cost = pb.cost + torch.sum(ue.err_sq) + torch.sum(be.err_sq) + imu_cost
+    # the calibration gradient
+    rk = torch.einsum("nik,ni->k", pb.j_c, pb.r) if K else rhs_p[:0]
+    if mesh is not None:
+        red = mesh.all_reduce_sum(torch.cat([rhs_p, rk, cost[None]]))
+        rhs_p, rk, cost = red[: P * D], red[P * D: N], red[N]
 
     # marginalization prior: gradient + curvature (static-shape gate)
     marg = problem.marg
@@ -359,8 +378,8 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
         marg_H = H * colmD[:, None] * colmD[None, :]
         rhs_p = rhs_p + (H @ delta + marg.g * on) * colmD
         cost = cost + delta @ H @ delta + 2.0 * (marg.g * on) @ delta
-    if K:                                     # the calibration gradient
-        rhs_p = torch.cat([rhs_p, torch.einsum("nik,ni->k", pb.j_c, pb.r)])
+    if K:
+        rhs_p = torch.cat([rhs_p, rk])
 
     pack = None
     if on_card and plan.schur is not None:    # kernel 6's records
@@ -385,7 +404,8 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
         groups.append((torch.cat([
             _outer(pb.j_m, pb.j_m), _outer(pb.j_r, pb.j_r), _outer(ju, ju),
             _outer(jb1, jb1), _outer(jb2, jb2)]), plan.rhs))
-        wb_lm = problem.pidx.wb_lm.long().clamp(max=L - 1)
+        wb_lm = asm.local_wb_lm(problem.pidx.wb_lm, L,
+                                lm_offset).clamp(max=L - 1)
         groups.append((torch.einsum("nkl,nlm,nqm->nkq", Wb, vinv[wb_lm],
                                     Wb), plan.wb_pose))
         if ji1 is not None:
@@ -394,15 +414,31 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
         if K:
             groups.append((_outer(pb.j_c, pb.j_l), plan.V))
     sums = asm.seg_sum_groups(groups)
-    rhs_sc = torch.where(cmask, rhs_p - _w_finish(sums[0], D, w_cal), 0.0)
+    w_z0 = _w_finish(sums[0], D, w_cal)
+    if with_precond:
+        # --- exact block-Jacobi diagonal of S -------------------------
+        diag = F.pad(sums[1] - sums[2], (0, D - 6, 0, D - 6))
+        if ji1 is not None:
+            diag = diag + sums[3]
+        Wc = sums[-1] if K else None
+        if K:
+            # the calibration block of S: Uc - sum_l Wc_l V_l^-1 Wc_l^T
+            Sc = (torch.einsum("nik,nil->kl", pb.j_c, pb.j_c)
+                  - torch.einsum("lkm,lmn,lqn->kq", Wc, vinv, Wc))
+    if mesh is not None:
+        parts = [w_z0]
+        if with_precond:
+            parts += [diag.reshape(-1)] + ([Sc.reshape(-1)] if K else [])
+        red = mesh.all_reduce_sum(torch.cat(parts))
+        w_z0 = red[:N]
+        if with_precond:
+            diag = red[N: N + P * D * D].reshape(P, D, D)
+            if K:
+                Sc = red[N + P * D * D:].reshape(K, K)
+    rhs_sc = torch.where(cmask, rhs_p - w_z0, 0.0)
     if not with_precond:
         return bs._replace(rhs_sc=rhs_sc), marg_H
 
-    # --- exact block-Jacobi diagonal of S -----------------------------
-    diag = F.pad(sums[1] - sums[2], (0, D - 6, 0, D - 6))
-    if ji1 is not None:
-        diag = diag + sums[3]
-    Wc = sums[-1] if K else None
     if marg_H is not None:
         diag = diag + marg_H.reshape(P, D, P, D).diagonal(
             dim1=0, dim2=2).permute(2, 0, 1)
@@ -419,9 +455,6 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     dscale[: P * D] = dscale_p.reshape(-1)
     minv_cal = None
     if K:
-        # the calibration block of S: Uc - sum_l Wc_l V_l^-1 Wc_l^T
-        Sc = (torch.einsum("nik,nil->kl", pb.j_c, pb.j_c)
-              - torch.einsum("lkm,lmn,lqn->kq", Wc, vinv, Wc))
         dk = torch.clamp(torch.diagonal(Sc), min=1e-12)
         eye = torch.eye(K, dtype=dtype, device=mD.device)
         minv_cal = torch.linalg.inv_ex(Sc + lam * torch.diag(dk)
@@ -440,21 +473,28 @@ def back_substitute_blocks(bs: BlockSystem, delta_p, P, D, K=0):
     return torch.einsum("lij,lj->li", bs.vinv, resid).reshape(-1)
 
 
-def cauchy_factor(bs: BlockSystem, marg_H, P, D, K=0):
+def cauchy_factor(bs: BlockSystem, marg_H, P, D, K=0, mesh=None):
     """alpha = ||rhs||^2 / (rhs^T H rhs) over pose+landmark dims (the
     dogleg Cauchy step), through the blocks: U rp and W rl in one
-    launch."""
+    launch.  With `mesh` the landmark terms and the rows' quadratic are
+    all-reduced, the prior's term counted once."""
     L, lm, _ = bs.V.shape
     rl = bs.rhs_l.reshape(L, lm)
     rp = torch.where(bs.col_mask, bs.rhs_p, 0.0)
     groups, u_cal = _u_groups(bs, rp, P, D)
     w_group, w_cal = _w_group(bs, rl)
     sums = asm.seg_sum_groups(groups + [w_group])
-    Ur = _u_finish(sums[:len(groups)], rp, P, D, marg_H, u_cal)
+    Ur = _u_finish(sums[:len(groups)], rp, P, D,
+                   None if mesh is not None else marg_H, u_cal)
     Wrl = _w_finish(sums[-1], D, w_cal)
     den = (bs.rhs_p @ Ur + 2.0 * (bs.rhs_p @ Wrl)
            + torch.einsum("li,lij,lj->", rl, bs.V, rl))
-    num = torch.sum(bs.rhs_p ** 2) + torch.sum(bs.rhs_l ** 2)
+    num_l = torch.sum(bs.rhs_l ** 2)
+    if mesh is not None:
+        num_l, den = mesh.all_reduce_sum(torch.stack([num_l, den]))
+        if marg_H is not None:
+            den = den + rp[: P * D] @ (marg_H @ rp[: P * D])
+    num = torch.sum(bs.rhs_p ** 2) + num_l
     return num / torch.clamp(den, min=1e-30)
 
 
@@ -493,15 +533,21 @@ def _s_groups(bs: BlockSystem, xm, P, D):
     return groups, yk
 
 
-def s_matvec(bs: BlockSystem, x, P, D, K, lam, marg_H=None):
+def s_matvec(bs: BlockSystem, x, P, D, K, lam, marg_H=None, mesh=None):
     """(S + lam*diag(S)) x in the masked subspace; identity on masked
-    dims.  Two launches on the card: kernel 6, then segsum."""
+    dims.  Two launches on the card: kernel 6, then segsum.  With `mesh`
+    the rank's partial product is all-reduced (one (N,) vector), then the
+    replicated prior is applied."""
     xm = torch.where(bs.col_mask, x, 0.0)
     groups, yk = _s_groups(bs, xm, P, D)
     sums = asm.seg_sum_groups(groups)
     if K and yk is None:                  # kernel 6's tiles, summed
         yk = sums.pop().reshape(K)
-    y = _u_finish(sums, xm, P, D, marg_H, yk)
+    y = _u_finish(sums, xm, P, D, None if mesh is not None else marg_H, yk)
+    if mesh is not None:
+        mesh.all_reduce_sum(y)
+        if marg_H is not None:
+            y = torch.cat([y[: P * D] + marg_H @ xm[: P * D], y[P * D:]])
     y = y + lam * bs.dscale * xm
     return torch.where(bs.col_mask, y, x)
 
@@ -525,12 +571,13 @@ class PcgResult(NamedTuple):
 
 
 def pcg_solve(bs: BlockSystem, marg_H, config: BAConfig, P, D,
-              K=0) -> PcgResult:
+              K=0, mesh=None) -> PcgResult:
     """PCG on S x = rhs_sc from x = 0 until r.r <= (cg_tolerance |b|)^2
     or `cg_max_iterations`, as ba_tpu's while loop: the iterations past the
     stop are masked, and the host reads the stop test every
     `CG_CHECK_EVERY` iterations to leave the loop.  K is the calibration
-    block's width."""
+    block's width; with `mesh` each Schur product is all-reduced
+    (`s_matvec`) and every other vector of the loop is replicated."""
     dtype = bs.rhs_sc.dtype
     lam = 1e-8 if dtype == torch.float64 else 1e-4
     b = bs.rhs_sc
@@ -546,7 +593,7 @@ def pcg_solve(bs: BlockSystem, marg_H, config: BAConfig, P, D,
     while k < n_max:
         for _ in range(min(CG_CHECK_EVERY, n_max - k)):
             live = r @ r > tol2
-            Ap = s_matvec(bs, p, P, D, K, lam, marg_H)
+            Ap = s_matvec(bs, p, P, D, K, lam, marg_H, mesh)
             denom = p @ Ap
             alpha = torch.where(denom > 0,
                                 rz / torch.where(denom > 0, denom, 1.0), 0.0)
@@ -567,10 +614,11 @@ def pcg_solve(bs: BlockSystem, marg_H, config: BAConfig, P, D,
 
 
 def solve_reduced_cg(bs: BlockSystem, marg_H, config: BAConfig, P, D,
-                     K=0) -> GnStep:
+                     K=0, mesh=None) -> GnStep:
     """PCG on S delta_p = rhs_sc (`pcg_solve`), then landmark
-    back-substitution; `ok` is a finite iterate."""
-    x = pcg_solve(bs, marg_H, config, P, D, K).x
+    back-substitution (on the rank's own landmarks with `mesh`); `ok` is
+    a finite iterate."""
+    x = pcg_solve(bs, marg_H, config, P, D, K, mesh).x
     delta_p = torch.where(torch.isfinite(x), x, 0.0)
     delta_p = torch.where(bs.col_mask, delta_p, 0.0)
     delta_l = back_substitute_blocks(bs, delta_p, P, D, K)

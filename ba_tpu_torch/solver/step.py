@@ -147,12 +147,13 @@ class IterResult(NamedTuple):
     inner_trials: torch.Tensor
 
 
-def _cost(problem, config, use_imu, proj_w=None, imu_c9=None):
-    """Trial cost; `imu_c9` reuses the build's IMU covariance."""
+def _cost(problem, config, use_imu, proj_w=None, imu_c9=None, mesh=None):
+    """Trial cost; `imu_c9` reuses the build's IMU covariance; with `mesh`
+    (rows sharded over its ranks) the global cost."""
     return evaluate_cost(problem, config,
                          imu_eval=_imu_eval(problem, config, use_imu, False,
                                             c9=imu_c9),
-                         proj_w=proj_w)
+                         proj_w=proj_w, mesh=mesh)
 
 
 class BuildOut(NamedTuple):
@@ -302,9 +303,12 @@ def _cauchy_factor(asm: Assembly):
 
 
 def apply_robust_reweighting(problem: Problem, config: BAConfig,
-                             use_imu: bool) -> Problem:
+                             use_imu: bool, mesh=None) -> Problem:
     """Persistent robust rescaling of unary/IMU information (IMU scale
-    from IMU errors; conditioning IMU edges exempt)."""
+    from IMU errors; conditioning IMU edges exempt).  With `mesh` (the
+    unary and IMU rows sharded over its ranks) the medians are global:
+    ba_tpu's jit-level SPMD inserts those gathers, here they are
+    explicit."""
     from ..core import robust
 
     if config.use_robust_norm_for_unary_residuals:
@@ -313,7 +317,7 @@ def apply_robust_reweighting(problem: Problem, config: BAConfig,
         ue = prior_mod.evaluate_unary(problem, config, with_jacobians=False)
         w = robust.huber_weights(ue.err_sq, problem.unary.valid,
                                  torch.zeros_like(problem.unary.valid),
-                                 config.outlier_threshold)
+                                 config.outlier_threshold, mesh)
         unary = dataclasses.replace(
             problem.unary, cov_inv=problem.unary.cov_inv * w[:, None, None])
         problem = dataclasses.replace(problem, unary=unary)
@@ -321,7 +325,8 @@ def apply_robust_reweighting(problem: Problem, config: BAConfig,
     if use_imu and config.use_robust_norm_for_inertial_residuals:
         ie = _imu_eval(problem, config, True, False)
         w = robust.huber_weights(ie.err_sq, problem.imu.valid,
-                                 problem.imu.cond, config.outlier_threshold)
+                                 problem.imu.cond, config.outlier_threshold,
+                                 mesh)
         w = torch.where(problem.imu.cond, 1.0, w)
         imu = dataclasses.replace(problem.imu,
                                   weight=problem.imu.weight * w)
@@ -357,19 +362,35 @@ def gn_iteration(problem: Problem, config: BAConfig, use_imu: bool,
                                               device=post.device))
 
 
+def _step_sums(d_gn, d_sd, Np, mesh):
+    """(|d_gn|, |d_sd|, |dd|^2, d_sd . dd), dd = d_gn - d_sd, of steps
+    [pose (Np) | landmarks]; with `mesh` the landmark part is the rank's
+    own, its sums all-reduced in one call."""
+    dd = d_gn - d_sd
+    if mesh is None:
+        return (torch.linalg.norm(d_gn), torch.linalg.norm(d_sd),
+                torch.sum(dd * dd), torch.sum(d_sd * dd))
+    parts = torch.stack([d_gn * d_gn, d_sd * d_sd, dd * dd, d_sd * dd])
+    tot = parts[:, :Np].sum(dim=1) + mesh.all_reduce_sum(
+        parts[:, Np:].sum(dim=1))
+    return torch.sqrt(tot[0]), torch.sqrt(tot[1]), tot[2], tot[3]
+
+
 def dogleg_search(problem: Problem, config: BAConfig, use_imu: bool,
-                  trust_radius, d_gn, d_sd, pre_cost, proj_w, imu_c9, Np):
+                  trust_radius, d_gn, d_sd, pre_cost, proj_w, imu_c9, Np,
+                  mesh=None):
     """Bounded dogleg trust-region search given the GN and Cauchy steps.
-    One host read per trial.  Returns (radius, ok, d, post, n_trials)."""
-    norm_gn = torch.linalg.norm(d_gn)
-    norm_sd = torch.linalg.norm(d_sd)
+    One host read per trial.  Returns (radius, ok, d, post, n_trials).
+    With `mesh` (a rank of the landmark-sharded solve: the landmark part
+    of the steps is its own) the norms and trial costs are global, so
+    every rank reads the same accept."""
+    norm_gn, norm_sd, a, sdd = _step_sums(d_gn, d_sd, Np, mesh)
     radius = torch.where(trust_radius <= 0, norm_gn, trust_radius)
 
     def propose(radius):
         sd = d_sd * (radius / torch.clamp(norm_sd, min=1e-30))
         dd = d_gn - d_sd
-        a = torch.sum(dd * dd)
-        bq = 2.0 * torch.sum(d_sd * dd)
+        bq = 2.0 * sdd
         cq = norm_sd**2 - radius**2
         disc = torch.sqrt(torch.clamp(bq * bq - 4 * a * cq, min=0.0))
         beta = (-bq + disc) / torch.clamp(2 * a, min=1e-30)
@@ -384,7 +405,7 @@ def dogleg_search(problem: Problem, config: BAConfig, use_imu: bool,
     while k < config.dogleg_max_inner_iterations:
         d = propose(radius)
         cand = apply_update(problem, config, d[:Np], d[Np:])
-        post = _cost(cand, config, use_imu, proj_w, imu_c9)
+        post = _cost(cand, config, use_imu, proj_w, imu_c9, mesh)
         ok = post < pre_cost
         radius = torch.where(ok, radius * 2.0, radius * 0.5)
         k += 1
@@ -446,6 +467,24 @@ def solve_fixed(problem: Problem, config: BAConfig, use_imu: bool,
         costs.append(res.post_cost)
         dns.append(res.delta_norm)
     return problem, torch.stack(costs), torch.stack(dns)
+
+
+def solve_fleet(problems: Problem, config: BAConfig, use_imu: bool,
+                n_iters: int, gn_damping: float = 1.0):
+    """`solve_fixed` of every window of a stacked fleet (`core.problem.
+    stack_problems`, leading axis B), each with its own robust medians,
+    trust region and costs: ba_tpu's vmap, a loop over the windows here
+    (the fused `concat_problems` route is the fast one).  Returns the
+    stacked (problems, costs (B, n_iters), delta_norms (B, n_iters))."""
+    from ..core.problem import stack_problems
+    from ..utils.tree import tree_map
+
+    outs = [solve_fixed(tree_map(lambda a: a[b], problems), config, use_imu,
+                        n_iters, gn_damping)
+            for b in range(problems.poses.q.shape[0])]
+    return (stack_problems([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]))
 
 
 # OptimizationResult codes (reference enum); mapped to Summary.result.

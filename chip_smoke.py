@@ -272,14 +272,47 @@ Phases, each of which exits non-zero when a check fails:
      a poly3 lens: kernel 1's calibration columns (lm_size 3, K = 11,
      poly3) against their plain version and timed at its last stage's
      problem, then the checks of 24 from a lens moved in fx, fy, cx, cy
-     and k1 (24 also holds the final mse below the start's).
+     and k1 (24 also holds the final mse below the start's);
+ 38. mesh_small: the sharded solves (ba_tpu_torch/parallel/) on a world of
+     two spawned ranks sharing cuda:0 over gloo (NCCL refuses two ranks on
+     one GPU), f64, on the CPU tests' problems built by the port (8 poses,
+     32 landmarks, an active random prior; 16 poses with a band, with and
+     without a prior, the IMU rows with robust weights): the row-sharded
+     GN, the landmark-sharded dense GN and dogleg, the PCG GN and dogleg,
+     the banded GN and the banded Schur band with the prior, three
+     iterations each, against the port's single-card route on the CPU at
+     TOL_SMALL, the ranks' replicated outputs the same bits; then a world
+     of one rank on NCCL (this process) with the dense GN at TOL_SMALL;
+ 39. mesh: f32 at full width over the two gloo ranks, each configuration
+     laid out by landmark: the flagship's GN-25 and dogleg (as many
+     iterations as 7 took), the PCG cell's GN-10 (16) and the long
+     trajectory's GN-10 (14, kernel 7 past its gate on each rank): cost
+     and ATE fall, each ATE at most twice the single-card f32 ATE of 6, 7,
+     17 and 14; ms per iteration at two ranks and, timed by rank 0 alone,
+     at one (`Mesh.single`: the sharded code with no communication),
+     all-reduce calls and bytes per iteration, the collectives' share of an
+     iteration (a synchronize around each), host reads per iteration, each
+     rank's build path and kernel launches.  Two ranks on one card measure
+     no scaling;
+ 40. fleet_mesh: `apps/fleet_serve.py --mesh 2` of 8 windows of 64
+     keyframes (GN-10), every window the same bits as `step.solve_fleet`
+     of the same windows here, its ATE falling; then `sharded_ring_fleet`
+     of 4 rings of the serving stream (build seeds 8-11, each its first 40
+     keyframes: 31 slides), 2 a rank, each the same bits as the same ring
+     run alone in the other rank's process, its ATE falling, keyframes
+     retired per second.  Every spawned world finishes within 600 s
+     (`parallel/mesh.py:spawn`; its join and each collective within
+     120 s) or every rank is killed and the phase fails.
 
 K2 launches are counted on every path (one (a) per build, one (b) per
 trial cost; phase 11 counts one device operation per IMU evaluation, its
 whitening included); K5 on every dense path (one per build, and one per
 marginalization), K11 once per marginalization, both none on the banded,
 PCG and fused-fleet solvers; K5b once per dense build on the banded grid
-(gn, dogleg, gps_batch, vins_csv), none on the banded solver.  The last
+(gn, dogleg, gps_batch, vins_csv), none on the banded solver; each
+kernel's `launches_mesh_rank0` counts rank 0's launches in the timed runs
+of 39 (every kernel of the single-card routes but K10 and K11, which no
+sharded route runs).  The last
 lines are the `kernels` JSON line, the card's name and power limit, and
 {"ok": true, "device": {...}}.  Without a CUDA device, or when
 `ba_tpu_torch` is not next to this script, it exits non-zero before
@@ -296,6 +329,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1202,7 +1236,8 @@ def phase_dogleg(p32, cfg, sim, smi, n_plan_syncs, label=""):
         f"(counted reads {reads})")
     say(f"PHASE {label}dogleg ok")
     return dict(k1=k1, k2=k2, imu=ia + ib, imu_a=ia, imu_b=ib, k5=k5,
-                k11=k11, k5b=k5b, kf_s=kf, syncs=syncs, iters=s.iterations)
+                k11=k11, k5b=k5b, kf_s=kf, syncs=syncs, iters=s.iterations,
+                ate=ate1)
 
 
 def _compare(pairs, what, tol):
@@ -1956,7 +1991,8 @@ def phase_long(p, cfg, sim, smi):
                 k5=k5, k11=k11, k8=k8, k5b=k5b,
                 kf_s=kf, ms_iter=secs * 1e3 / n,
                 peak_gib=peak / 2**30, peak_dense_gib=peak_d / 2**30,
-                syncs=syncs - plan_again, gap_p=got_p, gap_l=got_l)
+                syncs=syncs - plan_again, gap_p=got_p, gap_l=got_l,
+                ate=ate1)
 
 
 def _parent_kernels():
@@ -3363,7 +3399,7 @@ def phase_cg(p, cfg, sim, smi):
                 imu_b=ib,
                 k5=k5, k11=k11, kf_s=kf, ms_iter=secs * 1e3 / n,
                 peak_gib=peak / 2**30, cg_iters=its, syncs_per_build=pcg_reads,
-                gap_p=got_p, gap_l=got_l)
+                gap_p=got_p, gap_l=got_l, ate=ate1)
 
 
 # ---------------------------------------------------------------------------
@@ -6148,6 +6184,554 @@ def phase_camera_reference():
     say("PHASE camera_reference ok")
 
 
+# ---------------------------------------------------------------------------
+# Distribution: the sharded solves over torch.distributed (parallel/)
+# ---------------------------------------------------------------------------
+
+# ranks of the mesh phases (their `size`): on one card they share cuda:0
+# over gloo (NCCL refuses two ranks on one GPU) and measure no scaling;
+# with a card per rank each takes its own over NCCL
+# (`parallel/mesh.py:backend_for`; profile_port.py --mesh N passes N)
+MESH_RANKS = 2
+# seconds the app of fleet_mesh may take (its launcher waits for its ranks
+# `mesh.SPAWN_TIMEOUT_S`, 600 s, as `spawn_mesh` does)
+MESH_TIMEOUT_S = 660
+# mesh_small, f64: the CPU tests' problems built by the port, three
+# iterations of each route; name: (kind, problem, config changes, use_imu)
+MESH_SMALL_ITERS = 3
+MESH_SMALL_CG = dict(use_cg_solver=True, cg_max_iterations=400,
+                     cg_tolerance=1e-12)
+MESH_SMALL_CASES = {
+    "rows_gn": ("rows", "A", {}, False),
+    "dense_gn": ("lm", "A", {}, False),
+    "dense_dogleg": ("lm", "A", dict(use_dogleg=True), False),
+    "cg_gn": ("lm", "A", MESH_SMALL_CG, False),
+    "cg_dogleg": ("lm", "A", dict(MESH_SMALL_CG, use_dogleg=True), False),
+    "banded_gn": ("lm", "B", {}, False),
+    "banded_prior_imu_gn": ("lm", "C", dict(
+        use_robust_norm_for_inertial_residuals=True), True),
+}
+# the full-width configurations of the mesh phase, f32: the flagship (GN
+# and dogleg), the PCG cell, the long trajectory (banded solver); the
+# collective share is timed over MESH_SHARE_ITERS iterations with a
+# synchronize around each collective
+MESH_SHARE_ITERS = 3
+# fleet_mesh: the app's sharded fleet and the serving stream's rings
+MESH_FLEET = dict(vehicles=8, poses=64, iters=10)
+MESH_RINGS = dict(rings=4, keyframes=STREAM_MANY["keyframes"])
+
+
+def mesh_small_problem(name, device, n_shards):
+    """(prepared f64 problem laid out over `n_shards` shards, config) of
+    the CPU tests' problems (tests/test_torch_shard.py), built by the port
+    on `device`: A simulate(8, 32), a random active prior; B simulate(16,
+    40, speed 3), no prior, banded solver; C B with a random prior under
+    `schur_on_band`."""
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.parallel.partition import partition_by_landmark
+    from ba_tpu_torch.solver.assemble import band_width_of
+
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    if name == "A":
+        sim = sv.simulate(n_poses=8, n_lms=32, seed=0)
+        p, _, _ = sv.build_problem(sim, cfg, perturb=0.02, seed=1,
+                                   device=device)
+        p = _random_prior(p, 0.05, 1)
+    else:
+        sim = sv.simulate(n_poses=16, n_lms=40, seed=0, speed=3.0)
+        p, _, _ = sv.build_problem(sim, cfg, perturb=0.01, seed=1,
+                                   device=device,
+                                   with_marg_prior=name == "C")
+        cfg = dataclasses.replace(cfg, band_width=band_width_of(p),
+                                  use_banded_solver=name == "B",
+                                  schur_on_band=name == "C")
+        if name == "C":
+            p = _random_prior(p, 0.05, 1)
+    p = partition_by_landmark(p, cfg, n_shards)
+    return prepare_landmarks(p, cfg), cfg
+
+
+def _mesh_iterations(p, cfg, use_imu, n, mesh, kind):
+    """n iterations of a route on the rank's shard (`mesh`) or, without
+    one, the port's single-card route; returns the per-iteration costs and
+    step norms, the final poses and landmarks (the rank's own with a
+    landmark-sharded mesh)."""
+    import torch
+
+    from ba_tpu_torch.parallel import shard
+    from ba_tpu_torch.solver import step
+
+    if mesh is not None:
+        p = shard.shard_problem(p, mesh, landmark_sharded=kind != "rows")
+    trust = torch.full((), cfg.trust_region_size, dtype=p.poses.t.dtype,
+                       device=p.poses.t.device)
+    costs, dns = [], []
+    for _ in range(n):
+        if mesh is None:
+            r = (step.dogleg_iteration(p, cfg, use_imu, trust)
+                 if cfg.use_dogleg else step.gn_iteration(p, cfg, use_imu))
+        elif kind == "rows":
+            r = shard.sharded_gn_iteration(p, cfg, use_imu, mesh)
+        elif cfg.use_dogleg:
+            r = shard.sharded_dogleg_iteration_lm(p, cfg, use_imu, mesh,
+                                                  trust)
+        else:
+            r = shard.sharded_gn_iteration_lm(p, cfg, use_imu, mesh)
+        p, trust = r.problem, r.trust_radius
+        costs.append(r.post_cost)
+        dns.append(r.delta_norm)
+    return dict(costs=torch.stack(costs).cpu(), dns=torch.stack(dns).cpu(),
+                q=p.poses.q.cpu(), t=p.poses.t.cpu(), v=p.poses.v.cpu(),
+                lms=p.lms.x.cpu())
+
+
+def mesh_small_job(mesh):
+    """A rank of mesh_small: every route of MESH_SMALL_CASES on its shard
+    of the f64 problems, on the card."""
+    out = {}
+    for name, (kind, prob, changes, use_imu) in MESH_SMALL_CASES.items():
+        p, cfg = mesh_small_problem(prob, mesh.device, mesh.size)
+        cfg = dataclasses.replace(cfg, **changes)
+        mesh.reset_stats()
+        out[name] = _mesh_iterations(p, cfg, use_imu, MESH_SMALL_ITERS, mesh,
+                                     kind)
+        out[name]["collectives"] = dict(mesh.stats)
+    return out
+
+
+def _mesh_launches():
+    """Kernel launches since `_counters_zero` (a rank's own)."""
+    from ba_tpu_torch.kernels import schur_matvec, schur_finish
+
+    k1, k2, reads = _counters()
+    ia, ib = _imu_counters()
+    k7, k9 = _band_counters()
+    k8 = _k8_counters()
+    return dict(reprojection=k1, segsum=k2, imu_preint=ia + ib,
+                schur_finish=schur_finish.schur_finish.launches,
+                band_to_dense=_k5b_count(),
+                schur_matvec=schur_matvec.schur_matvec.launches,
+                schur_pack=schur_matvec.schur_pack.launches,
+                band_schur=k7, band_matvec=k9,
+                chunk_layout=k8["chunk_layout"],
+                chunk_factor=k8["bcr_factor"] + k8["scan_factor"],
+                chunk_solve=k8["bcr_solve"] + k8["scan_solve"], reads=reads)
+
+
+def _mesh_path(p, cfg):
+    """The build path a rank's sharded solve takes."""
+    from ba_tpu_torch.parallel import shard
+    from ba_tpu_torch.solver import banded
+
+    path = shard._path(p, cfg)
+    if path == "dense":
+        return "dense: K5 Schur piece, dense Cholesky"
+    if path == "cg":
+        return "cg: K6 + segsum per Schur product"
+    form = ("grouped (K7)" if banded.grouped_schur(p, cfg)
+            else "pair table (no K7)")
+    return f"{path}: band_S {form}, K8 + K9"
+
+
+def _mesh_solve(local, cfg, sim, n, mesh):
+    """A timed sharded_solve_fixed of n iterations after a 2-iteration
+    warm-up: ms per iteration, collective calls and bytes per iteration,
+    host reads per iteration, kernel launches; then MESH_SHARE_ITERS
+    iterations with every collective timed between synchronizes (the
+    collectives' share of an iteration)."""
+    import torch
+
+    from ba_tpu_torch.parallel import shard
+    from ba_tpu_torch.solver import step
+
+    use_imu = True
+    chunk = shard._localize(local, shard._offset(local, mesh))
+    cost0 = float(step._cost(chunk, cfg, use_imu, mesh=mesh))
+    shard.sharded_solve_fixed(local, cfg, use_imu, mesh, 2)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    mesh.reset_stats()
+    _counters_zero()
+    t0 = time.perf_counter()
+    p, costs, dns = shard.sharded_solve_fixed(local, cfg, use_imu, mesh, n)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _mesh_launches()
+    stats = dict(mesh.stats)
+    mesh.reset_stats()
+    mesh.timed = True
+    t0 = time.perf_counter()
+    shard.sharded_solve_fixed(local, cfg, use_imu, mesh, MESH_SHARE_ITERS)
+    torch.cuda.synchronize()
+    share = mesh.stats["seconds"] / (time.perf_counter() - t0)
+    mesh.timed = False
+    return dict(ms_iter=secs * 1e3 / n, calls_iter=stats["calls"] / n,
+                bytes_iter=stats["bytes"] / n, share=share,
+                reads_iter=launches.pop("reads") / n, launches=launches,
+                cost0=cost0, costs=costs.double().cpu(),
+                ate0=_ate(local, sim), ate=_ate(p, sim), finite=_finite(p),
+                path=_mesh_path(chunk, cfg))
+
+
+def mesh_job(mesh, dogleg_iters):
+    """A rank of the mesh phase: the flagship (GN-25 and dogleg), the PCG
+    cell and the long trajectory at full width in f32, each laid out by
+    landmark over the ranks; then rank 0 times each at one rank
+    (`Mesh.single`, the sharded code with no communication) while the
+    other ranks wait."""
+    import torch
+
+    from ba_tpu_torch.parallel import shard
+    from ba_tpu_torch.parallel.mesh import Mesh
+    from ba_tpu_torch.parallel.partition import partition_by_landmark
+
+    out, whole = {}, {}
+    configs = [("flagship GN", N_ITERS), ("flagship dogleg", dogleg_iters),
+               ("PCG GN", CG["iters"]), ("long GN", LONG["iters"])]
+    for name, n in configs:
+        if name == "flagship GN":
+            _, p, cfg, sim = flagship()
+            cfg = dataclasses.replace(cfg, use_dogleg=False)
+        elif name == "flagship dogleg":
+            cfg = dataclasses.replace(cfg, use_dogleg=True)
+        elif name == "PCG GN":
+            p, cfg, sim = cg_problem()
+        else:
+            p, cfg, sim = long_problem()
+        if name != "flagship dogleg":
+            g = partition_by_landmark(p, cfg, mesh.size)
+            del p
+            local = shard.shard_problem(g, mesh, landmark_sharded=True)
+        out[name] = _mesh_solve(local, cfg, sim, n, mesh)
+        if mesh.rank == 0:
+            one = Mesh.single(mesh.device)
+            r = _mesh_solve(shard.shard_problem(g, one, landmark_sharded=True),
+                            cfg, sim, n, one)
+            whole[name] = dict(ms_iter=r["ms_iter"], ate=r["ate"])
+        mesh.barrier()                      # the others wait for rank 0
+    out["one_rank"] = whole
+    return out
+
+
+def rings_job(mesh):
+    """A rank of fleet_mesh's ring fleet: MESH_RINGS rings of the serving
+    stream (stream_problem, build seeds 8 + m), each its first keyframes;
+    the rank's rings through `sharded_ring_fleet` (timed), then
+    the other ranks' rings run here alone (`fixedlag.run_ring`) for the
+    bit-for-bit check across processes."""
+    import torch
+
+    from ba_tpu_torch.apps.vins_stream import stream_problem
+    from ba_tpu_torch.parallel import shard
+    from ba_tpu_torch.solver import fixedlag
+
+    R, G, W = MESH_RINGS["rings"], MESH_RINGS["keyframes"], STREAM["window"]
+    scheds, ate0 = [], []
+    for m in range(R):
+        p, cfg, sim = stream_problem(STREAM["poses"], STREAM["lms"],
+                                     seed=8 + m)
+        scheds.append(fixedlag.build_ring_schedule(p, cfg, W, G - W + 1))
+        ate0.append(_ate_first(p.poses.t, sim, G - W + 1))
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    rings = shard.sharded_ring_fleet(scheds, cfg, True, mesh,
+                                     STREAM["iters"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = R // mesh.size
+    mine = range(mesh.rank * n, (mesh.rank + 1) * n)
+    alone = {m: {k: v.cpu() for k, v in fixedlag.run_ring(
+        scheds[m], cfg, True, STREAM["iters"])[1].items()}
+        for m in range(R) if m not in mine}
+    return dict(outs={m: {k: v.cpu() for k, v in outs.items()}
+                      for m, (_, outs) in zip(mine, rings)},
+                alone=alone, secs=secs, ate0=ate0,
+                ate={m: _ate_first(outs["t"], sim, G - W + 1)
+                     for m, (_, outs) in zip(mine, rings)})
+
+
+def _ate_first(t, sim, n):
+    from ba_tpu_torch.io import simulate_vins as sv
+
+    return sv.ate(None, t[:n].double().cpu().numpy(), None, sim.t_wv[:n])
+
+
+MESH_JOBS = dict(mesh_small=mesh_small_job, mesh=mesh_job,
+                 rings=rings_job)
+
+
+def _mesh_rank(rank, size, init_method, out_dir, job, kw):
+    """One rank of a spawned world on the card: joins it (gloo when the
+    ranks share cuda:0), runs MESH_JOBS[job] and saves its result; its
+    output goes to rank<r>.log in `out_dir`."""
+    import torch
+
+    from ba_tpu_torch.parallel.mesh import Mesh, rank_device
+
+    out_dir = Path(out_dir)
+    with open(out_dir / f"rank{rank}.log", "w") as log:
+        sys.stdout = sys.stderr = log
+        torch.set_num_threads(2)
+        mesh = Mesh.init(rank, size, rank_device("cuda", rank), init_method)
+        try:
+            res = MESH_JOBS[job](mesh, **kw)
+            res["backend"], res["device"] = mesh.backend, str(mesh.device)
+            torch.save(res, out_dir / f"rank{rank}.pt")
+        finally:
+            mesh.close()
+
+
+def world_text(ranks):
+    """How a world's ranks sat: "2 gloo ranks sharing cuda:0 (no scaling
+    measured)" or "4 nccl ranks on 4 cards"."""
+    devs = sorted({r["device"] for r in ranks})
+    where = (f"sharing {devs[0]} (no scaling measured)" if len(devs) == 1
+             else f"on {len(devs)} cards")
+    return f"{len(ranks)} {ranks[0]['backend']} ranks {where}"
+
+
+def spawn_mesh(job, size, **kw):
+    """Run MESH_JOBS[job] on a world of `size` ranks on the card
+    (`parallel/mesh.py:spawn`); returns [each rank's result].  On a rank's
+    failure or the spawn's timeout every rank is killed and the phase
+    fails with the ranks' logs."""
+    import torch
+
+    from ba_tpu_torch.parallel.mesh import spawn
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        try:
+            spawn(_mesh_rank, size, (tmp, job, kw))
+        except RuntimeError as e:
+            for r in range(size):
+                log = Path(tmp) / f"rank{r}.log"
+                if log.exists():
+                    say(f"--- {job} rank {r} log (end) ---\n"
+                        + log.read_text()[-3000:])
+            check(False, f"{job}: {str(e)[-3000:]}")
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(size)]
+
+
+def _same_bits(a, b):
+    import torch
+
+    if isinstance(a, dict):
+        return all(_same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def phase_mesh_small(smi, size=MESH_RANKS):
+    """mesh_small, f64: every sharded route on `size` spawned ranks (on
+    one card two gloo ranks sharing it) against the port's single-card
+    route on the CPU at TOL_SMALL, the replicated outputs the same bits on
+    every rank; then a world of one rank on NCCL (the dense GN) against the
+    same CPU reference."""
+    import torch
+    import torch.distributed as dist
+
+    from ba_tpu_torch.parallel.mesh import Mesh, backend_for, free_port
+
+    t0 = time.perf_counter()
+    ranks = spawn_mesh("mesh_small", size)
+    secs = time.perf_counter() - t0
+    world = world_text(ranks)
+    want_backend = backend_for("cuda", size)
+    check(all(r["backend"] == want_backend for r in ranks),
+          f"mesh_small: backends {[r['backend'] for r in ranks]}, not "
+          f"{want_backend}")
+    refs = {}
+    for name, (kind, prob, changes, use_imu) in MESH_SMALL_CASES.items():
+        p, cfg = mesh_small_problem(prob, "cpu", size)
+        cfg = dataclasses.replace(cfg, **changes)
+        want = _mesh_iterations(p, cfg, use_imu, MESH_SMALL_ITERS, None,
+                                kind)
+        refs[name] = want
+        outs = [r[name] for r in ranks]
+        a = outs[0]
+        lms = a["lms"] if kind == "rows" else torch.cat(
+            [o["lms"] for o in outs])
+        errs = {k: rel_err(a[k], want[k])[1] for k in ("costs", "dns", "q",
+                                                       "t", "v")}
+        errs["lms"] = rel_err(lms, want["lms"])[1]
+        keys = ("costs", "dns", "q", "t", "v") + (
+            ("lms",) if kind == "rows" else ())
+        same = all(torch.equal(a[k], o[k]) for o in outs[1:] for k in keys)
+        say(f"mesh_small {name} f64 ({kind}, {world}): "
+            f"cost {float(want['costs'][0]):.6g} -> "
+            f"{float(a['costs'][-1]):.6g}; card vs CPU single-card route "
+            + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+            + f"; ranks bit-identical {same}; collectives "
+            f"{a['collectives']['calls']} calls, "
+            f"{a['collectives']['bytes']} bytes")
+        check(max(errs.values()) <= TOL_SMALL, f"mesh_small {name}: card "
+              f"vs CPU {max(errs.values()):.3g} > {TOL_SMALL}")
+        check(same, f"mesh_small {name}: the ranks' replicated outputs "
+              f"differ")
+    # a world of one rank on NCCL (NCCL only with a card per rank)
+    say(f"mesh_small: torch.distributed.is_nccl_available() "
+        f"{dist.is_nccl_available()}, NCCL {torch.cuda.nccl.version()}")
+    mesh = Mesh.init(0, 1, torch.device("cuda", 0),
+                     f"tcp://127.0.0.1:{free_port()}")
+    try:
+        check(mesh.backend == "nccl", f"mesh_small: one rank took "
+              f"{mesh.backend}, not nccl")
+        p, cfg = mesh_small_problem("A", "cuda", size)
+        got = _mesh_iterations(p, cfg, False, MESH_SMALL_ITERS, mesh, "lm")
+        calls = mesh.stats["calls"]
+    finally:
+        mesh.close()
+    want = refs["dense_gn"]
+    err = max(rel_err(got[k], want[k])[1] for k in ("costs", "dns", "q",
+                                                    "t", "lms"))
+    say(f"mesh_small dense_gn f64 on a world of one NCCL rank: card vs CPU "
+        f"{err:.2e}, {calls} collectives")
+    check(err <= TOL_SMALL, f"mesh_small NCCL: {err:.3g} > {TOL_SMALL}")
+    say(f"[{smi}] PHASE mesh_small ok ({secs:.1f} s for the world of "
+        f"{world}, spawn included)")
+
+
+def phase_mesh(smi, dogleg_iters, single_ate=None, size=MESH_RANKS):
+    """mesh, f32, full width, on `size` spawned ranks (on one card two
+    gloo ranks sharing it: no scaling): the flagship's GN-25 and dogleg
+    (`dogleg_iters` iterations), the PCG cell's GN-10 and the long
+    trajectory's GN-10 on the landmark-sharded routes.  Cost and ATE fall;
+    with `single_ate` ({configuration: the single-card f32 ATE of this
+    run}) each ATE is at most twice it.  Prints ms per iteration on the
+    ranks and at one rank, collectives per iteration, their share, host
+    reads, each rank's build path.  Returns ({configuration: figures},
+    rank 0's kernel launches)."""
+    t0 = time.perf_counter()
+    ranks = spawn_mesh("mesh", size, dogleg_iters=dogleg_iters)
+    secs = time.perf_counter() - t0
+    world = world_text(ranks)
+    n = len(ranks)
+    rows, launches = {}, {}
+    for name in ("flagship GN", "flagship dogleg", "PCG GN", "long GN"):
+        rs = [r[name] for r in ranks]
+        r0, one = rs[0], ranks[0]["one_rank"][name]
+        costs = r0["costs"]
+        bound = "" if single_ate is None else (
+            f"; single-card route {single_ate[name]:.6g}")
+        say(f"[{smi}] mesh {name} f32 over {world}: cost "
+            f"{r0['cost0']:.6g} -> {float(costs[-1]):.6g}, ATE "
+            f"{r0['ate0']:.6g} -> {r0['ate']:.6g} m (one rank "
+            f"{one['ate']:.6g}{bound}); ms per iteration "
+            + " / ".join(f"{r['ms_iter']:.1f}" for r in rs)
+            + f" on the {n} ranks, {one['ms_iter']:.1f} at one rank; "
+            f"all-reduces {r0['calls_iter']:.1f} per iteration, "
+            f"{r0['bytes_iter'] / 1e6:.3f} MB per iteration; collectives "
+            + " / ".join(f"{100 * r['share']:.1f}" for r in rs)
+            + f" % of an iteration; host reads {r0['reads_iter']:.2f} per "
+            f"iteration (over gloo each all-reduce of a CUDA tensor is a "
+            f"host sync too); paths "
+            + "; ".join(f"rank {k} {r['path']}" for k, r in enumerate(rs))
+            + f"; launches rank 0 {r0['launches']}")
+        check(all(r["finite"] for r in rs), f"mesh {name}: non-finite")
+        check(all(_same_bits(r0["costs"], r["costs"]) for r in rs[1:]),
+              f"mesh {name}: the ranks' costs differ")
+        check(float(costs[-1]) < r0["cost0"],
+              f"mesh {name}: cost did not fall")
+        check(r0["ate"] < r0["ate0"], f"mesh {name}: ATE did not fall")
+        if single_ate is not None:
+            check(r0["ate"] <= 2 * single_ate[name],
+                  f"mesh {name}: ATE {r0['ate']:.6g} > twice the "
+                  f"single-card {single_ate[name]:.6g}")
+        rows[name] = dict(ms_iter_mesh=r0["ms_iter"],
+                          ms_iter_one_rank=one["ms_iter"],
+                          allreduce_calls_iter=r0["calls_iter"],
+                          allreduce_bytes_iter=r0["bytes_iter"],
+                          collective_share=r0["share"],
+                          host_reads_iter=r0["reads_iter"],
+                          paths=[r["path"] for r in rs], ate=r0["ate"])
+        for k, v in r0["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    say(f"[{smi}] PHASE mesh ok ({secs:.1f} s, spawn included)")
+    return rows, launches
+
+
+def phase_fleet_mesh(smi, size=MESH_RANKS):
+    """fleet_mesh: `fleet_serve --mesh size` of MESH_FLEET windows and
+    `sharded_ring_fleet` of MESH_RINGS serving rings over `size` ranks; every window and ring the same bits as the same one run on one
+    rank (the windows in this process, the rings in another rank's
+    process), ATE falls, keyframes per second."""
+    import torch
+
+    from ba_tpu_torch.apps import fleet_serve
+    from ba_tpu_torch.core.problem import BAConfig, prepare_landmarks, \
+        stack_problems
+    from ba_tpu_torch.io import simulate_vins as sv
+    from ba_tpu_torch.solver import step
+
+    t0 = time.perf_counter()
+    V, P, n = MESH_FLEET["vehicles"], MESH_FLEET["poses"], MESH_FLEET["iters"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        out = Path(tmp) / "fleet.pt"
+        run = subprocess.run(
+            [sys.executable, "-m", "ba_tpu_torch.apps.fleet_serve",
+             "--mesh", str(size), "--vehicles", str(V), "--poses",
+             str(P), "--iters", str(n), "--out", str(out)], cwd=ROOT,
+            capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
+        lines = [x for x in run.stdout.splitlines()
+                 if x.startswith("fleet of")]
+        check(run.returncode == 0 and len(lines) == 1,
+              f"fleet_serve --mesh: rc {run.returncode}\n"
+              f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+        got = torch.load(out)
+    app_secs = time.perf_counter() - t0
+    say(f"[{smi}] fleet_mesh: {lines[0]} ({app_secs:.1f} s with the "
+        f"spawn)")
+    args = SimpleNamespace(vehicles=V, poses=P, lms=256)
+    cfg = BAConfig(pose_dim=9, lm_size=1, use_dogleg=False)
+    sim, windows = fleet_serve._windows(args, cfg, "cuda")
+    fleet = stack_problems([prepare_landmarks(p, cfg) for p in windows])
+    p1, costs1, _ = step.solve_fleet(fleet, cfg, True, n)
+    same = (torch.equal(got["costs"], costs1.cpu())
+            and torch.equal(got["t"], p1.poses.t.cpu())
+            and torch.equal(got["q"], p1.poses.q.cpu()))
+    ate0 = [_ate_first(w.poses.t, sim, P) for w in windows]
+    ate1 = [_ate_first(t, sim, P) for t in got["t"]]
+    say(f"fleet_mesh: {V} windows bit-identical to the same windows solved "
+        f"on one rank {same}; ATE per window "
+        + ", ".join(f"{a:.4g} -> {b:.4g}" for a, b in zip(ate0, ate1))
+        + " m")
+    check(same, "fleet_mesh: the sharded windows differ from one rank's")
+    check(all(b < a for a, b in zip(ate0, ate1)),
+          "fleet_mesh: a window's ATE did not fall")
+    del fleet, p1, windows
+
+    t0 = time.perf_counter()
+    ranks = spawn_mesh("rings", size)
+    secs = time.perf_counter() - t0
+    R, G, W = MESH_RINGS["rings"], MESH_RINGS["keyframes"], STREAM["window"]
+    outs = {m: o for r in ranks for m, o in r["outs"].items()}
+    alone = {m: o for r in ranks for m, o in r["alone"].items()}
+    ates = {m: a for r in ranks for m, a in r["ate"].items()}
+    same = [_same_bits(outs[m], alone[m]) for m in range(R)]
+    kf_s = R * (G - W + 1) / max(r["secs"] for r in ranks)
+    say(f"[{smi}] fleet_mesh rings f32: {R} rings of the serving stream x "
+        f"{G - W + 1} slides over {world_text(ranks)}: {kf_s:.3f} "
+        f"keyframes retired/s, rank seconds "
+        + ", ".join(f"{r['secs']:.2f}" for r in ranks)
+        + "; ATE per ring "
+        + ", ".join(f"{ranks[0]['ate0'][m]:.4g} -> {ates[m]:.4g}"
+                    for m in range(R))
+        + f" m; each ring bit-identical to the same ring run alone in "
+        f"another rank's process {same} ({secs:.1f} s, spawn included)")
+    check(all(same), f"fleet_mesh: rings differ from alone: {same}")
+    check(all(ates[m] < ranks[0]["ate0"][m] for m in range(R)),
+          "fleet_mesh: a ring's ATE did not fall")
+    check(all(bool(torch.isfinite(outs[m]["cost"]).all()) for m in range(R)),
+          "fleet_mesh: non-finite ring costs")
+    say("PHASE fleet_mesh ok")
+    return dict(fleet_line=lines[0], ring_kf_s=kf_s)
+
+
+
 def main():
     import torch
 
@@ -6313,6 +6897,15 @@ def main():
     vp = phase_vicalib(smi, poly3=True)
     t_cam = time.perf_counter() - t_cam
 
+    t_mesh = time.perf_counter()
+    phase_mesh_small(smi)
+    ms, mesh_launches = phase_mesh(
+        smi, dl["iters"], {"flagship GN": gn["ate"],
+                           "flagship dogleg": dl["ate"], "PCG GN": cg["ate"],
+                           "long GN": lg["ate"]})
+    fm = phase_fleet_mesh(smi)
+    t_mesh = time.perf_counter() - t_mesh
+
     runs = dict(gn=gn, dogleg=dl, stream=st, stream_many=sm, long=lg, cg=cg,
                 fleet=fl, selfcal=sc, vicalib=vc, gps_batch=gb,
                 gps_stream=gs, cg_selfcal=csc, vins_csv=vcsv)
@@ -6435,6 +7028,10 @@ def main():
              launches_vicalib_poly3=vp["k1"], calib_dim=11,
              max_abs_err=err1vp, **rec1vp),
     ]
+    for k in kernels:
+        # the mesh phase's timed runs on rank 0 (its own launches)
+        if k["name"] in mesh_launches:
+            k["launches_mesh_rank0"] = mesh_launches[k["name"]]
     say(f"[{smi}] kf/s: GN solve_fixed({N_ITERS}) {gn['kf_s']:.1f}, "
         f"dogleg solve {dl['kf_s']:.1f} ({dl['iters']} iterations); "
         f"stream {st['kf_s']:.3f} keyframes retired/s "
@@ -6468,6 +7065,12 @@ def main():
                     for v in CAMERA_SCENES)
         + f"; vicalib poly3 solve_once "
         + ", ".join(f"{x['secs']:.2f} s" for x in vp["stages"])
+        + f"); mesh phases {t_mesh:.1f} s ({MESH_RANKS} ranks sharing one "
+        f"card, no scaling: "
+        + ", ".join(f"{k} {v['ms_iter_mesh']:.1f} / "
+                    f"{v['ms_iter_one_rank']:.1f} ms per iteration at "
+                    f"{MESH_RANKS} / one rank" for k, v in ms.items())
+        + f"; ring fleet {fm['ring_kf_s']:.3f} keyframes retired/s"
         + f"); total smoke "
         f"{time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -102,6 +102,18 @@ with the priors K11's certificate returns (three CPU worker processes;
 
     python3 profile_port.py --gps-drift
 
+With `--mesh [N]`, instead, chip_smoke.py's phases `mesh_small`, `mesh`
+and `fleet_mesh` on N spawned ranks (N defaults to the card count): each
+rank on a card of its own over NCCL where the machine has N cards, else
+sharing `cuda:0` over gloo (`ba_tpu_torch/parallel/mesh.py:backend_for`).
+Every route in f64 against the CPU; the flagship, the PCG cell and the
+long trajectory at full width in f32 with ms per iteration on the N
+ranks and at one rank, collectives per iteration and their share;
+`fleet_serve --mesh N` and the serving rings, bit for bit against one
+rank:
+
+    python3 profile_port.py --mesh 4     # a machine with four cards
+
 The device's busy time is the sum of the kernel and copy spans of the
 profiler's trace (written to a temporary directory in the checkout and
 deleted once read: two iterations make ~80 MB).  Needs one CUDA device;
@@ -925,6 +937,27 @@ def solve_times(smi, n_solves=5):
                   flush=True)
 
 
+def flagship_dogleg_iters():
+    """The iterations of the flagship's default dogleg `solve` in f32 on
+    the card: chip_smoke.py's phase 7, whose count its mesh phase runs."""
+    import torch
+
+    from ba_tpu_torch.solver import step
+
+    _, p32, cfg, _ = chip_smoke.flagship()
+    _, s = step.solve(p32, dataclasses.replace(cfg, use_dogleg=True),
+                      max_iter=chip_smoke.N_ITERS)
+    torch.cuda.synchronize()
+    return s.iterations
+
+
+def mesh_phases(smi, n):
+    """chip_smoke.py's mesh phases on n ranks (see the module docstring)."""
+    chip_smoke.phase_mesh_small(smi, n)
+    chip_smoke.phase_mesh(smi, flagship_dogleg_iters(), size=n)
+    chip_smoke.phase_fleet_mesh(smi, n)
+
+
 def main():
     import torch
 
@@ -947,6 +980,13 @@ def main():
         return 0
     if "--gps-drift" in sys.argv[1:]:
         gps_drift(smi)
+        return 0
+    if "--mesh" in sys.argv[1:]:
+        i = sys.argv.index("--mesh") + 1
+        n = (int(sys.argv[i]) if i < len(sys.argv)
+             and not sys.argv[i].startswith("--")
+             else torch.cuda.device_count())
+        mesh_phases(smi, n)
         return 0
     for which in ("long", "cg", "fleet", "selfcal", "cg_selfcal"):
         if f"--{which.replace('_', '-')}" in sys.argv[1:]:

@@ -2,8 +2,9 @@
 or `profile_port.py`) imports jax or ba_tpu, importing the port leaves jax
 out of sys.modules, each entry point (the builders, the converters, the
 streaming smoother, the calibration service and the three apps, the
-multi-stream server among them) raises when CUDA is absent and no
-device="cpu" is given (the GPS smoother's app: `test_torch_gps_app.py`;
+multi-stream server among them; the meshes of the sharded solves, the
+multi-process glue and `fleet_serve --mesh`) raises when CUDA is absent
+and no device="cpu" is given (the GPS smoother's app: `test_torch_gps_app.py`;
 `vins_csv`, `math_test`: `test_torch_apps_csv.py`; the native builder:
 `test_torch_host_utils.py`), and `chip_smoke.py` fails without a card."""
 
@@ -62,7 +63,9 @@ def test_importing_the_port_loads_no_jax():
             "ba_tpu_torch.apps.unary_binary_imu_test",
             "ba_tpu_torch.io.csvio", "ba_tpu_torch.apps.vins_csv",
             "ba_tpu_torch.apps.math_test", "ba_tpu_torch.utils.checkpoint",
-            "ba_tpu_torch.utils.timing"]
+            "ba_tpu_torch.utils.timing", "ba_tpu_torch.parallel.mesh",
+            "ba_tpu_torch.parallel.partition", "ba_tpu_torch.parallel.shard",
+            "ba_tpu_torch.parallel.multihost"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'ba_tpu')]\n"
@@ -158,6 +161,35 @@ def test_apps_need_cuda_or_cpu(app, args, monkeypatch, capsys):
     assert mod.main(args + ["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "on cpu" in out and "ATE" in out
+
+
+@pytest.mark.parametrize("entry", ["mesh_single", "initialize",
+                                   "global_mesh", "fleet_serve_mesh"])
+def test_distribution_entry_points_need_cuda_or_cpu(entry, monkeypatch):
+    """The sharded solves' meshes, the multi-process glue and `fleet_serve
+    --mesh` raise without CUDA unless asked for the CPU (the app before it
+    spawns a rank)."""
+    from ba_tpu_torch.apps import fleet_serve
+    from ba_tpu_torch.parallel import multihost
+    from ba_tpu_torch.parallel.mesh import Mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "mesh_single":
+            Mesh.single()
+        elif entry == "initialize":
+            multihost.initialize("127.0.0.1:1", 2, 0)
+        elif entry == "global_mesh":
+            multihost.make_global_mesh()
+        else:
+            fleet_serve.main(["--vehicles", "2", "--mesh", "2"])
+    if entry == "mesh_single":
+        assert Mesh.single("cpu").device.type == "cpu"
+    elif entry == "initialize":
+        assert multihost.initialize(device="cpu") is None
+    elif entry == "global_mesh":
+        mesh = multihost.make_global_mesh("cpu")
+        assert (mesh.size, mesh.device.type) == (1, "cpu")
 
 
 def _numpy_tree(problem):
