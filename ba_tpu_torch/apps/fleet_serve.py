@@ -22,8 +22,15 @@ Port of `apps/fleet_serve.py`.  B vehicles' windows of one simulated scene
     (`torch.save`: costs (B, iters), q (B, P, 4), t (B, P, 3)).
 
     python -m ba_tpu_torch.apps.fleet_serve --vehicles 4 --poses 64 --iters 10
+    python -m ba_tpu_torch.apps.fleet_serve --vehicles 128 --trace trace_dir
     python -m ba_tpu_torch.apps.fleet_serve --vehicles 8 --mesh 2 \
         --out fleet.pt
+
+With `--trace DIR` (fused), one more solve runs under `torch.profiler`:
+its Chrome trace (`DIR/trace.json`, the program's spans over the card's
+kernels), the program's spans (`utils.timing.report`) and the card's idle
+seconds by the span open on the host when each idle gap began
+(`utils.timing.attribute`) are the way to see where a tick's time goes.
 
 Tensors live on `--device` (cuda unless told otherwise; without CUDA that
 default raises), in f32.
@@ -66,10 +73,16 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="",
                     help="with --mesh: save the windows' costs and poses")
+    ap.add_argument("--trace", default="",
+                    help="fused: profile one more solve, write its Chrome "
+                         "trace to this directory and print the program's "
+                         "spans and the idle time by span")
     args = ap.parse_args(argv)
     if args.mesh:
         if args.vehicles % args.mesh:
             ap.error("--vehicles must be a multiple of --mesh")
+        if args.trace:
+            ap.error("--trace profiles the fused solve, not --mesh")
         return _serve_mesh(args)
 
     from ..core.problem import BAConfig, concat_problems, prepare_landmarks
@@ -103,6 +116,16 @@ def main(argv=None):
           f"(second run), {kf_s:.0f} keyframes/s; fused cost "
           f"{float(costs[0]):.4g} -> {float(costs[-1]):.4g}; per-window ATE "
           f"{min(ates) * 100:.3f}..{max(ates) * 100:.3f} cm")
+    if args.trace:
+        from ..utils import timing
+
+        timing.reset()
+        with timing.trace_to(args.trace) as prof:
+            step_mod.solve_fixed(fused, cfg, True, args.iters)
+            wait(dev)
+        print(timing.report())
+        print("device idle by program span (s): " + ", ".join(
+            f"{k} {v:.6f}" for k, v in timing.attribute(prof).items()))
     return 0
 
 

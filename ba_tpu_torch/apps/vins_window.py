@@ -12,8 +12,10 @@ the retired-keyframe trajectory's ATE.
     python -m ba_tpu_torch.apps.vins_window --poses 40 --window 10 --ring
 
 Tensors live on `--device` (cuda unless told otherwise; without CUDA that
-default raises).  f32 unless `--f64`.  The stages are timed with
-`utils.timing.span` (each waits for the device) and reported at the end.
+default raises).  f32 unless `--f64`.  The run ends with the program's
+spans (`utils.timing.report`: the solves, their iterations, builds,
+reduced solves, trials, marginalizations and host reads), recorded under
+`timing.enable()`.
 """
 
 from __future__ import annotations
@@ -67,14 +69,13 @@ def main(argv=None):
 
         cfg_r = dataclasses.replace(cfg, band_width=0)   # compact: general
         pr = prepare_landmarks(problem, cfg_r)
-        with timing.span("build_schedule", sync=pr):
-            sched = fixedlag.build_ring_schedule(pr, cfg_r, args.window)
-        with timing.span("first_run"):
+        sched = fixedlag.build_ring_schedule(pr, cfg_r, args.window)
+        _, outs = fixedlag.run_ring(sched, cfg_r, True, 2)     # first run
+        timing.wait(outs)
+        t0 = time.perf_counter()
+        with timing.enable():
             _, outs = fixedlag.run_ring(sched, cfg_r, True, 2)
             timing.wait(outs)
-        t0 = time.perf_counter()
-        _, outs = fixedlag.run_ring(sched, cfg_r, True, 2)
-        timing.wait(outs)
         dt = time.perf_counter() - t0
         n = sched.n_slides
         ate = sv.ate(None, outs["t"].double().cpu().numpy(), None,
@@ -89,16 +90,14 @@ def main(argv=None):
     p = problem
     n_marg = args.poses - args.window
     summ = None
-    for k in range(2, 2 + n_marg):
-        with timing.span("window_solve", sync=lambda: p):
+    with timing.enable():
+        for k in range(2, 2 + n_marg):
             p, summ = step_mod.solve(p, cfg, max_iter=6, use_imu=True)
-        with timing.span("marginalize", sync=lambda: p):
             p = window_mod.apply_marginalization(
                 p, cfg, True, torch.arange(P, device=dev) == k)
-        n_active = int(p.poses.active.sum())
-        print(f"step {k - 1:3d}: cost {summ.final_cost:10.4g}  "
-              f"active poses {n_active}")
-    with timing.span("window_solve", sync=lambda: p):
+            n_active = int(p.poses.active.sum())
+            print(f"step {k - 1:3d}: cost {summ.final_cost:10.4g}  "
+                  f"active poses {n_active}")
         p, summ = step_mod.solve(p, cfg, max_iter=10, use_imu=True)
 
     sl = slice(2 + n_marg, args.poses)

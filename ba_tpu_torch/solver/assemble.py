@@ -39,6 +39,7 @@ from ..core.residuals import prior, reprojection
 from ..kernels import band_to_dense as k5b
 from ..kernels import schur_finish as k5
 from ..kernels import segsum
+from ..utils import timing
 from ..utils.linalg import block_diag_inv
 
 
@@ -522,17 +523,18 @@ def assemble(problem: Problem, config: BAConfig, imu_eval=None,
     """Build the Schur-reduced normal equations at the current state, on
     the banded grid or the general path (`plan_width`).  `plan` is the
     solve's `assembly_plan`; without one, the build makes its own."""
-    B = plan_width(problem, config)
-    if plan is None:
-        plan = assembly_plan(problem, config)
-    elif plan.band_width != B:
-        raise ValueError(f"assembly plan for band width {plan.band_width}, "
-                         f"the build needs {B}")
-    cmask = col_mask(problem, config)
-    contrib, w = contribution(problem, config, imu_eval, cmask, plan)
-    contrib = _add(contrib, marg_contribution(problem, config,
-                                              cmask.to(contrib.U.dtype)))
-    return finish(contrib, cmask, w)
+    with timing.span("build", problem.poses.t):
+        B = plan_width(problem, config)
+        if plan is None:
+            plan = assembly_plan(problem, config)
+        elif plan.band_width != B:
+            raise ValueError("assembly plan for band width "
+                             f"{plan.band_width}, the build needs {B}")
+        cmask = col_mask(problem, config)
+        contrib, w = contribution(problem, config, imu_eval, cmask, plan)
+        contrib = _add(contrib, marg_contribution(problem, config,
+                                                  cmask.to(contrib.U.dtype)))
+        return finish(contrib, cmask, w)
 
 
 def contribution(problem: Problem, config: BAConfig, imu_eval, cmask,

@@ -73,6 +73,7 @@ from ..kernels import band_schur as k7
 from ..kernels import chunk_tridiag as k8
 from ..kernels import fleet_schur as k10
 from ..kernels import segsum
+from ..utils import timing
 from . import assemble as asm
 from . import cg as cg_mod
 from .assemble import _band_pair_blocks, _outer
@@ -512,10 +513,11 @@ def solve_reduced_banded_dense(problem: Problem, config: BAConfig,
     correction never forms the dense W V^-1 W^T product, the factorization
     stays one exact dense Cholesky, and the marginalization prior joins at
     the dense stage."""
-    band = band_S(problem, config, bs, P, D)
-    delta_p, ok = banded_dense_solve(band, bs.rhs_sc, bs.col_mask, marg_H)
-    delta_l = cg_mod.back_substitute_blocks(bs, delta_p, P, D, 0)
-    return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
+    with timing.span("reduced.banded_dense"):
+        band = band_S(problem, config, bs, P, D)
+        delta_p, ok = banded_dense_solve(band, bs.rhs_sc, bs.col_mask, marg_H)
+        delta_l = cg_mod.back_substitute_blocks(bs, delta_p, P, D, 0)
+        return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
 
 
 def fleet_band(bs: cg_mod.BlockSystem, config: BAConfig, P: int, D: int,
@@ -548,30 +550,32 @@ def solve_reduced_fleet_dense(problem: Problem, config: BAConfig,
 
     `ok` is the factorization's info and finiteness, with no host read; a
     failed factor gives a zero pose step."""
-    dtype = bs.rhs_sc.dtype
-    F_ = config.fleet_size
-    n_w = (P // F_) * D
-    plan = bs.plan.fleet
-    if plan is None:
-        plan = fleet_dense_plan(problem, config)
-    band = fleet_band(bs, config, P, D, plan)
-    eps = 1e-8 if dtype == torch.float64 else 1e-4
-    if band.is_cuda:
-        Ss, scal = k10.fleet_schur(bs.wb, bs.vinv, plan.table, band, F_, eps)
-    else:
-        idx = problem.pidx
-        Ss, scal = k10.fleet_schur_plain(bs.wb, bs.vinv, idx.wb_pose,
-                                         idx.wb_lm, band, F_, eps)
-    c, ok = _chol(Ss)
-    rhsF = (bs.rhs_sc * scal.reshape(-1)).reshape(F_, n_w)
-    x = _cho_solve_b(c, rhsF)
-    # one step of iterative refinement in the scaled space
-    x = x + _cho_solve_b(c, rhsF - _mv(Ss, x))
-    delta_p = x.reshape(-1) * scal.reshape(-1)
-    delta_p = torch.where(torch.isfinite(delta_p) & ok, delta_p, 0.0)
-    delta_p = torch.where(bs.col_mask, delta_p, 0.0)
-    delta_l = cg_mod.back_substitute_blocks(bs, delta_p, P, D, 0)
-    return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
+    with timing.span("reduced.fleet_dense"):
+        dtype = bs.rhs_sc.dtype
+        F_ = config.fleet_size
+        n_w = (P // F_) * D
+        plan = bs.plan.fleet
+        if plan is None:
+            plan = fleet_dense_plan(problem, config)
+        band = fleet_band(bs, config, P, D, plan)
+        eps = 1e-8 if dtype == torch.float64 else 1e-4
+        if band.is_cuda:
+            Ss, scal = k10.fleet_schur(bs.wb, bs.vinv, plan.table, band, F_,
+                                       eps)
+        else:
+            idx = problem.pidx
+            Ss, scal = k10.fleet_schur_plain(bs.wb, bs.vinv, idx.wb_pose,
+                                             idx.wb_lm, band, F_, eps)
+        c, ok = _chol(Ss)
+        rhsF = (bs.rhs_sc * scal.reshape(-1)).reshape(F_, n_w)
+        x = _cho_solve_b(c, rhsF)
+        # one step of iterative refinement in the scaled space
+        x = x + _cho_solve_b(c, rhsF - _mv(Ss, x))
+        delta_p = x.reshape(-1) * scal.reshape(-1)
+        delta_p = torch.where(torch.isfinite(delta_p) & ok, delta_p, 0.0)
+        delta_p = torch.where(bs.col_mask, delta_p, 0.0)
+        delta_l = cg_mod.back_substitute_blocks(bs, delta_p, P, D, 0)
+        return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
 
 
 def banded_dense_solve(band, rhs_sc, col_mask, marg_H=None):
@@ -610,11 +614,12 @@ def solve_reduced_banded(problem: Problem, config: BAConfig,
     preconditioner of a short PCG + landmark back-substitution through the
     blocks.  Same Jacobi scaling and relative eps damping as
     `linear.solve_reduced`."""
-    band = band_S(problem, config, bs, P, D)
-    delta_p, ok = banded_pcg_solve(band, bs.rhs_sc, bs.col_mask, config,
-                                   P, D)
-    delta_l = cg_mod.back_substitute_blocks(bs, delta_p, P, D, 0)
-    return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
+    with timing.span("reduced.banded"):
+        band = band_S(problem, config, bs, P, D)
+        delta_p, ok = banded_pcg_solve(band, bs.rhs_sc, bs.col_mask, config,
+                                       P, D)
+        delta_l = cg_mod.back_substitute_blocks(bs, delta_p, P, D, 0)
+        return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
 
 
 def jacobi_scaled(band):

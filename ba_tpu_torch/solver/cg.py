@@ -77,6 +77,7 @@ from ..core.problem import BAConfig, Problem
 from ..core.residuals import prior
 from ..kernels import schur_matvec as k6
 from ..kernels import segsum
+from ..utils import timing
 from ..utils.linalg import block_diag_inv
 from ..utils.sync import item
 from . import assemble as asm
@@ -312,165 +313,168 @@ def assemble_blocks(problem: Problem, config: BAConfig, imu_eval=None,
     launch).  `mesh` and `lm_offset`: a rank of the landmark-sharded
     layout (module docstring); rhs_p, rhs_sc, the cost and the
     preconditioner come out replicated."""
-    D, K, P, L, lm, N = asm.dims(problem, config)
-    on_card = problem.poses.t.is_cuda
-    if plan is None:
-        plan = block_plan(problem, config, schur=with_precond and on_card)
-    dtype = problem.poses.t.dtype
-    cmask = asm.col_mask(problem, config)
-    colm6 = asm.col_mask(problem, config, 6).to(dtype)
-    cm6 = colm6[: P * 6].reshape(P, 6)
-    cmD = cmask[: P * D].reshape(P, D).to(dtype)
+    with timing.span("build", problem.poses.t):
+        D, K, P, L, lm, N = asm.dims(problem, config)
+        on_card = problem.poses.t.is_cuda
+        if plan is None:
+            plan = block_plan(problem, config, schur=with_precond and on_card)
+        dtype = problem.poses.t.dtype
+        cmask = asm.col_mask(problem, config)
+        colm6 = asm.col_mask(problem, config, 6).to(dtype)
+        cm6 = colm6[: P * 6].reshape(P, 6)
+        cmD = cmask[: P * D].reshape(P, D).to(dtype)
 
-    pb = asm.proj_blocks(problem, config, colm6, mesh)
-    ue = prior.evaluate_unary(problem, config, with_jacobians=True)
-    u_pose = problem.unary.pose.long()
-    ju = ue.j1 * cm6[u_pose][:, None, :]
-    be = prior.evaluate_binary(problem, config, with_jacobians=True)
-    b1 = problem.binary.pose1.long()
-    b2 = problem.binary.pose2.long()
-    jb1 = be.j1 * cm6[b1][:, None, :]
-    jb2 = be.j2 * cm6[b2][:, None, :]
+        pb = asm.proj_blocks(problem, config, colm6, mesh)
+        ue = prior.evaluate_unary(problem, config, with_jacobians=True)
+        u_pose = problem.unary.pose.long()
+        ju = ue.j1 * cm6[u_pose][:, None, :]
+        be = prior.evaluate_binary(problem, config, with_jacobians=True)
+        b1 = problem.binary.pose1.long()
+        b2 = problem.binary.pose2.long()
+        jb1 = be.j1 * cm6[b1][:, None, :]
+        jb2 = be.j2 * cm6[b2][:, None, :]
 
-    i1 = problem.imu.pose1.long()
-    i2 = problem.imu.pose2.long()
-    if imu_eval is not None:
-        ji1 = imu_eval.j1 * cmD[i1][:, None, :]
-        ji2 = imu_eval.j2 * cmD[i2][:, None, :]
-        imu_cost = torch.sum(imu_eval.err_sq)
-    else:
-        ji1 = ji2 = None
-        imu_cost = torch.zeros((), dtype=dtype, device=cmD.device)
+        i1 = problem.imu.pose1.long()
+        i2 = problem.imu.pose2.long()
+        if imu_eval is not None:
+            ji1 = imu_eval.j1 * cmD[i1][:, None, :]
+            ji2 = imu_eval.j2 * cmD[i2][:, None, :]
+            imu_cost = torch.sum(imu_eval.err_sq)
+        else:
+            ji1 = ji2 = None
+            imu_cost = torch.zeros((), dtype=dtype, device=cmD.device)
 
-    # landmark system, gradient and W blocks: one launch
-    groups = [(_outer(pb.j_l, pb.j_l), plan.V),
-              (torch.einsum("nil,ni->nl", pb.j_l, pb.r), plan.rhs_l),
-              (torch.cat([_seg2_rows(pb.j_m, pb.j_r, pb.r, pb.r),
-                          _jtr(ju, ue.r),
-                          _seg2_rows(jb1, jb2, be.r, be.r)]), plan.rhs),
-              (torch.cat([_outer(pb.j_m, pb.j_l), _outer(pb.j_r, pb.j_l)]),
-               plan.wb)]
-    if ji1 is not None:
-        groups.append((_seg2_rows(ji1, ji2, imu_eval.r, imu_eval.r),
-                       plan.imu_rhs))
-    sums = asm.seg_sum_groups(groups)
-    V, rhs_l, yp6, Wb = sums[:4]
-    vinv = block_diag_inv(V)
-    yp = F.pad(yp6, (0, D - 6))
-    if ji1 is not None:
-        yp = yp + sums[4]
-    rhs_p = yp.reshape(-1)
-    cost = pb.cost + torch.sum(ue.err_sq) + torch.sum(be.err_sq) + imu_cost
-    # the calibration gradient
-    rk = torch.einsum("nik,ni->k", pb.j_c, pb.r) if K else rhs_p[:0]
-    if mesh is not None:
-        red = mesh.all_reduce_sum(torch.cat([rhs_p, rk, cost[None]]))
-        rhs_p, rk, cost = red[: P * D], red[P * D: N], red[N]
-
-    # marginalization prior: gradient + curvature (static-shape gate)
-    marg = problem.marg
-    marg_H = None
-    if marg.H.shape[0] == P * D:
-        on = marg.active.to(dtype)
-        delta = asm.pose_tangent(problem.poses, marg, D)
-        H = marg.H * on
-        colmD = cmask[: P * D].to(dtype)
-        marg_H = H * colmD[:, None] * colmD[None, :]
-        rhs_p = rhs_p + (H @ delta + marg.g * on) * colmD
-        cost = cost + delta @ H @ delta + 2.0 * (marg.g * on) @ delta
-    if K:
-        rhs_p = torch.cat([rhs_p, rk])
-
-    pack = None
-    if on_card and plan.schur is not None:    # kernel 6's records
-        pack = k6.schur_pack(pb.j_m, pb.j_r, pb.j_l, plan.schur, lm,
-                             pb.j_c)
-    bs = BlockSystem(pj=pb, ju=ju, u_pose=u_pose, jb1=jb1, jb2=jb2, b1=b1,
-                     b2=b2, ji1=ji1, ji2=ji2, i1=i1, i2=i2, V=V, vinv=vinv,
-                     rhs_l=rhs_l.reshape(-1), rhs_p=rhs_p, rhs_sc=rhs_p,
-                     col_mask=cmask,
-                     minv_pose=torch.zeros((P, D, D), dtype=dtype,
-                                           device=cmD.device),
-                     minv_cal=None,
-                     dscale=torch.ones((N,), dtype=dtype, device=cmD.device),
-                     cost=cost, proj_w=pb.w, wb=Wb, plan=plan, pack=pack)
-
-    # Schur-reduced rhs: W V^-1 rhs_l, with the preconditioner's sums in
-    # the same launch (and the calibration block's W blocks by landmark)
-    z0 = torch.einsum("lij,lj->li", vinv, rhs_l)
-    w_group, w_cal = _w_group(bs, z0)
-    groups = [w_group]
-    if with_precond:
-        groups.append((torch.cat([
-            _outer(pb.j_m, pb.j_m), _outer(pb.j_r, pb.j_r), _outer(ju, ju),
-            _outer(jb1, jb1), _outer(jb2, jb2)]), plan.rhs))
-        wb_lm = asm.local_wb_lm(problem.pidx.wb_lm, L,
-                                lm_offset).clamp(max=L - 1)
-        groups.append((torch.einsum("nkl,nlm,nqm->nkq", Wb, vinv[wb_lm],
-                                    Wb), plan.wb_pose))
+        # landmark system, gradient and W blocks: one launch
+        groups = [(_outer(pb.j_l, pb.j_l), plan.V),
+                  (torch.einsum("nil,ni->nl", pb.j_l, pb.r), plan.rhs_l),
+                  (torch.cat([_seg2_rows(pb.j_m, pb.j_r, pb.r, pb.r),
+                              _jtr(ju, ue.r),
+                              _seg2_rows(jb1, jb2, be.r, be.r)]), plan.rhs),
+                  (torch.cat([_outer(pb.j_m, pb.j_l), _outer(pb.j_r, pb.j_l)]),
+                   plan.wb)]
         if ji1 is not None:
-            groups.append((torch.cat([_outer(ji1, ji1), _outer(ji2, ji2)]),
+            groups.append((_seg2_rows(ji1, ji2, imu_eval.r, imu_eval.r),
                            plan.imu_rhs))
-        if K:
-            groups.append((_outer(pb.j_c, pb.j_l), plan.V))
-    sums = asm.seg_sum_groups(groups)
-    w_z0 = _w_finish(sums[0], D, w_cal)
-    if with_precond:
-        # --- exact block-Jacobi diagonal of S -------------------------
-        diag = F.pad(sums[1] - sums[2], (0, D - 6, 0, D - 6))
+        sums = asm.seg_sum_groups(groups)
+        V, rhs_l, yp6, Wb = sums[:4]
+        vinv = block_diag_inv(V)
+        yp = F.pad(yp6, (0, D - 6))
         if ji1 is not None:
-            diag = diag + sums[3]
-        Wc = sums[-1] if K else None
-        if K:
-            # the calibration block of S: Uc - sum_l Wc_l V_l^-1 Wc_l^T
-            Sc = (torch.einsum("nik,nil->kl", pb.j_c, pb.j_c)
-                  - torch.einsum("lkm,lmn,lqn->kq", Wc, vinv, Wc))
-    if mesh is not None:
-        parts = [w_z0]
-        if with_precond:
-            parts += [diag.reshape(-1)] + ([Sc.reshape(-1)] if K else [])
-        red = mesh.all_reduce_sum(torch.cat(parts))
-        w_z0 = red[:N]
-        if with_precond:
-            diag = red[N: N + P * D * D].reshape(P, D, D)
-            if K:
-                Sc = red[N + P * D * D:].reshape(K, K)
-    rhs_sc = torch.where(cmask, rhs_p - w_z0, 0.0)
-    if not with_precond:
-        return bs._replace(rhs_sc=rhs_sc), marg_H
+            yp = yp + sums[4]
+        rhs_p = yp.reshape(-1)
+        cost = pb.cost + torch.sum(ue.err_sq) + torch.sum(be.err_sq) + imu_cost
+        # the calibration gradient
+        rk = torch.einsum("nik,ni->k", pb.j_c, pb.r) if K else rhs_p[:0]
+        if mesh is not None:
+            red = mesh.all_reduce_sum(torch.cat([rhs_p, rk, cost[None]]))
+            rhs_p, rk, cost = red[: P * D], red[P * D: N], red[N]
 
-    if marg_H is not None:
-        diag = diag + marg_H.reshape(P, D, P, D).diagonal(
-            dim1=0, dim2=2).permute(2, 0, 1)
-    # masked dims -> identity rows/cols
-    mD = cmD
-    diag = diag * mD[:, :, None] * mD[:, None, :]
-    diag = diag + torch.eye(D, dtype=dtype, device=mD.device)[None] \
-        * (1.0 - mD)[:, :, None]
-    lam = 1e-8 if dtype == torch.float64 else 1e-4
-    dscale_p = torch.clamp(torch.diagonal(diag, dim1=-2, dim2=-1),
-                           min=1e-12)
-    diag = diag + lam * torch.diag_embed(dscale_p)
-    dscale = torch.ones((N,), dtype=dtype, device=mD.device)
-    dscale[: P * D] = dscale_p.reshape(-1)
-    minv_cal = None
-    if K:
-        dk = torch.clamp(torch.diagonal(Sc), min=1e-12)
-        eye = torch.eye(K, dtype=dtype, device=mD.device)
-        minv_cal = torch.linalg.inv_ex(Sc + lam * torch.diag(dk)
-                                       + 1e-12 * eye)[0]
-        dscale[P * D:] = dk
-    return bs._replace(rhs_sc=rhs_sc, minv_pose=block_diag_inv(diag),
-                       minv_cal=minv_cal, dscale=dscale), marg_H
+        # marginalization prior: gradient + curvature (static-shape gate)
+        marg = problem.marg
+        marg_H = None
+        if marg.H.shape[0] == P * D:
+            on = marg.active.to(dtype)
+            delta = asm.pose_tangent(problem.poses, marg, D)
+            H = marg.H * on
+            colmD = cmask[: P * D].to(dtype)
+            marg_H = H * colmD[:, None] * colmD[None, :]
+            rhs_p = rhs_p + (H @ delta + marg.g * on) * colmD
+            cost = cost + delta @ H @ delta + 2.0 * (marg.g * on) @ delta
+        if K:
+            rhs_p = torch.cat([rhs_p, rk])
+
+        pack = None
+        if on_card and plan.schur is not None:    # kernel 6's records
+            pack = k6.schur_pack(pb.j_m, pb.j_r, pb.j_l, plan.schur, lm,
+                                 pb.j_c)
+        bs = BlockSystem(pj=pb, ju=ju, u_pose=u_pose, jb1=jb1, jb2=jb2, b1=b1,
+                         b2=b2, ji1=ji1, ji2=ji2, i1=i1, i2=i2, V=V, vinv=vinv,
+                         rhs_l=rhs_l.reshape(-1), rhs_p=rhs_p, rhs_sc=rhs_p,
+                         col_mask=cmask,
+                         minv_pose=torch.zeros((P, D, D), dtype=dtype,
+                                               device=cmD.device),
+                         minv_cal=None,
+                         dscale=torch.ones((N,), dtype=dtype,
+                                           device=cmD.device),
+                         cost=cost, proj_w=pb.w, wb=Wb, plan=plan, pack=pack)
+
+        # Schur-reduced rhs: W V^-1 rhs_l, with the preconditioner's sums in
+        # the same launch (and the calibration block's W blocks by landmark)
+        z0 = torch.einsum("lij,lj->li", vinv, rhs_l)
+        w_group, w_cal = _w_group(bs, z0)
+        groups = [w_group]
+        if with_precond:
+            groups.append((torch.cat([
+                _outer(pb.j_m, pb.j_m), _outer(pb.j_r, pb.j_r), _outer(ju, ju),
+                _outer(jb1, jb1), _outer(jb2, jb2)]), plan.rhs))
+            wb_lm = asm.local_wb_lm(problem.pidx.wb_lm, L,
+                                    lm_offset).clamp(max=L - 1)
+            groups.append((torch.einsum("nkl,nlm,nqm->nkq", Wb, vinv[wb_lm],
+                                        Wb), plan.wb_pose))
+            if ji1 is not None:
+                groups.append((torch.cat([_outer(ji1, ji1), _outer(ji2, ji2)]),
+                               plan.imu_rhs))
+            if K:
+                groups.append((_outer(pb.j_c, pb.j_l), plan.V))
+        sums = asm.seg_sum_groups(groups)
+        w_z0 = _w_finish(sums[0], D, w_cal)
+        if with_precond:
+            # --- exact block-Jacobi diagonal of S -------------------------
+            diag = F.pad(sums[1] - sums[2], (0, D - 6, 0, D - 6))
+            if ji1 is not None:
+                diag = diag + sums[3]
+            Wc = sums[-1] if K else None
+            if K:
+                # the calibration block of S: Uc - sum_l Wc_l V_l^-1 Wc_l^T
+                Sc = (torch.einsum("nik,nil->kl", pb.j_c, pb.j_c)
+                      - torch.einsum("lkm,lmn,lqn->kq", Wc, vinv, Wc))
+        if mesh is not None:
+            parts = [w_z0]
+            if with_precond:
+                parts += [diag.reshape(-1)] + ([Sc.reshape(-1)] if K else [])
+            red = mesh.all_reduce_sum(torch.cat(parts))
+            w_z0 = red[:N]
+            if with_precond:
+                diag = red[N: N + P * D * D].reshape(P, D, D)
+                if K:
+                    Sc = red[N + P * D * D:].reshape(K, K)
+        rhs_sc = torch.where(cmask, rhs_p - w_z0, 0.0)
+        if not with_precond:
+            return bs._replace(rhs_sc=rhs_sc), marg_H
+
+        if marg_H is not None:
+            diag = diag + marg_H.reshape(P, D, P, D).diagonal(
+                dim1=0, dim2=2).permute(2, 0, 1)
+        # masked dims -> identity rows/cols
+        mD = cmD
+        diag = diag * mD[:, :, None] * mD[:, None, :]
+        diag = diag + torch.eye(D, dtype=dtype, device=mD.device)[None] \
+            * (1.0 - mD)[:, :, None]
+        lam = 1e-8 if dtype == torch.float64 else 1e-4
+        dscale_p = torch.clamp(torch.diagonal(diag, dim1=-2, dim2=-1),
+                               min=1e-12)
+        diag = diag + lam * torch.diag_embed(dscale_p)
+        dscale = torch.ones((N,), dtype=dtype, device=mD.device)
+        dscale[: P * D] = dscale_p.reshape(-1)
+        minv_cal = None
+        if K:
+            dk = torch.clamp(torch.diagonal(Sc), min=1e-12)
+            eye = torch.eye(K, dtype=dtype, device=mD.device)
+            minv_cal = torch.linalg.inv_ex(Sc + lam * torch.diag(dk)
+                                           + 1e-12 * eye)[0]
+            dscale[P * D:] = dk
+        return bs._replace(rhs_sc=rhs_sc, minv_pose=block_diag_inv(diag),
+                           minv_cal=minv_cal, dscale=dscale), marg_H
 
 
 def back_substitute_blocks(bs: BlockSystem, delta_p, P, D, K=0):
     """delta_l = V^-1 (rhs_l - W^T delta_p), through the projection
     blocks."""
-    L, lm, _ = bs.vinv.shape
-    xp6 = delta_p[: P * D].reshape(P, D)[:, :6]
-    resid = bs.rhs_l.reshape(L, lm) - _wt_apply(bs, xp6, delta_p[P * D:])
-    return torch.einsum("lij,lj->li", bs.vinv, resid).reshape(-1)
+    with timing.span("back_substitute"):
+        L, lm, _ = bs.vinv.shape
+        xp6 = delta_p[: P * D].reshape(P, D)[:, :6]
+        resid = bs.rhs_l.reshape(L, lm) - _wt_apply(bs, xp6, delta_p[P * D:])
+        return torch.einsum("lij,lj->li", bs.vinv, resid).reshape(-1)
 
 
 def cauchy_factor(bs: BlockSystem, marg_H, P, D, K=0, mesh=None):
@@ -478,24 +482,25 @@ def cauchy_factor(bs: BlockSystem, marg_H, P, D, K=0, mesh=None):
     dogleg Cauchy step), through the blocks: U rp and W rl in one
     launch.  With `mesh` the landmark terms and the rows' quadratic are
     all-reduced, the prior's term counted once."""
-    L, lm, _ = bs.V.shape
-    rl = bs.rhs_l.reshape(L, lm)
-    rp = torch.where(bs.col_mask, bs.rhs_p, 0.0)
-    groups, u_cal = _u_groups(bs, rp, P, D)
-    w_group, w_cal = _w_group(bs, rl)
-    sums = asm.seg_sum_groups(groups + [w_group])
-    Ur = _u_finish(sums[:len(groups)], rp, P, D,
-                   None if mesh is not None else marg_H, u_cal)
-    Wrl = _w_finish(sums[-1], D, w_cal)
-    den = (bs.rhs_p @ Ur + 2.0 * (bs.rhs_p @ Wrl)
-           + torch.einsum("li,lij,lj->", rl, bs.V, rl))
-    num_l = torch.sum(bs.rhs_l ** 2)
-    if mesh is not None:
-        num_l, den = mesh.all_reduce_sum(torch.stack([num_l, den]))
-        if marg_H is not None:
-            den = den + rp[: P * D] @ (marg_H @ rp[: P * D])
-    num = torch.sum(bs.rhs_p ** 2) + num_l
-    return num / torch.clamp(den, min=1e-30)
+    with timing.span("cauchy"):
+        L, lm, _ = bs.V.shape
+        rl = bs.rhs_l.reshape(L, lm)
+        rp = torch.where(bs.col_mask, bs.rhs_p, 0.0)
+        groups, u_cal = _u_groups(bs, rp, P, D)
+        w_group, w_cal = _w_group(bs, rl)
+        sums = asm.seg_sum_groups(groups + [w_group])
+        Ur = _u_finish(sums[:len(groups)], rp, P, D,
+                       None if mesh is not None else marg_H, u_cal)
+        Wrl = _w_finish(sums[-1], D, w_cal)
+        den = (bs.rhs_p @ Ur + 2.0 * (bs.rhs_p @ Wrl)
+               + torch.einsum("li,lij,lj->", rl, bs.V, rl))
+        num_l = torch.sum(bs.rhs_l ** 2)
+        if mesh is not None:
+            num_l, den = mesh.all_reduce_sum(torch.stack([num_l, den]))
+            if marg_H is not None:
+                den = den + rp[: P * D] @ (marg_H @ rp[: P * D])
+        num = torch.sum(bs.rhs_p ** 2) + num_l
+        return num / torch.clamp(den, min=1e-30)
 
 
 def _s_groups(bs: BlockSystem, xm, P, D):
@@ -593,7 +598,8 @@ def pcg_solve(bs: BlockSystem, marg_H, config: BAConfig, P, D,
     while k < n_max:
         for _ in range(min(CG_CHECK_EVERY, n_max - k)):
             live = r @ r > tol2
-            Ap = s_matvec(bs, p, P, D, K, lam, marg_H, mesh)
+            with timing.span("pcg.product"):
+                Ap = s_matvec(bs, p, P, D, K, lam, marg_H, mesh)
             denom = p @ Ap
             alpha = torch.where(denom > 0,
                                 rz / torch.where(denom > 0, denom, 1.0), 0.0)
@@ -610,6 +616,9 @@ def pcg_solve(bs: BlockSystem, marg_H, config: BAConfig, P, D,
             reads += 1
             if not item(r @ r > tol2):
                 break
+    timing.count("pcg.products", k)
+    timing.count("pcg.stop_reads", reads)
+    timing.count("pcg.iterations", n_live)
     return PcgResult(x=x, iterations=n_live, matvecs=k, reads=reads)
 
 
@@ -618,9 +627,10 @@ def solve_reduced_cg(bs: BlockSystem, marg_H, config: BAConfig, P, D,
     """PCG on S delta_p = rhs_sc (`pcg_solve`), then landmark
     back-substitution (on the rank's own landmarks with `mesh`); `ok` is
     a finite iterate."""
-    x = pcg_solve(bs, marg_H, config, P, D, K, mesh).x
-    delta_p = torch.where(torch.isfinite(x), x, 0.0)
-    delta_p = torch.where(bs.col_mask, delta_p, 0.0)
-    delta_l = back_substitute_blocks(bs, delta_p, P, D, K)
-    return GnStep(delta_p=delta_p, delta_l=delta_l,
-                  ok=torch.all(torch.isfinite(x)))
+    with timing.span("reduced.cg"):
+        x = pcg_solve(bs, marg_H, config, P, D, K, mesh).x
+        delta_p = torch.where(torch.isfinite(x), x, 0.0)
+        delta_p = torch.where(bs.col_mask, delta_p, 0.0)
+        delta_l = back_substitute_blocks(bs, delta_p, P, D, K)
+        return GnStep(delta_p=delta_p, delta_l=delta_l,
+                      ok=torch.all(torch.isfinite(x)))

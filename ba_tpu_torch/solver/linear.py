@@ -19,6 +19,7 @@ import numpy as np
 
 import torch
 
+from ..utils import timing
 from .assemble import Assembly
 
 
@@ -31,27 +32,28 @@ class GnStep(NamedTuple):
 def solve_reduced(asm: Assembly) -> GnStep:
     """delta_p = S^-1 rhs_sc via Jacobi-scaled Cholesky + one refinement
     step; delta_l by back-substitution."""
-    S = asm.S
-    dtype = S.dtype
-    scal = torch.rsqrt(torch.clamp(torch.diagonal(S), min=1e-12))
-    Ss = S * scal[:, None] * scal[None, :]
-    # diag(Ss) == 1 after scaling, so eps is a relative damping
-    eps = 1e-8 if dtype == torch.float64 else 1e-4
-    Ss = Ss + eps * torch.eye(S.shape[0], dtype=dtype, device=S.device)
-    c, info = torch.linalg.cholesky_ex(Ss)
-    ok = (info == 0) & torch.all(torch.isfinite(torch.diagonal(c)))
+    with timing.span("reduced.dense"):
+        S = asm.S
+        dtype = S.dtype
+        scal = torch.rsqrt(torch.clamp(torch.diagonal(S), min=1e-12))
+        Ss = S * scal[:, None] * scal[None, :]
+        # diag(Ss) == 1 after scaling, so eps is a relative damping
+        eps = 1e-8 if dtype == torch.float64 else 1e-4
+        Ss = Ss + eps * torch.eye(S.shape[0], dtype=dtype, device=S.device)
+        c, info = torch.linalg.cholesky_ex(Ss)
+        ok = (info == 0) & torch.all(torch.isfinite(torch.diagonal(c)))
 
-    def scaled_solve(rhs):
-        y = torch.cholesky_solve((rhs * scal)[:, None], c)[:, 0]
-        return y * scal
+        def scaled_solve(rhs):
+            y = torch.cholesky_solve((rhs * scal)[:, None], c)[:, 0]
+            return y * scal
 
-    delta_p = scaled_solve(asm.rhs_sc)
-    resid = asm.rhs_sc - S @ delta_p
-    delta_p = delta_p + scaled_solve(resid)
-    delta_p = torch.where(torch.isfinite(delta_p) & ok, delta_p, 0.0)
-    delta_p = torch.where(asm.col_mask, delta_p, 0.0)
-    delta_l = back_substitute(asm, delta_p)
-    return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
+        delta_p = scaled_solve(asm.rhs_sc)
+        resid = asm.rhs_sc - S @ delta_p
+        delta_p = delta_p + scaled_solve(resid)
+        delta_p = torch.where(torch.isfinite(delta_p) & ok, delta_p, 0.0)
+        delta_p = torch.where(asm.col_mask, delta_p, 0.0)
+        delta_l = back_substitute(asm, delta_p)
+        return GnStep(delta_p=delta_p, delta_l=delta_l, ok=ok)
 
 
 def back_substitute(asm: Assembly, delta_p) -> torch.Tensor:

@@ -59,6 +59,7 @@ from ..core import lie
 from ..core.problem import (BAConfig, Problem, finalize_landmarks,
                             prepare_landmarks)
 from ..core.residuals import imu as imu_mod
+from ..utils import timing
 from ..utils.sync import item, values
 from ..utils.tree import tree_where
 from . import banded as banded_mod
@@ -73,8 +74,9 @@ def _imu_eval(problem: Problem, config: BAConfig, use_imu: bool,
               with_jacobians: bool, c9=None):
     if not use_imu:
         return None
-    return imu_mod.evaluate(problem, config, with_jacobians=with_jacobians,
-                            c9=c9)
+    with timing.span("imu"):
+        return imu_mod.evaluate(problem, config,
+                                with_jacobians=with_jacobians, c9=c9)
 
 
 def apply_update(problem: Problem, config: BAConfig, delta_p, delta_l,
@@ -84,54 +86,56 @@ def apply_update(problem: Problem, config: BAConfig, delta_p, delta_l,
     calibration block moves camera 0's intrinsics and T_vs; when the
     intrinsics move, each inverse-depth ray is unprojected again from its
     reference pixel, keeping its norm."""
-    D = config.pose_dim
-    poses = problem.poses
-    P = poses.q.shape[0]
-    dp = delta_p[: P * D].reshape(P, D) * scale
+    with timing.span("update"):
+        D = config.pose_dim
+        poses = problem.poses
+        P = poses.q.shape[0]
+        dp = delta_p[: P * D].reshape(P, D) * scale
 
-    q, t = lie.se3_retract((poses.q, poses.t), -dp[:, :6])
-    v = poses.v - dp[:, 6:9] if config.vel_in_state else poses.v
-    b = poses.b - dp[:, 9:15] if config.bias_in_state else poses.b
-    poses = dataclasses.replace(poses, q=q, t=t, v=v, b=b)
+        q, t = lie.se3_retract((poses.q, poses.t), -dp[:, :6])
+        v = poses.v - dp[:, 6:9] if config.vel_in_state else poses.v
+        b = poses.b - dp[:, 9:15] if config.bias_in_state else poses.b
+        poses = dataclasses.replace(poses, q=q, t=t, v=v, b=b)
 
-    lms = problem.lms
-    if config.lm_size:
-        lmsz = config.lm_size
-        L = lms.x.shape[0]
-        dl = delta_l.reshape(L, lmsz) * scale
-        if lmsz == 1:
-            rho_new = lms.x[:, 3] - dl[:, 0]
-            neg = (rho_new < 0) & lms.active
-            rho = torch.where(neg, lms.x[:, 3], rho_new)
-            lms = dataclasses.replace(
-                lms, x=torch.cat([lms.x[:, :3], rho[:, None]], dim=1),
-                reliable=lms.reliable & ~neg)
-        else:
-            x = torch.cat([lms.x[:, :3] - dl, lms.x[:, 3:]], dim=1)
-            lms = dataclasses.replace(lms, x=x)
+        lms = problem.lms
+        if config.lm_size:
+            lmsz = config.lm_size
+            L = lms.x.shape[0]
+            dl = delta_l.reshape(L, lmsz) * scale
+            if lmsz == 1:
+                rho_new = lms.x[:, 3] - dl[:, 0]
+                neg = (rho_new < 0) & lms.active
+                rho = torch.where(neg, lms.x[:, 3], rho_new)
+                lms = dataclasses.replace(
+                    lms, x=torch.cat([lms.x[:, :3], rho[:, None]], dim=1),
+                    reliable=lms.reliable & ~neg)
+            else:
+                x = torch.cat([lms.x[:, :3] - dl, lms.x[:, 3:]], dim=1)
+                lms = dataclasses.replace(lms, x=x)
 
-    rig = problem.rig
-    if config.calib_dim:
-        dk = delta_p[P * D:] * scale
-        cs = config.calib_size
-        if cs:
-            params = rig.params.clone()
-            params[0, :cs] = rig.params[0, :cs] + (-dk[:cs])
-            rig = dataclasses.replace(rig, params=params)
-        if config.do_tvs:
-            dtvs = dk[config.tvs_offset: config.tvs_offset + 6]
-            q0, t0 = lie.se3_retract((rig.tvs_q[0], rig.tvs_t[0]), -dtvs)
-            tvs_q, tvs_t = rig.tvs_q.clone(), rig.tvs_t.clone()
-            tvs_q[0], tvs_t[0] = q0, t0
-            rig = dataclasses.replace(rig, tvs_q=tvs_q, tvs_t=tvs_t)
-        if cs and config.lm_size == 1:
-            ray = cam_mod.unproject(rig.params[lms.ref_cam],
-                                    rig.model[lms.ref_cam], lms.z_ref)
-            norm = torch.linalg.norm(lms.x[:, :3], dim=-1, keepdim=True)
-            x_new = torch.cat([ray * norm, lms.x[:, 3:]], dim=1)
-            use = (lms.has_z_ref & lms.active)[:, None]
-            lms = dataclasses.replace(lms, x=torch.where(use, x_new, lms.x))
-    return dataclasses.replace(problem, poses=poses, lms=lms, rig=rig)
+        rig = problem.rig
+        if config.calib_dim:
+            dk = delta_p[P * D:] * scale
+            cs = config.calib_size
+            if cs:
+                params = rig.params.clone()
+                params[0, :cs] = rig.params[0, :cs] + (-dk[:cs])
+                rig = dataclasses.replace(rig, params=params)
+            if config.do_tvs:
+                dtvs = dk[config.tvs_offset: config.tvs_offset + 6]
+                q0, t0 = lie.se3_retract((rig.tvs_q[0], rig.tvs_t[0]), -dtvs)
+                tvs_q, tvs_t = rig.tvs_q.clone(), rig.tvs_t.clone()
+                tvs_q[0], tvs_t[0] = q0, t0
+                rig = dataclasses.replace(rig, tvs_q=tvs_q, tvs_t=tvs_t)
+            if cs and config.lm_size == 1:
+                ray = cam_mod.unproject(rig.params[lms.ref_cam],
+                                        rig.model[lms.ref_cam], lms.z_ref)
+                norm = torch.linalg.norm(lms.x[:, :3], dim=-1, keepdim=True)
+                x_new = torch.cat([ray * norm, lms.x[:, 3:]], dim=1)
+                use = (lms.has_z_ref & lms.active)[:, None]
+                lms = dataclasses.replace(
+                    lms, x=torch.where(use, x_new, lms.x))
+        return dataclasses.replace(problem, poses=poses, lms=lms, rig=rig)
 
 
 class IterResult(NamedTuple):
@@ -150,10 +154,11 @@ class IterResult(NamedTuple):
 def _cost(problem, config, use_imu, proj_w=None, imu_c9=None, mesh=None):
     """Trial cost; `imu_c9` reuses the build's IMU covariance; with `mesh`
     (rows sharded over its ranks) the global cost."""
-    return evaluate_cost(problem, config,
-                         imu_eval=_imu_eval(problem, config, use_imu, False,
-                                            c9=imu_c9),
-                         proj_w=proj_w, mesh=mesh)
+    with timing.span("trial"):
+        return evaluate_cost(problem, config,
+                             imu_eval=_imu_eval(problem, config, use_imu,
+                                                False, c9=imu_c9),
+                             proj_w=proj_w, mesh=mesh)
 
 
 class BuildOut(NamedTuple):
@@ -240,13 +245,14 @@ def solve_plan(problem: Problem, config: BAConfig):
     count), else the
     `AssemblyPlan` of the dense solve.  No host read, except one for a
     fused fleet's rows (`_fleet_split`).  Build it once per solve."""
-    path, windows = _reduced_path(problem, config)
-    if path == "dense":
-        return assembly_plan(problem, config)
-    return cg_mod.block_plan(problem, config,
-                             band=path in ("banded", "schur_on_band"),
-                             fleet=path == "fleet_dense", windows=windows,
-                             schur=path == "cg" and problem.poses.t.is_cuda)
+    with timing.span("plan"):
+        path, windows = _reduced_path(problem, config)
+        if path == "dense":
+            return assembly_plan(problem, config)
+        return cg_mod.block_plan(
+            problem, config, band=path in ("banded", "schur_on_band"),
+            fleet=path == "fleet_dense", windows=windows,
+            schur=path == "cg" and problem.poses.t.is_cuda)
 
 
 def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
@@ -293,13 +299,14 @@ def _build_and_solve(problem: Problem, config: BAConfig, use_imu: bool,
 
 def _cauchy_factor(asm: Assembly):
     """alpha = ||rhs||^2 / ||J rhs||^2 from the assembled blocks."""
-    L, lm, _ = asm.V.shape
-    rl = asm.rhs_l.reshape(L, lm)
-    num = torch.sum(asm.rhs_p**2) + torch.sum(asm.rhs_l**2)
-    den = (asm.rhs_p @ (asm.U @ asm.rhs_p)
-           + 2.0 * asm.rhs_p @ (asm.W @ asm.rhs_l)
-           + torch.einsum("li,lij,lj->", rl, asm.V, rl))
-    return num / torch.clamp(den, min=1e-30)
+    with timing.span("cauchy"):
+        L, lm, _ = asm.V.shape
+        rl = asm.rhs_l.reshape(L, lm)
+        num = torch.sum(asm.rhs_p**2) + torch.sum(asm.rhs_l**2)
+        den = (asm.rhs_p @ (asm.U @ asm.rhs_p)
+               + 2.0 * asm.rhs_p @ (asm.W @ asm.rhs_l)
+               + torch.einsum("li,lij,lj->", rl, asm.V, rl))
+        return num / torch.clamp(den, min=1e-30)
 
 
 def apply_robust_reweighting(problem: Problem, config: BAConfig,
@@ -309,29 +316,32 @@ def apply_robust_reweighting(problem: Problem, config: BAConfig,
     unary and IMU rows sharded over its ranks) the medians are global:
     ba_tpu's jit-level SPMD inserts those gathers, here they are
     explicit."""
-    from ..core import robust
+    with timing.span("reweight"):
+        from ..core import robust
 
-    if config.use_robust_norm_for_unary_residuals:
-        from ..core.residuals import prior as prior_mod
+        if config.use_robust_norm_for_unary_residuals:
+            from ..core.residuals import prior as prior_mod
 
-        ue = prior_mod.evaluate_unary(problem, config, with_jacobians=False)
-        w = robust.huber_weights(ue.err_sq, problem.unary.valid,
-                                 torch.zeros_like(problem.unary.valid),
-                                 config.outlier_threshold, mesh)
-        unary = dataclasses.replace(
-            problem.unary, cov_inv=problem.unary.cov_inv * w[:, None, None])
-        problem = dataclasses.replace(problem, unary=unary)
+            ue = prior_mod.evaluate_unary(problem, config,
+                                          with_jacobians=False)
+            w = robust.huber_weights(ue.err_sq, problem.unary.valid,
+                                     torch.zeros_like(problem.unary.valid),
+                                     config.outlier_threshold, mesh)
+            unary = dataclasses.replace(
+                problem.unary,
+                cov_inv=problem.unary.cov_inv * w[:, None, None])
+            problem = dataclasses.replace(problem, unary=unary)
 
-    if use_imu and config.use_robust_norm_for_inertial_residuals:
-        ie = _imu_eval(problem, config, True, False)
-        w = robust.huber_weights(ie.err_sq, problem.imu.valid,
-                                 problem.imu.cond, config.outlier_threshold,
-                                 mesh)
-        w = torch.where(problem.imu.cond, 1.0, w)
-        imu = dataclasses.replace(problem.imu,
-                                  weight=problem.imu.weight * w)
-        problem = dataclasses.replace(problem, imu=imu)
-    return problem
+        if use_imu and config.use_robust_norm_for_inertial_residuals:
+            ie = _imu_eval(problem, config, True, False)
+            w = robust.huber_weights(ie.err_sq, problem.imu.valid,
+                                     problem.imu.cond,
+                                     config.outlier_threshold, mesh)
+            w = torch.where(problem.imu.cond, 1.0, w)
+            imu = dataclasses.replace(problem.imu,
+                                      weight=problem.imu.weight * w)
+            problem = dataclasses.replace(problem, imu=imu)
+        return problem
 
 
 def gn_iteration(problem: Problem, config: BAConfig, use_imu: bool,
@@ -340,26 +350,27 @@ def gn_iteration(problem: Problem, config: BAConfig, use_imu: bool,
                  plan=None) -> IterResult:
     """One damped Gauss-Newton outer iteration with rollback; `plan` is
     the solve's `solve_plan` (built here when absent)."""
-    problem = apply_robust_reweighting(problem, config, use_imu)
-    built = _build_and_solve(problem, config, use_imu, plan)
-    problem = _commit_imu_cov(problem, config, built.imu_c9)
-    step = built.step
-    candidate = apply_update(problem, config, step.delta_p, step.delta_l,
-                             scale=gn_damping)
-    post = _cost(candidate, config, use_imu, built.proj_w, built.imu_c9)
-    accept = (post <= built.cost) | error_increase_allowed
-    out = tree_where(accept, candidate, problem)
-    dn = gn_damping * torch.sqrt(torch.sum(step.delta_p**2)
-                                 + torch.sum(step.delta_l**2))
-    return IterResult(problem=out, pre_cost=built.cost,
-                      post_cost=torch.where(accept, post, built.cost),
-                      delta_norm=torch.where(accept, dn, 0.0),
-                      accepted=accept,
-                      trust_radius=torch.zeros_like(built.cost),
-                      solver_ok=step.ok,
-                      pre_solve_norm=built.cost, post_solve_norm=post,
-                      inner_trials=torch.ones((), dtype=torch.int32,
-                                              device=post.device))
+    with timing.span("iteration"):
+        problem = apply_robust_reweighting(problem, config, use_imu)
+        built = _build_and_solve(problem, config, use_imu, plan)
+        problem = _commit_imu_cov(problem, config, built.imu_c9)
+        step = built.step
+        candidate = apply_update(problem, config, step.delta_p, step.delta_l,
+                                 scale=gn_damping)
+        post = _cost(candidate, config, use_imu, built.proj_w, built.imu_c9)
+        accept = (post <= built.cost) | error_increase_allowed
+        out = tree_where(accept, candidate, problem)
+        dn = gn_damping * torch.sqrt(torch.sum(step.delta_p**2)
+                                     + torch.sum(step.delta_l**2))
+        return IterResult(problem=out, pre_cost=built.cost,
+                          post_cost=torch.where(accept, post, built.cost),
+                          delta_norm=torch.where(accept, dn, 0.0),
+                          accepted=accept,
+                          trust_radius=torch.zeros_like(built.cost),
+                          solver_ok=step.ok,
+                          pre_solve_norm=built.cost, post_solve_norm=post,
+                          inner_trials=torch.ones((), dtype=torch.int32,
+                                                  device=post.device))
 
 
 def _step_sums(d_gn, d_sd, Np, mesh):
@@ -384,64 +395,66 @@ def dogleg_search(problem: Problem, config: BAConfig, use_imu: bool,
     With `mesh` (a rank of the landmark-sharded solve: the landmark part
     of the steps is its own) the norms and trial costs are global, so
     every rank reads the same accept."""
-    norm_gn, norm_sd, a, sdd = _step_sums(d_gn, d_sd, Np, mesh)
-    radius = torch.where(trust_radius <= 0, norm_gn, trust_radius)
+    with timing.span("dogleg.search"):
+        norm_gn, norm_sd, a, sdd = _step_sums(d_gn, d_sd, Np, mesh)
+        radius = torch.where(trust_radius <= 0, norm_gn, trust_radius)
 
-    def propose(radius):
-        sd = d_sd * (radius / torch.clamp(norm_sd, min=1e-30))
-        dd = d_gn - d_sd
-        bq = 2.0 * sdd
-        cq = norm_sd**2 - radius**2
-        disc = torch.sqrt(torch.clamp(bq * bq - 4 * a * cq, min=0.0))
-        beta = (-bq + disc) / torch.clamp(2 * a, min=1e-30)
-        blend = d_sd + beta * dd
-        return torch.where(norm_sd >= radius, sd,
-                           torch.where(norm_gn <= radius, d_gn, blend))
+        def propose(radius):
+            sd = d_sd * (radius / torch.clamp(norm_sd, min=1e-30))
+            dd = d_gn - d_sd
+            bq = 2.0 * sdd
+            cq = norm_sd**2 - radius**2
+            disc = torch.sqrt(torch.clamp(bq * bq - 4 * a * cq, min=0.0))
+            beta = (-bq + disc) / torch.clamp(2 * a, min=1e-30)
+            blend = d_sd + beta * dd
+            return torch.where(norm_sd >= radius, sd,
+                               torch.where(norm_gn <= radius, d_gn, blend))
 
-    ok = torch.zeros((), dtype=torch.bool, device=d_gn.device)
-    d = torch.zeros_like(d_gn)
-    post = pre_cost
-    k = 0
-    while k < config.dogleg_max_inner_iterations:
-        d = propose(radius)
-        cand = apply_update(problem, config, d[:Np], d[Np:])
-        post = _cost(cand, config, use_imu, proj_w, imu_c9, mesh)
-        ok = post < pre_cost
-        radius = torch.where(ok, radius * 2.0, radius * 0.5)
-        k += 1
-        if item(ok):
-            break
-    return radius, ok, d, post, k
+        ok = torch.zeros((), dtype=torch.bool, device=d_gn.device)
+        d = torch.zeros_like(d_gn)
+        post = pre_cost
+        k = 0
+        while k < config.dogleg_max_inner_iterations:
+            d = propose(radius)
+            cand = apply_update(problem, config, d[:Np], d[Np:])
+            post = _cost(cand, config, use_imu, proj_w, imu_c9, mesh)
+            ok = post < pre_cost
+            radius = torch.where(ok, radius * 2.0, radius * 0.5)
+            k += 1
+            if item(ok):
+                break
+        return radius, ok, d, post, k
 
 
 def dogleg_iteration(problem: Problem, config: BAConfig, use_imu: bool,
                      trust_radius, plan=None) -> IterResult:
     """One dogleg outer iteration: bounded inner trust-region search;
     `plan` as in `gn_iteration`."""
-    problem = apply_robust_reweighting(problem, config, use_imu)
-    built = _build_and_solve(problem, config, use_imu, plan)
-    problem = _commit_imu_cov(problem, config, built.imu_c9)
-    gn = built.step
-    pre_cost = built.cost
-    d_gn = torch.cat([gn.delta_p, gn.delta_l])
-    d_sd = built.cauchy_alpha * torch.cat([built.rhs_p, built.rhs_l])
-    Np = built.rhs_p.shape[0]
+    with timing.span("iteration"):
+        problem = apply_robust_reweighting(problem, config, use_imu)
+        built = _build_and_solve(problem, config, use_imu, plan)
+        problem = _commit_imu_cov(problem, config, built.imu_c9)
+        gn = built.step
+        pre_cost = built.cost
+        d_gn = torch.cat([gn.delta_p, gn.delta_l])
+        d_sd = built.cauchy_alpha * torch.cat([built.rhs_p, built.rhs_l])
+        Np = built.rhs_p.shape[0]
 
-    radius, ok, d, post, n_trials = dogleg_search(
-        problem, config, use_imu, trust_radius, d_gn, d_sd, pre_cost,
-        built.proj_w, built.imu_c9, Np)
+        radius, ok, d, post, n_trials = dogleg_search(
+            problem, config, use_imu, trust_radius, d_gn, d_sd, pre_cost,
+            built.proj_w, built.imu_c9, Np)
 
-    candidate = apply_update(problem, config, d[:Np], d[Np:])
-    out = tree_where(ok, candidate, problem)
-    dn = torch.linalg.norm(d)
-    return IterResult(problem=out, pre_cost=pre_cost,
-                      post_cost=torch.where(ok, post, pre_cost),
-                      delta_norm=torch.where(ok, dn, 0.0), accepted=ok,
-                      trust_radius=radius, solver_ok=gn.ok,
-                      pre_solve_norm=pre_cost, post_solve_norm=post,
-                      inner_trials=torch.full((), n_trials,
-                                              dtype=torch.int32,
-                                              device=post.device))
+        candidate = apply_update(problem, config, d[:Np], d[Np:])
+        out = tree_where(ok, candidate, problem)
+        dn = torch.linalg.norm(d)
+        return IterResult(problem=out, pre_cost=pre_cost,
+                          post_cost=torch.where(ok, post, pre_cost),
+                          delta_norm=torch.where(ok, dn, 0.0), accepted=ok,
+                          trust_radius=radius, solver_ok=gn.ok,
+                          pre_solve_norm=pre_cost, post_solve_norm=post,
+                          inner_trials=torch.full((), n_trials,
+                                                  dtype=torch.int32,
+                                                  device=post.device))
 
 
 def solve_fixed(problem: Problem, config: BAConfig, use_imu: bool,
@@ -450,23 +463,24 @@ def solve_fixed(problem: Problem, config: BAConfig, use_imu: bool,
     delta_norms (n_iters,)); the problem must be `prepare_landmarks`-ed.
     `plan` is the problem's `solve_plan`, built here when absent (the ring
     passes the slide's plan, which its marginalization reuses)."""
-    trust = torch.full((), config.trust_region_size,
-                       dtype=problem.poses.t.dtype,
-                       device=problem.poses.t.device)
-    if plan is None:
-        plan = solve_plan(problem, config)
-    costs, dns = [], []
-    for _ in range(n_iters):
-        if config.use_dogleg:
-            res = dogleg_iteration(problem, config, use_imu, trust, plan)
-            trust = res.trust_radius
-        else:
-            res = gn_iteration(problem, config, use_imu, gn_damping, False,
-                               plan)
-        problem = res.problem
-        costs.append(res.post_cost)
-        dns.append(res.delta_norm)
-    return problem, torch.stack(costs), torch.stack(dns)
+    with timing.span("solve", problem.poses.t):
+        trust = torch.full((), config.trust_region_size,
+                           dtype=problem.poses.t.dtype,
+                           device=problem.poses.t.device)
+        if plan is None:
+            plan = solve_plan(problem, config)
+        costs, dns = [], []
+        for _ in range(n_iters):
+            if config.use_dogleg:
+                res = dogleg_iteration(problem, config, use_imu, trust, plan)
+                trust = res.trust_radius
+            else:
+                res = gn_iteration(problem, config, use_imu, gn_damping, False,
+                                   plan)
+            problem = res.problem
+            costs.append(res.post_cost)
+            dns.append(res.delta_norm)
+        return problem, torch.stack(costs), torch.stack(dns)
 
 
 def solve_fleet(problems: Problem, config: BAConfig, use_imu: bool,
@@ -529,61 +543,62 @@ def solve_adaptive(problem: Problem, config: BAConfig, use_imu: bool,
     solve-norm trace and the config the solve ended with."""
     from .summary import error_breakdown
 
-    dtype, device = problem.poses.t.dtype, problem.poses.t.device
-    problem = prepare_landmarks(problem, config)
-    plan = solve_plan(problem, config)
-    trust = torch.full((), config.trust_region_size, dtype=dtype,
-                       device=device)
-    zero = torch.zeros((), dtype=dtype, device=device)
-    it, status = 0, _RUNNING
-    init_c = post_c = dn = zero
-    norms = (zero, zero, torch.zeros((), dtype=torch.int32, device=device))
-    if staging:
-        n_poses = int(item(torch.sum(problem.poses.active)))
-        last_tvs = (problem.rig.tvs_q[0], problem.rig.tvs_t[0])
-    while it < max_iter and status == _RUNNING:
-        if config.use_dogleg:
-            res = dogleg_iteration(problem, config, use_imu, trust, plan)
-            trust = res.trust_radius
-        else:
-            res = gn_iteration(problem, config, use_imu, gn_damping,
-                               error_increase_allowed, plan)
-        if it == 0:
-            init_c = res.pre_cost
-        problem = res.problem
-        post_c, dn = res.post_cost, res.delta_norm
-        norms = (res.pre_solve_norm, res.post_solve_norm, res.inner_trials)
-        read = [_status_code(res, config), res.pre_cost, res.post_cost,
-                res.delta_norm, res.accepted]
-        waiting = staging and not config.tvs_translation_active
-        if waiting:
-            tvs_now = (problem.rig.tvs_q[0], problem.rig.tvs_t[0])
-            read.append(torch.linalg.norm(
-                lie.se3_log_decoupled(tvs_now, last_tvs)))
-        status, pre, post, dnv, accepted, *log_dif = values(
-            torch.stack([v.double() for v in read]))
-        status = int(status)
-        if verbose:
-            print(f"  iter {it:3d}: cost {pre:12.6g} -> {post:12.6g}  "
-                  f"|dx| {dnv:10.4g}  "
-                  f"{'accepted' if accepted else 'REJECTED'}")
-        if waiting:
+    with timing.span("solve", problem.poses.t):
+        dtype, device = problem.poses.t.dtype, problem.poses.t.device
+        problem = prepare_landmarks(problem, config)
+        plan = solve_plan(problem, config)
+        trust = torch.full((), config.trust_region_size, dtype=dtype,
+                           device=device)
+        zero = torch.zeros((), dtype=dtype, device=device)
+        it, status = 0, _RUNNING
+        init_c = post_c = dn = zero
+        norms = (zero, zero, torch.zeros((), dtype=torch.int32, device=device))
+        if staging:
+            n_poses = int(item(torch.sum(problem.poses.active)))
+            last_tvs = (problem.rig.tvs_q[0], problem.rig.tvs_t[0])
+        while it < max_iter and status == _RUNNING:
+            if config.use_dogleg:
+                res = dogleg_iteration(problem, config, use_imu, trust, plan)
+                trust = res.trust_radius
+            else:
+                res = gn_iteration(problem, config, use_imu, gn_damping,
+                                   error_increase_allowed, plan)
+            if it == 0:
+                init_c = res.pre_cost
+            problem = res.problem
+            post_c, dn = res.post_cost, res.delta_norm
+            norms = (res.pre_solve_norm, res.post_solve_norm, res.inner_trials)
+            read = [_status_code(res, config), res.pre_cost, res.post_cost,
+                    res.delta_norm, res.accepted]
+            waiting = staging and not config.tvs_translation_active
+            if waiting:
+                tvs_now = (problem.rig.tvs_q[0], problem.rig.tvs_t[0])
+                read.append(torch.linalg.norm(
+                    lie.se3_log_decoupled(tvs_now, last_tvs)))
+            status, pre, post, dnv, accepted, *log_dif = values(
+                torch.stack([v.double() for v in read]))
+            status = int(status)
             if verbose:
-                print(f"  tvs logDif {log_dif[0]:.5g}")
-            if log_dif[0] < 0.01 and n_poses >= 30:
+                print(f"  iter {it:3d}: cost {pre:12.6g} -> {post:12.6g}  "
+                      f"|dx| {dnv:10.4g}  "
+                      f"{'accepted' if accepted else 'REJECTED'}")
+            if waiting:
                 if verbose:
-                    print("  ENABLING Tvs TRANSLATION")
-                config = dataclasses.replace(config,
-                                             tvs_translation_active=True)
-            last_tvs = tvs_now
-        it += 1
-    eb = error_breakdown(problem, config, use_imu)
-    problem = finalize_landmarks(problem, config)
-    stats = dict(iterations=it, status=status, initial_cost=init_c,
-                 final_cost=post_c, delta_norm=dn, breakdown=eb,
-                 pre_solve_norm=norms[0], post_solve_norm=norms[1],
-                 inner_trials=norms[2], config=config)
-    return problem, stats
+                    print(f"  tvs logDif {log_dif[0]:.5g}")
+                if log_dif[0] < 0.01 and n_poses >= 30:
+                    if verbose:
+                        print("  ENABLING Tvs TRANSLATION")
+                    config = dataclasses.replace(config,
+                                                 tvs_translation_active=True)
+                last_tvs = tvs_now
+            it += 1
+        eb = error_breakdown(problem, config, use_imu)
+        problem = finalize_landmarks(problem, config)
+        stats = dict(iterations=it, status=status, initial_cost=init_c,
+                     final_cost=post_c, delta_norm=dn, breakdown=eb,
+                     pre_solve_norm=norms[0], post_solve_norm=norms[1],
+                     inner_trials=norms[2], config=config)
+        return problem, stats
 
 
 @dataclass

@@ -51,6 +51,7 @@ from .. import resolve_device
 from ..core import camera as cam_mod
 from ..core import lie
 from ..core.problem import BAConfig, ProblemIndex, Rig, empty_marg_prior
+from ..utils import timing
 from ..utils.tree import tree_map
 from .fixedlag import RingSchedule, _pad_rows, ring_slide_step, slot_index
 
@@ -362,28 +363,29 @@ class StreamingRing:
         cost) or None while warming up.  With `block=True` the values come
         back as numpy arrays; with `block=False` they are device tensors,
         and the host goes on while the device works."""
-        k = self._next_slide
-        if self._n_poses < k + self.W:
-            # slide k waits for pose k+W-1 (its full window)
-            return None
-        if self._carry is None:
-            self._init_carry()
-        d = self._slide_tables(k)
-        fl, il, bl = self._layouts
-        bufs = self._upload([_pack(d, fl, self.dtype),
-                             _pack(d, il, np.int32),
-                             _pack(d, bl, np.uint8)])
-        self._carry, out = _packed_slide_step(
-            self._carry, *bufs, self.rig, self.g_vec, self._layouts,
-            self.config, self.use_imu, self.iters, self.W, self.caps.L_w,
-            self.gn_damping)
-        self._next_slide = k + 1
-        self._retire(k)
-        res: Dict[str, Any] = dict(out)
-        if block:
-            res = {key: val.cpu().numpy() for key, val in res.items()}
-        res["pose"] = k
-        return res
+        with timing.span("push", self.device):
+            k = self._next_slide
+            if self._n_poses < k + self.W:
+                # slide k waits for pose k+W-1 (its full window)
+                return None
+            if self._carry is None:
+                self._init_carry()
+            d = self._slide_tables(k)
+            fl, il, bl = self._layouts
+            bufs = self._upload([_pack(d, fl, self.dtype),
+                                 _pack(d, il, np.int32),
+                                 _pack(d, bl, np.uint8)])
+            self._carry, out = _packed_slide_step(
+                self._carry, *bufs, self.rig, self.g_vec, self._layouts,
+                self.config, self.use_imu, self.iters, self.W, self.caps.L_w,
+                self.gn_damping)
+            self._next_slide = k + 1
+            self._retire(k)
+            res: Dict[str, Any] = dict(out)
+            if block:
+                res = {key: val.cpu().numpy() for key, val in res.items()}
+            res["pose"] = k
+            return res
 
     def _upload(self, bufs):
         """The packed host buffers as tensors on the ring's device.  On

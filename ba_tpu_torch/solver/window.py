@@ -35,6 +35,7 @@ import torch
 from ..core.problem import BAConfig, MargPrior, Problem
 from ..core.residuals import imu as imu_mod
 from ..kernels import marginalize as k11
+from ..utils import timing
 from ..utils.linalg import block_diag_inv
 from . import assemble as asm
 
@@ -76,39 +77,41 @@ def marginalize(problem: Problem, config: BAConfig, use_imu: bool, drop,
     """The new prior for departing poses `drop` ((P,) bool).  `plan` is a
     general-path `assembly_plan` of `problem` (the slide's, in the ring);
     without one, it is built here."""
-    config = dataclasses.replace(config, band_width=0)
-    if plan is None:
-        plan = asm.assembly_plan(problem, config)
-    elif plan.band_width != 0:
-        raise ValueError("marginalize needs a general-path assembly plan "
-                         f"(band width 0), not {plan.band_width}")
-    D = config.pose_dim
-    P = problem.poses.q.shape[0]
-    n = P * D
-    dtype = problem.poses.t.dtype
+    with timing.span("marginalize", problem.poses.t):
+        config = dataclasses.replace(config, band_width=0)
+        if plan is None:
+            plan = asm.assembly_plan(problem, config)
+        elif plan.band_width != 0:
+            raise ValueError("marginalize needs a general-path assembly plan "
+                             f"(band width 0), not {plan.band_width}")
+        D = config.pose_dim
+        P = problem.poses.q.shape[0]
+        n = P * D
+        dtype = problem.poses.t.dtype
 
-    sub, _ = _select_residuals(problem, drop)
-    # all currently-active dims participate (departing poses included)
-    cmask = asm.col_mask(sub, config)
-    colm = cmask.to(dtype)
-    ie = (imu_mod.evaluate(sub, config, with_jacobians=True) if use_imu
-          else None)
-    contrib, _ = asm.contribution(sub, config, ie, cmask, plan)
-    contrib = asm._add(contrib, asm.marg_contribution(sub, config, colm))
+        sub, _ = _select_residuals(problem, drop)
+        # all currently-active dims participate (departing poses included)
+        cmask = asm.col_mask(sub, config)
+        colm = cmask.to(dtype)
+        ie = (imu_mod.evaluate(sub, config, with_jacobians=True) if use_imu
+              else None)
+        contrib, _ = asm.contribution(sub, config, ie, cmask, plan)
+        contrib = asm._add(contrib, asm.marg_contribution(sub, config, colm))
 
-    # eliminate departing landmarks (only they carry residuals here)
-    S, rhs = asm.schur_step(contrib.U, contrib.W, block_diag_inv(contrib.V),
-                            contrib.rhs_p, contrib.rhs_l, n=n)
-    # Schur out departing pose dims, symmetrize, clip to PSD
-    pd = drop.repeat_interleave(D) & cmask[:n]
-    eps = 1e-9 if dtype == torch.float64 else 1e-5
-    H_new, g_new = prior_step(S, rhs, pd, eps)
+        # eliminate departing landmarks (only they carry residuals here)
+        S, rhs = asm.schur_step(contrib.U, contrib.W,
+                                block_diag_inv(contrib.V), contrib.rhs_p,
+                                contrib.rhs_l, n=n)
+        # Schur out departing pose dims, symmetrize, clip to PSD
+        pd = drop.repeat_interleave(D) & cmask[:n]
+        eps = 1e-9 if dtype == torch.float64 else 1e-5
+        H_new, g_new = prior_step(S, rhs, pd, eps)
 
-    poses = problem.poses
-    return MargPrior(H=H_new, g=g_new, lin_q=poses.q, lin_t=poses.t,
-                     lin_v=poses.v, lin_b=poses.b,
-                     active=torch.ones((), dtype=torch.bool,
-                                       device=H_new.device))
+        poses = problem.poses
+        return MargPrior(H=H_new, g=g_new, lin_q=poses.q, lin_t=poses.t,
+                         lin_v=poses.v, lin_b=poses.b,
+                         active=torch.ones((), dtype=torch.bool,
+                                           device=H_new.device))
 
 
 def apply_marginalization(problem: Problem, config: BAConfig, use_imu: bool,

@@ -1,54 +1,50 @@
 #!/usr/bin/env python3
-"""Where a Gauss-Newton iteration and a streaming slide of the port spend
-their time on the card.
+"""Where a Gauss-Newton iteration, a streaming slide and a benchmark cell
+of the port spend their time on the card, read from the program's own
+spans and counters (`ba_tpu_torch/utils/timing.py`).
 
     python3 profile_port.py
 
 On the flagship problem of chip_smoke.py (128 keyframes, f32, band width
 24) it prints:
 
-  * the stages of one `gn_iteration`, each timed on the host clock between
-    two `torch.cuda.synchronize()` calls, averaged over several iterations;
+  * the program's spans over a few `gn_iteration`s (`timing.report`:
+    calls, host and stream seconds, self seconds, host-read seconds);
   * the source lines that synchronize the host with the device, found with
     PyTorch's sync debug mode;
-  * the operators with the most device time and the most host time under
-    `torch.profiler`, and the device's busy share of the profiled window.
+  * the device's busy share of two profiled iterations, its idle seconds
+    by the program span open on the host when each idle gap began
+    (`timing.attribute`), and the operators with the most device time and
+    the most host time under `torch.profiler`;
 
-With `--long`, instead, on chip_smoke.py's long trajectory (2,048
-keyframes, f32, band width 24, the banded solver) it prints the stages of
-one GN iteration (IMU, assemble_blocks, band_S with kernel 7, the
-scaling and chunk layout (K8a), the cyclic-reduction factor (K8b), the PCG
-wrap with kernel 9 and five solves (K8c), the back-substitution, the
-Cauchy factor, the trial cost), the synchronizing
-source lines of an iteration, and the device's busy share and kernel
-launches of one profiled iteration.
+then the same for `StreamingRing.push` on chip_smoke.py's stream (W = 10,
+2 GN iterations per slide, f32): the spans of five pushes after a
+warm-up, the sync sites of a push, and two profiled pushes with K5's and
+K11's device time per push.
 
-    python3 profile_port.py --long
+With `--long`, `--cg`, `--fleet`, `--selfcal` or `--cg-selfcal`, instead,
+the same for a GN iteration of chip_smoke.py's long trajectory (2,048
+keyframes, f32, band width 24, the banded solver; then K8 level by level
+as `--k8-levels`), its PCG configuration (1,024 keyframes,
+`use_cg_solver`; then one Schur product split into kernel 6, segsum and
+the glue, with the host and on the device, and the pack's cost per
+build), its fused fleet (4 x 128 keyframes), its full-width
+self-calibration (128 keyframes, 15-dim states, 11 calibration columns,
+the general dense path) or its self-calibrating PCG (the PCG
+configuration under <R,1,15,5,true>, the Schur product split the same
+way).
 
-With `--cg` or `--fleet`, the same on chip_smoke.py's PCG configuration
-(1,024 keyframes, `use_cg_solver`: IMU, assemble_blocks with the
-preconditioner, the PCG with kernel 6's pack, its Schur products through
-kernels 6 and 2 and the preconditioner, ...; then one Schur product split
-into kernel 6, segsum and the glue, with the host and on the device, and
-the pack's cost per build) or on its fused fleet (4 x 128 keyframes: the
-families' band, kernel 10 (a) and (b), the batched Cholesky and the
-triangular solves, ...).  With `--selfcal`, on chip_smoke.py's full-width
-self-calibration configuration (128 keyframes, 15-dim states, 11
-calibration columns, the general dense path: IMU through K2, kernel 1 with
-the calibration columns, the assembly with its calibration block in one
-segsum launch, the Cholesky of the 1,931-row S, the calibration update
-with its re-unprojection, the trial cost).  With `--cg-selfcal`, on
-chip_smoke.py's self-calibrating PCG (the PCG configuration under
-<R,1,15,5,true>: the same stages as `--cg`, kernel 6 and its pack with the
-11 calibration columns, and one Schur product split the same way).
+With `--cell NAME [--seed N]`, instead, a benchmark cell's problem
+(`portbench/`, built from the seed as a run builds it): whole solves with
+tracing off and under `timing.enable()` in turns (four pairs: the
+tracing's cost), a span site's host cost, the sync sites of a solve off
+and on, and a profiled phase as the benchmark's traced run makes one,
+read through the program's spans: the share of the `iteration` spans'
+host and stream time their child spans cover, the `solve` spans' stream
+time against the phase's wall time, the cell's per-layer metrics of the
+program's spans and counters, and the idle seconds by span.
 
-On the stream of chip_smoke.py (W = 10, 2 GN iterations per slide, f32) it
-prints the stages of one `StreamingRing.push`, timed the same way over
-several slides after a warm-up: the host's table build and packing, the
-upload, the two builds with their solves, the two trial costs, the
-marginalization and the whole push; the synchronizing source lines of a
-push; and the device's busy share of a few profiled pushes, with the
-busy time per push and K5's and K11's part of it.
+    python3 profile_port.py --cell bal-venice.gn-pcg --seed 7
 
 With `--k11-against FILE.cu`, instead, it builds FILE.cu (a K11 source of
 the same C interface, for example an earlier commit's
@@ -87,10 +83,10 @@ root, so that `chip_smoke` and the package resolve there:
         sys.argv = ['profile_port.py', '--solves']; \
         runpy.run_path('../../profile_port.py', run_name='__main__')"
 
-With `--gps`, instead, the stages of one push of chip_smoke.py's GPS
-stream (the smoother's fixed-lag ring, W = 10, f64), the device's busy
-share of two profiled pushes, and the host operators with the most self
-time in them.
+With `--gps`, instead, the program's spans over five pushes of
+chip_smoke.py's GPS stream (the smoother's fixed-lag ring, W = 10, f64),
+the device's busy share and idle seconds by span of two profiled pushes,
+and the host operators with the most self time in them.
 
     python3 profile_port.py --gps
 
@@ -123,6 +119,7 @@ exits non-zero without one.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -144,169 +141,14 @@ if "--k8-levels" in sys.argv[1:]:
         K8_TREE = sys.argv[_i]
         sys.path.insert(0, str(Path(K8_TREE).resolve()))
 
-N_STAGE_ITERS = 5
-N_PROFILE_ITERS = 2
+N_ITERS = 5              # iterations (or pushes) under the spans
+N_PROFILE_ITERS = 2      # iterations (or pushes) under the profiler
 
 
-def stage_times(p, cfg):
-    """Mean seconds of each stage of `gn_iteration` over N_STAGE_ITERS."""
-    import torch
-
-    from ba_tpu_torch.solver import assemble as asm
-    from ba_tpu_torch.solver import step
-    from ba_tpu_torch.solver.linear import solve_reduced
-
-    sums = collections.defaultdict(float)
-    plan = asm.assembly_plan(p, cfg)          # once per solve, as there
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        sums[name] += time.perf_counter() - t0
-        return out
-
-    for _ in range(N_STAGE_ITERS + 1):
-        if _ == 1:
-            sums.clear()                       # the first pass warms up
-        ie = timed("imu evaluate + Jacobians (K2 (a))",
-                   lambda: step._imu_eval(p, cfg, True, True))
-        colm6 = asm.col_mask(p, cfg, 6).to(p.poses.t.dtype)
-        timed("reprojection blocks (kernel 1)",
-              lambda: asm.proj_blocks(p, cfg, colm6))
-        a = timed("assemble (whole, incl. the above blocks)",
-                  lambda: asm.assemble(p, cfg, imu_eval=ie, plan=plan))
-        s = timed("solve_reduced (Cholesky + back-substitution)",
-                  lambda: solve_reduced(a))
-        cand = timed("apply_update", lambda: step.apply_update(
-            p, cfg, s.delta_p, s.delta_l))
-        timed("trial cost (K2 (b) with cached c9 + kernel 1 + priors)",
-              lambda: step._cost(cand, cfg, True, a.proj_w, ie.c9))
-        timed("gn_iteration (whole)",
-              lambda: step.gn_iteration(p, cfg, True, plan=plan))
-    return {k: v / N_STAGE_ITERS for k, v in sums.items()}
-
-
-def sync_sites(p, cfg):
+def _sync_sites(run):
     """Counter of the innermost repository frames of each synchronizing
-    operation in one `gn_iteration`."""
+    operation of `run()`, found with PyTorch's sync debug mode."""
     import torch
-
-    from ba_tpu_torch.solver import step
-    from ba_tpu_torch.solver.assemble import assembly_plan
-
-    plan = assembly_plan(p, cfg)
-    sites = collections.Counter()
-    root = str(chip_smoke.ROOT)
-
-    def show(message, category, filename, lineno, file=None, line=None):
-        if "synchronizing" not in str(message):
-            return
-        frames = [f for f in traceback.extract_stack()
-                  if f.filename.startswith(root) and "profile_port" not in
-                  f.filename]
-        key = " <- ".join(f"{Path(f.filename).relative_to(root)}:{f.lineno}"
-                          for f in frames[::-1][:3])
-        sites[key] += 1
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step.gn_iteration(p, cfg, True, plan=plan)
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sites
-
-
-def profile(p, cfg):
-    import torch
-    from torch.profiler import ProfilerActivity
-
-    from ba_tpu_torch.solver import step
-    from ba_tpu_torch.solver.assemble import assembly_plan
-
-    plan = assembly_plan(p, cfg)
-    step.gn_iteration(p, cfg, True, plan=plan)
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        q = p
-        for _ in range(N_PROFILE_ITERS):
-            q = step.gn_iteration(q, cfg, True, plan=plan).problem
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    busy = _busy_seconds(prof, "profile_gn.json")
-    ka = prof.key_averages()
-    dev_key = ("self_device_time_total"
-               if hasattr(ka[0], "self_device_time_total")
-               else "self_cuda_time_total")
-    print(ka.table(sort_by=dev_key, row_limit=20))
-    print(ka.table(sort_by="self_cpu_time_total", row_limit=20))
-    return wall, busy
-
-
-def slide_stage_times(smi, n_warm=3, n_slides=5):
-    """Mean seconds per slide of each stage of a push, from timed wrappers
-    around the functions a push calls (a stage's time includes the stages
-    nested in it); then the sync sites of one push and the device's busy
-    share of two profiled pushes."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity
-
-    from ba_tpu_torch.apps.vins_stream import (add_keyframe, stream_feed,
-                                               stream_problem)
-    from ba_tpu_torch.solver import fixedlag, step, streaming, window
-    from ba_tpu_torch.solver.streaming import RingCapacities, StreamingRing
-
-    cfg_s = chip_smoke.STREAM
-    problem, cfg, _ = stream_problem(cfg_s["poses"], cfg_s["lms"])
-    W = cfg_s["window"]
-    sched = fixedlag.build_ring_schedule(problem, cfg, W,
-                                         cfg_s["poses"] - W + 1)
-    ring = StreamingRing(cfg, W, problem.rig, problem.g_vec,
-                         RingCapacities.from_schedule(sched), use_imu=True,
-                         iters_per_slide=cfg_s["iters"], dtype=np.float32)
-    feed = stream_feed(problem)
-    sums = collections.defaultdict(float)
-    on = [False]
-
-    def wrap(owner, name, label):
-        _wrap(owner, name, label, sums, on)
-
-    wrap(StreamingRing, "_slide_tables", "host: slide tables")
-    wrap(streaming, "_pack", "host: pack the three buffers")
-    wrap(StreamingRing, "_upload", "upload (pinned, asynchronous)")
-    wrap(fixedlag, "assembly_plan", "assembly plan (once per slide)")
-    wrap(step, "_build_and_solve",
-         "build: IMU + assemble + solve_reduced (x2)")
-    wrap(step, "_imu_eval", lambda p, c, u, jac, c9=None:
-         "  IMU evaluate with Jacobians (x2 builds)" if jac
-         else "  IMU evaluate without Jacobians (x2 trials)")
-    wrap(step, "assemble", "  assemble (x2)")
-    wrap(step, "solve_reduced", "  solve_reduced (x2)")
-    wrap(step, "_cost", "trial cost (x2)")
-    wrap(window, "marginalize", "marginalize")
-    wrap(StreamingRing, "push", "push, whole")
-
-    g = 0
-    while ring._next_slide < n_warm:
-        add_keyframe(ring, feed, g)
-        ring.push(block=False)
-        g += 1
-    on[0] = True
-    for _ in range(n_slides):
-        add_keyframe(ring, feed, g)
-        ring.push(block=False)
-        g += 1
-    on[0] = False
-    for name, secs in sums.items():
-        print(f"[{smi}] slide stage {name}: {secs / n_slides * 1e3:.2f} ms")
 
     sites = collections.Counter()
     root = str(chip_smoke.ROOT)
@@ -318,53 +160,156 @@ def slide_stage_times(smi, n_warm=3, n_slides=5):
                   if f.filename.startswith(root) and "profile_port" not in
                   f.filename]
         sites[" <- ".join(f"{Path(f.filename).relative_to(root)}:"
-                          f"{f.lineno}" for f in frames[::-1][:3])] += 1
+                          f"{f.lineno}" for f in frames[::-1][:3])
+              or "(no repository frame on the stack)"] += 1
 
-    add_keyframe(ring, feed, g)
-    g += 1
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            ring.push(block=False)
-            torch.cuda.synchronize()
+            run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    for site, n in sites.most_common():
-        print(f"slide sync x{n}: {site}")
+    torch.cuda.synchronize()       # outside the window: it would count
+    return sites
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+def _print_sync_sites(label, sites):
+    print(f"{label} host syncs: {sum(sites.values())}")
+    for site, n in sites.most_common():
+        print(f"{label} sync x{n}: {site}")
+
+
+def _spans(run, n, label):
+    """The program's spans (`timing.report`) over n calls of `run()` under
+    `timing.enable()`."""
+    import torch
+
+    from ba_tpu_torch.utils import timing
+
+    timing.reset()
+    with timing.enable():
+        for _ in range(n):
+            run()
+    torch.cuda.synchronize()
+    print(f"{label}: the program's spans over {n}\n{timing.report()}")
+    timing.reset()
+
+
+def _profiled(run, n, label, smi, kernels=None):
+    """n calls of `run()` under `torch.profiler`: the wall time, the
+    device's busy share and launches (with `kernels`, those kernels'
+    seconds a call), and the device's idle seconds by the program span
+    open on the host when each gap began.  Returns the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from ba_tpu_torch.utils import timing
+
+    timing.reset()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(2):
-            add_keyframe(ring, feed, g)
-            ring.push(block=False)
-            g += 1
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    busy, ks = _busy_seconds(prof, "profile_slide.json", kernels={
+    busy, launches, ks = _busy_seconds(prof, f"profile_{label}.json",
+                                       kernels or {})
+    print(f"[{smi}] profiled {n} x {label}: wall {wall * 1e3:.1f} ms "
+          f"(profiler on), device busy {busy * 1e3:.1f} ms = "
+          f"{100 * busy / wall:.2f}%, {launches} kernel launches; per call: "
+          f"device busy {busy / n * 1e3:.3f} ms"
+          + "".join(f", {k} {v / n * 1e3:.4f} ms" for k, v in ks.items()))
+    print(f"{label} device idle by program span (s): " + ", ".join(
+        f"{k} {v:.6f}" for k, v in timing.attribute(prof).items()))
+    timing.reset()
+    return prof
+
+
+def _op_tables(prof, rows=20, host=True):
+    ka = prof.key_averages()
+    dev_key = ("self_device_time_total"
+               if hasattr(ka[0], "self_device_time_total")
+               else "self_cuda_time_total")
+    print(ka.table(sort_by=dev_key, row_limit=rows))
+    if host:
+        print(ka.table(sort_by="self_cpu_time_total", row_limit=rows))
+
+
+def flagship_iteration(smi):
+    """The program's spans over N_ITERS GN iterations of the flagship, the
+    sync sites of one, and N_PROFILE_ITERS profiled."""
+    from ba_tpu_torch.solver import step
+
+    _, p, cfg, _ = chip_smoke.flagship()
+    cfg = dataclasses.replace(cfg, use_dogleg=False)
+    plan = step.solve_plan(p, cfg)
+
+    def run():
+        step.gn_iteration(p, cfg, True, plan=plan)
+
+    run()                                                    # warm-up
+    _spans(run, N_ITERS, "flagship GN iteration")
+    _print_sync_sites("flagship iteration", _sync_sites(run))
+    _op_tables(_profiled(run, N_PROFILE_ITERS, "flagship_gn", smi))
+
+
+def _push_slides(ring, feed, g, n, add_keyframe):
+    for _ in range(n):
+        add_keyframe(ring, feed, g)
+        ring.push(block=False)
+        g += 1
+    return g
+
+
+def slide_profile(smi, n_warm=3):
+    """The program's spans over N_ITERS pushes of chip_smoke.py's stream
+    after a warm-up, the sync sites of a push, and two profiled pushes
+    with K5's and K11's device time."""
+    import numpy as np
+
+    from ba_tpu_torch.apps.vins_stream import (add_keyframe, stream_feed,
+                                               stream_problem)
+    from ba_tpu_torch.solver import fixedlag
+    from ba_tpu_torch.solver.streaming import RingCapacities, StreamingRing
+
+    cfg_s = chip_smoke.STREAM
+    problem, cfg, _ = stream_problem(cfg_s["poses"], cfg_s["lms"])
+    W = cfg_s["window"]
+    sched = fixedlag.build_ring_schedule(problem, cfg, W,
+                                         cfg_s["poses"] - W + 1)
+    ring = StreamingRing(cfg, W, problem.rig, problem.g_vec,
+                         RingCapacities.from_schedule(sched), use_imu=True,
+                         iters_per_slide=cfg_s["iters"], dtype=np.float32)
+    feed = stream_feed(problem)
+    g = _push_slides(ring, feed, 0, W - 1 + n_warm, add_keyframe)
+    state = {"g": g}
+
+    def run(n=1):
+        state["g"] = _push_slides(ring, feed, state["g"], n, add_keyframe)
+
+    _spans(lambda: run(N_ITERS), 1, f"{N_ITERS} stream pushes")
+    _print_sync_sites("slide", _sync_sites(run))
+    _profiled(lambda: run(2), 1, "stream_2_pushes", smi, kernels={
         "K5 (schur_finish)": ("schur_mask_kernel", "schur_product_kernel"),
         "K11 (marginalize)": ("marginalize_kernel",)})
-    print(f"[{smi}] profiled 2 pushes: wall {wall * 1e3:.1f} ms (profiler "
-          f"on), device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.2f}%"
-          f"; per push: device busy {busy / 2 * 1e3:.3f} ms, "
-          + ", ".join(f"{k} {v / 2 * 1e3:.4f} ms" for k, v in ks.items()))
 
 
-def gps_slide_stage_times(smi, n_warm=3, n_slides=5):
-    """`slide_stage_times` on chip_smoke.py's GPS stream (W = 10, f64,
-    lm_size 0, the app's `run_streaming`): mean ms per push of each stage,
-    then the device's busy share of two profiled pushes, the kernels'
-    device ms per push and the host operators with the most self time."""
+def gps_slide_profile(smi, n_warm=3, n_slides=5):
+    """`slide_profile` on chip_smoke.py's GPS stream (W = 10, f64,
+    lm_size 0, the app's `run_streaming`): the program's spans over
+    n_slides pushes, then two profiled pushes with the kernels' device
+    time and the host operators with the most self time."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity
 
     from ba_tpu_torch.apps import unary_binary_imu_test as app
-    from ba_tpu_torch.core.residuals import prior
-    from ba_tpu_torch.solver import assemble as asm
-    from ba_tpu_torch.solver import fixedlag, step, streaming, window
-    from ba_tpu_torch.solver.streaming import StreamingRing
+    from ba_tpu_torch.utils import timing
 
     W = chip_smoke.GPS["window"]
     with tempfile.TemporaryDirectory(dir=chip_smoke.ROOT) as tmp:
@@ -372,38 +317,11 @@ def gps_slide_stage_times(smi, n_warm=3, n_slides=5):
         app.generate_log(path, n_gps=W + n_warm + n_slides + 3,
                          noise_gps=chip_smoke.GPS["noise"])
         imu, gps, gu, _ = app.parse_log(path)
-    sums = collections.defaultdict(float)
-    on = [False]
-    for owner, name, label in (
-            (StreamingRing, "_slide_tables", "host: slide tables"),
-            (streaming, "_pack", "host: pack the three buffers"),
-            (StreamingRing, "_upload", "upload (pinned, asynchronous)"),
-            (fixedlag, "assembly_plan", "assembly plan (once per slide)"),
-            (step, "_build_and_solve",
-             "build: IMU + assemble + solve_reduced (x6)"),
-            (step, "_imu_eval", lambda p, c, u, jac, c9=None:
-             "  IMU evaluate with Jacobians (x6 builds)" if jac
-             else "  IMU evaluate without Jacobians (x6 trials)"),
-            (step, "assemble", "  assemble (x6)"),
-            (asm, "proj_blocks", "    K1 blocks (lm_size 0)"),
-            (prior, "evaluate_unary", lambda p, c, with_jacobians=True:
-             "    unary priors with Jacobians" if with_jacobians
-             else "    unary priors, residuals only"),
-            (prior, "evaluate_binary", lambda p, c, with_jacobians=True:
-             "    binary priors with Jacobians" if with_jacobians
-             else "    binary priors, residuals only"),
-            (asm, "seg_sum_groups", "    grouped segment sums"),
-            (asm, "marg_contribution", "    the prior's rows"),
-            (asm, "finish", "    Schur step (K5) and finish"),
-            (step, "solve_reduced", "  solve_reduced (x6)"),
-            (step, "_cost", "trial cost (x6)"),
-            (window, "marginalize", "marginalize"),
-            (StreamingRing, "push", "push, whole")):
-        _wrap(owner, name, label, sums, on)
     prof = torch.profiler.profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     slides = []
     clock = {}
+    spans = contextlib.ExitStack()
 
     def on_push(g, out):
         if out is None:
@@ -411,10 +329,14 @@ def gps_slide_stage_times(smi, n_warm=3, n_slides=5):
         slides.append(g)
         k = len(slides)
         if k == n_warm:
-            on[0] = True
+            timing.reset()
+            spans.enter_context(timing.enable())
         elif k == n_warm + n_slides:
-            on[0] = False
+            spans.close()
             torch.cuda.synchronize()
+            print(f"GPS: the program's spans over {n_slides} pushes\n"
+                  f"{timing.report()}")
+            timing.reset()
             prof.start()
             clock["t0"] = time.perf_counter()
         elif k == n_warm + n_slides + 2:
@@ -424,10 +346,7 @@ def gps_slide_stage_times(smi, n_warm=3, n_slides=5):
 
     app.run_streaming(imu, gps, gu, W, iters_per_slide=chip_smoke.GPS[
         "iters"], device="cuda", on_push=on_push)
-    for name, secs in sums.items():
-        print(f"[{smi}] GPS push stage {name}: "
-              f"{secs / n_slides * 1e3:.2f} ms")
-    busy, ks = _busy_seconds(prof, "profile_gps.json", kernels={
+    busy, launches, ks = _busy_seconds(prof, "profile_gps.json", {
         "K1 (reprojection)": ("reproj",),
         "K2 (imu_preint)": ("imu_preint",),
         "K5 (schur_finish)": ("schur_mask_kernel", "schur_product_kernel"),
@@ -438,6 +357,9 @@ def gps_slide_stage_times(smi, n_warm=3, n_slides=5):
           f"{100 * busy / wall:.2f}%; per push: device busy "
           f"{busy / 2 * 1e3:.3f} ms, "
           + ", ".join(f"{k} {v / 2 * 1e3:.4f} ms" for k, v in ks.items()))
+    print("GPS device idle by program span (s): " + ", ".join(
+        f"{k} {v:.6f}" for k, v in timing.attribute(prof).items()))
+    timing.reset()
     ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     for e in ops[:15]:
         print(f"GPS push host op {e.key}: {e.count / 2:g} calls, "
@@ -566,159 +488,144 @@ def gps_drift(smi):
               + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
 
 
-def _wrap(owner, name, label, sums, on):
-    """Replace owner.name by a wrapper that, while on[0], adds its seconds
-    between two synchronizes to sums[label] (a callable label gets the
-    call's arguments)."""
-    import torch
-
-    fn = getattr(owner, name)
-
-    def timed(*a, **k):
-        if not on[0]:
-            return fn(*a, **k)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*a, **k)
-        torch.cuda.synchronize()
-        key = label(*a, **k) if callable(label) else label
-        sums[key] += time.perf_counter() - t0
-        return out
-
-    timed.__dict__.update(fn.__dict__)         # a kernel's launch count
-    setattr(owner, name, timed)
-
-
-def _stages(which):
-    """(problem, config, [(owner, name, label)]) of `path_iteration`."""
-    from ba_tpu_torch.kernels import fleet_schur
-    from ba_tpu_torch.kernels import schur_matvec as k6
-    from ba_tpu_torch.solver import assemble as asm
-    from ba_tpu_torch.solver import banded, cg, step
-
-    imu = (step, "_imu_eval", lambda p, c, u, jac, c9=None:
-           "IMU evaluate with Jacobians (K2 (a), whitened)" if jac
-           else "  IMU evaluate without Jacobians (trial, K2 (b))")
-    tail = [(cg, "back_substitute_blocks", "back-substitution (segsum)"),
-            (cg, "cauchy_factor", "Cauchy factor (segsum)"),
-            (step, "_cost", "trial cost (IMU, kernel 1, priors)"),
-            (step, "gn_iteration", "gn_iteration, whole")]
+def _path_problem(which):
+    """(problem, config) of `path_iteration`'s configuration."""
     if which == "long":
         p, cfg, _ = chip_smoke.long_problem()
-        mid = [(cg, "assemble_blocks", "assemble_blocks (kernel 1, segsum)"),
-               (banded, "band_S", "band_S (segsum)"),
-               (banded, "_band_schur_grouped", "  kernel 7"),
-               (banded, "banded_pcg_solve", "factor + PCG, whole"),
-               (banded, "chunk_layout", "  scaling and chunk layout (K8a)"),
-               (banded, "chunk_factor", "  cyclic-reduction factor (K8b)"),
-               (banded, "band_matvec", "  kernel 9 (4 per iteration)"),
-               (banded, "chunk_solve", "  cyclic-reduction solves (5, K8c)")]
-    elif which in ("cg", "cg_selfcal"):
-        if which == "cg":
-            p, cfg, _ = chip_smoke.cg_problem()
-        else:
-            p, _, cfg, _ = chip_smoke.cg_selfcal_problem()
-        mid = [(cg, "assemble_blocks",
-                "assemble_blocks with the preconditioner (kernel 1, segsum)"),
-               (k6, "schur_pack", "  kernel 6's pack (once per build)"),
-               (cg, "pcg_solve", "PCG, whole"),
-               (cg, "s_matvec", "  Schur products (kernel 6, segsum)"),
-               (cg, "_precond", "  preconditioner")]
+    elif which == "cg":
+        p, cfg, _ = chip_smoke.cg_problem()
+    elif which == "cg_selfcal":
+        p, _, cfg, _ = chip_smoke.cg_selfcal_problem()
     elif which == "selfcal":
         _, p, cfg, _ = chip_smoke.selfcal_problem()
         cfg = dataclasses.replace(cfg, use_dogleg=False)
-        mid = [(step, "assemble", "assemble, the general path with the "
-                "calibration block (kernel 1, segsum)"),
-               (asm, "proj_blocks", "  reprojection blocks (kernel 1 with "
-                "the calibration columns)"),
-               (asm, "seg_sum_groups", "  the build's ten sums (segsum)"),
-               (asm, "finish", "  Schur complement (dense)"),
-               (step, "solve_reduced", "solve_reduced (Cholesky of S, "
-                "back-substitution)"),
-               (step, "apply_update", "apply_update (calibration, "
-                "re-unprojection)")]
-        tail = tail[2:]
     else:
         p, cfg, _, _ = chip_smoke.fleet_problem()
-        mid = [(cg, "assemble_blocks", "assemble_blocks (kernel 1, segsum)"),
-               (banded, "solve_reduced_fleet_dense", "dense fleet solve, "
-                "whole (with the back-substitution)"),
-               (banded, "_band_self_cross", "  families' band (segsum)"),
-               (fleet_schur, "fleet_schur", "  kernel 10 (the scaled Schur "
-                "system)"),
-               (banded, "_chol", "  batched cholesky_ex"),
-               (banded, "_cho_solve_b", "  triangular solves (2 x 2)")]
-    return p, cfg, [imu] + mid + tail
+    return p, cfg
 
 
 def path_iteration(smi, which, n_iters=3):
-    """Mean seconds per GN iteration of each stage of the long trajectory's
-    banded solve, the PCG configuration's, the fused fleet's or the
-    self-calibration's dense solve (a stage
-    includes those nested in it), then the sync sites of one iteration and
-    the busy share and kernel launches of one profiled iteration."""
-    import torch
-    from torch.profiler import ProfilerActivity
-
+    """The program's spans over n_iters GN iterations of the long
+    trajectory's banded solve, the PCG configuration's, the fused fleet's
+    or the self-calibration's dense solve, then the sync sites of one
+    iteration and one profiled iteration."""
     from ba_tpu_torch.solver import step
 
-    p, cfg, stages = _stages(which)
+    p, cfg = _path_problem(which)
     plan = step.solve_plan(p, cfg)
-    step.gn_iteration(p, cfg, True, plan=plan)                # warm-up
-    sums = collections.defaultdict(float)
-    on = [False]
-    for owner, name, label in stages:
-        _wrap(owner, name, label, sums, on)
-    on[0] = True
-    q = p
-    for _ in range(n_iters):
-        q = step.gn_iteration(q, cfg, True, plan=plan).problem
-    on[0] = False
-    for name, secs in sums.items():
-        print(f"[{smi}] {which} stage {name}: {secs / n_iters * 1e3:.2f} ms")
+    state = {"q": p}
 
-    sites = collections.Counter()
-    root = str(chip_smoke.ROOT)
+    def run():
+        state["q"] = step.gn_iteration(state["q"], cfg, True,
+                                       plan=plan).problem
 
-    def show(message, category, filename, lineno, file=None, line=None):
-        if "synchronizing" not in str(message):
-            return
-        frames = [f for f in traceback.extract_stack()
-                  if f.filename.startswith(root) and "profile_port" not in
-                  f.filename]
-        sites[" <- ".join(f"{Path(f.filename).relative_to(root)}:"
-                          f"{f.lineno}" for f in frames[::-1][:3])
-              or "(no repository frame on the stack)"] += 1
+    run()                                                    # warm-up
+    _spans(run, n_iters, f"{which} GN iteration")
+    _print_sync_sites(f"{which} iteration", _sync_sites(run))
+    _op_tables(_profiled(run, 1, which, smi), rows=15, host=False)
 
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step.gn_iteration(q, cfg, True, plan=plan)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()       # outside the window: it would count
-    print(f"{which} iteration host syncs: {sum(sites.values())}")
-    for site, n in sites.most_common():
-        print(f"{which} sync x{n}: {site}")
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        step.gn_iteration(q, cfg, True, plan=plan)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    busy, launches = _busy_seconds(prof, f"profile_{which}.json",
-                                   count=True)
-    print(f"[{smi}] profiled 1 {which} GN iteration: wall {wall * 1e3:.1f} "
-          f"ms (profiler on), device busy {busy * 1e3:.1f} ms = "
-          f"{100 * busy / wall:.2f}%, {launches} kernel launches")
-    ka = prof.key_averages()
-    dev_key = ("self_device_time_total"
-               if hasattr(ka[0], "self_device_time_total")
-               else "self_cuda_time_total")
-    print(ka.table(sort_by=dev_key, row_limit=15))
+def cell_trace(smi, name, seed, pairs=4):
+    """A benchmark cell's whole solves (`portbench/`, the problem built
+    from `seed` as a run builds it): tracing off and under
+    `timing.enable()` in turns, `pairs` of each, after a warm-up solve of
+    each (the first traced solve fills the event pool), and a span site's
+    host cost off and on; the sync sites of a solve off and on; then a
+    profiled phase as the traced run's, read through the program's
+    spans."""
+    import importlib
+    import statistics
+
+    import torch
+
+    from ba_tpu_torch.utils import timing
+    from portbench import harness, trace
+
+    cl = harness.cell(name)
+    scene = importlib.import_module(
+        f"portbench.scenes.{cl.config['scene']}").generate(
+            cl.config, cl.mix, seed, "cuda")
+    dtype = getattr(torch, cl.config["solver"].get("dtype", "float32"))
+    prog = cl.entry.setup(scene.rounded(dtype), cl, "cuda")
+    del scene
+
+    def solve():
+        return cl.entry.solve(prog)[1]        # its GN iterations
+
+    solve()                                   # loads or builds the kernels
+    with timing.enable():                     # fills the event pool
+        solve()
+    x, cost = torch.ones(1, device="cuda"), {}
+    for mode in ("off", "on"):
+        with timing.enable() if mode == "on" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            for _ in range(10000):
+                with timing.span("site", x):
+                    pass
+            cost[mode] = (time.perf_counter() - t0) * 1e2   # us a site
+        timing.reset()
+    print(f"[{smi}] a span site costs {cost['off']:.3f} us of host off, "
+          f"{cost['on']:.3f} us on (two events)")
+    ms = {"off": [], "on": []}
+    for k in range(pairs):
+        for mode in ("off", "on") if k % 2 == 0 else ("on", "off"):
+            timing.reset()
+            t0 = time.perf_counter()
+            with timing.enable() if mode == "on" else contextlib.nullcontext():
+                solve()
+            ms[mode].append(1e3 * (time.perf_counter() - t0))
+            print(f"[{smi}] {name} seed {seed} pair {k} tracing {mode}: "
+                  f"solve {ms[mode][-1]:.2f} ms", flush=True)
+    off, on = statistics.median(ms["off"]), statistics.median(ms["on"])
+    print(f"[{smi}] {name} solve_ms medians: off {off:.2f}, on {on:.2f} "
+          f"({100 * (on / off - 1):+.2f} %)")
+    timing.reset()
+    sites_off = _sync_sites(solve)
+    with timing.enable():
+        sites_on = _sync_sites(solve)
+    timing.reset()
+    _print_sync_sites(f"{name} solve, tracing off", sites_off)
+    _print_sync_sites(f"{name} solve, tracing on", sites_on)
+    extra = sites_on - sites_off
+    print(f"{name}: sync sites of the traced solve beyond the untraced "
+          f"one's: {dict(extra) or 'none'}")
+
+    iters = [0]
+
+    def run():
+        iters[0] += solve()
+
+    window, calls, prof = trace.profile(run, harness.PROFILE_SECONDS)
+    rec = trace.read(prof, window)
+    s = timing.summary()
+    sp = s["spans"]
+    print(f"[{smi}] {name} profiled phase: {calls} solves, {iters[0]} "
+          f"iterations, {window:.3f} s, device idle "
+          f"{100 * (1 - rec['busy_s'] / window):.2f} %\n{timing.report()}")
+    it = sp["iteration"]
+    print(f"{name}: the iteration spans' children cover "
+          f"{100 * (1 - it['self_s'] / it['host_s']):.2f} % of their host "
+          f"time and {100 * (1 - it['stream_self_s'] / it['stream_s']):.2f} "
+          f"% of their stream time; the solve spans' stream time "
+          f"{sp['solve']['stream_s']:.4f} s is "
+          f"{100 * sp['solve']['stream_s'] / window:.2f} % of the phase's "
+          f"wall time")
+    if "reduced.cg" in sp:
+        n, c = sp["reduced.cg"]["calls"], s["counters"]
+        print(f"{name}: pcg.iterations per reduced.cg span "
+              f"{c['pcg.iterations'] / n:g}, pcg.products per span "
+              f"{c['pcg.products'] / n:g}")
+    ctx = dict(trace=dict(rec, iterations=iters[0]))
+    for m in cl.per_layer:
+        r = importlib.import_module(f"portbench.metrics.{m['name']}")
+        if hasattr(r, "program_summary"):     # reads the program's store
+            print(f"{name} metric {m['name']}: {r.read(ctx)}")
+    idle = timing.attribute(prof)
+    tot = sum(idle.values())
+    print(f"[{smi}] {name} device idle by program span (s, of {tot:.4f}): "
+          + ", ".join(f"{k} {v:.6f} ({100 * v / tot:.1f} %)"
+                      for k, v in idle.items()))
+    timing.reset()
 
 
 def schur_product_split(smi, which="cg"):
@@ -755,10 +662,11 @@ def schur_product_split(smi, which="cg"):
           f"(kernel 6, segsum and the glue's)")
 
 
-def _busy_seconds(prof, name, count=False, kernels=None):
-    """Sum of the kernel and copy spans of a profiler trace; with
-    `kernels` ({label: name fragments}), also the seconds of the kernels
-    whose names hold one of each label's fragments."""
+def _busy_seconds(prof, name, kernels):
+    """(busy seconds, kernel launches, {label: seconds}) of a profiler
+    trace: the sum of its kernel and copy spans, its kernel spans, and the
+    seconds of the kernels whose names hold one of each label's
+    fragments."""
     with tempfile.TemporaryDirectory(dir=chip_smoke.ROOT) as tmp:
         path = Path(tmp) / name
         prof.export_chrome_trace(str(path))
@@ -767,14 +675,11 @@ def _busy_seconds(prof, name, count=False, kernels=None):
     busy = 1e-6 * sum(e.get("dur", 0) for e in events
                       if e.get("cat") in ("kernel", "gpu_memcpy",
                                           "gpu_memset"))
-    if kernels is not None:
-        return busy, {label: 1e-6 * sum(
-            e.get("dur", 0) for e in events if e.get("cat") == "kernel"
-            and any(f in e.get("name", "") for f in frags))
-            for label, frags in kernels.items()}
-    if count:
-        return busy, sum(e.get("cat") == "kernel" for e in events)
-    return busy
+    return busy, sum(e.get("cat") == "kernel" for e in events), {
+        label: 1e-6 * sum(e.get("dur", 0) for e in events
+                          if e.get("cat") == "kernel"
+                          and any(f in e.get("name", "") for f in frags))
+        for label, frags in kernels.items()}
 
 
 def _build_other(src):
@@ -976,7 +881,12 @@ def main():
         solve_times(smi)
         return 0
     if "--gps" in sys.argv[1:]:
-        gps_slide_stage_times(smi)
+        gps_slide_profile(smi)
+        return 0
+    if "--cell" in sys.argv[1:]:
+        seed = (int(sys.argv[sys.argv.index("--seed") + 1])
+                if "--seed" in sys.argv[1:] else 7)
+        cell_trace(smi, sys.argv[sys.argv.index("--cell") + 1], seed)
         return 0
     if "--gps-drift" in sys.argv[1:]:
         gps_drift(smi)
@@ -996,20 +906,9 @@ def main():
             if which in ("cg", "cg_selfcal"):
                 schur_product_split(smi, which)
             return 0
-    _, p, cfg, _ = chip_smoke.flagship()
-    cfg = dataclasses.replace(cfg, use_dogleg=False)
-
-    for name, secs in stage_times(p, cfg).items():
-        print(f"[{smi}] stage {name}: {secs * 1e3:.2f} ms")
-    for site, n in sync_sites(p, cfg).most_common():
-        print(f"sync x{n}: {site}")
-    wall, busy = profile(p, cfg)
-    print(f"[{smi}] profiled {N_PROFILE_ITERS} GN iterations: wall "
-          f"{wall * 1e3:.1f} ms (profiler on), device busy {busy * 1e3:.1f} "
-          f"ms = {100 * busy / wall:.1f}%")
-    slide_stage_times(smi)
+    flagship_iteration(smi)
+    slide_profile(smi)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -12,8 +12,10 @@ corrupted and on a noisy one.  Checkpoint: a round trip keeps every leaf
 bit for bit, ba_tpu's checkpoint of the same Problem loads leaf for leaf
 (and the port's into ba_tpu), a solve resumed from a checkpoint is
 bit-identical to an unbroken one, and a wrong structure or shape raises
-ba_tpu's errors.  Timing: span counts and sums, `sync` with a tree and a
-callable, `report` resets, `trace_to` writes a Chrome trace.
+ba_tpu's errors.  Timing: spans record only while tracing is on, with
+their calls, self and host-read seconds, counters on the host and the
+device, `report` keeps and `reset` empties the store, `trace_to` writes a
+Chrome trace.
 """
 
 import dataclasses
@@ -220,18 +222,34 @@ def test_checkpoint_structure_and_shape_errors(tmp_path):
 
 
 def test_timing_spans_and_report():
-    timing.report()                                   # start empty
+    timing.reset()                                    # start empty
     x = torch.ones(3)
-    for _ in range(2):
-        with timing.span("a", sync=x):
-            x = x * 2
-    with timing.span("b", sync=lambda: {"x": x, "t": (x,)}):
+    with timing.span("b"):                            # off: nothing kept
         pass
-    assert dict(timing._count) == {"a": 2, "b": 1}
-    text = timing.report(reset=False)
-    assert "a" in text and "     2" in text
-    assert timing.report() == text
-    assert dict(timing._count) == {}
+    timing.count("n", 5)
+    assert timing.summary() == dict(spans={}, counters={})
+    with timing.enable():
+        for _ in range(2):
+            with timing.span("a"):
+                x = x * 2
+                with timing.span("host_read"):
+                    pass
+        timing.count("n", 2)
+        timing.count("n", 3)
+        timing.count("d", torch.tensor(4))
+        timing.count("d", torch.tensor(1))
+    s = timing.summary()
+    a, r = s["spans"]["a"], s["spans"]["host_read"]
+    assert (a["calls"], r["calls"]) == (2, 2)
+    assert a["stream_s"] is None                      # CPU: no events
+    assert a["self_s"] == pytest.approx(a["host_s"] - r["host_s"])
+    assert a["wait_s"] == pytest.approx(r["host_s"])
+    assert s["counters"] == {"n": 5, "d": 5}
+    text = timing.report()
+    assert "a " in text and "counter n" in text and "       2" in text
+    assert timing.report() == text                    # reading keeps them
+    timing.reset()
+    assert timing.summary() == dict(spans={}, counters={})
 
 
 def test_trace_to_writes_a_chrome_trace(tmp_path):
